@@ -1,0 +1,135 @@
+"""Streaming GTG-Shapley — the default SV path (counterpart of the streaming
+estimator of `repro/core/shapley_batched.py`).
+
+Along a permutation walk the prefix ModelAverage is a running sum
+(S_j = S_{j-1} + n_{pi(j)} w_{pi(j)}, wbar_j = S_j / N_j), so the
+`prefix_avg` kernel builds every prefix model of R walks in O(R*M*D), and
+the `ce_loss` kernel scores them all in one batched forward
+(`make_batched_mlp_utility`).  `sv_chunk` walks the permutations a chunk at
+a time to bound peak memory.  Between-round truncation (|v_M - v_0| < eps)
+is a host `if`; within-round truncation is dropped, as in the reference.
+
+The walks are an input (`_draw_perms` makes them from a generator; a test
+injects the reference's).  The dense `gtg_shapley_batched` oracle waits
+for the `weighted_avg` kernel in a later slice of the port.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.aggregation import subset_average
+from repro_torch.core.shapley import ShapleyStats, _permutation_batch
+from repro_torch.kernels.ce_loss.ops import ce_loss
+from repro_torch.kernels.prefix_avg.ops import prefix_avg
+
+Params = Any
+
+
+def _draw_perms(gen: torch.Generator, m: int, n_perms: int) -> torch.Tensor:
+    """(R, M) permutation walks: whole (M, M) balanced batches (each client
+    first exactly once per batch), rows shuffled, cut to n_perms."""
+    n_batches = -(-n_perms // m)
+    perms = torch.cat([_permutation_batch(gen, m) for _ in range(n_batches)])
+    order = torch.randperm(n_batches * m, generator=gen)
+    return perms[order][:n_perms]
+
+
+def _walk_sv(vs: torch.Tensor, perms: torch.Tensor, v0: torch.Tensor,
+             n_perms: int, m: int) -> torch.Tensor:
+    """(R, M) walk utilities -> (M,) SV: marginals along each walk, put back
+    in client slots and averaged over permutations.
+
+    Each walk is a permutation, so scattering its marginals into a
+    client-major (R, M) table writes every slot once; the sum over R is
+    then deterministic (an `index_add_` on CUDA would add in atomic,
+    run-dependent order).
+    """
+    v_prev = torch.cat([v0.reshape(1, 1).expand(n_perms, 1), vs[:, :-1]],
+                       dim=1)
+    marginals = vs - v_prev                              # (R, M) along walk
+    table = torch.zeros_like(marginals).scatter_(1, perms, marginals)
+    return torch.sum(table, dim=0) / n_perms
+
+
+def _round_stats(truncated: bool, n_evals: int, n_perms: int, v0: float,
+                 v_m: float) -> ShapleyStats:
+    """`iterations` reports the permutations actually walked — 0 when
+    between-round truncation skipped the whole MC run."""
+    return ShapleyStats(iterations=0 if truncated else n_perms,
+                        utility_evals=n_evals + 2, v0=v0, vM=v_m,
+                        truncated_round=truncated)
+
+
+def chunk_walks_for(sv_chunk: int, n_perms: int, m: int,
+                    device: torch.device) -> int:
+    """Walks evaluated per step: `sv_chunk` = 0 is auto (all R*M models at
+    once on CUDA, one walk on the CPU), < 0 forces the all-resident pass,
+    c > 0 rounds c models up to whole walks."""
+    if sv_chunk == 0:
+        return n_perms if device.type == "cuda" else 1
+    if sv_chunk < 0:
+        return n_perms
+    return min(max(1, -(-sv_chunk // m)), n_perms)
+
+
+def gtg_shapley_streaming(
+    stacked_updates: Params,
+    n_k: torch.Tensor,
+    w_prev: Params,
+    utility_fn: Callable[[Params], torch.Tensor],
+    batched_utility_fn: Callable[[Params], torch.Tensor],
+    perms: torch.Tensor,
+    *,
+    eps: float = 1e-4,
+    sv_chunk: int = 0,
+) -> tuple[torch.Tensor, ShapleyStats]:
+    """Streaming SV estimate over the (R, M) walks `perms`.
+
+    Chunk boundaries fall on whole walks and each walk accumulates left to
+    right, so chunking changes only how many models are resident at once.
+    Filler walks that pad the last chunk are evaluated and discarded, and
+    counted in `utility_evals`, as the reference counts them.
+    """
+    m = int(n_k.shape[0])
+    n_perms = int(perms.shape[0])
+    device = n_k.device
+    with torch.no_grad():
+        w_full = subset_average(stacked_updates, n_k,
+                                torch.ones((m,), device=device))
+        v0 = utility_fn(w_prev)
+        v_m = utility_fn(w_full)
+        v0_f, v_m_f = float(v0), float(v_m)
+        if float(torch.abs(v_m - v0)) < float(np.float32(eps)):  # f32 test
+            return (torch.zeros((m,), device=device),
+                    _round_stats(True, 0, n_perms, v0_f, v_m_f))
+
+        chunk_walks = chunk_walks_for(sv_chunk, n_perms, m, device)
+        n_chunks = -(-n_perms // chunk_walks)
+        pad_walks = n_chunks * chunk_walks - n_perms
+        perms = perms.to(device=device, dtype=torch.int64)
+        if pad_walks:
+            filler = torch.arange(m, device=device).expand(pad_walks, m)
+            perms_padded = torch.cat([perms, filler])
+        else:
+            perms_padded = perms
+        vs = torch.cat([
+            batched_utility_fn(prefix_avg(
+                stacked_updates,
+                perms_padded[c * chunk_walks:(c + 1) * chunk_walks], n_k))
+            for c in range(n_chunks)])[: n_perms * m]
+        sv = _walk_sv(vs.reshape(n_perms, m), perms, v0, n_perms, m)
+    return sv, _round_stats(False, n_chunks * chunk_walks * m, n_perms,
+                            v0_f, v_m_f)
+
+
+def make_batched_mlp_utility(model, x_val: torch.Tensor, y_val: torch.Tensor):
+    """-(val CE) of every model in a batch stacked on a leading axis, one
+    batched forward and one `ce_loss` call for the whole batch."""
+    def utility(params_b):
+        with torch.no_grad():
+            return -ce_loss(model.apply_batched(params_b, x_val), y_val)
+
+    return utility

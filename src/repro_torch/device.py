@@ -1,0 +1,26 @@
+"""Device resolution for the port's entry points."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """`None` means the CUDA card; a CUDA device without a card raises.
+
+    The port never drops to the CPU by itself: a caller that wants the CPU
+    (the tests do) asks for it.  Also turns TF32 off for matmuls and cuDNN
+    convolutions, since the reference computes in full float32 and cuDNN
+    convolutions default to TF32.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the port on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; options: 'cuda', 'cpu'")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return dev

@@ -1,0 +1,461 @@
+"""The federated server loop — GreedyFed Alg. 1 plus all baselines.
+
+Counterpart of `repro/federated/server.py`, engine "loop".  `run_federated`
+drives T communication rounds:
+  select clients -> ClientUpdate at each -> optional upload codec ->
+  GTG-Shapley -> ModelAverage -> cumulative-SV update -> eval.
+The six strategies share this loop through a `SelectorSpec` and its
+selector state (`repro_torch.core.selection`).
+
+The numpy set-up (`setup_run`) consumes the run's rng in the reference's
+order, so a seed gives the same data, partition, stragglers and noise
+levels.  Random draws of the rounds come from a `RunDraws`
+(`federated/draws.py`).  Parts of the reference that later slices of the
+port bring raise `NotImplementedError` naming that slice.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.aggregation import (
+    normalized_weights, tree_stack, weighted_average,
+)
+from repro_torch.core.selection import (
+    DeviceSelectionContext, DeviceSelectorState, SelectorSpec,
+    device_select, device_update, init_device_state, make_selector_spec,
+    poc_d_schedule,
+)
+from repro_torch.core.shapley import gtg_shapley
+from repro_torch.core.shapley_batched import (
+    gtg_shapley_streaming, make_batched_mlp_utility,
+)
+from repro_torch.data.synth import SynthDataset, make_dataset
+from repro_torch.device import resolve_device
+from repro_torch.engine.schedule import (
+    ScheduleConfig, VirtualClock, deadline_epochs, eval_mask,
+    make_client_clock, round_duration_s, straggler_epochs_table,
+)
+from repro_torch.federated.client import ClientConfig, client_update, local_loss
+from repro_torch.federated.compression import compress_update
+from repro_torch.federated.draws import RunDraws, TorchDraws
+from repro_torch.federated.partition import (
+    client_cap, dirichlet_partition, padded_x_block, padded_y_block,
+    power_law_fractions, valid_counts,
+)
+from repro_torch.models.mlp_cnn import ClassifierModel, make_classifier
+from repro_torch.tree import tree_leaves
+
+Params = Any
+
+SHAPLEY_IMPLS = ("batched", "serial", "streaming")
+
+
+@dataclass(frozen=True)
+class FLConfig:
+    """The reference's `FLConfig`: same fields, same defaults."""
+    dataset: str = "mnist"
+    n_clients: int = 50          # N
+    m: int = 5                   # M: clients selected per round
+    rounds: int = 50             # T: communication budget
+    selector: str = "greedyfed"
+    selector_kwargs: dict = field(default_factory=dict)
+    client: ClientConfig = ClientConfig()
+    # round-execution engine; this slice of the port runs "loop"
+    engine: str = "loop"
+    # heterogeneity knobs (paper Section IV)
+    dirichlet_alpha: float = 1e-4
+    straggler_frac: float = 0.0  # x
+    privacy_sigma: float = 0.0   # sigma
+    noise_level: float = 0.0     # extra uniform [0, noise_level) sigma
+    straggler_rev: int = 1       # 1: pre-drawn (T, N) table; 0: lazy draws
+    # virtual-clock timing model; when set, E_k is deadline-derived
+    schedule: Optional[ScheduleConfig] = None
+    # GTG-Shapley
+    shapley_eps: float = 1e-4
+    shapley_max_iters: Optional[int] = None   # default 50*M
+    shapley_impl: str = "streaming"           # "streaming" | "serial"
+    sv_chunk: int = 0            # models per SV step (0 auto, < 0 all)
+    sv_averaging: str = "mean"   # "mean" | "exponential"
+    sv_alpha: float = 0.5
+    upload_codec: str = "identity"
+    faults: Optional[Any] = None
+    quarantine: bool = False
+    quarantine_z: float = 8.0
+    # bookkeeping
+    eval_every: int = 5
+    seed: int = 0
+    n_train: int = 6000
+    n_val: int = 500
+    n_test: int = 1000
+    clients_shards: int = 1
+
+
+class FLResult(NamedTuple):
+    config: FLConfig
+    test_acc: list            # [(round, acc)]
+    val_loss: list            # [(round, loss)]
+    final_acc: float
+    sv_final: np.ndarray      # (N,)
+    selection_counts: np.ndarray
+    selections: list          # [np.ndarray (M,)] per round
+    shapley_evals: int        # total utility evaluations spent
+    wall_time_s: float
+    params: Params
+    upload_bytes: int = 0     # total client->PS traffic over the run
+    download_bytes: int = 0   # total PS->client traffic (model broadcasts)
+    sim_time_s: float = 0.0   # virtual-clock seconds (0 without schedule)
+    dispatches: int = 0       # the reference's host-level call count
+    compile_time_s: float = 0.0   # the port compiles nothing per run
+    execute_time_s: float = 0.0
+    quarantined_total: int = 0
+    # the port's own: per-round wall seconds and the GTG-Shapley part of
+    # each, both measured after a device synchronise
+    round_time_s: tuple = ()
+    shapley_time_s: tuple = ()
+
+
+def _not_in_slice(what: str, slice_: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: it comes with {slice_} of the PyTorch "
+        "port (see ROADMAP.md)")
+
+
+def check_config(cfg: FLConfig) -> None:
+    """Reject what this slice of the port does not run yet."""
+    if cfg.engine not in ("loop", "batched", "scan"):
+        raise ValueError(f"unknown engine {cfg.engine!r}; "
+                         "options: 'loop', 'batched', 'scan'")
+    if cfg.shapley_impl not in SHAPLEY_IMPLS:
+        raise ValueError(f"unknown shapley_impl {cfg.shapley_impl!r}; "
+                         f"options: {SHAPLEY_IMPLS}")
+    if cfg.engine == "batched":
+        raise _not_in_slice("engine='batched'", "the batched-engine slice")
+    if cfg.engine == "scan":
+        raise _not_in_slice("engine='scan'", "the scan-engine slice")
+    if cfg.shapley_impl == "batched":
+        raise _not_in_slice("shapley_impl='batched'",
+                            "the weighted_avg (dense oracle) slice")
+    if cfg.faults is not None:
+        raise _not_in_slice("faults", "the faults/quarantine slice")
+    if cfg.quarantine:
+        raise _not_in_slice("quarantine", "the faults/quarantine slice")
+    if cfg.clients_shards > 1:
+        raise _not_in_slice("clients_shards > 1", "the client-sharding slice")
+
+
+class RunSetup(NamedTuple):
+    """Everything `run_federated` derives from an FLConfig before round 0."""
+    data: SynthDataset
+    model: ClassifierModel
+    rng: np.random.Generator
+    draws: RunDraws
+    fractions: np.ndarray
+    xs: torch.Tensor          # (N, cap, ...) padded client data
+    ys: torch.Tensor          # (N, cap) int64
+    n_valid: torch.Tensor     # (N,) int64
+    n_k_all: torch.Tensor     # (N,) float32
+    straggler_ids: set
+    sigma_k_all: np.ndarray
+    params: Params
+    sel_spec: SelectorSpec
+    sel_state: DeviceSelectorState
+    x_val: torch.Tensor
+    y_val: torch.Tensor
+    x_test: torch.Tensor
+    y_test: torch.Tensor
+    model_bytes: int
+    clock: Any                # engine.schedule.ClientClock | None
+    epochs_table: Any = None  # (T, N) pre-drawn straggler budgets
+
+
+def setup_run(cfg: FLConfig, data: Optional[SynthDataset] = None,
+              model: Optional[ClassifierModel] = None, *,
+              device=None, draws: Optional[RunDraws] = None) -> RunSetup:
+    """Partition data, assign heterogeneity, init model/selector state.
+
+    The numpy rng is consumed in the reference's order; the initial model
+    comes from `draws.init_params`, which consumes no numpy draw.
+    """
+    check_config(cfg)
+    device = resolve_device(device)
+    rng = np.random.default_rng(cfg.seed)
+    if draws is None:
+        draws = TorchDraws(cfg.seed, device)
+
+    if data is None:
+        data = make_dataset(cfg.dataset, n_train=cfg.n_train, n_val=cfg.n_val,
+                            n_test=cfg.n_test, seed=cfg.seed)
+    if model is None:
+        model = make_classifier(cfg.dataset)
+
+    # ---- partition data across clients (Dirichlet x power-law) ----------
+    fractions = power_law_fractions(cfg.n_clients, rng)
+    parts = dirichlet_partition(data.y_train, cfg.n_clients,
+                                cfg.dirichlet_alpha, rng, fractions)
+    cap, n = client_cap(parts), len(parts)
+    xs = torch.as_tensor(padded_x_block(data.x_train, parts, cap, 0, n),
+                         device=device)
+    ys = torch.as_tensor(padded_y_block(data.y_train, parts, cap, 0, n),
+                         dtype=torch.int64, device=device)
+    n_valid_np = valid_counts(parts, 0, n)
+    n_valid = torch.as_tensor(n_valid_np, dtype=torch.int64, device=device)
+
+    # ---- heterogeneity assignments --------------------------------------
+    n_stragglers = int(round(cfg.straggler_frac * cfg.n_clients))
+    straggler_ids = set(rng.choice(cfg.n_clients, n_stragglers,
+                                   replace=False).tolist())
+    noise_perm = rng.permutation(cfg.n_clients)  # sigma_k = rank * sigma / N
+    sigma_k_all = np.zeros(cfg.n_clients, np.float32)
+    for rank, k in enumerate(noise_perm):
+        sigma_k_all[k] = rank * cfg.privacy_sigma / cfg.n_clients
+
+    # ---- model / selector setup ------------------------------------------
+    params = draws.init_params(model)
+    sel_kwargs = dict(cfg.selector_kwargs)
+    if cfg.selector in ("greedyfed", "greedyfed_dropout"):
+        sel_kwargs.setdefault("averaging", cfg.sv_averaging)
+        sel_kwargs.setdefault("alpha", cfg.sv_alpha)
+    sel_spec = make_selector_spec(cfg.selector, cfg.n_clients, cfg.m,
+                                  **sel_kwargs)
+    sel_state = init_device_state(sel_spec, cfg.seed, device)
+    model_bytes = sum(int(x.numel()) * x.element_size()
+                      for x in tree_leaves(params))
+
+    # ---- virtual clock (draws after all earlier consumers of rng) -------
+    clock = None
+    if cfg.schedule is not None:
+        clock = make_client_clock(cfg.schedule, cfg.n_clients, model_bytes,
+                                  rng, n_k=n_valid_np[:cfg.n_clients])
+    epochs_table = None
+    if cfg.straggler_rev >= 1 and clock is None and straggler_ids:
+        epochs_table = straggler_epochs_table(
+            rng, cfg.rounds, cfg.n_clients, straggler_ids, cfg.client.epochs)
+    if cfg.noise_level > 0:
+        extra = rng.uniform(0.0, cfg.noise_level, cfg.n_clients)
+        sigma_k_all = np.sqrt(sigma_k_all.astype(np.float64) ** 2
+                              + extra ** 2).astype(np.float32)
+
+    def dev(a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return RunSetup(
+        data=data, model=model, rng=rng, draws=draws, fractions=fractions,
+        xs=xs, ys=ys, n_valid=n_valid, n_k_all=n_valid.to(torch.float32),
+        straggler_ids=straggler_ids, sigma_k_all=sigma_k_all, params=params,
+        sel_spec=sel_spec, sel_state=sel_state,
+        x_val=dev(data.x_val), y_val=dev(data.y_val, torch.int64),
+        x_test=dev(data.x_test), y_test=dev(data.y_test, torch.int64),
+        model_bytes=model_bytes, clock=clock, epochs_table=epochs_table,
+    )
+
+
+def round_epochs(cfg: FLConfig, s: RunSetup, sel: np.ndarray,
+                 t: int = 0) -> np.ndarray:
+    """(M,) int32 local-epoch budget E_k for the selected cohort at round t:
+    deadline-derived under a schedule, else a gather from the pre-drawn
+    straggler table, else (straggler_rev=0) drawn per selected straggler."""
+    e = cfg.client.epochs
+    if s.clock is not None:
+        return deadline_epochs(s.clock, cfg.schedule, sel, e)
+    if s.epochs_table is not None:
+        return s.epochs_table[t][np.asarray(sel)].astype(np.int32)
+    out = np.full(len(sel), e, np.int32)
+    for i, k_id in enumerate(sel):
+        if int(k_id) in s.straggler_ids:
+            out[i] = int(s.rng.integers(1, e + 1))
+    return out
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
+                  model: Optional[ClassifierModel] = None, *,
+                  device=None, draws: Optional[RunDraws] = None,
+                  telemetry=None) -> FLResult:
+    """Drive one federated run on `device` (default: the CUDA card).
+
+    `draws` replaces the run's default torch-generator draws (a test hands
+    the reference's draws in through it).
+    """
+    t_start = time.perf_counter()
+    if telemetry is not None:
+        raise _not_in_slice("telemetry", "the telemetry slice")
+    s = setup_run(cfg, data, model, device=device, draws=draws)
+    device = s.n_valid.device
+    model, params, draws = s.model, s.params, s.draws
+    spec, sstate = s.sel_spec, s.sel_state
+
+    def utility_fn(p):  # U(w) = -L(w; D_val)
+        with torch.no_grad():
+            return -model.loss(p, s.x_val, s.y_val)
+
+    batched_utility_fn = make_batched_mlp_utility(model, s.x_val, s.y_val)
+    needs_sv = spec.uses_shapley
+    max_iters = cfg.shapley_max_iters or 50 * cfg.m
+    shapes = [tuple(x.shape) for x in tree_leaves(params)]
+
+    fractions = torch.as_tensor(s.fractions, dtype=torch.float32,
+                                device=device)
+    zero_losses = torch.zeros((cfg.n_clients,), device=device)
+    d_sched = poc_d_schedule(spec, cfg.rounds)
+    emask = eval_mask(cfg.rounds, cfg.eval_every)
+    n_valid_host = s.n_valid.cpu().numpy()
+
+    test_acc, val_loss_hist, selections = [], [], []
+    round_times, shapley_times = [], []
+    total_evals = upload_bytes = download_bytes = dispatches = 0
+    vclock = VirtualClock() if s.clock is not None else None
+
+    for t in range(cfg.rounds):
+        _sync(device)
+        t_round = time.perf_counter()
+        losses = zero_losses
+        if spec.uses_local_losses:
+            losses = local_loss(model, params, s.xs, s.ys, s.n_valid)
+            dispatches += 1
+
+        ctx = DeviceSelectionContext(data_fractions=fractions,
+                                     local_losses=losses,
+                                     poc_d=int(d_sched[t]))
+        sel_dev, sstate = device_select(spec, sstate, ctx, draws, t)
+        sel = sel_dev.cpu().numpy().astype(np.int64)
+        selections.append(sel)
+        epochs_k = round_epochs(cfg, s, sel, t)
+
+        # ---- ClientUpdate at each selected client ------------------------
+        updates, nbytes_list = [], []
+        n_steps = cfg.client.epochs * cfg.client.batches_per_epoch
+        for i, k_id in enumerate(sel):
+            idx, noise = draws.client(t, i, n_steps, cfg.client.batch_size,
+                                      int(n_valid_host[k_id]), shapes)
+            upd = client_update(model, cfg.client, params, s.xs[k_id],
+                                s.ys[k_id], int(epochs_k[i]),
+                                float(s.sigma_k_all[k_id]), idx, noise)
+            if cfg.upload_codec != "identity":
+                upd, nbytes = compress_update(cfg.upload_codec, upd, params)
+            else:
+                nbytes = s.model_bytes
+            nbytes_list.append(nbytes)
+            updates.append(upd)
+        dispatches += len(sel)
+
+        stacked = tree_stack(updates)
+        sel_t = torch.as_tensor(sel, device=device)
+        n_k_sel = s.n_k_all[sel_t]
+
+        # ---- GTG-Shapley at the PS ----------------------------------------
+        sv_round = None
+        _sync(device)
+        t_sv = time.perf_counter()
+        if needs_sv:
+            if cfg.shapley_impl == "streaming":
+                sv_round, stats = gtg_shapley_streaming(
+                    stacked, n_k_sel, params, utility_fn, batched_utility_fn,
+                    draws.perms(t, cfg.m, max_iters), eps=cfg.shapley_eps,
+                    sv_chunk=cfg.sv_chunk)
+            else:
+                sv_round, stats = gtg_shapley(
+                    stacked, n_k_sel, params, utility_fn,
+                    draws.perm_batches(t, cfg.m), eps=cfg.shapley_eps,
+                    max_iters=max_iters)
+            total_evals += stats.utility_evals
+            dispatches += 1
+        _sync(device)
+        shapley_times.append(time.perf_counter() - t_sv)
+
+        # ---- ModelAverage (Alg. 1 line 9) --------------------------------
+        with torch.no_grad():
+            params = weighted_average(stacked, normalized_weights(n_k_sel))
+        dispatches += 1
+        upload_bytes += int(sum(nbytes_list))
+        download_bytes += s.model_bytes * len(sel)  # w^t broadcast
+        if vclock is not None:
+            vclock.advance(round_duration_s(s.clock, cfg.schedule, sel,
+                                            epochs_k))
+
+        sstate = device_update(spec, sstate, sel_t, sv_round)
+
+        if emask[t]:
+            with torch.no_grad():
+                acc = float(model.accuracy(params, s.x_test, s.y_test))
+            test_acc.append((t + 1, acc))
+            val_loss_hist.append((t + 1, float(-utility_fn(params))))
+            dispatches += 2
+        _sync(device)
+        round_times.append(time.perf_counter() - t_round)
+
+    wall = time.perf_counter() - t_start
+    return FLResult(
+        config=cfg,
+        test_acc=test_acc,
+        val_loss=val_loss_hist,
+        final_acc=test_acc[-1][1] if test_acc else float("nan"),
+        sv_final=sstate.valuation.sv.cpu().numpy(),
+        selection_counts=sstate.valuation.counts.cpu().numpy(),
+        selections=selections,
+        shapley_evals=total_evals,
+        wall_time_s=wall,
+        params=params,
+        upload_bytes=upload_bytes,
+        download_bytes=download_bytes,
+        sim_time_s=vclock.now_s if vclock is not None else 0.0,
+        dispatches=dispatches,
+        compile_time_s=0.0,
+        execute_time_s=wall,
+        round_time_s=tuple(round_times),
+        shapley_time_s=tuple(shapley_times),
+    )
+
+
+def run_federated_replicated(*args, **kwargs):
+    raise _not_in_slice("run_federated_replicated",
+                        "the batched-engine slice")
+
+
+def run_centralized(cfg: FLConfig, data: Optional[SynthDataset] = None,
+                    model: Optional[ClassifierModel] = None, *,
+                    device=None, draws: Optional[RunDraws] = None
+                    ) -> FLResult:
+    """Upper bound: the server trains on the pooled data, same step budget.
+    Round t's minibatch table and noise come from `draws.client(t, 0, ...)`.
+    """
+    device = resolve_device(device)
+    if data is None:
+        data = make_dataset(cfg.dataset, n_train=cfg.n_train, n_val=cfg.n_val,
+                            n_test=cfg.n_test, seed=cfg.seed)
+    if model is None:
+        model = make_classifier(cfg.dataset)
+    if draws is None:
+        draws = TorchDraws(cfg.seed, device)
+    params = draws.init_params(model)
+    shapes = [tuple(x.shape) for x in tree_leaves(params)]
+
+    x = torch.as_tensor(data.x_train, device=device)
+    y = torch.as_tensor(data.y_train, dtype=torch.int64, device=device)
+    x_test = torch.as_tensor(data.x_test, device=device)
+    y_test = torch.as_tensor(data.y_test, dtype=torch.int64, device=device)
+    n_steps = cfg.client.epochs * cfg.client.batches_per_epoch
+    t_start = time.perf_counter()
+    test_acc = []
+    emask = eval_mask(cfg.rounds, cfg.eval_every)
+    for t in range(cfg.rounds):
+        idx, noise = draws.client(t, 0, n_steps, cfg.client.batch_size,
+                                  x.shape[0], shapes)
+        params = client_update(model, cfg.client, params, x, y,
+                               cfg.client.epochs, 0.0, idx, noise)
+        if emask[t]:
+            with torch.no_grad():
+                test_acc.append((t + 1, float(model.accuracy(params, x_test,
+                                                             y_test))))
+    return FLResult(cfg, test_acc, [], test_acc[-1][1],
+                    np.zeros(cfg.n_clients),
+                    np.zeros(cfg.n_clients, np.int32), [], 0,
+                    time.perf_counter() - t_start, params)

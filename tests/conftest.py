@@ -8,3 +8,8 @@ import pytest
 @pytest.fixture(scope="session")
 def key():
     return jax.random.key(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason without one")
