@@ -1,5 +1,6 @@
-"""Streaming GTG-Shapley — the default SV path (counterpart of the streaming
-estimator of `repro/core/shapley_batched.py`).
+"""Device GTG-Shapley estimators (counterpart of
+`repro/core/shapley_batched.py`): the streaming walk, the default SV path,
+and the dense oracle.
 
 Along a permutation walk the prefix ModelAverage is a running sum
 (S_j = S_{j-1} + n_{pi(j)} w_{pi(j)}, wbar_j = S_j / N_j), so the
@@ -10,22 +11,46 @@ a time to bound peak memory.  Between-round truncation (|v_M - v_0| < eps)
 is a host `if`; within-round truncation is dropped, as in the reference.
 
 The walks are an input (`_draw_perms` makes them from a generator; a test
-injects the reference's).  The dense `gtg_shapley_batched` oracle waits
-for the `weighted_avg` kernel in a later slice of the port.
+injects the reference's).  The dense oracle `gtg_shapley_batched`
+(`shapley_impl="batched"`) takes the same walks, materialises the
+(R*M, M) prefix-weight matrix and contracts it against the stacked
+updates with the `weighted_avg` kernel: the two estimators compute the
+same Monte-Carlo average and differ only in float association.
 """
 from __future__ import annotations
 
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.aggregation import subset_average
-from repro_torch.core.shapley import ShapleyStats, _permutation_batch
+from repro_torch.core.shapley import (
+    ShapleyStats, _permutation_batch, gtg_shapley,
+)
+from repro_torch.device import synchronize
 from repro_torch.kernels.ce_loss.ops import ce_loss
 from repro_torch.kernels.prefix_avg.ops import prefix_avg
+from repro_torch.kernels.weighted_avg.ops import weighted_avg
+from repro_torch.tree import tree_map
 
 Params = Any
+
+# "streaming" (prefix walk, the default) | "batched" (dense oracle) |
+# "serial" (Alg. 2 with within-round truncation, a host loop)
+SHAPLEY_IMPLS = ("streaming", "batched", "serial")
+
+
+def prefix_weight_matrix(perms: torch.Tensor,
+                         n_k: torch.Tensor) -> torch.Tensor:
+    """(R, M) walks -> (R, M, M) normalised prefix-subset weights: row
+    (r, j) holds the ModelAverage weights of the subset perms[r, :j+1]."""
+    m = perms.shape[1]
+    onehot = F.one_hot(perms.to(torch.int64), m).to(torch.float32)
+    w = torch.cumsum(onehot, dim=1) * n_k.to(torch.float32)[None, None, :]
+    return w / torch.clamp_min(torch.sum(w, dim=-1, keepdim=True), 1e-12)
 
 
 def _draw_perms(gen: torch.Generator, m: int, n_perms: int) -> torch.Tensor:
@@ -125,6 +150,45 @@ def gtg_shapley_streaming(
                             v0_f, v_m_f)
 
 
+def gtg_shapley_batched(
+    stacked_updates: Params,
+    n_k: torch.Tensor,
+    w_prev: Params,
+    utility_fn: Callable[[Params], torch.Tensor],
+    batched_utility_fn: Callable[[Params], torch.Tensor],
+    perms: torch.Tensor,
+    *,
+    eps: float = 1e-4,
+    use_kernel: bool = True,
+) -> tuple[torch.Tensor, ShapleyStats]:
+    """Dense SV estimate over the (R, M) walks `perms`: all R*M prefix
+    models in one contraction, kept as the parity oracle of the streaming
+    estimator.  `use_kernel=False` takes the reference's tensordot branch."""
+    m = int(n_k.shape[0])
+    n_perms = int(perms.shape[0])
+    device = n_k.device
+    with torch.no_grad():
+        w_full = subset_average(stacked_updates, n_k,
+                                torch.ones((m,), device=device))
+        v0 = utility_fn(w_prev)
+        v_m = utility_fn(w_full)
+        v0_f, v_m_f = float(v0), float(v_m)
+        if float(torch.abs(v_m - v0)) < float(np.float32(eps)):  # f32 test
+            return (torch.zeros((m,), device=device),
+                    _round_stats(True, 0, n_perms, v0_f, v_m_f))
+
+        perms = perms.to(device=device, dtype=torch.int64)
+        flat_w = prefix_weight_matrix(perms, n_k).reshape(n_perms * m, m)
+        if use_kernel:
+            models = weighted_avg(stacked_updates, flat_w)
+        else:
+            models = tree_map(lambda leaf: torch.tensordot(
+                flat_w.to(leaf.dtype), leaf, dims=1), stacked_updates)
+        vs = batched_utility_fn(models).reshape(n_perms, m)
+        sv = _walk_sv(vs, perms, v0, n_perms, m)
+    return sv, _round_stats(False, n_perms * m, n_perms, v0_f, v_m_f)
+
+
 def make_batched_mlp_utility(model, x_val: torch.Tensor, y_val: torch.Tensor):
     """-(val CE) of every model in a batch stacked on a leading axis, one
     batched forward and one `ce_loss` call for the whole batch."""
@@ -133,3 +197,43 @@ def make_batched_mlp_utility(model, x_val: torch.Tensor, y_val: torch.Tensor):
             return -ce_loss(model.apply_batched(params_b, x_val), y_val)
 
     return utility
+
+
+def shapley_stage(
+    impl: str,
+    stacked_updates: Params,
+    n_k: torch.Tensor,
+    w_prev: Params,
+    utility_fn: Callable[[Params], torch.Tensor],
+    batched_utility_fn: Callable[[Params], torch.Tensor],
+    walks,
+    *,
+    eps: float,
+    max_iters: int,
+    sv_chunk: int,
+) -> tuple[torch.Tensor, ShapleyStats, float]:
+    """One round's SV by the estimator `impl`, the stage both engines run.
+
+    `walks` is the (R, M) walk tensor of the streaming and dense
+    estimators, or the serial estimator's batch callable.  Returns
+    (sv, stats, seconds), the seconds taken between two device
+    synchronisations.
+    """
+    if impl not in SHAPLEY_IMPLS:
+        raise ValueError(f"unknown shapley_impl {impl!r}; "
+                         f"options: {SHAPLEY_IMPLS}")
+    synchronize(n_k.device)
+    t0 = time.perf_counter()
+    if impl == "streaming":
+        sv, stats = gtg_shapley_streaming(
+            stacked_updates, n_k, w_prev, utility_fn, batched_utility_fn,
+            walks, eps=eps, sv_chunk=sv_chunk)
+    elif impl == "batched":
+        sv, stats = gtg_shapley_batched(
+            stacked_updates, n_k, w_prev, utility_fn, batched_utility_fn,
+            walks, eps=eps)
+    else:
+        sv, stats = gtg_shapley(stacked_updates, n_k, w_prev, utility_fn,
+                                walks, eps=eps, max_iters=max_iters)
+    synchronize(n_k.device)
+    return sv, stats, time.perf_counter() - t0

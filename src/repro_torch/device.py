@@ -24,3 +24,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the card's queued work (a no-op on the CPU), so that a host
+    timer read after it counts the device's time."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

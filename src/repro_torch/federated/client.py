@@ -32,6 +32,19 @@ class ClientConfig(NamedTuple):
     prox_mu: float = 0.0       # FedProx mu (0 => FedAvg-style update)
 
 
+def make_local_loss(model: ClassifierModel, cfg: ClientConfig,
+                    params0: Params):
+    """The client's training loss (p, xb, yb) -> scalar: the model's loss on
+    the minibatch plus the FedProx term mu/2 ||p - params0||^2."""
+    def local_loss_fn(p, xb, yb):
+        loss = model.loss(p, xb, yb)
+        if cfg.prox_mu > 0.0:
+            loss = loss + 0.5 * cfg.prox_mu * tree_sq_norm(tree_sub(p, params0))
+        return loss
+
+    return local_loss_fn
+
+
 def client_update(model: ClassifierModel, cfg: ClientConfig, params0: Params,
                   x: torch.Tensor, y: torch.Tensor, epochs_k: int,
                   sigma_k: float, idx: torch.Tensor,
@@ -44,13 +57,7 @@ def client_update(model: ClassifierModel, cfg: ClientConfig, params0: Params,
     noise: standard-normal leaves in `tree_leaves` order.
     """
     params0 = tree_map(lambda p: p.detach(), params0)
-
-    def local_loss_fn(p, xb, yb):
-        loss = model.loss(p, xb, yb)
-        if cfg.prox_mu > 0.0:
-            loss = loss + 0.5 * cfg.prox_mu * tree_sq_norm(tree_sub(p, params0))
-        return loss
-
+    local_loss_fn = make_local_loss(model, cfg, params0)
     params, opt = params0, sgd_init(params0)
     for i in range(int(epochs_k) * cfg.batches_per_epoch):
         p = tree_map(lambda t: t.detach().requires_grad_(True), params)

@@ -52,7 +52,10 @@ def leaf_topk_k(n: int, frac: float = TOPK_FRAC) -> int:
 
 
 def _quant8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    scale = torch.clamp_min(torch.max(torch.abs(x)), 1e-12) / 127.0
+    # divide by a tensor: PyTorch on CUDA multiplies by the reciprocal of a
+    # CPU-scalar divisor, which can differ from x / 127 in the last bit
+    scale = torch.clamp_min(torch.max(torch.abs(x)), 1e-12) / torch.tensor(
+        127.0, dtype=torch.float32, device=x.device)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale.to(torch.float32)
 

@@ -1,9 +1,12 @@
 """The federated server loop — GreedyFed Alg. 1 plus all baselines.
 
-Counterpart of `repro/federated/server.py`, engine "loop".  `run_federated`
-drives T communication rounds:
+Counterpart of `repro/federated/server.py`, engines "loop" and "batched".
+`run_federated` drives T communication rounds:
   select clients -> ClientUpdate at each -> optional upload codec ->
   GTG-Shapley -> ModelAverage -> cumulative-SV update -> eval.
+The loop engine runs the round's steps from this loop, client by client;
+the batched engine runs each round as one `RoundEngine.step` call
+(`engine/round_engine.py`), with the cohort trained as one batch.
 The six strategies share this loop through a `SelectorSpec` and its
 selector state (`repro_torch.core.selection`).
 
@@ -30,12 +33,11 @@ from repro_torch.core.selection import (
     device_select, device_update, init_device_state, make_selector_spec,
     poc_d_schedule,
 )
-from repro_torch.core.shapley import gtg_shapley
 from repro_torch.core.shapley_batched import (
-    gtg_shapley_streaming, make_batched_mlp_utility,
+    SHAPLEY_IMPLS, make_batched_mlp_utility, shapley_stage,
 )
 from repro_torch.data.synth import SynthDataset, make_dataset
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, synchronize
 from repro_torch.engine.schedule import (
     ScheduleConfig, VirtualClock, deadline_epochs, eval_mask,
     make_client_clock, round_duration_s, straggler_epochs_table,
@@ -52,9 +54,6 @@ from repro_torch.tree import tree_leaves
 
 Params = Any
 
-SHAPLEY_IMPLS = ("batched", "serial", "streaming")
-
-
 @dataclass(frozen=True)
 class FLConfig:
     """The reference's `FLConfig`: same fields, same defaults."""
@@ -65,7 +64,7 @@ class FLConfig:
     selector: str = "greedyfed"
     selector_kwargs: dict = field(default_factory=dict)
     client: ClientConfig = ClientConfig()
-    # round-execution engine; this slice of the port runs "loop"
+    # round-execution engine: "loop" | "batched" ("scan" is a later slice)
     engine: str = "loop"
     # heterogeneity knobs (paper Section IV)
     dirichlet_alpha: float = 1e-4
@@ -78,7 +77,7 @@ class FLConfig:
     # GTG-Shapley
     shapley_eps: float = 1e-4
     shapley_max_iters: Optional[int] = None   # default 50*M
-    shapley_impl: str = "streaming"           # "streaming" | "serial"
+    shapley_impl: str = "streaming"   # "streaming" | "batched" | "serial"
     sv_chunk: int = 0            # models per SV step (0 auto, < 0 all)
     sv_averaging: str = "mean"   # "mean" | "exponential"
     sv_alpha: float = 0.5
@@ -133,13 +132,8 @@ def check_config(cfg: FLConfig) -> None:
     if cfg.shapley_impl not in SHAPLEY_IMPLS:
         raise ValueError(f"unknown shapley_impl {cfg.shapley_impl!r}; "
                          f"options: {SHAPLEY_IMPLS}")
-    if cfg.engine == "batched":
-        raise _not_in_slice("engine='batched'", "the batched-engine slice")
     if cfg.engine == "scan":
         raise _not_in_slice("engine='scan'", "the scan-engine slice")
-    if cfg.shapley_impl == "batched":
-        raise _not_in_slice("shapley_impl='batched'",
-                            "the weighted_avg (dense oracle) slice")
     if cfg.faults is not None:
         raise _not_in_slice("faults", "the faults/quarantine slice")
     if cfg.quarantine:
@@ -271,9 +265,15 @@ def round_epochs(cfg: FLConfig, s: RunSetup, sel: np.ndarray,
     return out
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _make_round_engine(cfg: FLConfig, s: RunSetup, needs_sv: bool,
+                       max_iters: int):
+    from repro_torch.engine.round_engine import RoundEngine, RoundSpec
+    spec = RoundSpec(needs_sv=needs_sv, shapley_impl=cfg.shapley_impl,
+                     shapley_eps=cfg.shapley_eps, shapley_max_iters=max_iters,
+                     sv_chunk=cfg.sv_chunk, upload_codec=cfg.upload_codec,
+                     faults=cfg.faults, quarantine=cfg.quarantine)
+    return RoundEngine(s.model, cfg.client, spec, s.xs, s.ys, s.n_valid,
+                       s.sigma_k_all, s.x_val, s.y_val, s.draws)
 
 
 def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
@@ -309,13 +309,19 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
     emask = eval_mask(cfg.rounds, cfg.eval_every)
     n_valid_host = s.n_valid.cpu().numpy()
 
+    engine = None
+    codec_bytes = s.model_bytes
+    if cfg.engine == "batched":
+        engine = _make_round_engine(cfg, s, needs_sv, max_iters)
+        codec_bytes = engine.upload_nbytes_per_client(params)
+
     test_acc, val_loss_hist, selections = [], [], []
     round_times, shapley_times = [], []
     total_evals = upload_bytes = download_bytes = dispatches = 0
     vclock = VirtualClock() if s.clock is not None else None
 
     for t in range(cfg.rounds):
-        _sync(device)
+        synchronize(device)
         t_round = time.perf_counter()
         losses = zero_losses
         if spec.uses_local_losses:
@@ -330,52 +336,64 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
         selections.append(sel)
         epochs_k = round_epochs(cfg, s, sel, t)
 
-        # ---- ClientUpdate at each selected client ------------------------
-        updates, nbytes_list = [], []
-        n_steps = cfg.client.epochs * cfg.client.batches_per_epoch
-        for i, k_id in enumerate(sel):
-            idx, noise = draws.client(t, i, n_steps, cfg.client.batch_size,
-                                      int(n_valid_host[k_id]), shapes)
-            upd = client_update(model, cfg.client, params, s.xs[k_id],
-                                s.ys[k_id], int(epochs_k[i]),
-                                float(s.sigma_k_all[k_id]), idx, noise)
-            if cfg.upload_codec != "identity":
-                upd, nbytes = compress_update(cfg.upload_codec, upd, params)
-            else:
-                nbytes = s.model_bytes
-            nbytes_list.append(nbytes)
-            updates.append(upd)
-        dispatches += len(sel)
-
-        stacked = tree_stack(updates)
         sel_t = torch.as_tensor(sel, device=device)
-        n_k_sel = s.n_k_all[sel_t]
-
-        # ---- GTG-Shapley at the PS ----------------------------------------
         sv_round = None
-        _sync(device)
-        t_sv = time.perf_counter()
-        if needs_sv:
-            if cfg.shapley_impl == "streaming":
-                sv_round, stats = gtg_shapley_streaming(
-                    stacked, n_k_sel, params, utility_fn, batched_utility_fn,
-                    draws.perms(t, cfg.m, max_iters), eps=cfg.shapley_eps,
-                    sv_chunk=cfg.sv_chunk)
-            else:
-                sv_round, stats = gtg_shapley(
-                    stacked, n_k_sel, params, utility_fn,
-                    draws.perm_batches(t, cfg.m), eps=cfg.shapley_eps,
-                    max_iters=max_iters)
-            total_evals += stats.utility_evals
+        if engine is not None:
+            # ---- fused round: ONE call for train+codec+SV+average --------
+            out = engine.step(params, sel, epochs_k, t)
+            params = out.params
+            if needs_sv:
+                sv_round = out.sv
+                total_evals += out.utility_evals
+            shapley_times.append(out.shapley_time_s)
+            upload_bytes += codec_bytes * len(sel)
             dispatches += 1
-        _sync(device)
-        shapley_times.append(time.perf_counter() - t_sv)
+        else:
+            # ---- ClientUpdate at each selected client --------------------
+            updates, nbytes_list = [], []
+            n_steps = cfg.client.epochs * cfg.client.batches_per_epoch
+            for i, k_id in enumerate(sel):
+                idx, noise = draws.client(t, i, n_steps,
+                                          cfg.client.batch_size,
+                                          int(n_valid_host[k_id]), shapes)
+                upd = client_update(model, cfg.client, params, s.xs[k_id],
+                                    s.ys[k_id], int(epochs_k[i]),
+                                    float(s.sigma_k_all[k_id]), idx, noise)
+                if cfg.upload_codec != "identity":
+                    upd, nbytes = compress_update(cfg.upload_codec, upd,
+                                                  params)
+                else:
+                    nbytes = s.model_bytes
+                nbytes_list.append(nbytes)
+                updates.append(upd)
+            dispatches += len(sel)
 
-        # ---- ModelAverage (Alg. 1 line 9) --------------------------------
-        with torch.no_grad():
-            params = weighted_average(stacked, normalized_weights(n_k_sel))
-        dispatches += 1
-        upload_bytes += int(sum(nbytes_list))
+            stacked = tree_stack(updates)
+            n_k_sel = s.n_k_all[sel_t]
+
+            # ---- GTG-Shapley at the PS ------------------------------------
+            # the walks are drawn before the stage's timer, as the batched
+            # engine draws them before its round step
+            if needs_sv:
+                walks = (draws.perm_batches(t, cfg.m)
+                         if cfg.shapley_impl == "serial"
+                         else draws.perms(t, cfg.m, max_iters))
+                sv_round, stats, sv_s = shapley_stage(
+                    cfg.shapley_impl, stacked, n_k_sel, params, utility_fn,
+                    batched_utility_fn, walks, eps=cfg.shapley_eps,
+                    max_iters=max_iters, sv_chunk=cfg.sv_chunk)
+                shapley_times.append(sv_s)
+                total_evals += stats.utility_evals
+                dispatches += 1
+            else:
+                shapley_times.append(0.0)
+
+            # ---- ModelAverage (Alg. 1 line 9) ----------------------------
+            with torch.no_grad():
+                params = weighted_average(stacked,
+                                          normalized_weights(n_k_sel))
+            dispatches += 1
+            upload_bytes += int(sum(nbytes_list))
         download_bytes += s.model_bytes * len(sel)  # w^t broadcast
         if vclock is not None:
             vclock.advance(round_duration_s(s.clock, cfg.schedule, sel,
@@ -389,7 +407,7 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
             test_acc.append((t + 1, acc))
             val_loss_hist.append((t + 1, float(-utility_fn(params))))
             dispatches += 2
-        _sync(device)
+        synchronize(device)
         round_times.append(time.perf_counter() - t_round)
 
     wall = time.perf_counter() - t_start
@@ -417,7 +435,7 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
 
 def run_federated_replicated(*args, **kwargs):
     raise _not_in_slice("run_federated_replicated",
-                        "the batched-engine slice")
+                        "the replicated/grid slice")
 
 
 def run_centralized(cfg: FLConfig, data: Optional[SynthDataset] = None,

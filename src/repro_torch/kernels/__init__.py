@@ -37,7 +37,8 @@ BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-LAUNCHES = {"prefix_avg": 0, "ce_loss": 0}
+LAUNCHES = {"prefix_avg": 0, "ce_loss": 0, "cohort_gather": 0,
+            "delta_codec": 0, "weighted_avg": 0}
 
 
 def reset_launches() -> None:
@@ -138,6 +139,10 @@ _SIGNATURES = {
     "prefix_avg_bf16": [_PTR] * 5 + [_I64] * 4 + [_PTR],
     "ce_loss_f32": [_PTR] * 3 + [_I64] * 5 + [_PTR],
     "ce_loss_bf16": [_PTR] * 3 + [_I64] * 5 + [_PTR],
+    "cohort_gather": [_PTR] * 4 + [_I64] * 4 + [_PTR],
+    "delta_codec_f32": [_PTR] * 2 + [_I64] * 5 + [_PTR],
+    "weighted_avg_f32": [_PTR] * 3 + [_I64] * 5 + [_PTR],
+    "weighted_avg_bf16": [_PTR] * 3 + [_I64] * 5 + [_PTR],
 }
 
 _lib = None

@@ -9,7 +9,10 @@ Tolerances: prefix_avg bitwise (the kernel rounds the same operations as
 the plain walk, in the same order); ce_loss means at 1e-5 relative (the
 card's expf/logf against PyTorch's logsumexp), per-row losses at 1e-5
 relative plus 1e-6 * max|logit| absolute, since logsumexp - gold cancels
-on rows the gold logit dominates.
+on rows the gold logit dominates; cohort_gather and delta_codec bitwise
+(a raw copy; the same IEEE division, rounding and keep set; a NaN that
+delta_codec makes is held as a NaN, whatever its payload); weighted_avg
+at rtol 1e-6, atol 1e-7 (f32 sums of M products in another order).
 """
 import numpy as np
 import pytest
@@ -19,8 +22,12 @@ from repro_torch import kernels
 from repro_torch.kernels.ce_loss.kernel import ce_loss_cuda
 from repro_torch.kernels.ce_loss.ops import ce_loss
 from repro_torch.kernels.ce_loss.ref import ce_loss_ref
+from repro_torch.kernels.cohort_gather import cohort_gather_ref, cohort_take
+from repro_torch.kernels.delta_codec import delta_codec_ref
+from repro_torch.kernels.delta_codec.kernel import delta_codec_cuda
 from repro_torch.kernels.prefix_avg.ops import prefix_avg
 from repro_torch.kernels.prefix_avg.ref import prefix_avg_ref
+from repro_torch.kernels.weighted_avg import weighted_avg, weighted_avg_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -159,3 +166,225 @@ def test_cnn_on_the_card_matches_the_cpu(cuda):
     want = model.apply(params, x)
     got = model.apply(tree_map(lambda t: t.to(cuda), params), x.to(cuda))
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,dtype", [
+    (50, 9 * 784, torch.float32), (50, 9, torch.int64), (50, 1, torch.int64),
+    (50, 1, torch.float32), (11, 3515, torch.bfloat16), (6, 3, torch.bfloat16),
+    (9, 2049, torch.int32)])
+def test_cohort_gather_kernel_bitwise_equals_plain(cuda, n, d, dtype):
+    gen = torch.Generator().manual_seed(d)
+    if dtype.is_floating_point:
+        table = torch.randn((n, d), generator=gen).to(dtype)
+        bits = table.view(torch.int16 if dtype == torch.bfloat16
+                          else torch.int32)
+        bits[1, ::3] = -(2 ** (bits.element_size() * 8 - 1))   # -0.0
+        bits[2, ::2] = -1                                     # NaN payloads
+    else:
+        table = torch.randint(-2 ** 30, 2 ** 30, (n, d), generator=gen,
+                              dtype=dtype)
+    table = table.to(cuda)
+    ids = torch.tensor([2, 1, n - 1, 2, 0], device=cuda)
+    before = kernels.LAUNCHES["cohort_gather"]
+    got = cohort_take(table, ids)
+    assert kernels.LAUNCHES["cohort_gather"] == before + 1
+    want = cohort_gather_ref(table, ids)
+    assert got.dtype == dtype and got.shape == (5, d)
+    view = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    assert torch.equal(got.view(view.get(dtype, dtype)),
+                       want.view(view.get(dtype, dtype)))
+
+
+def test_cohort_gather_kernel_raises_on_ids_out_of_range(cuda):
+    table = torch.zeros((4, 1000), device=cuda)
+    for bad in ([0, 4], [-1], [2, 1 << 40]):
+        with pytest.raises(IndexError):
+            cohort_take(table, torch.tensor(bad, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(cohort_take(table, torch.tensor([3], device=cuda)),
+                       table[3:])
+
+
+def _codec_rows(gen, rows, d):
+    x = 0.01 * torch.randn((rows, d), generator=gen)
+    x[:, ::7] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("codec", ["quant8", "topk", "quant8_topk"])
+@pytest.mark.parametrize("d", [10, 200, 2049, 20000, 156800])
+def test_delta_codec_kernel_bitwise_equals_plain(cuda, codec, d):
+    gen = torch.Generator().manual_seed(d)
+    x = _codec_rows(gen, 5, d).to(cuda)
+    k = max(1, int(0.1 * d)) if codec != "quant8" else 0
+    before = kernels.LAUNCHES["delta_codec"]
+    got = delta_codec_cuda(x, codec, k)
+    assert kernels.LAUNCHES["delta_codec"] == before + 1
+    want = delta_codec_ref(x, codec, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(want.cpu().view(torch.int32),
+                       delta_codec_ref(x.cpu(), codec, k).view(torch.int32))
+
+
+@pytest.mark.parametrize("codec", ["topk", "quant8_topk"])
+def test_delta_codec_kernel_ties_zero_rows_and_k1(cuda, codec):
+    gen = torch.Generator().manual_seed(3)
+    d = 3000
+    x = _codec_rows(gen, 6, d)
+    x[0] = 0.5 * torch.sign(torch.randn(d, generator=gen))  # all tied
+    x[1, 100:2000] = -0.25                                  # 1900 ties
+    x[2] = 0.0
+    x[3] = -0.0
+    x[4, 17] = x[4, 2999] = 3.0                              # tie at the top
+    x = x.to(cuda)
+    for k in (1, 2, 300, d):
+        got = delta_codec_cuda(x, codec, k)
+        want = delta_codec_ref(x, codec, k)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+
+
+def _same_bits_or_both_nan(a, b):
+    nan = torch.isnan(b)
+    return (torch.equal(torch.isnan(a), nan)
+            and torch.equal(a[~nan].view(torch.int32),
+                            b[~nan].view(torch.int32)))
+
+
+@pytest.mark.parametrize("codec", ["quant8", "topk", "quant8_topk"])
+@pytest.mark.parametrize("d", [300, 156800])
+def test_delta_codec_kernel_passes_non_finite_values_like_plain(cuda, codec,
+                                                                d):
+    """A diverging client's NaN or inf is not clipped away: the kernel
+    makes the plain version's NaNs and equals it bitwise elsewhere."""
+    gen = torch.Generator().manual_seed(5)
+    x = _codec_rows(gen, 6, d)
+    x[0, 3] = float("nan")
+    x[1, 7] = float("inf")
+    x[2, 1] = float("-inf")
+    x.view(torch.int32)[2, 9] = -4194303              # 0xffc00001, a -NaN
+    x.view(torch.int32)[3, [2, 5, 8]] = 0x7fc01234    # tied NaN payloads
+    x[3, 4] = float("inf")
+    x = x.to(cuda)
+    for k in ([0] if codec == "quant8" else [1, 2, 4, max(1, d // 10)]):
+        got = delta_codec_cuda(x, codec, k)
+        want = delta_codec_ref(x, codec, k)
+        assert _same_bits_or_both_nan(got, want), k
+        assert bool(torch.isnan(got[0, 3])) and bool(torch.isnan(got[3, 2]))
+
+
+@pytest.mark.parametrize("r,m,d,dtype", [
+    (1250, 5, 156800, torch.float32), (1250, 5, 10, torch.float32),
+    (7, 3, 2049, torch.float32), (3, 1, 4096, torch.float32),
+    (100, 40, 3000, torch.float32), (250, 5, 20000, torch.bfloat16)])
+def test_weighted_avg_kernel_matches_plain(cuda, r, m, d, dtype):
+    gen = torch.Generator().manual_seed(d + m)
+    stacked = torch.randn((m, d), generator=gen).to(cuda, dtype)
+    weights = torch.rand((r, m), generator=gen)
+    weights = (weights / weights.sum(-1, keepdim=True)).to(cuda)
+    before = kernels.LAUNCHES["weighted_avg"]
+    got = weighted_avg({"w": stacked}, weights)["w"]
+    assert kernels.LAUNCHES["weighted_avg"] == before + 1
+    want = weighted_avg_ref(stacked, weights.to(dtype))
+    assert got.dtype == dtype and got.shape == (r, d)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    else:   # one bf16 rounding of f32 sums that may differ in the last bit
+        torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                                   atol=1e-6)
+
+
+def test_quant8_codec_on_the_card_equals_the_cpu(cuda):
+    """The per-leaf quant8 scale divides by 127 as a tensor: PyTorch on CUDA
+    would multiply by the reciprocal of a CPU-scalar divisor instead, and
+    x * fl(1/127) differs from x / 127 in the last bit for some x."""
+    from repro_torch.federated.compression import _quant8
+    gen = torch.Generator().manual_seed(0)
+    for _ in range(200):
+        x = torch.randn((64,), generator=gen) * float(
+            torch.rand((), generator=gen)) * 10
+        q_gpu, s_gpu = _quant8(x.to(cuda))
+        q_cpu, s_cpu = _quant8(x)
+        assert torch.equal(s_gpu.cpu().view(torch.int32),
+                           s_cpu.view(torch.int32))
+        assert torch.equal(q_gpu.cpu(), q_cpu)
+
+
+@pytest.mark.parametrize("over", [
+    {"shapley_impl": "batched"},
+    {"straggler_frac": 0.5, "privacy_sigma": 0.05},
+    {"selector": "power_of_choice"},
+    {"upload_codec": "topk"}, {"upload_codec": "quant8_topk"}])
+def test_small_batched_run_on_the_card_matches_the_cpu(cuda, over):
+    """The default draws do not depend on the device, so the card's batched
+    run must make the CPU's choices, with the sparse codecs too: equal
+    selections, byte counts and dispatches, params and SVs at 1e-4."""
+    from repro_torch.federated.client import ClientConfig
+    from repro_torch.federated.server import FLConfig, run_federated
+    from repro_torch.tree import tree_leaves
+    cfg = FLConfig(**{**dict(n_clients=6, m=3, rounds=3, n_train=600,
+                             n_val=100, n_test=100, eval_every=3,
+                             shapley_max_iters=6, engine="batched",
+                             client=ClientConfig(epochs=2,
+                                                 batches_per_epoch=2,
+                                                 batch_size=16)), **over})
+    gpu, cpu = run_federated(cfg, device=cuda), run_federated(cfg,
+                                                              device="cpu")
+    for a, b in zip(gpu.selections, cpu.selections):
+        np.testing.assert_array_equal(a, b)
+    assert gpu.upload_bytes == cpu.upload_bytes
+    assert gpu.shapley_evals == cpu.shapley_evals
+    assert gpu.dispatches == cpu.dispatches
+    np.testing.assert_allclose(gpu.sv_final, cpu.sv_final, atol=1e-4)
+    for a, b in zip(tree_leaves(gpu.params), tree_leaves(cpu.params)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("codec", ["quant8", "topk", "quant8_topk"])
+def test_batched_engine_on_the_card_is_bitwise_the_loop_engine(cuda, codec):
+    """Same device, same draws: the batched engine trains each client with
+    the loop's own ops, and the codec kernel equals the per-client codec
+    bitwise, so the two engines make the same run bit for bit."""
+    import dataclasses
+    from repro_torch.federated.client import ClientConfig
+    from repro_torch.federated.server import FLConfig, run_federated
+    from repro_torch.tree import tree_leaves
+    cfg = FLConfig(n_clients=6, m=3, rounds=3, n_train=600, n_val=100,
+                   n_test=100, eval_every=3, shapley_max_iters=6,
+                   upload_codec=codec, straggler_frac=0.5,
+                   client=ClientConfig(epochs=2, batches_per_epoch=2,
+                                       batch_size=16))
+    loop = run_federated(cfg, device=cuda)
+    fused = run_federated(dataclasses.replace(cfg, engine="batched"),
+                          device=cuda)
+    for a, b in zip(fused.selections, loop.selections):
+        np.testing.assert_array_equal(a, b)
+    assert fused.upload_bytes == loop.upload_bytes
+    np.testing.assert_array_equal(fused.sv_final, loop.sv_final)
+    for a, b in zip(tree_leaves(fused.params), tree_leaves(loop.params)):
+        assert torch.equal(a, b)
+
+
+def test_batched_path_runs_through_all_five_kernels(cuda):
+    """The batched engine with a codec (streaming SV), then with the dense
+    oracle: every kernel of the slice launches, as often as the path
+    says."""
+    from repro_torch.federated.client import ClientConfig
+    from repro_torch.federated.server import FLConfig, run_federated
+    base = dict(n_clients=6, m=3, rounds=3, n_train=600, n_val=100,
+                n_test=100, eval_every=3, shapley_max_iters=6,
+                engine="batched", client=ClientConfig(epochs=1,
+                                                      batches_per_epoch=2,
+                                                      batch_size=16))
+    kernels.reset_launches()
+    res = run_federated(FLConfig(upload_codec="quant8_topk", **base))
+    streaming = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    dense = run_federated(FLConfig(shapley_impl="batched", **base))
+    valued = [(r.shapley_evals - 2 * 3) // (6 * 3) for r in (res, dense)]
+    assert min(valued) > 0
+    assert streaming == {"prefix_avg": 6 * valued[0], "ce_loss": valued[0],
+                         "cohort_gather": 4 * 3, "delta_codec": 6 * 3,
+                         "weighted_avg": 0}
+    assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": valued[1],
+                                "cohort_gather": 4 * 3, "delta_codec": 0,
+                                "weighted_avg": 6 * valued[1]}

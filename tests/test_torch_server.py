@@ -176,7 +176,9 @@ def test_default_draws_reproduce_and_cpu_never_counts_launches():
     kernels.reset_launches()
     a = run_federated(cfg, model=model, device="cpu")
     b = run_federated(cfg, model=model, device="cpu")
-    assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": 0}
+    assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": 0,
+                                "cohort_gather": 0, "delta_codec": 0,
+                                "weighted_avg": 0}
     for x, y in zip(a.selections, b.selections):
         np.testing.assert_array_equal(x, y)
     np.testing.assert_array_equal(a.sv_final, b.sv_final)
@@ -194,7 +196,8 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("over", [
-    {"engine": "batched"}, {"engine": "scan"}, {"shapley_impl": "batched"},
+    {"engine": "batched", "faults": object()}, {"engine": "scan"},
+    {"engine": "batched", "quarantine": True},
     {"faults": object()}, {"quarantine": True}, {"clients_shards": 2},
 ])
 def test_later_slices_raise_not_implemented(over):
