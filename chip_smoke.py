@@ -30,9 +30,26 @@ exits non-zero without a result line:
    upload_codec="quant8_topk")` against the loop engine on the same config
    and draws (selections and bytes equal, params and SVs at atol 1e-4);
 8. dense oracle: `shapley_impl="batched"` on the batched engine for 4
-   rounds against the streaming estimator on the same walks (atol 1e-4).
+   rounds against the streaming estimator on the same walks (atol 1e-4);
+9. serving: `serve_requests` on full-width, full-depth H2O-Danube-3-4B
+   (bf16 activations, f32 params, random weights from a seed): B = 4
+   prompts of 8192 tokens, 32 greedy decode steps against the 4096-slot
+   window ring, exact Shapley over the 4 requests; prefill must launch
+   flash_attention once per layer (24) and decode never;
+10. serving parity: the same model at full width, 2 layers and window
+   1024, f32, an S = 2048 prompt (flash prefill, S > window, S % window
+   == 0), on the card against the port's CPU path with the same weights,
+   decode teacher-forced with the CPU's tokens: prefill cache and logits
+   at every step at atol 2e-3, rtol 2e-3, request SVs at 1e-4; and on the
+   card, decode logits against `forward` at the same position.
 
-Each path of phases 6-8 runs with the launch counters zeroed just before
+Phase 3 also holds flash_attention against its plain version at one
+layer's full prefill shape (B = 4, Hq = 32, Kh = 8, S = T = 8192, hd =
+120), windows 4096 and 0, bf16 (atol 3e-2) and f32 (atol 2e-5), and at
+ragged S, hd 64 / 128 and Hq = Kh; it times `scaled_dot_product_attention`
+with the same banded mask as a yardstick the port never calls.
+
+Each path of phases 6-9 runs with the launch counters zeroed just before
 it and read just after; every kernel must launch on its path.  The line
 before the last is a JSON object with one entry per kernel; the last line
 is `{"ok": true, "device": {...}}`.
@@ -48,6 +65,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 F32_PEAK_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_PEAK_FLOPS = 989e12    # H100 SXM bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 
 
@@ -55,11 +73,13 @@ def log(*parts):
     print(*parts, flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak: float = F32_PEAK_FLOPS) -> tuple[float, str]:
     """Least time for the work: the larger of bytes over HBM rate and
-    float32 operations over the non-tensor-core peak."""
+    operations over the peak rate for their type (float32 outside the
+    tensor cores unless `peak` says otherwise)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_PEAK_FLOPS * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -626,7 +646,7 @@ def phase_main_path(torch, device):
     res, launches, valued = drive(torch, device, cfg, "main")
     expect_launches("loop main path", launches, {
         "prefix_avg": 6 * valued, "ce_loss": valued, "cohort_gather": 0,
-        "delta_codec": 0, "weighted_avg": 0})
+        "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0})
     require(res.final_acc > 0.2, f"final accuracy {res.final_acc} <= 0.2")
     return launches
 
@@ -652,7 +672,7 @@ def phase_batched_path(torch, device):
     expect_launches("batched path", launches, {
         "prefix_avg": 6 * valued, "ce_loss": valued,
         "cohort_gather": 4 * cfg.rounds, "delta_codec": 6 * cfg.rounds,
-        "weighted_avg": 0})
+        "weighted_avg": 0, "flash_attention": 0})
     same = all((a == b).all() for a, b in zip(res.selections,
                                               loop.selections))
     p_err = _max_err(res.params, loop.params)
@@ -686,7 +706,7 @@ def phase_dense_oracle(torch, device):
     dense, launches, valued = drive(torch, device, cfg, "dense")
     expect_launches("dense-oracle path", launches, {
         "prefix_avg": 0, "ce_loss": valued, "cohort_gather": 4 * cfg.rounds,
-        "delta_codec": 0, "weighted_avg": 6 * valued})
+        "delta_codec": 0, "weighted_avg": 6 * valued, "flash_attention": 0})
     stream, _, _ = drive(torch, device, FLConfig(rounds=4, engine="batched"),
                          "streaming")
     same = all((a == b).all() for a, b in zip(dense.selections,
@@ -701,6 +721,294 @@ def phase_dense_oracle(torch, device):
     return launches
 
 
+def band_pairs(s_len: int, t_len: int, window: int) -> int:
+    """Unmasked (query, key) pairs of causal attention with query and key
+    positions from 0 and an optional window: the work the data needs."""
+    import numpy as np
+    q = np.arange(s_len, dtype=np.int64)
+    hi = np.minimum(q, t_len - 1)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros_like(q)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _plain_by_heads(torch, q, k, v, window, heads=8):
+    """The plain version over slices of <= `heads` query heads of the
+    (B, S, Hq, hd) tensors (dense scores of all 128 heads at S = 8192
+    would take 34 GB); yields (b, h0, h1, plain output (h, S, hd))."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    b_n, _, hq, _ = q.shape
+    g = hq // k.shape[2]
+    for b in range(b_n):
+        for h0 in range(0, hq, heads):
+            h1 = min(h0 + heads, hq)
+            idx = torch.arange(h0, h1, device=q.device) // g
+            yield b, h0, h1, attention_ref(
+                q[b, :, h0:h1].transpose(0, 1),
+                k[b].index_select(1, idx).transpose(0, 1),
+                v[b].index_select(1, idx).transpose(0, 1), window=window)
+
+
+def _sdpa_ms(torch, q, k, v, window):
+    """scaled_dot_product_attention on the same inputs with the same banded
+    mask (KV repeated per group beforehand, outside the timing), under the
+    first backend that takes it; (ms, backend name, output)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2)
+    kh = k.transpose(1, 2).repeat_interleave(g, dim=1)
+    vh = v.transpose(1, 2).repeat_interleave(g, dim=1)
+    s_len, t_len = q.shape[1], k.shape[1]
+    qp = torch.arange(s_len, device=q.device)[:, None]
+    kp = torch.arange(t_len, device=q.device)[None, :]
+    mask = kp <= qp
+    if window > 0:
+        mask &= kp > qp - window
+    errors = []
+    for backend in (SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(qh, kh, vh,
+                                                     attn_mask=mask)
+                ms = time_ms(lambda _: F.scaled_dot_product_attention(
+                    qh, kh, vh, attn_mask=mask), iters=5, warmup=1)
+            return ms, backend.name, out.transpose(1, 2)
+        except RuntimeError as e:
+            errors.append(f"{backend.name}: {str(e).splitlines()[0]}")
+    log(f"[flash_attention] no SDPA backend took the banded mask: {errors}")
+    return None, None, None
+
+
+def check_flash_attention(torch, device):
+    """Against the plain dense version at one layer's full H2O-Danube-3-4B
+    prefill shape (windows 4096 and 0, bf16 and f32) and at ragged and
+    other head shapes; times kernel, plain version and SDPA at the main
+    path's shape (bf16, window 4096), whose entry is the JSON line's."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    saved = kernels.LAUNCHES["flash_attention"]
+    entry, worst = None, 0.0
+    b, hq, kh, s_len, hd = 4, 32, 8, 8192, 120
+    base = [torch.randn(shape, generator=gen, device=device)
+            for shape in ((b, s_len, hq, hd), (b, s_len, kh, hd),
+                          (b, s_len, kh, hd))]
+    for dtype, window in ((torch.bfloat16, 4096), (torch.bfloat16, 0),
+                          (torch.float32, 4096), (torch.float32, 0)):
+        q, k, v = (x.to(dtype) for x in base)
+        got = flash_attention_cuda(q, k, v, window=window)
+        err = 0.0
+        for bb, h0, h1, want in _plain_by_heads(torch, q, k, v, window):
+            err = max(err, float((got[bb, :, h0:h1].transpose(0, 1).float()
+                                  - want.float()).abs().max()))
+        atol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+        require(err <= atol, f"flash_attention {dtype} window {window}: "
+                f"max err {err} > {atol}")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        ms = time_ms(lambda _: flash_attention_cuda(q, k, v, window=window),
+                     iters=5, warmup=1)
+        pairs = band_pairs(s_len, s_len, window) * b * hq
+        n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
+        peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else F32_PEAK_FLOPS
+        b_ms, b_by = bound_ms(n_bytes, 4 * hd * pairs, peak)
+        line = (f"[flash_attention] B={b} Hq={hq} Kh={kh} S=T={s_len} "
+                f"hd={hd} window={window} {str(dtype)[6:]}: max abs err "
+                f"{err:.2e} (atol {atol:.0e}); kernel {ms:.4f} ms "
+                f"({4 * hd * pairs / ms / 1e9:.2f} TFLOP/s on {pairs} "
+                f"unmasked pairs), bound {b_ms:.4f} ms ({b_by})")
+        if entry is None:           # the main path's call: bf16, 4096
+            plain_ms = time_ms(lambda _: [w for *_, w in _plain_by_heads(
+                torch, q, k, v, window)], iters=1, warmup=0)
+            lib_ms, backend, lib_out = _sdpa_ms(torch, q, k, v, window)
+            if lib_out is not None:
+                line += (f", plain {plain_ms:.4f} ms, SDPA ({backend}) "
+                         f"{lib_ms:.4f} ms, SDPA vs kernel max diff "
+                         f"{float((lib_out.float() - got.float()).abs().max()):.2e}")
+                del lib_out
+            else:
+                line += f", plain {plain_ms:.4f} ms"
+            entry = {"name": "flash_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "replaces": "src/repro/kernels/flash_attention/kernel.py:74",
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib_ms,
+                     "library": f"scaled_dot_product_attention ({backend})",
+                     "max_abs_err": err}
+        log(line)
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    del base
+    for bb, s_e, hq_e, kh_e, hd_e, win in ((2, 1000, 8, 2, 64, 256),
+                                           (1, 1000, 8, 2, 128, 0),
+                                           (2, 777, 6, 6, 120, 100),
+                                           (1, 333, 4, 4, 128, 4096)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (torch.randn(shape, generator=gen, device=device
+                                   ).to(dtype)
+                       for shape in ((bb, s_e, hq_e, hd_e),
+                                     (bb, s_e, kh_e, hd_e),
+                                     (bb, s_e, kh_e, hd_e)))
+            got = flash_attention_gqa(q, k, v, window=win)
+            want = flash_attention_gqa(q.cpu(), k.cpu(), v.cpu(), window=win)
+            err = float((got.cpu().float() - want.float()).abs().max())
+            atol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+            require(err <= atol, f"flash_attention edge B={bb} S={s_e} "
+                    f"Hq={hq_e} Kh={kh_e} hd={hd_e} window={win} {dtype}: "
+                    f"max err {err}")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+        log(f"[flash_attention] edge B={bb} S=T={s_e} Hq={hq_e} Kh={kh_e} "
+            f"hd={hd_e} window={win}: bf16 and f32 within atol")
+    kernels.LAUNCHES["flash_attention"] = saved  # checks do not count
+    log(f"[flash_attention] worst f32 error over all shapes {worst:.2e}; "
+        f"the JSON entry is the main path's call (bf16, window 4096)")
+    return entry
+
+
+def phase_serve(torch, device):
+    """`serve_requests` on full-width, full-depth H2O-Danube-3-4B: B = 4
+    prompts of 8192 tokens, 32 greedy steps, exact Shapley over the 4
+    requests, with the launch counters zeroed just before and read just
+    after (a short warm-up serve goes first)."""
+    import math
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm import model as M
+    from repro_torch.models.lm.config import param_count
+    from repro_torch.serve import serve_requests
+
+    cfg = get_config("h2o_danube_3_4b")
+    b, s_len, gen_len = 4, 8192, 32
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, gen, device=device)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"window {cfg.window}, {param_count(cfg)} params ({cfg.param_dtype} "
+        f"params, {cfg.dtype} activations) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tokens = torch.randint(0, cfg.vocab, (b, s_len), generator=gen,
+                           device=device)
+    serve_requests(cfg, params, tokens[:1, :2048], 2, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launches()
+    res = serve_requests(cfg, params, tokens, gen_len, device=device)
+    launches = dict(kernels.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    sv = res.sv.cpu().double()
+    lp = res.logprob_sum.cpu()
+    grand = float(lp.mean())
+    log(f"[serve] B={b} S={s_len} gen_len={gen_len}: prefill "
+        f"{res.prefill_s * 1e3:.2f} ms, decode {res.decode_s * 1e3:.2f} ms "
+        f"({res.decode_s * 1e3 / gen_len:.3f} ms per step, "
+        f"{res.tokens_per_s:.2f} tokens/s), Shapley {res.shapley_s * 1e3:.3f}"
+        f" ms (share of the request batch "
+        f"{100 * res.shapley_s / (res.prefill_s + res.decode_s + res.shapley_s):.3f}"
+        f" %), peak memory {peak_gb:.3f} GB")
+    log(f"[serve] logprob sums {lp.tolist()}; SVs {sv.tolist()} (sum "
+        f"{float(sv.sum()):.6f}, grand-coalition utility {grand:.6f}); "
+        f"first generated ids {res.generated[:, :8].tolist()}; launches "
+        f"{launches}")
+    require(launches["flash_attention"] == cfg.n_layers,
+            f"serve: flash_attention launched {launches['flash_attention']} "
+            f"times, expected {cfg.n_layers} (once per layer in prefill)")
+    require(all(n == 0 for k, n in launches.items()
+                if k != "flash_attention"), "serve: another kernel launched")
+    require(tuple(res.generated.shape) == (b, gen_len)
+            and int(res.generated.min()) >= 0
+            and int(res.generated.max()) < cfg.vocab, "serve: bad tokens")
+    require(bool(torch.isfinite(lp).all()) and float(lp.max()) <= 0.0,
+            "serve: log-prob sums must be finite and <= 0")
+    require(bool(torch.isfinite(sv).all()) and math.isclose(
+        float(sv.sum()), grand, rel_tol=1e-5, abs_tol=1e-4),
+        "serve: the SVs must sum to the grand coalition's utility")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_serve_parity(torch, device):
+    """Full width, 2 layers, window 1024, f32, S = 2048, B = 2: the card
+    against the port's CPU path with the same weights, decode teacher-
+    forced with the CPU's greedy tokens; then decode against `forward` on
+    the card."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.models.lm import model as M
+    from repro_torch.serve import request_shapley
+
+    cfg = dataclasses.replace(get_config("h2o_danube_3_4b"), n_layers=2,
+                              window=1024, dtype="float32")
+    b, s_len, gen_len = 2, 2048, 8
+    saved = kernels.LAUNCHES["flash_attention"]
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(1),
+                           device=device)
+    cpu_params = params_from_numpy(params_to_numpy(params))
+    tokens = torch.randint(0, cfg.vocab, (b, s_len),
+                           generator=torch.Generator().manual_seed(2))
+    runs = {}
+    fed = None
+    for name, dev, p in (("cpu", torch.device("cpu"), cpu_params),
+                         ("card", device, params)):
+        t0 = time.perf_counter()
+        cache, lg = M.prefill_step(cfg, p, {"tokens": tokens.to(dev)},
+                                   cache_len=s_len + gen_len)
+        # copies: decode writes the cache in place
+        kv = {k: cache[k].to("cpu", copy=True) for k in ("k", "v")}
+        logits, lp_sum = [lg.cpu()], torch.zeros((b,))
+        if fed is None:                   # the CPU's greedy choices
+            fed = [torch.argmax(lg, -1)]
+        for i in range(gen_len):
+            cache, lg = M.decode_step(cfg, p, cache,
+                                      {"token": fed[i].to(dev)})
+            logits.append(lg.cpu())
+            if len(fed) <= i + 1:
+                fed.append(torch.argmax(lg, -1))
+            lp = torch.log_softmax(lg.cpu(), -1)
+            lp_sum += torch.gather(lp, 1, fed[i + 1][:, None])[:, 0]
+        runs[name] = (kv, logits, lp_sum,
+                      request_shapley(lp_sum.to(dev)).cpu())
+        log(f"[serve-parity] {name}: prefill + {gen_len} decode steps in "
+            f"{time.perf_counter() - t0:.2f} s")
+    (kv_c, lg_c, _, sv_c), (kv_g, lg_g, _, sv_g) = runs["cpu"], runs["card"]
+    kv_err = max(float((kv_g[k] - kv_c[k]).abs().max()) for k in kv_c)
+    lg_err = max(float((a - b_).abs().max()) for a, b_ in zip(lg_g, lg_c))
+    sv_err = float((sv_g - sv_c).abs().max())
+    ok_kv = all(torch.allclose(kv_g[k], kv_c[k], atol=2e-3, rtol=2e-3)
+                for k in kv_c)
+    ok_lg = all(torch.allclose(a, b_, atol=2e-3, rtol=2e-3)
+                for a, b_ in zip(lg_g, lg_c))
+    log(f"[serve-parity] full width, 2 layers, window 1024 (cut from 24 "
+        f"layers and 4096 so the CPU run is short and S > window, S % window "
+        f"== 0 hold), f32, B={b}, S={s_len}: cache max err {kv_err:.2e}, "
+        f"logits max err over {gen_len + 1} steps {lg_err:.2e} (atol 2e-3, "
+        f"rtol 2e-3), SV max err {sv_err:.2e} (atol 1e-4)")
+    require(ok_kv and ok_lg and sv_err <= 1e-4,
+            "serving on the card disagrees with the CPU")
+
+    seq = torch.cat([tokens] + [t[:, None] for t in fed[:3]], 1).to(device)
+    f_err = 0.0
+    for i in range(3):
+        full, _ = M.forward(cfg, params, {"tokens": seq[:, :s_len + i]})
+        want = full[:, -1].cpu()
+        require(torch.allclose(lg_g[i], want, atol=2e-3, rtol=2e-3),
+                f"card decode step {i} disagrees with forward")
+        f_err = max(f_err, float((lg_g[i] - want).abs().max()))
+        del full
+    log(f"[serve-parity] card decode vs forward at the same position, 3 "
+        f"steps: max err {f_err:.2e} (atol 2e-3, rtol 2e-3)")
+    kernels.LAUNCHES["flash_attention"] = saved   # comparisons do not count
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -713,12 +1021,15 @@ def main() -> int:
     entries = [check_prefix_avg(torch, device), check_ce_loss(torch, device),
                check_cohort_gather(torch, device),
                check_delta_codec(torch, device),
-               check_weighted_avg(torch, device)]
+               check_weighted_avg(torch, device),
+               check_flash_attention(torch, device)]
     phase_full_width_shapley(torch, device)
     phase_reference_run(torch, device)
     paths = {"loop": phase_main_path(torch, device),
              "batched": phase_batched_path(torch, device),
-             "dense_oracle": phase_dense_oracle(torch, device)}
+             "dense_oracle": phase_dense_oracle(torch, device),
+             "serve": phase_serve(torch, device)}
+    phase_serve_parity(torch, device)
     for e in entries:
         by_path = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())

@@ -38,7 +38,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES = {"prefix_avg": 0, "ce_loss": 0, "cohort_gather": 0,
-            "delta_codec": 0, "weighted_avg": 0}
+            "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -131,7 +131,7 @@ def build() -> Build:
     return Build(target, time.perf_counter() - t0, "\n".join(logs))
 
 
-_PTR, _I64 = ctypes.c_void_p, ctypes.c_int64
+_PTR, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 # C entry points: each takes device pointers, sizes, the device index and
 # the stream, and returns cudaGetLastError() after its launch
 _SIGNATURES = {
@@ -143,6 +143,8 @@ _SIGNATURES = {
     "delta_codec_f32": [_PTR] * 2 + [_I64] * 5 + [_PTR],
     "weighted_avg_f32": [_PTR] * 3 + [_I64] * 5 + [_PTR],
     "weighted_avg_bf16": [_PTR] * 3 + [_I64] * 5 + [_PTR],
+    "flash_attention_f32": [_PTR] * 5 + [_I64] * 20 + [_F32, _I64, _PTR],
+    "flash_attention_bf16": [_PTR] * 5 + [_I64] * 20 + [_F32, _I64, _PTR],
 }
 
 _lib = None

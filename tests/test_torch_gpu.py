@@ -12,7 +12,11 @@ relative plus 1e-6 * max|logit| absolute, since logsumexp - gold cancels
 on rows the gold logit dominates; cohort_gather and delta_codec bitwise
 (a raw copy; the same IEEE division, rounding and keep set; a NaN that
 delta_codec makes is held as a NaN, whatever its payload); weighted_avg
-at rtol 1e-6, atol 1e-7 (f32 sums of M products in another order).
+at rtol 1e-6, atol 1e-7 (f32 sums of M products in another order);
+flash_attention at 2e-5 in float32 (f32 sums in another order) and 3e-2
+in bf16 (one bf16 rounding of outputs of magnitude ~1, the reference
+test's bound); the served model card-vs-CPU at 1e-4 (float32 products in
+another order).
 """
 import numpy as np
 import pytest
@@ -384,7 +388,156 @@ def test_batched_path_runs_through_all_five_kernels(cuda):
     assert min(valued) > 0
     assert streaming == {"prefix_avg": 6 * valued[0], "ce_loss": valued[0],
                          "cohort_gather": 4 * 3, "delta_codec": 6 * 3,
-                         "weighted_avg": 0}
+                         "weighted_avg": 0, "flash_attention": 0}
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": valued[1],
                                 "cohort_gather": 4 * 3, "delta_codec": 0,
-                                "weighted_avg": 6 * valued[1]}
+                                "weighted_avg": 6 * valued[1],
+                                "flash_attention": 0}
+
+
+# ------------------------------------------------------ flash_attention ---
+def _attn_inputs(seed, b, s, t, hq, kh, hd, dtype, device):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(device, dtype)
+            for shape in ((b, s, hq, hd), (b, t, kh, hd), (b, t, kh, hd))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,kh,hd,win", [
+    (2, 256, 8, 2, 64, 0), (2, 256, 8, 2, 64, 64), (1, 1000, 8, 2, 120, 128),
+    (1, 1000, 8, 2, 120, 0), (2, 300, 4, 4, 128, 100),
+    (1, 130, 4, 1, 128, 0), (1, 257, 2, 1, 32, 4096),
+    (1, 64, 4, 2, 120, 1)])
+def test_flash_attention_kernel_matches_plain(cuda, b, s, hq, kh, hd, win,
+                                              dtype):
+    """GQA G = 1..4, hd 32/64/120/128, ragged S, windows narrower and wider
+    than a tile, against the plain version on the same inputs."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q, k, v = _attn_inputs(s + hd + win, b, s, s, hq, kh, hd, dtype, cuda)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = flash_attention_gqa(q, k, v, window=win)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_gqa(q.cpu(), k.cpu(), v.cpu(), window=win)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (b, s, hq, hd)
+    atol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(got.cpu().float(), want.float(), atol=atol,
+                               rtol=0)
+
+
+def test_flash_attention_kernel_reads_strided_views_and_positions(cuda):
+    """q as a column slice, k/v as (B, Kh, T, hd) transposed views, query
+    positions 40..79 of 80 keys, causal and not."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    gen = torch.Generator().manual_seed(5)
+    wide = torch.randn((2, 40, 4, 2 * 120), generator=gen)
+    k = torch.randn((2, 2, 80, 120), generator=gen).transpose(1, 2)
+    v = torch.randn((2, 2, 80, 120), generator=gen).transpose(1, 2)
+    q = wide[..., :120]
+    pos = torch.arange(40, 80)
+    for causal, win in ((True, 0), (True, 24), (False, 0), (False, 24)):
+        got = flash_attention_gqa(q.to(cuda), k.to(cuda), v.to(cuda),
+                                  q_pos=pos.to(cuda), causal=causal,
+                                  window=win)
+        want = flash_attention_gqa(q, k, v, q_pos=pos, causal=causal,
+                                   window=win)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+
+
+def test_flash_attention_bh_contract_on_the_card(cuda):
+    from repro_torch.kernels.flash_attention import (
+        attention_ref, flash_attention,
+    )
+    gen = torch.Generator().manual_seed(6)
+    q, k, v = (torch.randn((6, 200, 64), generator=gen) for _ in range(3))
+    before = kernels.LAUNCHES["flash_attention"]
+    got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), window=50)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(got.cpu(), attention_ref(q, k, v, window=50),
+                               atol=2e-5, rtol=0)
+
+
+def test_flash_attention_cuda_route_raises_instead_of_falling_back(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q, k, v = _attn_inputs(0, 1, 64, 64, 4, 2, 64, torch.float32, cuda)
+    before = kernels.LAUNCHES["flash_attention"]
+    bad = [((q.half(), k.half(), v.half()), TypeError),
+           ((q, k.double(), v), TypeError),
+           ((q, k.cpu(), v), ValueError),
+           ((q[..., :1].expand(1, 64, 4, 160).contiguous(),
+             k[..., :1].expand(1, 64, 2, 160).contiguous(),
+             v[..., :1].expand(1, 64, 2, 160).contiguous()), ValueError),
+           ((q[:, :, :3], k, v), ValueError),
+           ((q, k.transpose(-1, -2).contiguous().transpose(-1, -2), v),
+            ValueError)]
+    for args, err in bad:
+        with pytest.raises(err):
+            flash_attention_gqa(*args)
+    assert kernels.LAUNCHES["flash_attention"] == before
+
+
+@pytest.mark.parametrize("s", [256, 200])
+def test_model_flash_branch_runs_the_kernel(cuda, s):
+    """attention(impl="flash") on the card launches the kernel once and
+    matches the plain blocked loop of the CPU route, also where T is not a
+    multiple of kv_chunk (both drop the keys past the last whole block,
+    as the reference's scan does)."""
+    from repro_torch.models.lm.attention import attention
+    q, k, v = _attn_inputs(7, 2, s, s, 8, 2, 120, torch.float32, "cpu")
+    pos = torch.arange(s)
+    want = attention(q, k, v, q_pos=pos, window=96, impl="flash",
+                     kv_chunk=64)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = attention(q.to(cuda), k.to(cuda), v.to(cuda), q_pos=pos.to(cuda),
+                    window=96, impl="flash", kv_chunk=64)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+
+
+def _served_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("h2o_danube_3_4b").reduced(n_layers=2)
+    return dataclasses.replace(cfg, attn_impl="flash", attn_chunk=32)
+
+
+def test_serve_on_the_card_matches_the_cpu(cuda):
+    """A reduced H2O-Danube-3 (flash prefill, 64-slot window ring) served
+    on the card with the CPU run's weights: the same tokens, log-prob sums
+    and request SVs; prefill launches the kernel once per layer, decode
+    never."""
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.models.lm import model as M
+    from repro_torch.serve import serve_requests
+    cfg = _served_cfg()
+    cpu_params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (4, 128),
+                           generator=torch.Generator().manual_seed(1))
+    want = serve_requests(cfg, cpu_params, tokens, 6, device="cpu")
+    kernels.reset_launches()
+    got = serve_requests(cfg, params_from_numpy(params_to_numpy(cpu_params),
+                                                device=cuda), tokens, 6)
+    assert kernels.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert torch.equal(got.generated.cpu(), want.generated)
+    torch.testing.assert_close(got.logprob_sum.cpu(), want.logprob_sum,
+                               atol=1e-4, rtol=0)
+    torch.testing.assert_close(got.sv.cpu(), want.sv, atol=1e-4, rtol=0)
+
+
+def test_decode_on_the_card_matches_forward(cuda):
+    import dataclasses
+    from repro_torch.models.lm import model as M
+    cfg = _served_cfg()
+    params = M.init_params(cfg, torch.Generator(device=cuda).manual_seed(2))
+    tokens = torch.randint(0, cfg.vocab, (2, 131), device=cuda,
+                           generator=torch.Generator(device=cuda
+                                                     ).manual_seed(3))
+    cache, lg = M.prefill_step(cfg, params, {"tokens": tokens[:, :128]},
+                               cache_len=136)
+    dense = dataclasses.replace(cfg, attn_impl="dense")
+    for i in range(3):
+        full, _ = M.forward(dense, params, {"tokens": tokens[:, :128 + i]})
+        torch.testing.assert_close(lg, full[:, -1], atol=2e-3, rtol=2e-3)
+        cache, lg = M.decode_step(cfg, params, cache,
+                                  {"token": tokens[:, 128 + i]})
