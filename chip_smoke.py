@@ -11,14 +11,20 @@ exits non-zero without a result line:
 1. environment: torch / CUDA versions, the card's name and power limit
    (nvidia-smi), the TF32 switches the port turns off;
 2. build: nvcc builds the port's CUDA kernels from `src/repro_torch/
-   kernels/csrc` (sm_90a) and prints the build time and ptxas report;
+   kernels/csrc` (sm_90a) and prints the build time and, for each
+   entry function, ptxas's registers, shared memory and spills;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card at the main path's shapes and at edge shapes (prefix_avg,
    cohort_gather and delta_codec bitwise; ce_loss at rtol 1e-5 per model
    mean, and per row at rtol 1e-5 plus atol 1e-6 * max|logit|;
    weighted_avg at rtol 1e-6, atol 1e-7), with CUDA-event times of kernel,
    plain version and, where one PyTorch call computes the same function,
-   that call, beside the least time the card could take;
+   that call, beside the least time the card could take.  For the two
+   kernels redesigned last (ce_loss: rows packed per block, 16-byte
+   loads, a persistent grid; flash_attention: bf16 on wgmma tensor cores
+   fed by a TMA ring) it prints ce_loss's time over F.cross_entropy's at
+   its four shapes, through the wrapper and through the C entry alone,
+   and flash_attention's TFLOP/s and time over SDPA's;
 4. full-width Shapley: streaming GTG-Shapley of five full-width MNIST MLPs
    on the card against the port's CPU path on the same walks (atol 1e-5);
 5. reference run: a small GreedyFed run on the card against the same run
@@ -47,7 +53,11 @@ Phase 3 also holds flash_attention against its plain version at one
 layer's full prefill shape (B = 4, Hq = 32, Kh = 8, S = T = 8192, hd =
 120), windows 4096 and 0, bf16 (atol 3e-2) and f32 (atol 2e-5), and at
 ragged S, hd 64 / 128 and Hq = Kh; it times `scaled_dot_product_attention`
-with the same banded mask as a yardstick the port never calls.
+with the same banded mask as a yardstick the port never calls.  The bf16
+route rounds the softmax probabilities to bf16 before they multiply V
+(the reference keeps them in f32); its error is printed and held to the
+same atol 3e-2, and besides elementwise to 5e-3 + 1e-2 |want| and in the
+mean to 5e-3 of mean |want|.
 
 Each path of phases 6-9 runs with the launch counters zeroed just before
 it and read just after; every kernel must launch on its path.  The line
@@ -57,6 +67,8 @@ is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -124,12 +136,24 @@ def phase_environment(torch):
 
 
 def phase_build():
+    """Build the kernels; print each entry function ptxas compiled
+    (demangled where c++filt is found) with its registers, shared memory
+    and spills."""
     from repro_torch import kernels
     b = kernels.build()
     kernels.library()
     log(f"[build] {b.path.name} built in {b.seconds:.2f} s")
+    names = re.findall(r"Compiling entry function '(\w+)'", b.log)
+    filt = shutil.which("c++filt")
+    plain = (subprocess.run([filt, *names], capture_output=True, text=True,
+                            check=True, timeout=60).stdout.splitlines()
+             if filt and names else names)
+    demangled = dict(zip(names, plain))
     for line in b.log.splitlines():
-        if "registers" in line or "spill" in line:
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            log(f"[build] entry {demangled[entry[1]]}")
+        elif "registers" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
 
@@ -216,7 +240,9 @@ def check_ce_loss(torch, device):
     vocabularies, each timed; the JSON entry is the main path's call."""
     import torch.nn.functional as F
     from repro_torch import kernels
-    from repro_torch.kernels.ce_loss.kernel import ce_loss_cuda
+    from repro_torch.kernels.ce_loss.kernel import (
+        VARIANTS, ce_loss_cuda, launch_plan,
+    )
     from repro_torch.kernels.ce_loss.ref import ce_loss_ref
 
     gen = torch.Generator().manual_seed(1)
@@ -252,6 +278,17 @@ def check_ce_loss(torch, device):
         tiled = labels.repeat(b)
         saved = kernels.LAUNCHES["ce_loss"]
         ms = time_ms(lambda i: ce_loss_cuda(copies[i % k], labels), iters=40)
+        # the C entry alone as well: at V = 10 the wrapper's checks and
+        # plan cost the host about as much as the launch costs the card
+        plan = launch_plan(b * rows, v, torch.cuda.get_device_properties(
+            device).multi_processor_count)
+        c_entry = getattr(kernels.library(), "ce_loss_f32"
+                          if dtype == torch.float32 else "ce_loss_bf16")
+        out = torch.empty((b * rows,), dtype=torch.float32, device=device)
+        c_entry_ms = time_ms(lambda i: kernels.check_launch(c_entry(
+            copies[i % k].data_ptr(), labels.data_ptr(), out.data_ptr(),
+            b * rows, v, rows, VARIANTS.index(plan.variant), plan.blocks,
+            out.device.index, kernels.stream_ptr(out)), "ce_loss"), iters=40)
         kernels.LAUNCHES["ce_loss"] = saved    # timing launches do not count
         plain_ms = time_ms(lambda i: ce_loss_ref(
             copies[i % k].view(b, rows, v), labels), iters=40)
@@ -261,17 +298,21 @@ def check_ce_loss(torch, device):
         # ~4 flops per logit (max, subtract, exp, add)
         b_ms, b_by = bound_ms(n_in + rows * 8 + b * rows * 4,
                               4 * b * rows * v)
-        log(f"[ce_loss] rows={b * rows} V={v} {str(dtype)[6:]}: max abs err "
+        log(f"[ce_loss] rows={b * rows} V={v} {str(dtype)[6:]} "
+            f"({plan.variant} variant): max abs err "
             f"{err:.2e} (rtol 1e-5 + atol {atol:.1e}; model means rtol "
             f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"F.cross_entropy {library_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"F.cross_entropy {library_ms:.4f} ms (kernel / F.cross_entropy "
+            f"{ms / library_ms:.3f}), bound {b_ms:.4f} ms ({b_by}); the C "
+            f"entry alone {c_entry_ms:.4f} ms ({c_entry_ms / library_ms:.3f} "
+            f"of F.cross_entropy)")
         if entry is None:
             entry = {"name": "ce_loss", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/ce_loss.cu",
                      "replaces": "src/repro/kernels/ce_loss/kernel.py:54",
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": library_ms}
+                     "bound_by": b_by, "library_ms": library_ms,
+                     "c_entry_ms": c_entry_ms}
         del copies
     entry["max_abs_err"] = worst
     return entry
@@ -731,6 +772,39 @@ def band_pairs(s_len: int, t_len: int, window: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+class Bf16AttentionError:
+    """The bf16 route's error against the plain version, summed over
+    slices: the max |err| (atol 3e-2), its worst share of the elementwise
+    bound 5e-3 + 1e-2 |want|, and mean |err| / mean |want| (at most 5e-3).
+    Rounding P to bf16 moves an output by at most 2^-8 of sum p |v| / l,
+    which in rows of a few keys is ~4e-3 where the output cancels to near
+    0; the relative terms hold the typical outputs (|want| ~ 0.02 at 8192
+    keys), which the atol alone would not."""
+
+    def __init__(self):
+        self.max, self.share, self.err_sum, self.want_sum = 0.0, 0.0, 0.0, 0.0
+
+    def add(self, got, want):
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        self.max = max(self.max, float(diff.max()))
+        self.share = max(self.share, float(
+            (diff / (5e-3 + 1e-2 * want.abs())).max()))
+        self.err_sum += float(diff.sum())
+        self.want_sum += float(want.abs().sum())
+        return self
+
+    def check(self, what):
+        mean_rel = self.err_sum / max(self.want_sum, 1e-30)
+        require(self.max <= 3e-2 and self.share <= 1.0 and mean_rel <= 5e-3,
+                f"flash_attention bf16 {what}: max err {self.max} (atol "
+                f"3e-2), {self.share:.3f} of 5e-3 + 1e-2 |want|, mean err / "
+                f"mean |want| {mean_rel:.2e} (at most 5e-3)")
+        return (f"max abs err {self.max:.2e} (atol 3e-2), {self.share:.3f} "
+                f"of 5e-3 + 1e-2 |want|, mean err / mean |want| "
+                f"{mean_rel:.2e} (<= 5e-3)")
+
+
 def _plain_by_heads(torch, q, k, v, window, heads=8):
     """The plain version over slices of <= `heads` query heads of the
     (B, S, Hq, hd) tensors (dense scores of all 128 heads at S = 8192
@@ -800,14 +874,18 @@ def check_flash_attention(torch, device):
                           (torch.float32, 4096), (torch.float32, 0)):
         q, k, v = (x.to(dtype) for x in base)
         got = flash_attention_cuda(q, k, v, window=window)
-        err = 0.0
+        err, bf16 = 0.0, Bf16AttentionError()
         for bb, h0, h1, want in _plain_by_heads(torch, q, k, v, window):
-            err = max(err, float((got[bb, :, h0:h1].transpose(0, 1).float()
-                                  - want.float()).abs().max()))
-        atol = 3e-2 if dtype == torch.bfloat16 else 2e-5
-        require(err <= atol, f"flash_attention {dtype} window {window}: "
-                f"max err {err} > {atol}")
-        if dtype == torch.float32:
+            out = got[bb, :, h0:h1].transpose(0, 1)
+            err = max(err, float((out.float() - want.float()).abs().max()))
+            if dtype == torch.bfloat16:
+                bf16.add(out, want)
+        if dtype == torch.bfloat16:
+            verdict = bf16.check(f"window {window}")
+        else:
+            require(err <= 2e-5, f"flash_attention {dtype} window {window}: "
+                    f"max err {err} > 2e-5")
+            verdict = f"max abs err {err:.2e} (atol 2e-5)"
             worst = max(worst, err)
         ms = time_ms(lambda _: flash_attention_cuda(q, k, v, window=window),
                      iters=5, warmup=1)
@@ -816,8 +894,8 @@ def check_flash_attention(torch, device):
         peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else F32_PEAK_FLOPS
         b_ms, b_by = bound_ms(n_bytes, 4 * hd * pairs, peak)
         line = (f"[flash_attention] B={b} Hq={hq} Kh={kh} S=T={s_len} "
-                f"hd={hd} window={window} {str(dtype)[6:]}: max abs err "
-                f"{err:.2e} (atol {atol:.0e}); kernel {ms:.4f} ms "
+                f"hd={hd} window={window} {str(dtype)[6:]}: {verdict}; "
+                f"kernel {ms:.4f} ms "
                 f"({4 * hd * pairs / ms / 1e9:.2f} TFLOP/s on {pairs} "
                 f"unmasked pairs), bound {b_ms:.4f} ms ({b_by})")
         if entry is None:           # the main path's call: bf16, 4096
@@ -826,7 +904,8 @@ def check_flash_attention(torch, device):
             lib_ms, backend, lib_out = _sdpa_ms(torch, q, k, v, window)
             if lib_out is not None:
                 line += (f", plain {plain_ms:.4f} ms, SDPA ({backend}) "
-                         f"{lib_ms:.4f} ms, SDPA vs kernel max diff "
+                         f"{lib_ms:.4f} ms (kernel / SDPA {ms / lib_ms:.3f}), "
+                         f"SDPA vs kernel max diff "
                          f"{float((lib_out.float() - got.float()).abs().max()):.2e}")
                 del lib_out
             else:
@@ -854,15 +933,17 @@ def check_flash_attention(torch, device):
                                      (bb, s_e, kh_e, hd_e)))
             got = flash_attention_gqa(q, k, v, window=win)
             want = flash_attention_gqa(q.cpu(), k.cpu(), v.cpu(), window=win)
-            err = float((got.cpu().float() - want.float()).abs().max())
-            atol = 3e-2 if dtype == torch.bfloat16 else 2e-5
-            require(err <= atol, f"flash_attention edge B={bb} S={s_e} "
-                    f"Hq={hq_e} Kh={kh_e} hd={hd_e} window={win} {dtype}: "
-                    f"max err {err}")
-            if dtype == torch.float32:
+            what = (f"edge B={bb} S={s_e} Hq={hq_e} Kh={kh_e} hd={hd_e} "
+                    f"window={win}")
+            if dtype == torch.bfloat16:
+                verdict = Bf16AttentionError().add(got.cpu(), want).check(what)
+            else:
+                err = float((got.cpu() - want).abs().max())
+                require(err <= 2e-5, f"flash_attention {what} f32: max err "
+                        f"{err}")
                 worst = max(worst, err)
         log(f"[flash_attention] edge B={bb} S=T={s_e} Hq={hq_e} Kh={kh_e} "
-            f"hd={hd_e} window={win}: bf16 and f32 within atol")
+            f"hd={hd_e} window={win}: f32 within atol 2e-5; bf16 {verdict}")
     kernels.LAUNCHES["flash_attention"] = saved  # checks do not count
     log(f"[flash_attention] worst f32 error over all shapes {worst:.2e}; "
         f"the JSON entry is the main path's call (bf16, window 4096)")
@@ -1018,7 +1099,8 @@ def main() -> int:
     t0 = time.perf_counter()
     device, smi = phase_environment(torch)
     phase_build()
-    entries = [check_prefix_avg(torch, device), check_ce_loss(torch, device),
+    entries = [check_prefix_avg(torch, device),
+               check_ce_loss(torch, device),
                check_cohort_gather(torch, device),
                check_delta_codec(torch, device),
                check_weighted_avg(torch, device),

@@ -137,8 +137,8 @@ _PTR, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "prefix_avg_f32": [_PTR] * 5 + [_I64] * 4 + [_PTR],
     "prefix_avg_bf16": [_PTR] * 5 + [_I64] * 4 + [_PTR],
-    "ce_loss_f32": [_PTR] * 3 + [_I64] * 5 + [_PTR],
-    "ce_loss_bf16": [_PTR] * 3 + [_I64] * 5 + [_PTR],
+    "ce_loss_f32": [_PTR] * 3 + [_I64] * 6 + [_PTR],
+    "ce_loss_bf16": [_PTR] * 3 + [_I64] * 6 + [_PTR],
     "cohort_gather": [_PTR] * 4 + [_I64] * 4 + [_PTR],
     "delta_codec_f32": [_PTR] * 2 + [_I64] * 5 + [_PTR],
     "weighted_avg_f32": [_PTR] * 3 + [_I64] * 5 + [_PTR],

@@ -6,7 +6,17 @@ q (B, S, Hq, hd), k/v (B, T, Kh, hd) of one dtype (float32 or bfloat16),
 read through their strides (the last axis must be contiguous), and query
 positions q_pos (S,) -> o (B, S, Hq, hd) in q's dtype.  Query head h reads
 KV head h // (Hq // Kh).  Head dims up to 128; S and T need not be
-multiples of the 64-row tile.
+multiples of the tiles.
+
+bfloat16 runs on the tensor cores, with Q, K and V brought in by TMA,
+which needs each tensor's base 16-byte aligned and its batch, sequence and
+head strides multiples of 16 bytes (8 elements).  The model's tensors meet
+both.  A bf16 view that does not is first copied here into a contiguous
+tensor whose rows are padded to a multiple of 8 elements, and the same
+kernel then reads the copy; no other route is ever taken.  The bf16 route
+rounds the softmax probabilities to bf16 before multiplying them by V, as
+the reference does not (it multiplies float32 probabilities); float32
+inputs run the CUDA-core kernel, with float32 probabilities.
 """
 from __future__ import annotations
 
@@ -21,6 +31,30 @@ from repro_torch.kernels import LAUNCHES, check_launch, library, stream_ptr
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 MAX_HEAD_DIM = 128
+TMA_ALIGN = 16         # bytes: base address and every stepped stride
+
+
+def tma_ready(t: torch.Tensor) -> bool:
+    """True when TMA can read the (B, S, H, hd) tensor `t` in place: a
+    16-byte aligned base, and every stride but the head dim's, of a
+    dimension longer than 1, a positive multiple of 16 bytes."""
+    if t.data_ptr() % TMA_ALIGN:
+        return False
+    item = t.element_size()
+    return all(n == 1 or (st > 0 and st * item % TMA_ALIGN == 0)
+               for n, st in zip(t.shape[:3], t.stride()[:3]))
+
+
+def tma_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` that TMA can read: contiguous, each row padded to a
+    multiple of 16 bytes, returned as the (B, S, H, hd) view of it."""
+    per = TMA_ALIGN // t.element_size()
+    hd = t.shape[-1]
+    buf = torch.empty((*t.shape[:3], -(-hd // per) * per), dtype=t.dtype,
+                      device=t.device)
+    view = buf[..., :hd]
+    view.copy_(t)
+    return view
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,6 +101,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hq > 65535 or b > 65535:
         raise ValueError(f"flash_attention takes at most 65535 heads and "
                          f"batch rows, got Hq={hq}, B={b}")
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if tma_ready(t) else tma_copy(t) for t in (q, k, v))
     scale = ctypes.c_float(np.float32(hd ** -0.5))   # JAX's weak-typed f32
     rc = getattr(library(), _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -24,7 +24,7 @@ from repro.kernels.prefix_avg.kernel import prefix_avg_kernel as jax_pa_kernel
 from repro.kernels.prefix_avg.ops import prefix_avg as jax_prefix_avg
 from repro.kernels.prefix_avg.ref import prefix_avg_ref as jax_pa_ref
 from repro_torch import kernels
-from repro_torch.kernels.ce_loss.kernel import block_threads, ce_loss_cuda
+from repro_torch.kernels.ce_loss.kernel import ce_loss_cuda, launch_plan
 from repro_torch.kernels.ce_loss.ops import ce_loss
 from repro_torch.kernels.ce_loss.ref import ce_loss_ref
 from repro_torch.kernels.prefix_avg.kernel import prefix_avg_cuda
@@ -196,8 +196,23 @@ def test_ce_loss_launcher_checks():
         ce_loss_cuda(torch.zeros((5, 10)), torch.zeros((2,), dtype=torch.int64))
     with pytest.raises(ValueError, match="labels"):
         ce_loss(torch.zeros((4, 10)), torch.zeros((3,), dtype=torch.int64))
-    assert [block_threads(v) for v in (1, 10, 256, 2049, 32000)] == \
-        [32, 32, 32, 256, 256]
+
+
+@pytest.mark.parametrize("rows,v,variant,blocks", [
+    (625000, 10, "rows", 1056),     # the main path: 2442 chunks of 256 rows
+    (700, 1, "rows", 3),
+    (256, 32, "rows", 1),
+    (777, 33, "warp", 98),          # 8 rows per block of 8 warps
+    (4096, 4096, "warp", 512),
+    (4096, 4097, "block", 1056),
+    (4096, 32000, "block", 1056),
+    (5, 32000, "block", 5)])
+def test_ce_loss_launch_plan(rows, v, variant, blocks):
+    """The variant by V (whole rows per thread up to 32, a warp per row
+    up to 4096, a block per row above) and the persistent grid: at most
+    8 blocks of 256 threads per SM of 132, never more than the work."""
+    assert launch_plan(rows, v) == (variant, blocks)
+    assert launch_plan(rows, v, n_sms=1).blocks == min(blocks, 8)
 
 
 # ------------------------------------------------------- routing, build ----

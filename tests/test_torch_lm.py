@@ -210,6 +210,31 @@ def test_flash_plain_with_query_positions_and_non_causal():
                                    _f32(want)[0], atol=2e-5)
 
 
+def _bf16(*shape):
+    return torch.randn(shape).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("make,ready", [
+    (lambda: _bf16(2, 64, 4, 120), True),
+    (lambda: _bf16(2, 64, 4, 121)[..., :120], False),    # 242-byte rows
+    (lambda: _bf16(2, 64, 4, 121)[..., 1:], False),      # base + 2 bytes
+    (lambda: _bf16(2, 64, 4, 128)[..., :120], True),     # 256-byte rows
+    (lambda: _bf16(2, 64, 4, 33), False),
+    (lambda: _bf16(64, 120)[None, :, None], True),  # size-1 dims: not stepped
+    (lambda: _bf16(2, 4, 64, 120).transpose(1, 2), True),
+    (lambda: _bf16(2, 64, 1, 120).expand(2, 64, 4, 120), False)])  # stride 0
+def test_tma_ready_and_copy(make, ready):
+    """Which bf16 views the tensor-core route reads in place (16-byte
+    aligned base, stepped strides positive multiples of 16 bytes), and the
+    padded copy the wrapper makes of the others."""
+    from repro_torch.kernels.flash_attention.kernel import tma_copy, tma_ready
+    x = make()
+    assert tma_ready(x) is ready
+    c = tma_copy(x)
+    assert tma_ready(c) and c.shape == x.shape and torch.equal(c, x)
+    assert c.stride(-1) == 1 and c.stride(2) % 8 == 0
+
+
 # ---------------------------------------------------- attention paths -----
 @pytest.mark.parametrize("b,s,hq,kh,hd,win,chunk", [
     (2, 128, 4, 2, 16, 0, 32), (1, 128, 4, 1, 24, 40, 32),
