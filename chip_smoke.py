@@ -19,12 +19,17 @@ exits non-zero without a result line:
    mean, and per row at rtol 1e-5 plus atol 1e-6 * max|logit|;
    weighted_avg at rtol 1e-6, atol 1e-7), with CUDA-event times of kernel,
    plain version and, where one PyTorch call computes the same function,
-   that call, beside the least time the card could take.  For the two
-   kernels redesigned last (ce_loss: rows packed per block, 16-byte
-   loads, a persistent grid; flash_attention: bf16 on wgmma tensor cores
-   fed by a TMA ring) it prints ce_loss's time over F.cross_entropy's at
-   its four shapes, through the wrapper and through the C entry alone,
-   and flash_attention's TFLOP/s and time over SDPA's;
+   that call, beside the least time the card could take.  Kernels are
+   timed through their wrappers; for the redesigned ones the C entry
+   alone is timed too (`c_entry_ms`).  ce_loss (rows packed per block,
+   16-byte loads, a persistent grid) is timed over F.cross_entropy at
+   four shapes; flash_attention (bf16 on wgmma tensor cores fed by a TMA
+   ring) gives its TFLOP/s and its time over SDPA's, and its f32 route's
+   time over f32 SDPA's; weighted_avg (one launch for the tree, the
+   cohort's stack values in registers, 16-byte evict-first stores) and
+   cohort_gather (one launch for the tree, ids checked on the host and
+   passed by value, no flag and no sync) are timed as the main path calls
+   them, over the six leaves and the four stacks at once;
 4. full-width Shapley: streaming GTG-Shapley of five full-width MNIST MLPs
    on the card against the port's CPU path on the same walks (atol 1e-5);
 5. reference run: a small GreedyFed run on the card against the same run
@@ -332,93 +337,107 @@ def _stacked_mlp(torch, device, gen, m, scale):
 
 
 def check_cohort_gather(torch, device):
-    """Bitwise (as int32 words) against the plain index_select at the main
-    path's four client stacks and at edge rows, and an out-of-range id must
-    raise; the JSON entry is one round's four gathers."""
+    """Bitwise (as integer words) against the plain index_select at the
+    main path's four client stacks, gathered in one call as the batched
+    engine does, and at edge rows; ids outside [0, N) must raise, from the
+    host and from the card.  The JSON entry is one round's gather, timed
+    through the tree wrapper with the engine's host ids (`ms`) and through
+    the C entry alone (`c_entry_ms`)."""
+    import numpy as np
     from repro_torch import kernels
     from repro_torch.federated.server import FLConfig, setup_run
     from repro_torch.kernels.cohort_gather import (
-        cohort_gather_ref, cohort_take,
+        cohort_gather, cohort_gather_ref, cohort_take,
     )
+    from repro_torch.kernels.cohort_gather.kernel import c_args, checked_ids
 
     s = setup_run(FLConfig(), device=device)
-    stacks = [("xs", s.xs), ("ys", s.ys), ("n_valid", s.n_valid),
-              ("sigma", torch.as_tensor(s.sigma_k_all, device=device))]
+    stacks = {"xs": s.xs, "ys": s.ys, "n_valid": s.n_valid,
+              "sigma": torch.as_tensor(s.sigma_k_all, dtype=torch.float32,
+                                       device=device)}
     gen = torch.Generator().manual_seed(3)
     edge = torch.randn((9, 2049), generator=gen)
     edge.view(torch.int32)[1, ::3] = -(2 ** 31)             # -0.0
     edge.view(torch.int32)[2, ::2] = 0x7fc01234             # NaN payloads
-    stacks.append(("-0/NaN f32", edge.to(device)))
-    stacks.append(("bf16 6-byte", torch.randn((6, 3), generator=gen).to(
-        device, torch.bfloat16)))
-    ids = torch.tensor([7, 31, 2, 49, 18], device=device)
-    lib = kernels.library()
+    edges = {"-0/NaN f32": edge.to(device),
+             "bf16 6-byte": torch.randn((6, 3), generator=gen).to(
+                 device, torch.bfloat16)}
+    sel = np.array([7, 31, 2, 49, 18])          # the engine's host ids
+    sel_dev = torch.as_tensor(sel, device=device)
     saved = kernels.LAUNCHES["cohort_gather"]
 
-    def launch(flat, sel, out, bad):     # the C entry alone, for timing
-        return lib.cohort_gather(flat.data_ptr(), sel.data_ptr(),
-                                 out.data_ptr(), bad.data_ptr(),
-                                 flat.shape[0], sel.shape[0],
-                                 flat.shape[1] * flat.element_size(),
-                                 flat.device.index,
-                                 kernels.stream_ptr(flat))
+    def words(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else (
+            torch.int32 if t.element_size() == 4 else torch.int64))
 
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
+    got = cohort_gather(stacks, sel)
+    require(kernels.LAUNCHES["cohort_gather"] == saved + 1,
+            "cohort_gather: the round's four stacks took more than a launch")
     worst = 0.0
-    for i, (name, table) in enumerate(stacks):
-        sel = ids % table.shape[0]
-        got = cohort_take(table, sel)
-        want = cohort_gather_ref(table.reshape(table.shape[0], -1), sel
-                                 ).reshape(got.shape)
-        words = torch.int16 if table.dtype == torch.bfloat16 else (
-            torch.int32 if table.element_size() == 4 else torch.int64)
-        require(torch.equal(got.view(words), want.view(words)),
+    for name, table in list(stacks.items()) + list(edges.items()):
+        ids = sel % table.shape[0]
+        out = got[name] if name in stacks else cohort_take(table, ids)
+        want = cohort_gather_ref(table.reshape(table.shape[0], -1),
+                                 torch.as_tensor(ids, device=device)
+                                 ).reshape(out.shape)
+        require(torch.equal(words(out), words(want)),
                 f"cohort_gather {name} not bitwise equal")
-        if i < 4:          # the main path's stacks hold no NaN
-            worst = max(worst, float((got.double() - want.double()
+        if name in stacks:      # the main path's stacks hold no NaN
+            worst = max(worst, float((out.double() - want.double()
                                       ).abs().max()))
-        else:
-            log(f"[cohort_gather] {name:12s} N={table.shape[0]} "
-                f"row {table[0].numel() * table.element_size()} B: bitwise "
-                f"equal")
-            continue
-        flat = table.reshape(table.shape[0], -1)
-        out = torch.empty((5, flat.shape[1]), dtype=flat.dtype, device=device)
-        bad = torch.zeros((1,), dtype=torch.int32, device=device)
-        ms = time_ms(lambda _: launch(flat, sel, out, bad), iters=50)
-        require(int(bad.item()) == 0, "cohort_gather flagged a valid id")
-        plain_ms = time_ms(lambda _: cohort_gather_ref(flat, sel), iters=50)
-        lib_ms = time_ms(lambda _: torch.index_select(flat, 0, sel), iters=50)
+        log(f"[cohort_gather] {name:12s} N={table.shape[0]} row "
+            f"{table[0].numel() * table.element_size()} B: bitwise equal")
+    n = s.n_valid.shape[0]
+    for bad_ids in ([0, n], [-1]):
+        for form in (np.array, lambda i: torch.tensor(i, device=device)):
+            try:
+                cohort_gather(stacks, form(bad_ids))
+            except IndexError:
+                continue
+            raise AssertionError(f"cohort_gather took ids {bad_ids} of {n} "
+                                 "rows")
+    log(f"[cohort_gather] ids outside [0, {n}) raise IndexError, from the "
+        f"host and from the card")
+
+    flats = {k: t.reshape(t.shape[0], -1) for k, t in stacks.items()}
+    ms = time_ms(lambda _: cohort_gather(stacks, sel), iters=200)
+    cuda_ids_ms = time_ms(lambda _: cohort_gather(stacks, sel_dev), iters=200)
+    lib = kernels.library()
+    outs = [torch.empty((5, f.shape[1]), dtype=f.dtype, device=device)
+            for f in flats.values()]
+    args = c_args(list(zip(flats.values(), outs)), checked_ids(sel, n))
+    c_entry_ms = time_ms(lambda _: kernels.check_launch(
+        lib.cohort_gather(*args), "cohort_gather"), iters=200)
+    kernels.LAUNCHES["cohort_gather"] = saved  # check launches do not count
+    total = {"plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
+    for name, flat in flats.items():
+        plain_ms = time_ms(lambda _: cohort_gather_ref(flat, sel_dev),
+                           iters=200)
+        lib_ms = time_ms(lambda _: torch.index_select(flat, 0, sel_dev),
+                         iters=200)
         n_bytes = 2 * 5 * flat.shape[1] * flat.element_size() + 5 * 8
         b_ms, b_by = bound_ms(n_bytes, 0)
-        total["ms"] += ms
         total["plain_ms"] += plain_ms
         total["library_ms"] += lib_ms
         total["bytes"] += n_bytes
-        log(f"[cohort_gather] {name:12s} N={table.shape[0]} M=5 row "
-            f"{flat.shape[1] * flat.element_size()} B: bitwise equal; kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, index_select "
-            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    n = s.n_valid.shape[0]
-    for bad_ids in ([0, n], [-1]):
-        try:
-            cohort_take(s.n_valid, torch.tensor(bad_ids, device=device))
-        except IndexError:
-            continue
-        raise AssertionError(f"cohort_gather took ids {bad_ids} of {n} rows")
-    log(f"[cohort_gather] ids outside [0, {n}) raise IndexError")
-    kernels.LAUNCHES["cohort_gather"] = saved  # check launches do not count
+        log(f"[cohort_gather] {name:12s} N={flat.shape[0]} M=5 row "
+            f"{flat.shape[1] * flat.element_size()} B: plain "
+            f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
     b_ms, b_by = bound_ms(total["bytes"], 0)
-    log(f"[cohort_gather] main-path round (4 stacks): kernel "
-        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
-        f"index_select {total['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}); the wrapper adds one flag read per call")
+    log(f"[cohort_gather] main-path round (4 stacks, one launch): through "
+        f"the wrapper with host ids {ms:.4f} ms (with CUDA ids, one copy "
+        f"to the host, {cuda_ids_ms:.4f} ms), the C entry alone "
+        f"{c_entry_ms:.4f} ms; plain {total['plain_ms']:.4f} ms, "
+        f"index_select {total['library_ms']:.4f} ms (wrapper / index_select "
+        f"{ms / total['library_ms']:.3f}), bound {b_ms:.4f} ms ({b_by})")
     return {"name": "cohort_gather", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/cohort_gather.cu",
             "replaces": "src/repro/kernels/cohort_gather/kernel.py:37",
-            "max_abs_err": worst, "ms": total["ms"],
-            "plain_ms": total["plain_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": total["library_ms"]}
+            "max_abs_err": worst, "ms": ms, "plain_ms": total["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": total["library_ms"], "c_entry_ms": c_entry_ms,
+            "cuda_ids_ms": cuda_ids_ms}
 
 
 def check_delta_codec(torch, device):
@@ -508,12 +527,16 @@ def check_delta_codec(torch, device):
 
 def check_weighted_avg(torch, device):
     """At rtol 1e-6, atol 1e-7 against the plain f32 einsum at the dense
-    oracle's (1250, 5) weights x the six main-path leaves, and bf16; the
-    JSON entry is one valued round's six launches."""
+    oracle's (1250, 5) weights x the six main-path leaves, all in one
+    launch as the oracle makes it, and at edge shapes (M = 40, bf16 with
+    D % 8 != 0 and 16-byte words side by side, a stack 4 bytes past a
+    16-byte boundary).  The JSON entry is one valued round's call, timed
+    through the tree wrapper (`ms`) and through the C entry alone
+    (`c_entry_ms`)."""
     from repro_torch import kernels
     from repro_torch.core.shapley_batched import prefix_weight_matrix
-    from repro_torch.kernels.weighted_avg import weighted_avg_ref
-    from repro_torch.kernels.weighted_avg.kernel import weighted_avg_cuda
+    from repro_torch.kernels.weighted_avg import weighted_avg, weighted_avg_ref
+    from repro_torch.kernels.weighted_avg.kernel import c_args, rows_per_block
     from repro_torch.tree import tree_leaves, tree_paths
 
     gen = torch.Generator().manual_seed(5)
@@ -522,54 +545,87 @@ def check_weighted_avg(torch, device):
     perms = torch.stack([torch.randperm(m, generator=gen) for _ in range(r)])
     n_k = torch.randint(20, 300, (m,), generator=gen).float()
     weights = prefix_weight_matrix(perms, n_k).reshape(r * m, m).to(device)
-    flats = [(p, x.reshape(m, -1)) for p, x in
-             zip(tree_paths(stacked), tree_leaves(stacked))]
     saved = kernels.LAUNCHES["weighted_avg"]
-    worst = 0.0
-    total = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-             "ops": 0}
-    for name, x in flats + [("bf16 D=20000", torch.randn(
-            (m, 20000), generator=gen).to(device, torch.bfloat16))]:
-        w = weights.to(x.dtype)
-        got = weighted_avg_cuda(x, w)
-        want = weighted_avg_ref(x, w)
+
+    def check(name, x, got, w):
+        want = weighted_avg_ref(x.reshape(x.shape[0], -1), w.to(x.dtype)
+                                ).reshape(got.shape)
         err = float((got.float() - want.float()).abs().max())
         if x.dtype == torch.float32:
-            worst = max(worst, err)
             require(bool(torch.allclose(got, want, rtol=1e-6, atol=1e-7)),
                     f"weighted_avg {name}: max err {err}")
         else:        # one bf16 rounding of f32 sums
             require(bool(torch.allclose(got.float(), want.float(), rtol=8e-3,
                                         atol=1e-6)),
                     f"weighted_avg {name}: max err {err}")
-        ms = time_ms(lambda _: weighted_avg_cuda(x, w))
-        plain_ms = time_ms(lambda _: weighted_avg_ref(x, w), iters=10)
-        lib_ms = time_ms(lambda _: torch.matmul(w, x))
-        n_bytes = (x.numel() + w.numel() + r * m * x.shape[1]
+        log(f"[weighted_avg] {name:14s} R={w.shape[0]} M={w.shape[1]} "
+            f"D={x[0].numel():6d} {str(x.dtype)[6:]}: max abs err {err:.2e}")
+        return err
+
+    got = weighted_avg(stacked, weights)
+    require(kernels.LAUNCHES["weighted_avg"] == saved + 1,
+            "weighted_avg: the six leaves took more than one launch")
+    worst = max(check(p, x, y, weights) for p, x, y in zip(
+        tree_paths(stacked), tree_leaves(stacked), tree_leaves(got)))
+    del got
+    w40 = torch.rand((100, 40), generator=gen)
+    w40 = (w40 / w40.sum(-1, keepdim=True)).to(device)
+    offset = torch.randn((1 + m * 1000,), generator=gen).to(device)
+    edge_cases = [
+        ({"a": torch.randn((40, 3000), generator=gen).to(device),
+          "b": torch.randn((40, 10), generator=gen).to(device)}, w40),
+        ({"a": torch.randn((m, 20000), generator=gen).to(device,
+                                                         torch.bfloat16),
+          "b": torch.randn((m, 100), generator=gen).to(device,
+                                                       torch.bfloat16),
+          "c": torch.randn((m, 10), generator=gen).to(device,
+                                                      torch.bfloat16)},
+         weights),
+        ({"a": offset[1:].view(m, 1000)}, weights)]
+    for tree, w in edge_cases:
+        out = weighted_avg(tree, w)
+        for k in tree:
+            err = check(f"edge {k}", tree[k], out[k], w)
+            if tree[k].dtype == torch.float32:
+                worst = max(worst, err)
+
+    ms = time_ms(lambda _: weighted_avg(stacked, weights))
+    flats = [x.reshape(m, -1) for x in tree_leaves(stacked)]
+    outs = [torch.empty((r * m, f.shape[1]), device=device) for f in flats]
+    args = c_args(list(zip(flats, outs)), weights, rows_per_block(m))
+    lib = kernels.library()
+    c_entry_ms = time_ms(lambda _: kernels.check_launch(
+        lib.weighted_avg_f32(*args), "weighted_avg"))
+    del outs
+    total = {"plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+    for name, x in zip(tree_paths(stacked), flats):
+        leaf_ms = time_ms(lambda _: weighted_avg({"w": x}, weights))
+        plain_ms = time_ms(lambda _: weighted_avg_ref(x, weights), iters=10)
+        lib_ms = time_ms(lambda _: torch.matmul(weights, x))
+        n_bytes = (x.numel() + weights.numel() + r * m * x.shape[1]
                    ) * x.element_size()
         n_ops = 2 * r * m * x.numel()
         b_ms, b_by = bound_ms(n_bytes, n_ops)
-        if name.startswith("layer"):
-            for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                           ("library_ms", lib_ms), ("bytes", n_bytes),
-                           ("ops", n_ops)):
-                total[key] += v
-        log(f"[weighted_avg] {name:12s} R={r * m} M={m} D={x.shape[1]:6d}: "
-            f"max abs err {err:.2e}; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, torch.matmul {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+        for key, v in (("plain_ms", plain_ms), ("library_ms", lib_ms),
+                       ("bytes", n_bytes), ("ops", n_ops)):
+            total[key] += v
+        log(f"[weighted_avg] {name:14s} R={r * m} M={m} D={x.shape[1]:6d}: "
+            f"alone in its launch {leaf_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     kernels.LAUNCHES["weighted_avg"] = saved  # check launches do not count
     b_ms, b_by = bound_ms(total["bytes"], total["ops"])
-    log(f"[weighted_avg] main-path valued round (6 leaves): kernel "
-        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, "
-        f"torch.matmul {total['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
+    log(f"[weighted_avg] main-path valued round (6 leaves, one launch): "
+        f"through the wrapper {ms:.4f} ms, the C entry alone "
+        f"{c_entry_ms:.4f} ms; plain {total['plain_ms']:.4f} ms, "
+        f"torch.matmul {total['library_ms']:.4f} ms (wrapper / torch.matmul "
+        f"{ms / total['library_ms']:.3f}), bound {b_ms:.4f} ms ({b_by}; "
+        f"wrapper / bound {ms / b_ms:.3f})")
     return {"name": "weighted_avg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/weighted_avg.cu",
             "replaces": "src/repro/kernels/weighted_avg/kernel.py:43",
-            "max_abs_err": worst, "ms": total["ms"],
-            "plain_ms": total["plain_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": total["library_ms"]}
+            "max_abs_err": worst, "ms": ms, "plain_ms": total["plain_ms"],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": total["library_ms"], "c_entry_ms": c_entry_ms}
 
 
 def phase_full_width_shapley(torch, device):
@@ -712,7 +768,7 @@ def phase_batched_path(torch, device):
     res, launches, valued = drive(torch, device, cfg, "batched")
     expect_launches("batched path", launches, {
         "prefix_avg": 6 * valued, "ce_loss": valued,
-        "cohort_gather": 4 * cfg.rounds, "delta_codec": 6 * cfg.rounds,
+        "cohort_gather": cfg.rounds, "delta_codec": 6 * cfg.rounds,
         "weighted_avg": 0, "flash_attention": 0})
     same = all((a == b).all() for a, b in zip(res.selections,
                                               loop.selections))
@@ -746,8 +802,8 @@ def phase_dense_oracle(torch, device):
     cfg = FLConfig(rounds=4, engine="batched", shapley_impl="batched")
     dense, launches, valued = drive(torch, device, cfg, "dense")
     expect_launches("dense-oracle path", launches, {
-        "prefix_avg": 0, "ce_loss": valued, "cohort_gather": 4 * cfg.rounds,
-        "delta_codec": 0, "weighted_avg": 6 * valued, "flash_attention": 0})
+        "prefix_avg": 0, "ce_loss": valued, "cohort_gather": cfg.rounds,
+        "delta_codec": 0, "weighted_avg": valued, "flash_attention": 0})
     stream, _, _ = drive(torch, device, FLConfig(rounds=4, engine="batched"),
                          "streaming")
     same = all((a == b).all() for a, b in zip(dense.selections,
@@ -898,6 +954,17 @@ def check_flash_attention(torch, device):
                 f"kernel {ms:.4f} ms "
                 f"({4 * hd * pairs / ms / 1e9:.2f} TFLOP/s on {pairs} "
                 f"unmasked pairs), bound {b_ms:.4f} ms ({b_by})")
+        if dtype == torch.float32 and window == 4096:
+            # the f32 route's yardstick: f32 SDPA on the same inputs
+            lib_ms, backend, lib_out = _sdpa_ms(torch, q, k, v, window)
+            f32_route = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+                         "library_ms": lib_ms,
+                         "library": "scaled_dot_product_attention "
+                                    f"({backend})"}
+            if lib_out is not None:
+                line += (f", SDPA f32 ({backend}) {lib_ms:.4f} ms (kernel / "
+                         f"SDPA {ms / lib_ms:.3f})")
+                del lib_out
         if entry is None:           # the main path's call: bf16, 4096
             plain_ms = time_ms(lambda _: [w for *_, w in _plain_by_heads(
                 torch, q, k, v, window)], iters=1, warmup=0)
@@ -946,7 +1013,9 @@ def check_flash_attention(torch, device):
             f"hd={hd_e} window={win}: f32 within atol 2e-5; bf16 {verdict}")
     kernels.LAUNCHES["flash_attention"] = saved  # checks do not count
     log(f"[flash_attention] worst f32 error over all shapes {worst:.2e}; "
-        f"the JSON entry is the main path's call (bf16, window 4096)")
+        f"the JSON entry is the main path's call (bf16, window 4096), with "
+        f"the f32 route's at window 4096 under f32_route")
+    entry["f32_route"] = f32_route
     return entry
 
 

@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Time weighted_avg and cohort_gather as the main path calls them, for
+the port under --src (this checkout's `src` by default), so that two
+versions can be timed in turns on one card.
+
+Run from the root of a checkout, on a machine with one CUDA card:
+
+    python3 scripts/torch_kernel_compare.py [--src DIR] [--label NAME]
+                                            [--repeats 5]
+
+Every version gets the same inputs, made from fixed seeds:
+
+- weighted_avg: the dense oracle's call, the (1250, 5) prefix weights of
+  250 walks over the full-width MLP's six stacked leaves (M = 5), through
+  the tree wrapper `weighted_avg(stacked, weights)`;
+- cohort_gather: the batched engine's gather of M = 5 of N = 50 clients
+  out of the four client stacks of `setup_run(FLConfig())`, through the
+  tree wrapper `cohort_gather(stacks, ids)`, once with the ids on the
+  card (what the engine passed before the gather checked its ids on the
+  host) and, where the version takes them, once with host ids (what the
+  engine passes since).
+
+Each time is a CUDA-event mean over back-to-back calls (`chip_smoke.
+time_ms`), taken `--repeats` times; the launches per call are counted.
+Prints one line per measurement and, last, one JSON object.  Exits
+non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--repeats", type=int, default=5)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_kernel_compare: no CUDA device is available",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    from chip_smoke import _stacked_mlp, time_ms
+    from repro_torch import kernels
+    from repro_torch.core.shapley_batched import prefix_weight_matrix
+    from repro_torch.federated.server import FLConfig, setup_run
+    from repro_torch.kernels.cohort_gather import cohort_gather
+    from repro_torch.kernels.cohort_gather import kernel as gather_kernel
+    from repro_torch.kernels.weighted_avg import weighted_avg
+
+    device = torch.device("cuda")
+    kernels.build()
+    print(f"[compare] {args.label}: repro_torch from "
+          f"{Path(kernels.__file__).parents[1]} on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    gen = torch.Generator().manual_seed(5)
+    m, r = 5, 250
+    stacked, _ = _stacked_mlp(torch, device, gen, m, 0.1)
+    perms = torch.stack([torch.randperm(m, generator=gen) for _ in range(r)])
+    n_k = torch.randint(20, 300, (m,), generator=gen).float()
+    weights = prefix_weight_matrix(perms, n_k).reshape(r * m, m).to(device)
+
+    s = setup_run(FLConfig(), device=device)
+    stacks = {"xs": s.xs, "ys": s.ys, "nv": s.n_valid,
+              "sigma": torch.as_tensor(s.sigma_k_all, dtype=torch.float32,
+                                       device=device)}
+    sel = np.array([7, 31, 2, 49, 18])
+    calls = {"weighted_avg": (lambda _: weighted_avg(stacked, weights), 20),
+             "cohort_gather cuda ids": (lambda _: cohort_gather(
+                 stacks, torch.as_tensor(sel, device=device)), 200)}
+    if hasattr(gather_kernel, "checked_ids"):    # takes host ids
+        calls["cohort_gather host ids"] = (
+            lambda _: cohort_gather(stacks, sel), 200)
+
+    out = {"label": args.label, "device": torch.cuda.get_device_name(0)}
+    for name, (fn, iters) in calls.items():
+        kernels.reset_launches()
+        fn(0)
+        launches = sum(kernels.LAUNCHES.values())
+        times = [time_ms(fn, iters=iters) for _ in range(args.repeats)]
+        out[name] = {"ms": times, "launches_per_call": launches}
+        print(f"[compare] {args.label}: {name}: "
+              f"{' '.join(f'{t:.4f}' for t in times)} ms "
+              f"(median {sorted(times)[len(times) // 2]:.4f}); {launches} "
+              f"launches a call", flush=True)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

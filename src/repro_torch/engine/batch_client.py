@@ -2,11 +2,11 @@
 batch of M models (counterpart of `repro/engine/batch_client.py`).
 
 `cohort_update` gathers the cohort's rows out of the (N, cap, ...) client
-stacks with the `cohort_gather` kernel, then `batched_client_update` runs
-the M local trainings together: params and momentum live stacked as
-(M, *shape) leaves, and each SGD step is one autograd backward over all M
-clients' losses, one `sgd_step` on the stacked trees and one stacked straggler
-mask.
+stacks with one `cohort_gather` call (the ids are host ints), then
+`batched_client_update` runs the M local trainings together: params and
+momentum live stacked as (M, *shape) leaves, and each SGD step is one
+autograd backward over all M clients' losses, one `sgd_step` on the
+stacked trees and one stacked straggler mask.
 
 Each client's forward and backward are the loop engine's own ops on a
 per-client view of the stacked leaves (one backward call over the M
@@ -33,7 +33,7 @@ import torch
 
 from repro_torch.federated.client import ClientConfig, make_local_loss
 from repro_torch.federated.draws import RunDraws
-from repro_torch.kernels.cohort_gather import cohort_take
+from repro_torch.kernels.cohort_gather import cohort_gather
 from repro_torch.models.mlp_cnn import ClassifierModel
 from repro_torch.optim.sgd import SGDState, sgd_init, sgd_step
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
@@ -117,17 +117,17 @@ def cohort_update(
     ys_all: torch.Tensor,         # (N, cap)
     nv_all: torch.Tensor,         # (N,)
     sigma_all: torch.Tensor,      # (N,)
-    sel: torch.Tensor,            # (M,) int selected client ids
+    sel,                          # (M,) host ints: selected client ids
     epochs_k: np.ndarray,         # (M,)
     idx: torch.Tensor,            # (M, E*B, batch)
     noise: Sequence[torch.Tensor],
 ) -> tuple[Params, torch.Tensor]:
-    """Gather the cohort out of the full stacks and train it as one batch.
-    Returns (stacked updates, n_k of the cohort as float32)."""
-    xs = cohort_take(xs_all, sel)
-    ys = cohort_take(ys_all, sel)
-    nv = cohort_take(nv_all, sel)
-    sg = cohort_take(sigma_all, sel)
+    """Gather the cohort out of the full stacks (one `cohort_gather` call,
+    one launch on the card) and train it as one batch.  Returns (stacked
+    updates, n_k of the cohort as float32)."""
+    cohort = cohort_gather({"xs": xs_all, "ys": ys_all, "nv": nv_all,
+                            "sigma": sigma_all}, sel)
+    xs, ys, nv, sg = (cohort[k] for k in ("xs", "ys", "nv", "sigma"))
     stacked = batched_client_update(model, ccfg, params, xs, ys, epochs_k,
                                     sg, idx, noise)
     return stacked, nv.to(torch.float32)

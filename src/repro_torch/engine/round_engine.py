@@ -68,9 +68,11 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
         (params, xs_all, ys_all, nv_all, sigma_all, x_val, y_val, sel,
          epochs_k, idx, noise, walks) -> RoundOutput
 
-    idx (M, E*B, batch) and noise (leaves (M, *shape)) are the cohort's
-    draws; `walks` is the (R, M) walk tensor of the streaming and dense
-    estimators, or the serial estimator's batch callable.
+    sel holds the cohort's M client ids as host ints, which the cohort
+    gather checks on the host; idx (M, E*B, batch) and noise (leaves
+    (M, *shape)) are the cohort's draws; `walks` is the (R, M) walk tensor
+    of the streaming and dense estimators, or the serial estimator's batch
+    callable.
     """
     if spec.shapley_impl not in SHAPLEY_IMPLS:
         raise ValueError(f"unknown shapley_impl {spec.shapley_impl!r}; "
@@ -151,8 +153,7 @@ class RoundEngine:
             walks = (self.draws.perm_batches(t, m)
                      if spec.shapley_impl == "serial"
                      else self.draws.perms(t, m, spec.shapley_max_iters))
-        return self._step(params, *self._operands,
-                          torch.as_tensor(sel, device=device),
+        return self._step(params, *self._operands, sel,
                           np.asarray(epochs_k), idx, noise, walks)
 
     def upload_nbytes_per_client(self, params: Params) -> int:

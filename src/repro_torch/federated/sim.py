@@ -81,7 +81,7 @@ def device_selected_round(
         draws, ccfg, t, nv_all.cpu().numpy()[sel_host],
         [tuple(x.shape) for x in tree_leaves(params)], nv_all.device)
     stacked, n_k_sel = cohort_update(
-        model, ccfg, params, xs_all, ys_all, nv_all, sigma_all, sel,
+        model, ccfg, params, xs_all, ys_all, nv_all, sigma_all, sel_host,
         np.asarray(epochs_all)[sel_host], idx, noise)
     with torch.no_grad():
         new_params = weighted_average(stacked, normalized_weights(n_k_sel))

@@ -17,6 +17,7 @@ so an edited source never loads a stale build.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import hashlib
 import os
@@ -132,17 +133,21 @@ def build() -> Build:
 
 
 _PTR, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-# C entry points: each takes device pointers, sizes, the device index and
-# the stream, and returns cudaGetLastError() after its launch
+# C entry points: each takes device pointers (cohort_gather and weighted_avg
+# also a host table of leaves, passed to the kernel by value), sizes, the
+# device index and the stream, and returns cudaGetLastError() after its
+# launch (or the error of a check that refused it)
 _SIGNATURES = {
     "prefix_avg_f32": [_PTR] * 5 + [_I64] * 4 + [_PTR],
     "prefix_avg_bf16": [_PTR] * 5 + [_I64] * 4 + [_PTR],
     "ce_loss_f32": [_PTR] * 3 + [_I64] * 6 + [_PTR],
     "ce_loss_bf16": [_PTR] * 3 + [_I64] * 6 + [_PTR],
-    "cohort_gather": [_PTR] * 4 + [_I64] * 4 + [_PTR],
+    # (leaf table, leaves, host ids, M, blocks, device, stream)
+    "cohort_gather": [_PTR, _I64, _PTR] + [_I64] * 3 + [_PTR],
     "delta_codec_f32": [_PTR] * 2 + [_I64] * 5 + [_PTR],
-    "weighted_avg_f32": [_PTR] * 3 + [_I64] * 5 + [_PTR],
-    "weighted_avg_bf16": [_PTR] * 3 + [_I64] * 5 + [_PTR],
+    # (leaf table, leaves, weights, R, M, rows, blocks, device, stream)
+    "weighted_avg_f32": [_PTR, _I64, _PTR] + [_I64] * 5 + [_PTR],
+    "weighted_avg_bf16": [_PTR, _I64, _PTR] + [_I64] * 5 + [_PTR],
     "flash_attention_f32": [_PTR] * 5 + [_I64] * 20 + [_F32, _I64, _PTR],
     "flash_attention_bf16": [_PTR] * 5 + [_I64] * 20 + [_F32, _I64, _PTR],
 }
@@ -169,6 +174,14 @@ def check_launch(rc: int, name: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def host_table(values: list[int]) -> ctypes.Array:
+    """int64 values in host memory as a ctypes array: a pointer argument of
+    a C entry that keeps its memory alive through the call (the kernels
+    that take a table of leaves copy it into their parameters)."""
+    buf = array.array("q", values)
+    return (ctypes.c_int64 * len(buf)).from_buffer(buf)
 
 
 def stream_ptr(x: torch.Tensor) -> int:

@@ -1,12 +1,16 @@
 """Public wrapper: tree-aware cohort gather (counterpart of
 `repro/kernels/cohort_gather/ops.py`, its dense path).
 
-`cohort_take(arr, ids)` views an (N, ...) leaf as an (N, D) matrix and
-gathers the M rows `ids`.  A CUDA leaf goes to the CUDA kernel whatever
-its width (the reference's D < 2048 cut-over to its ref exists only for
-its 2048-lane tile); a CPU leaf goes to the plain version.  The
-reference's cross-shard path (`axis_name`, a bitcast-psum over a client
-mesh axis) comes with the client-sharding slice of the port.
+`cohort_gather(tree, ids)` views every (N, ...) leaf as an (N, D) matrix
+and gathers the M rows `ids`; `cohort_take(arr, ids)` is its one-leaf
+form.  The CUDA leaves of one device go to the CUDA kernel together, in
+one launch whatever their widths (the reference's D < 2048 cut-over to its
+ref exists only for its 2048-lane tile); a CPU leaf goes to the plain
+version.  On the card the ids are checked on the host: pass them as host
+ints (a list, a numpy array or a CPU tensor); CUDA ids are copied to the
+host first, which waits for the card.  The reference's cross-shard path
+(`axis_name`, a bitcast-psum over a client mesh axis) comes with the
+client-sharding slice of the port.
 """
 from __future__ import annotations
 
@@ -17,32 +21,37 @@ import torch
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.cohort_gather.kernel import cohort_gather_cuda
 from repro_torch.kernels.cohort_gather.ref import cohort_gather_ref
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 Tree = Any
 
 
-def cohort_take(arr: torch.Tensor, ids: torch.Tensor, *,
-                axis_name: Optional[str] = None) -> torch.Tensor:
-    """Gather rows `ids` (M,) from `arr` (N, ...) -> (M, ...), bitwise."""
+def cohort_gather(tree: Tree, ids, *, axis_name: Optional[str] = None
+                  ) -> Tree:
+    """Every (N, ...) leaf gathered to (M, ...) at rows `ids`, bitwise."""
     if axis_name is not None:
         raise NotImplementedError(
             "cohort_take(axis_name=...) is not ported yet: the cross-shard "
             "gather comes with the client-sharding slice of the PyTorch port "
             "(see ROADMAP.md)")
-    m = ids.shape[0]
-    flat = arr.reshape(arr.shape[0], -1)
-    if use_kernel(arr):
-        out = cohort_gather_cuda(flat.contiguous(),
-                                 ids.to(device=arr.device,
-                                        dtype=torch.int64).contiguous())
-    else:
-        out = cohort_gather_ref(flat, ids)
-    return out.reshape((m,) + arr.shape[1:])
+    leaves = tree_leaves(tree)
+    outs: list = [None] * len(leaves)
+    groups: dict = {}
+    for i, leaf in enumerate(leaves):
+        if use_kernel(leaf):
+            groups.setdefault(leaf.device, []).append(i)
+        else:
+            flat = cohort_gather_ref(leaf.reshape(leaf.shape[0], -1),
+                                     torch.as_tensor(ids).to(leaf.device))
+            outs[i] = flat.reshape((flat.shape[0],) + leaf.shape[1:])
+    for idx in groups.values():
+        for i, out in zip(idx, cohort_gather_cuda(
+                [leaves[i].contiguous() for i in idx], ids)):
+            outs[i] = out
+    return tree_unflatten(tree, outs)
 
 
-def cohort_gather(tree: Tree, ids: torch.Tensor, *,
-                  axis_name: Optional[str] = None) -> Tree:
-    """Tree version: every (N, ...) leaf gathered to (M, ...)."""
-    return tree_map(lambda leaf: cohort_take(leaf, ids, axis_name=axis_name),
-                    tree)
+def cohort_take(arr: torch.Tensor, ids, *,
+                axis_name: Optional[str] = None) -> torch.Tensor:
+    """Gather rows `ids` (M,) from `arr` (N, ...) -> (M, ...), bitwise."""
+    return cohort_gather(arr, ids, axis_name=axis_name)

@@ -67,31 +67,6 @@ __device__ __forceinline__ void warp_merge(float& m, float& s) {
   }
 }
 
-// the 16 / sizeof(T) logits of one 16-byte word, as floats
-template <typename T> struct Word;
-
-template <> struct Word<float> {
-  static constexpr int kN = 4;
-  static __device__ __forceinline__ void unpack(uint4 w, float* x) {
-    x[0] = __uint_as_float(w.x);
-    x[1] = __uint_as_float(w.y);
-    x[2] = __uint_as_float(w.z);
-    x[3] = __uint_as_float(w.w);
-  }
-};
-
-template <> struct Word<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  static __device__ __forceinline__ void unpack(uint4 w, float* x) {
-    const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      x[2 * i] = __uint_as_float(u[i] << 16);            // exact widening
-      x[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-    }
-  }
-};
-
 // elements of x before its first 16-byte boundary (at most v)
 template <typename T>
 __device__ __forceinline__ int64_t head_elems(const T* x, int64_t v) {

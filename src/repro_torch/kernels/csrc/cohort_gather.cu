@@ -3,76 +3,129 @@
 // Replaces: the Pallas TPU kernel `cohort_gather_kernel` (body
 // `_gather_kernel`) in src/repro/kernels/cohort_gather/kernel.py.
 //
-// Computes out[i] = table[ids[i]] for a (N, row_bytes) table of any dtype
-// and (M,) int64 ids.  The copy moves raw words, never float values, so
-// every bit survives, -0.0 and NaN payloads included (the engines rely on
-// the gather being bitwise the dense take).
+// Computes, for every leaf of a tree of (N, row_bytes) client stacks of any
+// dtype, out[i] = table[ids[i]] for the M cohort ids.  The copy moves raw
+// words, never float values, so every bit survives, -0.0 and NaN payloads
+// included (the engines rely on the gather being bitwise the dense take).
 //
-// What bounds it on the H100: bytes, M rows read and M rows written; no
-// arithmetic.
+// What bounds it on the H100: bytes, M rows read and M rows written per
+// leaf, no arithmetic; at the main path's 5 MB a round that is ~1.5 us, so
+// in practice the host's cost per call and the launch bound it.
 //
-// What the simple design does about it: grid (row chunks, M); block y
-// reads its own id (the TPU's scalar prefetch) and copies its chunk of
-// that row with 16-byte vectors when the row and both base pointers are
-// 16-byte aligned, else 4-byte words, else bytes, so a warp moves 512
-// consecutive bytes per instruction on the aligned path.  An id outside
-// [0, N) is not read: the block raises a flag in device memory, which the
-// wrapper reads and turns into an error.  TMA bulk copies are later work.
+// What the design does about it: one launch for the whole tree, with no
+// device-side flag and no sync.  The wrapper checks the ids on the host
+// (where the engine already holds them) and passes them, with a table of
+// leaves (source, destination, row bytes, rows, first block, word bytes),
+// by value in the kernel's parameters: the counterpart of the TPU kernel's
+// scalar prefetch.  grid.x runs over the row chunks of all leaves one after
+// the other, grid.y over the cohort slots.  Each leaf moves 16-byte words
+// when its rows and both base pointers are 16-byte aligned, else 4-byte
+// words, else bytes; a thread keeps kUnroll words in flight, so a block
+// moves 16 KB of a 16-byte-aligned row.  The C entry checks every id
+// against every leaf's rows again before it launches, so the kernel never
+// reads outside a table.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr unsigned kMaxChunks = 1024;
+constexpr int kUnroll = 4;
+constexpr int kMaxLeaves = 16;
+constexpr int kMaxIds = 256;
+constexpr int kLeafFields = 6;  // src, dst, row bytes, rows, blk0, unit
+
+struct Leaf {
+  const char* src;   // (n, row_bytes) table
+  char* dst;         // (m, row_bytes) output
+  int64_t row_bytes;
+  int64_t blk0;      // first row chunk of the leaf in grid.x
+  int64_t unit;      // bytes per word: 16, 4 or 1
+};
+
+struct Table {
+  Leaf leaf[kMaxLeaves];
+  int32_t ids[kMaxIds];
+  int64_t n;
+};
 
 template <typename U>
-__global__ void __launch_bounds__(kThreads)
-cohort_gather_kernel(const U* __restrict__ table,
-                     const int64_t* __restrict__ ids, U* __restrict__ out,
-                     int* __restrict__ bad, int64_t n, int64_t units) {
-  const int64_t id = ids[blockIdx.y];
-  if (id < 0 || id >= n) {
-    if (threadIdx.x == 0) atomicOr(bad, 1);
-    return;
+__device__ __forceinline__ void copy_chunk(const Leaf& leaf, int64_t id,
+                                           int64_t slot, int64_t chunk) {
+  const int64_t units = leaf.row_bytes / (int64_t)sizeof(U);
+  const U* src = reinterpret_cast<const U*>(leaf.src + id * leaf.row_bytes);
+  U* dst = reinterpret_cast<U*>(leaf.dst + slot * leaf.row_bytes);
+  const int64_t u0 = chunk * (kThreads * kUnroll) + threadIdx.x;
+  U v[kUnroll];
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i) {
+    const int64_t u = u0 + i * kThreads;
+    if (u < units) v[i] = src[u];
   }
-  const U* src = table + id * units;
-  U* dst = out + (int64_t)blockIdx.y * units;
-  for (int64_t u = (int64_t)blockIdx.x * kThreads + threadIdx.x; u < units;
-       u += (int64_t)gridDim.x * kThreads) {
-    dst[u] = src[u];
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i) {
+    const int64_t u = u0 + i * kThreads;
+    if (u < units) dst[u] = v[i];
   }
 }
 
-template <typename U>
-int launch(const void* table, const void* ids, void* out, void* bad,
-           int64_t n, int64_t m, int64_t row_bytes, cudaStream_t stream) {
-  const int64_t units = row_bytes / (int64_t)sizeof(U);
-  int64_t chunks = (units + kThreads - 1) / kThreads;
-  if (chunks > kMaxChunks) chunks = kMaxChunks;
-  if (chunks < 1) chunks = 1;
-  const dim3 grid((unsigned)chunks, (unsigned)m);
-  cohort_gather_kernel<U><<<grid, kThreads, 0, stream>>>(
-      (const U*)table, (const int64_t*)ids, (U*)out, (int*)bad, n, units);
-  return (int)cudaGetLastError();
+__global__ void __launch_bounds__(kThreads)
+cohort_gather_kernel(const __grid_constant__ Table t) {
+  int i = 0;
+  while (i + 1 < t.n && (int64_t)blockIdx.x >= t.leaf[i + 1].blk0) ++i;
+  const Leaf& leaf = t.leaf[i];
+  const int64_t chunk = (int64_t)blockIdx.x - leaf.blk0;
+  const int64_t slot = blockIdx.y;
+  const int64_t id = t.ids[slot];
+  if (leaf.unit == 16) {
+    copy_chunk<uint4>(leaf, id, slot, chunk);
+  } else if (leaf.unit == 4) {
+    copy_chunk<uint32_t>(leaf, id, slot, chunk);
+  } else {
+    copy_chunk<uint8_t>(leaf, id, slot, chunk);
+  }
 }
 
 bool aligned(const void* p, int64_t a) { return (uintptr_t)p % a == 0; }
 
 }  // namespace
 
-extern "C" int cohort_gather(const void* table, const void* ids, void* out,
-                             void* bad, int64_t n, int64_t m,
-                             int64_t row_bytes, int64_t device,
-                             void* stream) {
+// leaves: n_leaves rows of kLeafFields int64 in host memory (src, dst, row
+// bytes, rows, blk0, unit), in increasing blk0; ids: m int64 in host
+// memory.  Both go to the kernel by value.
+extern "C" int cohort_gather(const int64_t* leaves, int64_t n_leaves,
+                             const int64_t* ids, int64_t m, int64_t blocks_x,
+                             int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  if (m > 65535) return (int)cudaErrorInvalidConfiguration;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (row_bytes % 16 == 0 && aligned(table, 16) && aligned(out, 16)) {
-    return launch<uint4>(table, ids, out, bad, n, m, row_bytes, s);
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || m < 1 || m > kMaxIds ||
+      blocks_x < 1 || blocks_x > 0x7fffffff) {
+    return (int)cudaErrorInvalidConfiguration;
   }
-  if (row_bytes % 4 == 0 && aligned(table, 4) && aligned(out, 4)) {
-    return launch<uint32_t>(table, ids, out, bad, n, m, row_bytes, s);
+  Table t{};
+  t.n = n_leaves;
+  for (int64_t i = 0; i < n_leaves; ++i) {
+    const int64_t* f = leaves + i * kLeafFields;
+    const int64_t rows = f[3];
+    const int64_t end = i + 1 < n_leaves ? leaves[(i + 1) * kLeafFields + 4]
+                                         : blocks_x;
+    Leaf& leaf = t.leaf[i];
+    leaf = {(const char*)f[0], (char*)f[1], f[2], f[4], f[5]};
+    const int64_t chunk_bytes = (int64_t)kThreads * kUnroll * leaf.unit;
+    if ((leaf.unit != 16 && leaf.unit != 4 && leaf.unit != 1) ||
+        leaf.row_bytes < 1 || leaf.row_bytes % leaf.unit != 0 ||
+        !aligned(leaf.src, leaf.unit) || !aligned(leaf.dst, leaf.unit) ||
+        (i == 0 && leaf.blk0 != 0) || end <= leaf.blk0 ||
+        (end - leaf.blk0) * chunk_bytes < leaf.row_bytes) {
+      return (int)cudaErrorInvalidValue;
+    }
+    for (int64_t s = 0; s < m; ++s) {
+      if (ids[s] < 0 || ids[s] >= rows || ids[s] > 0x7fffffff) {
+        return (int)cudaErrorInvalidValue;
+      }
+    }
   }
-  return launch<uint8_t>(table, ids, out, bad, n, m, row_bytes, s);
+  for (int64_t s = 0; s < m; ++s) t.ids[s] = (int32_t)ids[s];
+  cohort_gather_kernel<<<dim3((unsigned)blocks_x, (unsigned)m), kThreads, 0,
+                         (cudaStream_t)stream>>>(t);
+  return (int)cudaGetLastError();
 }

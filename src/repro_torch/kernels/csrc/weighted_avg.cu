@@ -4,31 +4,121 @@
 // Replaces: the Pallas TPU kernel `weighted_avg_kernel` (body
 // `_wavg_kernel`) in src/repro/kernels/weighted_avg/kernel.py.
 //
-// Computes out[r, :] = sum_k weights[r, k] * stacked[k, :] for (R, M)
-// weights and an (M, D) client stack, accumulating in float32 in the fixed
-// order k = 0 .. M-1, whatever the input dtype.
+// Computes, for every leaf of a parameter tree, out[r, :] = sum_k
+// weights[r, k] * stacked[k, :] for (R, M) weights and the leaf's (M, D)
+// client stack, accumulating in float32 in the fixed order k = 0 .. M-1
+// (one fmaf chain from 0), whatever the input dtype.
 //
 // What bounds it on the H100: bytes written.  M is the cohort (5 on the
 // main path), so the product has 2*M flops per output and reads M*D
-// inputs against R*D outputs: at R = 1250 the writes are ~250x the reads.
+// inputs against R*D outputs: at R = 1250 the writes are ~250x the reads,
+// 890 MB of f32 for the MLP's six leaves, far more than the 50 MB L2.
 //
-// What the simple design does about it: grid (ceil(D/256), ceil(R/rows));
-// a block stages its `rows` weight rows in shared memory, and each thread
-// owns one column, reading its M stack values from L1/L2 (the whole stack
-// is a few MB) and writing `rows` outputs, so every warp stores 32
-// consecutive elements.  The ragged edge of D is masked and offsets are
-// 64-bit.  Tensor cores, wider stores and TMA are later work.
+// What the design does about it:
+// - One launch for the whole tree.  The wrapper passes a table of leaves
+//   (stack, output, D, first column block, vector width) by value in the
+//   kernel's parameters; grid.x runs over the column blocks of all leaves
+//   one after the other, grid.y over groups of `rows` weight rows, so a
+//   10-wide leaf shares the grid of the 156,800-wide one.
+// - Each thread owns the consecutive columns of one 16-byte word (4 f32
+//   or 8 bf16), loads their M stack values into registers once (kChunk at a
+//   time), then walks its block's rows: per row it reads the weights from
+//   shared memory (a broadcast) and writes one 16-byte word with an
+//   evict-first store, since the output does not fit in L2.  For M above
+//   kChunk the stack values are reloaded per row, chunk by chunk, in the
+//   same k order.
+// - A leaf whose D is not a multiple of a word's elements, or whose stack
+//   or output is not 16-byte aligned, takes the same loop with one column
+//   per thread and scalar stores, inside the same launch.  Offsets are
+//   64-bit.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kChunk = 8;        // stack values per column held at a time
+constexpr int kMaxLeaves = 32;
+constexpr int kLeafFields = 5;   // the wrapper's table: src, out, d, blk0, vec
+
+struct Leaf {
+  const void* src;   // (M, d) stack
+  void* out;         // (R, d) output
+  int64_t d;
+  int64_t blk0;      // first column block of the leaf in grid.x
+  int64_t vec;       // columns per thread: Word<T>::kN, or 1
+};
+
+struct Table {
+  Leaf leaf[kMaxLeaves];
+  int64_t n;
+};
+
+// A thread's columns of one row: one 16-byte word (kN of them) or one
+// element.
+template <typename T, bool kWide> struct Cols;
+
+template <typename T> struct Cols<T, false> {
+  static constexpr int kN = 1;
+  static __device__ __forceinline__ void load(const T* p, float* x) {
+    x[0] = Elem<T>::load(*p);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* x) {
+    *p = Elem<T>::store(x[0]);
+  }
+};
+
+template <typename T> struct Cols<T, true> {
+  static constexpr int kN = Word<T>::kN;
+  static __device__ __forceinline__ void load(const T* p, float* x) {
+    Word<T>::unpack(*reinterpret_cast<const uint4*>(p), x);
+  }
+  static __device__ __forceinline__ void store(T* p, const float* x) {
+    __stcs(reinterpret_cast<uint4*>(p), Word<T>::pack(x));
+  }
+};
+
+// Rows r0 .. r0+nr-1 of one leaf at this thread's columns of `tile`.
+template <typename T, bool kWide>
+__device__ __forceinline__ void average_tile(const Leaf& leaf, int64_t tile,
+                                             const float* w_s, int64_t r0,
+                                             int64_t nr, int64_t m) {
+  constexpr int V = Cols<T, kWide>::kN;
+  const int64_t d = leaf.d;
+  const int64_t col = (tile * kThreads + threadIdx.x) * V;
+  if (col >= d) return;
+  const T* src = static_cast<const T*>(leaf.src) + col;
+  T* out = static_cast<T*>(leaf.out) + col;
+  float x[kChunk][V];
+  for (int64_t j = 0; j < nr; ++j) {
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.0f;
+    for (int64_t k0 = 0; k0 < m; k0 += kChunk) {
+      if (j == 0 || m > kChunk) {
+#pragma unroll
+        for (int kk = 0; kk < kChunk; ++kk) {
+          if (k0 + kk < m) Cols<T, kWide>::load(src + (k0 + kk) * d, x[kk]);
+        }
+      }
+      const float* w = w_s + j * m + k0;
+#pragma unroll
+      for (int kk = 0; kk < kChunk; ++kk) {
+        if (k0 + kk < m) {
+          const float wk = w[kk];
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] = fmaf(wk, x[kk][v], acc[v]);
+        }
+      }
+    }
+    Cols<T, kWide>::store(out + (r0 + j) * d, acc);
+  }
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-weighted_avg_kernel(const T* __restrict__ stacked,
-                    const T* __restrict__ weights, T* __restrict__ out,
-                    int64_t r, int64_t m, int64_t d, int64_t rows) {
+weighted_avg_kernel(const __grid_constant__ Table t,
+                    const T* __restrict__ weights, int64_t r, int64_t m,
+                    int64_t rows) {
   extern __shared__ float w_s[];  // rows * m weights of this block
   const int64_t r0 = (int64_t)blockIdx.y * rows;
   const int64_t nr = (r - r0) < rows ? (r - r0) : rows;
@@ -36,46 +126,72 @@ weighted_avg_kernel(const T* __restrict__ stacked,
     w_s[i] = Elem<T>::load(weights[r0 * m + i]);
   }
   __syncthreads();
-  const int64_t col = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (col >= d) return;
-  for (int64_t j = 0; j < nr; ++j) {
-    float acc = 0.0f;
-    for (int64_t k = 0; k < m; ++k) {
-      acc = fmaf(w_s[j * m + k], Elem<T>::load(stacked[k * d + col]), acc);
-    }
-    out[(r0 + j) * d + col] = Elem<T>::store(acc);
+  int i = 0;
+  while (i + 1 < t.n && (int64_t)blockIdx.x >= t.leaf[i + 1].blk0) ++i;
+  const Leaf& leaf = t.leaf[i];
+  const int64_t tile = (int64_t)blockIdx.x - leaf.blk0;
+  if (leaf.vec == 1) {
+    average_tile<T, false>(leaf, tile, w_s, r0, nr, m);
+  } else {
+    average_tile<T, true>(leaf, tile, w_s, r0, nr, m);
   }
 }
 
+bool aligned(const void* p) { return (uintptr_t)p % 16 == 0; }
+
 template <typename T>
-int launch(const void* stacked, const void* weights, void* out, int64_t r,
-           int64_t m, int64_t d, int64_t rows, int64_t device,
+int launch(const int64_t* leaves, int64_t n, const void* weights, int64_t r,
+           int64_t m, int64_t rows, int64_t blocks_x, int64_t device,
            void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  const int64_t blocks_y = (r + rows - 1) / rows;
-  if (rows < 1 || blocks_y > 65535 || rows * m * 4 > 48 * 1024) {
+  const int64_t blocks_y = rows < 1 ? 0 : (r + rows - 1) / rows;
+  if (n < 1 || n > kMaxLeaves || rows < 1 || blocks_y < 1 ||
+      blocks_y > 65535 || blocks_x < 1 || blocks_x > 0x7fffffff ||
+      rows * m * 4 > 48 * 1024) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  const dim3 grid((unsigned)((d + kThreads - 1) / kThreads),
-                  (unsigned)blocks_y);
-  weighted_avg_kernel<T><<<grid, kThreads, rows * m * sizeof(float),
-                           (cudaStream_t)stream>>>(
-      (const T*)stacked, (const T*)weights, (T*)out, r, m, d, rows);
+  Table t{};
+  t.n = n;
+  for (int64_t i = 0; i < n; ++i) {
+    const int64_t* f = leaves + i * kLeafFields;
+    t.leaf[i] = {(const void*)f[0], (void*)f[1], f[2], f[3], f[4]};
+  }
+  for (int64_t i = 0; i < n; ++i) {
+    const Leaf& leaf = t.leaf[i];
+    const int64_t end = i + 1 < n ? t.leaf[i + 1].blk0 : blocks_x;
+    // a 16-byte path needs whole words in every row of stack and output
+    const bool wide = leaf.vec == Word<T>::kN && leaf.d % leaf.vec == 0 &&
+                      aligned(leaf.src) && aligned(leaf.out);
+    if ((leaf.vec != 1 && !wide) || leaf.d < 1 ||
+        (i == 0 && leaf.blk0 != 0) || end <= leaf.blk0 ||
+        (end - leaf.blk0) * kThreads * leaf.vec < leaf.d) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  weighted_avg_kernel<T><<<dim3((unsigned)blocks_x, (unsigned)blocks_y),
+                           kThreads, rows * m * sizeof(float),
+                           (cudaStream_t)stream>>>(t, (const T*)weights, r,
+                                                   m, rows);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int weighted_avg_f32(const void* stacked, const void* weights,
-                                void* out, int64_t r, int64_t m, int64_t d,
-                                int64_t rows, int64_t device, void* stream) {
-  return launch<float>(stacked, weights, out, r, m, d, rows, device, stream);
+// leaves: n rows of kLeafFields int64 in host memory (src, out, d, blk0,
+// vec), in increasing blk0; the kernel takes them by value.
+extern "C" int weighted_avg_f32(const int64_t* leaves, int64_t n,
+                                const void* weights, int64_t r, int64_t m,
+                                int64_t rows, int64_t blocks_x,
+                                int64_t device, void* stream) {
+  return launch<float>(leaves, n, weights, r, m, rows, blocks_x, device,
+                       stream);
 }
 
-extern "C" int weighted_avg_bf16(const void* stacked, const void* weights,
-                                 void* out, int64_t r, int64_t m, int64_t d,
-                                 int64_t rows, int64_t device, void* stream) {
-  return launch<__nv_bfloat16>(stacked, weights, out, r, m, d, rows, device,
-                               stream);
+extern "C" int weighted_avg_bf16(const int64_t* leaves, int64_t n,
+                                 const void* weights, int64_t r, int64_t m,
+                                 int64_t rows, int64_t blocks_x,
+                                 int64_t device, void* stream) {
+  return launch<__nv_bfloat16>(leaves, n, weights, r, m, rows, blocks_x,
+                               device, stream);
 }

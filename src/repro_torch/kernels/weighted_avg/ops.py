@@ -4,9 +4,10 @@
 `weighted_avg(stacked_tree, weights)` views each stacked leaf as an
 (M, D_leaf) matrix and builds the R weighted averages stacked on a leading
 axis.  The weights are cast to the leaf's dtype first, as the reference
-does.  A CUDA leaf goes to the CUDA kernel whatever its width (the
-reference's D < 2048 cut-over exists only for its 2048-lane tile); a CPU
-leaf goes to the plain version.
+does.  The CUDA leaves of one device and dtype go to the CUDA kernel
+together, in one launch whatever their widths (the reference's D < 2048
+cut-over exists only for its 2048-lane tile); a CPU leaf goes to the plain
+version.
 """
 from __future__ import annotations
 
@@ -17,22 +18,27 @@ import torch
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.weighted_avg.kernel import weighted_avg_cuda
 from repro_torch.kernels.weighted_avg.ref import weighted_avg_ref
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 Tree = Any
 
 
 def weighted_avg(stacked_tree: Tree, weights: torch.Tensor) -> Tree:
     """stacked_tree leaves (M, *s); weights (R, M) -> leaves (R, *s)."""
-    r = weights.shape[0]
-
-    def one(leaf: torch.Tensor) -> torch.Tensor:
-        flat = leaf.reshape(leaf.shape[0], -1)
-        w = weights.to(device=leaf.device, dtype=leaf.dtype)
+    leaves = tree_leaves(stacked_tree)
+    outs: list = [None] * len(leaves)
+    groups: dict = {}
+    for i, leaf in enumerate(leaves):
         if use_kernel(leaf):
-            out = weighted_avg_cuda(flat.contiguous(), w.contiguous())
+            groups.setdefault((leaf.device, leaf.dtype), []).append(i)
         else:
-            out = weighted_avg_ref(flat, w)
-        return out.reshape((r,) + leaf.shape[1:])
-
-    return tree_map(one, stacked_tree)
+            flat = weighted_avg_ref(
+                leaf.reshape(leaf.shape[0], -1),
+                weights.to(device=leaf.device, dtype=leaf.dtype))
+            outs[i] = flat.reshape((flat.shape[0],) + leaf.shape[1:])
+    for (device, dtype), idx in groups.items():
+        for i, out in zip(idx, weighted_avg_cuda(
+                [leaves[i].contiguous() for i in idx],
+                weights.to(device=device, dtype=dtype).contiguous())):
+            outs[i] = out
+    return tree_unflatten(stacked_tree, outs)

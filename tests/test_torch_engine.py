@@ -51,10 +51,15 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.kernels.cohort_gather import (
     cohort_gather, cohort_gather_ref, cohort_take,
 )
-from repro_torch.kernels.cohort_gather.kernel import cohort_gather_cuda
+from repro_torch.kernels.cohort_gather.kernel import (
+    MAX_IDS, checked_ids, cohort_gather_cuda,
+)
+from repro_torch.kernels.cohort_gather.kernel import (
+    launch_plan as gather_plan,
+)
 from repro_torch.kernels.weighted_avg import weighted_avg, weighted_avg_ref
 from repro_torch.kernels.weighted_avg.kernel import (
-    rows_per_block, weighted_avg_cuda,
+    launch_plan as wavg_plan, rows_per_block, weighted_avg_cuda,
 )
 from repro_torch.models.mlp_cnn import make_mlp
 from repro_torch.tree import tree_leaves, tree_map
@@ -127,9 +132,56 @@ def test_cohort_gather_rejects_bad_ids_and_the_sharded_path():
     with pytest.raises(NotImplementedError, match="client-sharding"):
         cohort_take(table, torch.tensor([0]), axis_name="clients")
     with pytest.raises(ValueError, match="CUDA"):
-        cohort_gather_cuda(table, torch.tensor([0]))
-    with pytest.raises(ValueError, match="int64"):
-        cohort_gather_cuda(table, torch.tensor([0], dtype=torch.int32))
+        cohort_gather_cuda([table], [0])
+    with pytest.raises(ValueError, match="integers"):
+        checked_ids(torch.tensor([0.0]), 4)
+
+
+@pytest.mark.parametrize("ids,n,error", [
+    (np.array([0, 4]), 4, IndexError), ([-1], 4, IndexError),
+    (torch.tensor([2, 1 << 40]), 4, IndexError),
+    (torch.tensor([3, -5], dtype=torch.int32), 4, IndexError),
+    (np.arange(MAX_IDS + 1) % 4, 4, ValueError),
+    (np.zeros((2, 2), np.int64), 4, ValueError),
+    (np.array([1.0, 2.0]), 4, ValueError)])
+def test_cohort_gather_host_id_check_rejects(ids, n, error):
+    """The card's gather checks its ids on the host before it launches:
+    out of range as index_select does (IndexError), more than the kernel's
+    parameters hold, not 1-D or not integers (ValueError).  A CUDA tensor
+    takes the same path after its copy to the host (the gpu tests)."""
+    with pytest.raises(error):
+        checked_ids(ids, n)
+
+
+@pytest.mark.parametrize("ids", [
+    [3, 0, 3], np.array([3, 0, 3], np.int32), torch.tensor([3, 0, 3]),
+    np.array([3, 9, 0, 9, 3])[::2]])
+def test_cohort_gather_host_ids_are_python_ints(ids):
+    got = checked_ids(ids, 4)
+    assert got == [3, 0, 3] and all(type(i) is int for i in got)
+    assert len(checked_ids(np.arange(MAX_IDS) % 4, 4)) == MAX_IDS
+
+
+# (row bytes, table / output pointer offsets) -> (unit, blk0, blocks)
+_XS, _YS, _NV, _SG = 495488, 1264, 8, 4      # the main path's four rows
+_A = 1 << 20                                  # a 16-byte aligned address
+
+
+@pytest.mark.parametrize("leaves,want,total", [
+    ([(_XS, _A, _A), (_YS, _A, _A), (_NV, _A, _A), (_SG, _A, _A)],
+     [(16, 0, 31), (16, 31, 1), (4, 32, 1), (4, 33, 1)], 34),
+    ([(6, _A, _A)], [(1, 0, 1)], 1),                     # 3 bf16 a row
+    ([(8196, _A, _A)], [(4, 0, 3)], 3),                  # 2049 f32
+    ([(_XS, _A + 4, _A), (_XS, _A, _A + 8)], [(4, 0, 121), (4, 121, 121)],
+     242),
+    ([(_XS, _A + 2, _A), (16384, _A, _A)], [(1, 0, 484), (16, 484, 1)],
+     485)])
+def test_cohort_gather_launch_plan(leaves, want, total):
+    """Each leaf's word is the widest of 16, 4 or 1 bytes on which its rows
+    and both base pointers fall, and its chunks of 256 threads x 4 words
+    follow the previous leaf's along grid.x."""
+    plans, blocks = gather_plan(leaves)
+    assert [tuple(p) for p in plans] == want and blocks == total
 
 
 # ----------------------------------------------------------- weighted_avg --
@@ -175,13 +227,39 @@ def test_weighted_avg_plain_bf16_and_tree_shapes_match_reference():
 def test_weighted_avg_launcher_checks():
     s, w = torch.zeros((3, 8)), torch.zeros((2, 3))
     with pytest.raises(ValueError, match="CUDA"):
-        weighted_avg_cuda(s, w)
+        weighted_avg_cuda([s], w)
     with pytest.raises(TypeError):
-        weighted_avg_cuda(s.double(), w.double())
+        weighted_avg_cuda([s.double()], w.double())
     with pytest.raises(ValueError, match="weights"):
-        weighted_avg_cuda(s, w.T.contiguous())
+        weighted_avg_cuda([s], w.T.contiguous())
+    with pytest.raises(ValueError, match="weights"):
+        weighted_avg_cuda([s, s.bfloat16()], w)
     assert [rows_per_block(m) for m in (1, 5, 192, 193, 12288)] == \
         [64, 64, 64, 63, 1]
+
+
+# the MLP's six leaves in tree order: layer0/b, layer0/w, layer1/b,
+# layer1/w, layer2/b, layer2/w
+_MLP_D = (200, 156800, 100, 20000, 10, 1000)
+
+
+@pytest.mark.parametrize("widths,itemsize,offset,want,total", [
+    (_MLP_D, 4, 0, [(4, 0, 1), (4, 1, 154), (4, 155, 1), (4, 156, 20),
+                    (1, 176, 1), (4, 177, 1)], 178),
+    (_MLP_D, 2, 0, [(8, 0, 1), (8, 1, 77), (1, 78, 1), (8, 79, 10),
+                    (1, 89, 1), (8, 90, 1)], 91),
+    ((156800, 2049), 4, 0, [(4, 0, 154), (1, 154, 9)], 163),
+    ((156800, 1000), 4, 8, [(1, 0, 613), (1, 613, 4)], 617),
+    ((20000,), 2, 4, [(1, 0, 79)], 79)])
+def test_weighted_avg_launch_plan(widths, itemsize, offset, want, total):
+    """A leaf takes 16-byte words (4 f32 or 8 bf16 columns a thread) when D
+    is a multiple of the word and its stack and output start on 16-byte
+    boundaries, else one column a thread; its column blocks of 256 threads
+    follow the previous leaf's along grid.x, all in one launch."""
+    base = 1 << 20
+    plans, blocks = wavg_plan([(d, base + offset, base) for d in widths],
+                              itemsize)
+    assert [tuple(p) for p in plans] == want and blocks == total
 
 
 # ------------------------------------------------------- the dense oracle --
@@ -287,27 +365,47 @@ def test_batched_client_update_freezes_finished_stragglers():
     assert not torch.allclose(got["layer0"]["w"][1], full["layer0"]["w"])
 
 
-def test_cohort_update_gathers_the_cohort():
+@pytest.mark.parametrize("sel", [torch.tensor([5, 2]), np.array([5, 2]),
+                                 [5, 2]], ids=["tensor", "numpy", "list"])
+def test_cohort_update_gathers_the_cohort(sel, monkeypatch):
+    """One cohort_gather call over the four stacks, bitwise the reference's
+    cohort_take of each, whatever form the host ids take."""
+    import repro_torch.engine.batch_client as bc
     model = make_mlp(784, (16,), 10)
     ccfg = ClientConfig(epochs=1, batches_per_epoch=2, batch_size=4)
     gen = torch.Generator().manual_seed(1)
     params = model.init(gen, torch.device("cpu"))
     n, cap = 6, 10
     xs_all = torch.randn((n, cap, 784), generator=gen)
+    xs_all[5, 0, :7] = -0.0
     ys_all = torch.randint(0, 10, (n, cap), generator=gen)
     nv_all = torch.randint(1, cap, (n,), generator=gen)
     sigma_all = torch.rand((n,), generator=gen)
-    sel = torch.tensor([5, 2])
     idx = torch.randint(0, 4, (2, 2, 4), generator=gen)
     noise = [torch.randn((2,) + tuple(p.shape), generator=gen)
              for p in tree_leaves(params)]
+    seen = {}
+
+    def spy(model_, ccfg_, params_, xs, ys, epochs_k, sigma_k, *rest):
+        seen.update(xs=xs, ys=ys, sigma=sigma_k)
+        return batched_client_update(model_, ccfg_, params_, xs, ys,
+                                     epochs_k, sigma_k, *rest)
+
+    monkeypatch.setattr(bc, "batched_client_update", spy)
     stacked, n_k = cohort_update(model, ccfg, params, xs_all, ys_all, nv_all,
                                  sigma_all, sel, np.array([1, 1]), idx, noise)
     assert n_k.dtype == torch.float32
-    np.testing.assert_array_equal(n_k.numpy(), nv_all[sel].float().numpy())
-    want = batched_client_update(model, ccfg, params, xs_all[sel],
-                                 ys_all[sel], np.array([1, 1]),
-                                 sigma_all[sel], idx, noise)
+    ids = jnp.asarray([5, 2])
+    for name, got, table in (("xs", seen["xs"], xs_all),
+                             ("ys", seen["ys"], ys_all),
+                             ("sigma", seen["sigma"], sigma_all),
+                             ("nv", n_k.to(nv_all.dtype), nv_all)):
+        want = np.asarray(jax_cohort_take(jnp.asarray(table.numpy()), ids))
+        np.testing.assert_array_equal(_bits(got.numpy()), _bits(want),
+                                      err_msg=name)
+    want = batched_client_update(model, ccfg, params, xs_all[[5, 2]],
+                                 ys_all[[5, 2]], np.array([1, 1]),
+                                 sigma_all[[5, 2]], idx, noise)
     for a, b in zip(tree_leaves(stacked), tree_leaves(want)):
         assert torch.equal(a, b)
 

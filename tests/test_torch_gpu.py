@@ -28,7 +28,9 @@ from repro_torch import kernels
 from repro_torch.kernels.ce_loss.kernel import ce_loss_cuda
 from repro_torch.kernels.ce_loss.ops import ce_loss
 from repro_torch.kernels.ce_loss.ref import ce_loss_ref
-from repro_torch.kernels.cohort_gather import cohort_gather_ref, cohort_take
+from repro_torch.kernels.cohort_gather import (
+    cohort_gather, cohort_gather_ref, cohort_take,
+)
 from repro_torch.kernels.delta_codec import delta_codec_ref
 from repro_torch.kernels.delta_codec.kernel import delta_codec_cuda
 from repro_torch.kernels.prefix_avg.ops import prefix_avg
@@ -230,14 +232,66 @@ def test_cohort_gather_kernel_bitwise_equals_plain(cuda, n, d, dtype):
                        want.view(view.get(dtype, dtype)))
 
 
-def test_cohort_gather_kernel_raises_on_ids_out_of_range(cuda):
-    table = torch.zeros((4, 1000), device=cuda)
+@pytest.mark.parametrize("where", ["cuda", "host"])
+def test_cohort_gather_kernel_raises_on_ids_out_of_range(cuda, where):
+    """Host ids and CUDA ids (copied to the host first) are checked before
+    the launch: IndexError, and no kernel launched."""
+    table = torch.arange(4000, dtype=torch.float32, device=cuda).view(4, 1000)
+    make = ((lambda ids: torch.tensor(ids, device=cuda)) if where == "cuda"
+            else np.array)
+    before = kernels.LAUNCHES["cohort_gather"]
     for bad in ([0, 4], [-1], [2, 1 << 40]):
         with pytest.raises(IndexError):
-            cohort_take(table, torch.tensor(bad, device=cuda))
+            cohort_take(table, make(bad))
+        with pytest.raises(IndexError):
+            cohort_gather({"a": table, "b": table[:2]}, make([3]))
+    assert kernels.LAUNCHES["cohort_gather"] == before
+    with pytest.raises(ValueError):
+        cohort_take(table, make([0] * 257))
     torch.cuda.synchronize()
-    assert torch.equal(cohort_take(table, torch.tensor([3], device=cuda)),
-                       table[3:])
+    assert torch.equal(cohort_take(table, make([3])), table[3:])
+
+
+def _gather_tree(gen, cuda):
+    """The main path's four client stacks (N = 50: xs 495,488-byte rows,
+    ys 1,264, n_valid 8, sigma 4) with -0.0 and NaN payloads, and edge
+    leaves: 6-byte bf16 rows, and rows that start 2 and 4 bytes past a
+    16-byte boundary (byte and 4-byte words)."""
+    xs = torch.randn((50, 158, 784), generator=gen)
+    xs.view(torch.int32)[1, 0, ::3] = -(2 ** 31)                 # -0.0
+    xs.view(torch.int32)[2, 1, ::2] = 0x7fc01234                 # NaN payload
+    bf16 = torch.randn((50, 3), generator=gen).to(torch.bfloat16)
+    bf16.view(torch.int16)[4, 1] = -1                            # NaN payload
+    tree = {"xs": xs, "ys": torch.randint(0, 10, (50, 158), generator=gen),
+            "n_valid": torch.randint(1, 158, (50,), generator=gen),
+            "sigma": torch.rand((50,), generator=gen), "bf16": bf16}
+    tree = {k: v.to(cuda) for k, v in tree.items()}
+    tree["off2"] = torch.randint(-2 ** 15, 2 ** 15, (1 + 50 * 7,),
+                                 generator=gen, dtype=torch.int16
+                                 ).to(cuda)[1:].view(50, 7)
+    off4 = torch.randn((1 + 50 * 8,), generator=gen).to(cuda)
+    tree["off4"] = off4[1:].view(50, 8)
+    return tree
+
+
+@pytest.mark.parametrize("ids", [[7, 31, 2, 49, 18], [5, 5, 0]])
+def test_cohort_gather_tree_in_one_launch_bitwise(cuda, ids):
+    """A whole tree of stacks in one launch, each leaf bitwise its plain
+    gather: 16-byte, 4-byte and byte words side by side."""
+    tree = _gather_tree(torch.Generator().manual_seed(7), cuda)
+    assert tree["off2"].data_ptr() % 4 == 2 and tree["off4"].is_contiguous()
+    sel = np.array(ids)
+    before = kernels.LAUNCHES["cohort_gather"]
+    got = cohort_gather(tree, sel)
+    assert kernels.LAUNCHES["cohort_gather"] == before + 1
+    words = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    for name, table in tree.items():
+        want = cohort_gather_ref(table.reshape(table.shape[0], -1),
+                                 torch.as_tensor(sel, device=cuda)
+                                 ).reshape(got[name].shape)
+        w = words.get(table.dtype, table.dtype)
+        assert got[name].dtype == table.dtype, name
+        assert torch.equal(got[name].view(w), want.view(w)), name
 
 
 def _codec_rows(gen, rows, d):
@@ -326,6 +380,57 @@ def test_weighted_avg_kernel_matches_plain(cuda, r, m, d, dtype):
     else:   # one bf16 rounding of f32 sums that may differ in the last bit
         torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
                                    atol=1e-6)
+
+
+def _assert_wavg_close(got, want):
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
+    else:   # one bf16 rounding of f32 sums that may differ in the last bit
+        torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("r,m,widths,dtype", [
+    (1250, 5, (200, 156800, 100, 20000, 10, 1000), torch.float32),
+    (100, 40, (3000, 10, 2049, 8), torch.float32),
+    (250, 5, (20000, 100, 10, 1000), torch.bfloat16)])
+def test_weighted_avg_tree_in_one_launch(cuda, r, m, widths, dtype):
+    """Every leaf of a tree in one launch, each against the plain version:
+    the main path's six MLP leaves (R = 1250 = 250 walks x M = 5), M = 40
+    (stack values reloaded chunk by chunk), bf16 leaves with D % 8 != 0
+    (one column a thread) beside 16-byte ones, and a leaf whose stack
+    starts 4 bytes past a 16-byte boundary."""
+    gen = torch.Generator().manual_seed(m + len(widths))
+    tree = {f"l{i}": torch.randn((m, d), generator=gen).to(cuda, dtype)
+            for i, d in enumerate(widths)}
+    flat = torch.randn((1 + m * 1000,), generator=gen).to(cuda, dtype)
+    tree["offset"] = flat[1:].view(m, 1000)
+    weights = torch.rand((r, m), generator=gen)
+    weights = (weights / weights.sum(-1, keepdim=True)).to(cuda)
+    before = kernels.LAUNCHES["weighted_avg"]
+    got = weighted_avg(tree, weights)
+    assert kernels.LAUNCHES["weighted_avg"] == before + 1
+    for name, x in tree.items():
+        assert got[name].dtype == dtype and got[name].shape == (r,) + tuple(
+            x.shape[1:]), name
+        _assert_wavg_close(got[name], weighted_avg_ref(x, weights.to(dtype)))
+
+
+def test_weighted_avg_mixed_dtypes_launch_once_per_dtype(cuda):
+    gen = torch.Generator().manual_seed(11)
+    tree = {"a": torch.randn((5, 300), generator=gen).to(cuda),
+            "b": torch.randn((5, 4, 6), generator=gen).to(cuda,
+                                                          torch.bfloat16),
+            "c": torch.randn((5, 7), generator=gen).to(cuda)}
+    weights = torch.rand((33, 5), generator=gen).to(cuda)
+    before = kernels.LAUNCHES["weighted_avg"]
+    got = weighted_avg(tree, weights)
+    assert kernels.LAUNCHES["weighted_avg"] == before + 2
+    for name, x in tree.items():
+        flat = x.reshape(5, -1)
+        want = weighted_avg_ref(flat, weights.to(x.dtype)).reshape(
+            (33,) + x.shape[1:])
+        _assert_wavg_close(got[name], want)
 
 
 def test_quant8_codec_on_the_card_equals_the_cpu(cuda):
@@ -417,12 +522,14 @@ def test_batched_path_runs_through_all_five_kernels(cuda):
     dense = run_federated(FLConfig(shapley_impl="batched", **base))
     valued = [(r.shapley_evals - 2 * 3) // (6 * 3) for r in (res, dense)]
     assert min(valued) > 0
+    # one cohort_gather a round (four stacks) and one weighted_avg a valued
+    # dense round (six leaves)
     assert streaming == {"prefix_avg": 6 * valued[0], "ce_loss": valued[0],
-                         "cohort_gather": 4 * 3, "delta_codec": 6 * 3,
+                         "cohort_gather": 3, "delta_codec": 6 * 3,
                          "weighted_avg": 0, "flash_attention": 0}
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": valued[1],
-                                "cohort_gather": 4 * 3, "delta_codec": 0,
-                                "weighted_avg": 6 * valued[1],
+                                "cohort_gather": 3, "delta_codec": 0,
+                                "weighted_avg": valued[1],
                                 "flash_attention": 0}
 
 
