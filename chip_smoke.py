@@ -26,10 +26,14 @@ exits non-zero without a result line:
    four shapes; flash_attention (bf16 on wgmma tensor cores fed by a TMA
    ring) gives its TFLOP/s and its time over SDPA's, and its f32 route's
    time over f32 SDPA's; weighted_avg (one launch for the tree, the
-   cohort's stack values in registers, 16-byte evict-first stores) and
+   cohort's stack values in registers, 16-byte evict-first stores),
    cohort_gather (one launch for the tree, ids checked on the host and
-   passed by value, no flag and no sync) are timed as the main path calls
-   them, over the six leaves and the four stacks at once;
+   passed by value, no flag and no sync) and delta_codec (one launch for
+   the tree, each row split over a cluster of 8 blocks that keep it in
+   shared memory, the delta and the add-back inside the kernel) are timed
+   as the main path calls them, over the six leaves and the four stacks
+   at once; prefix_avg is timed over `torch.matmul` of its prefix-weight
+   matrix;
 4. full-width Shapley: streaming GTG-Shapley of five full-width MNIST MLPs
    on the card against the port's CPU path on the same walks (atol 1e-5);
 5. reference run: a small GreedyFed run on the card against the same run
@@ -187,7 +191,9 @@ def time_prefix_avg(torch, flats, perms, n_k):
 
 def check_prefix_avg(torch, device):
     """Bitwise against the plain walk at every main-path leaf and at edge
-    shapes, each timed; the JSON entry is the main path's six leaves."""
+    shapes, each timed; the JSON entry is the main path's six leaves, with
+    `torch.matmul` of the prefix-weight matrix as its library call."""
+    from repro_torch.core.shapley_batched import prefix_weight_matrix
     from repro_torch.kernels.prefix_avg.ops import prefix_avg
     from repro_torch.kernels.prefix_avg.ref import prefix_avg_ref
     from repro_torch.models.mlp_cnn import make_mlp
@@ -230,14 +236,21 @@ def check_prefix_avg(torch, device):
 
     flats = [x for _, x, _, _ in cases[:len(tree_leaves(stacked))]]
     ms, plain_ms, b_ms, b_by = time_prefix_avg(torch, flats, perms, n_k)
+    # the same function as one product a leaf: the (R*M, M) prefix weights
+    # (built outside the timer) times the leaf's (M, D) stack
+    weights = prefix_weight_matrix(perms.cpu(), n_k.cpu()).reshape(
+        r * m, m).to(device)
+    library_ms = time_ms(lambda i: [torch.matmul(weights, f) for f in flats])
     log(f"[prefix_avg] main-path round (6 leaves, D="
         f"{sum(f.shape[1] for f in flats)}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        f"{plain_ms:.4f} ms, torch.matmul of the prefix weights "
+        f"{library_ms:.4f} ms (kernel / torch.matmul "
+        f"{ms / library_ms:.3f}), bound {b_ms:.4f} ms ({b_by})")
     return {"name": "prefix_avg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/prefix_avg.cu",
             "replaces": "src/repro/kernels/prefix_avg/kernel.py:57",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
 def check_ce_loss(torch, device):
@@ -441,22 +454,35 @@ def check_cohort_gather(torch, device):
 
 
 def check_delta_codec(torch, device):
-    """Bitwise against the plain rowwise codec: the three codecs at the six
-    main-path leaves (M = 5 deltas of one round's scale), a ragged D = 2049,
-    a row of ties, an all-zero row, k = 1, and rows with NaN and inf (NaN
-    outputs held as NaNs); the JSON entry is one round's six quant8_topk
-    launches."""
+    """Bitwise against the plain rowwise codec, through the single-matrix
+    launcher: the three codecs at the six main-path leaves (M = 5 deltas of
+    one round's scale), a ragged D = 2049, a row of ties, an all-zero row,
+    k = 1, rows with NaN and inf (NaN outputs held as NaNs), and rows whose
+    ties and non-finite values fall in different blocks of a row's cluster
+    at D = 2049 and 156,800.  Then the tree wrapper at the six leaves, one
+    launch a call, bitwise against `params + delta_codec_ref(stack -
+    params)`.  The JSON entry is one round's quant8_topk call, timed
+    through the tree wrapper (`ms`) and through the C entry alone
+    (`c_entry_ms`)."""
     from repro_torch import kernels
     from repro_torch.federated.compression import leaf_topk_k
-    from repro_torch.kernels.delta_codec import delta_codec_ref
-    from repro_torch.kernels.delta_codec.kernel import delta_codec_cuda
+    from repro_torch.kernels.delta_codec import (
+        delta_codec_ref, delta_codec_roundtrip,
+    )
+    from repro_torch.kernels.delta_codec.kernel import (
+        CLUSTER, delta_codec_cuda, leaf_slice, leaf_tables, occupancy,
+    )
+    from repro_torch.kernels.delta_codec.ref import CODEC_IDS
     from repro_torch.tree import tree_leaves, tree_paths
 
     gen = torch.Generator().manual_seed(4)
-    stacked, base = _stacked_mlp(torch, device, gen, 5, 0.01)
-    deltas = [(path, (s - b[None]).reshape(5, -1).contiguous()) for path, s, b
-              in zip(tree_paths(stacked), tree_leaves(stacked),
-                     tree_leaves(base))]
+    m = 5
+    stacked, base = _stacked_mlp(torch, device, gen, m, 0.01)
+    paths, stacks, refs = (tree_paths(stacked), tree_leaves(stacked),
+                           tree_leaves(base))
+    cases = [(path, (s - b[None]).reshape(m, -1).contiguous(),
+              [leaf_topk_k(b.numel())])
+             for path, s, b in zip(paths, stacks, refs)]
     edge = 0.01 * torch.randn((6, 2049), generator=gen)
     edge[1, 100:400] = -0.25                           # 300 tied maxima
     edge[2] = 0.5 * torch.sign(torch.randn(2049, generator=gen))
@@ -471,58 +497,117 @@ def check_delta_codec(torch, device):
     bad.view(torch.int32)[2, 9] = -4194303            # 0xffc00001, a -NaN
     bad.view(torch.int32)[3, [2, 5, 8]] = 0x7fc01234  # tied NaN payloads
     bad[3, 4] = float("inf")
-    cases = deltas + [("edge D=2049", edge.to(device)),
-                      ("non-finite D=2049", bad.to(device))]
+    ks = [1, 2, 4, leaf_topk_k(2049), 2049]
+    cases += [("edge D=2049", edge.to(device), ks),
+              ("non-finite D=2049", bad.to(device), ks)]
+    # the cluster's blocks own slices of a row: ties, NaNs and infs that
+    # fall in different slices
+    for d in (2049, 156800):
+        sl = leaf_slice(d)
+        x = 0.01 * torch.randn((5, d), generator=gen)
+        x[0] = 0.125                                   # one value everywhere
+        x[1, sl - 50:2 * sl + 50] = -0.25              # over two boundaries
+        x[2, [0, d - 1]] = 3.0                         # first and last slice
+        x[3, [3, 5 * sl + 1]] = float("nan")
+        x[3, [sl + 7, 6 * sl]] = float("inf")
+        x[4, (CLUSTER - 1) * sl:] = 0.0625             # the last slice tied
+        cases.append((f"straddling D={d}", x.to(device),
+                      sorted({1, 2, (sl + 100) // 2, leaf_topk_k(d), d})))
+
     saved = kernels.LAUNCHES["delta_codec"]
     worst = 0.0
-    for codec in ("quant8", "topk", "quant8_topk"):
-        for name, x in cases:
-            ks = ([0] if codec == "quant8" else
-                  [leaf_topk_k(x.shape[1])] if name in dict(deltas) else
-                  [1, 2, 4, leaf_topk_k(2049), 2049])
-            for k in ks:
-                got = delta_codec_cuda(x, codec, k)
-                want = delta_codec_ref(x, codec, k)
-                # NaN outputs are held as NaNs, whatever their payloads;
-                # every other word bitwise
-                nan = torch.isnan(want)
-                require(torch.equal(torch.isnan(got), nan)
-                        and torch.equal(got[~nan].view(torch.int32),
-                                        want[~nan].view(torch.int32)),
-                        f"delta_codec {codec} {name} k={k} not bitwise equal")
-                fin = torch.isfinite(want)
-                if bool(fin.any()):
-                    worst = max(worst,
-                                float((got[fin] - want[fin]).abs().max()))
-        log(f"[delta_codec] {codec}: bitwise equal at the six leaves and the "
-            f"ragged/tie/zero/k=1 and NaN/inf rows")
-    total = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
-    for name, x in deltas:
-        k = leaf_topk_k(x.shape[1])
-        ms = time_ms(lambda _: delta_codec_cuda(x, "quant8_topk", k))
-        plain_ms = time_ms(lambda _: delta_codec_ref(x, "quant8_topk", k),
-                           iters=5, warmup=1)
-        # read once, write once; per element ~6 ops (abs, max, divide,
-        # round, clip, multiply) plus the compares of the keep set
-        n_bytes, n_ops = 2 * x.numel() * 4, 8 * x.numel()
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        for key, v in (("ms", ms), ("plain_ms", plain_ms),
-                       ("bytes", n_bytes), ("ops", n_ops)):
-            total[key] += v
-        log(f"[delta_codec] quant8_topk {name:9s} M=5 D={x.shape[1]:6d} "
-            f"k={k:5d}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+
+    def same(got, want, what):
+        # NaN outputs are held as NaNs, whatever their payloads; every
+        # other word bitwise
+        nan = torch.isnan(want)
+        require(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan].view(torch.int32),
+                                want[~nan].view(torch.int32)),
+                f"delta_codec {what} not bitwise equal")
+        fin = torch.isfinite(want)
+        return float((got[fin] - want[fin]).abs().max()) if bool(
+            fin.any()) else 0.0
+
+    def plain_round(codec):
+        out = []
+        for s, b in zip(stacks, refs):
+            d = b.numel()
+            k = leaf_topk_k(d) if codec != "quant8" else 0
+            delta = s.reshape(m, d) - b.reshape(1, d)
+            out.append((b.reshape(1, d) + delta_codec_ref(delta, codec, k)
+                        ).reshape(s.shape))
+        return out
+
+    for codec in CODEC_IDS:
+        for name, x, ks in cases:
+            for k in ([0] if codec == "quant8" else ks):
+                worst = max(worst, same(delta_codec_cuda(x, codec, k),
+                                        delta_codec_ref(x, codec, k),
+                                        f"{codec} {name} k={k}"))
+        before = kernels.LAUNCHES["delta_codec"]
+        got = tree_leaves(delta_codec_roundtrip(stacked, base, codec))
+        require(kernels.LAUNCHES["delta_codec"] == before + 1,
+                "delta_codec: the six leaves took more than one launch")
+        for path, g, want in zip(paths, got, plain_round(codec)):
+            worst = max(worst, same(g, want, f"{codec} tree {path}"))
+        log(f"[delta_codec] {codec}: bitwise equal at the six leaves, the "
+            f"ragged/tie/zero/k=1 and NaN/inf rows and the rows straddling "
+            f"the cluster's slices; the tree wrapper in one launch bitwise "
+            f"equal to params + delta_codec_ref(stack - params)")
+
+    codec = "quant8_topk"
+    ms = time_ms(lambda _: delta_codec_roundtrip(stacked, base, codec),
+                 iters=200)
+    flats = [s.reshape(m, -1) for s in stacks]
+    lib = kernels.library()
+    dev, stream = flats[0].device.index, kernels.stream_ptr(flats[0])
+
+    def c_entry(codec, leaves):
+        """The C entry alone on `leaves` (indices into the six), its table
+        built once."""
+        work = [(flats[i], refs[i].reshape(-1), torch.empty_like(flats[i]),
+                 leaf_topk_k(refs[i].numel()) if codec != "quant8" else 0)
+                for i in leaves]
+        ((fields, n, smem),) = leaf_tables(work)
+        table = kernels.host_table(fields)
+        return time_ms(lambda _: kernels.check_launch(lib.delta_codec_f32(
+            table, n, m, CODEC_IDS[codec], smem, dev, stream),
+            "delta_codec"), iters=200), n, smem
+
+    c_entry_ms, n, smem = c_entry(codec, range(len(flats)))
+    # what the radix passes cost (quant8 has none), and how much of the
+    # round the widest leaf alone takes
+    by_codec = {c: c_entry(c, range(len(flats)))[0]
+                for c in ("quant8", "topk")}
+    widest = max(range(len(flats)), key=lambda i: flats[i].shape[1])
+    by_codec[f"quant8_topk {paths[widest]} alone"] = c_entry(codec,
+                                                             [widest])[0]
     kernels.LAUNCHES["delta_codec"] = saved   # check launches do not count
-    b_ms, b_by = bound_ms(total["bytes"], total["ops"])
-    log(f"[delta_codec] main-path round (6 leaves, quant8_topk): kernel "
-        f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}); no single PyTorch call computes it")
+    plain_ms = time_ms(lambda _: plain_round(codec), iters=10, warmup=1)
+    active = occupancy(smem, dev)
+    d_total = sum(b.numel() for b in refs)
+    # the stack and the server weights read once, the result written once;
+    # per element ~8 ops (subtract, abs, max, divide, round, clip, multiply,
+    # add) plus the compares of the keep set
+    b_ms, b_by = bound_ms((2 * m + 1) * d_total * 4, 8 * m * d_total)
+    log(f"[delta_codec] main-path round (6 leaves, M={m}, D={d_total}, "
+        f"quant8_topk, one launch of {n * m} clusters x {CLUSTER} blocks, "
+        f"{smem} B of shared memory a block, {active} clusters resident at "
+        f"once): through the tree wrapper {ms:.4f} ms, the C entry alone "
+        f"{c_entry_ms:.4f} ms; plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; wrapper / bound {ms / b_ms:.1f}); no single PyTorch call "
+        f"computes it")
+    log("[delta_codec] the C entry alone, six leaves, other codecs: " +
+        ", ".join(f"{c} {t:.4f} ms" for c, t in by_codec.items()))
+    require(active >= 1, "delta_codec: no cluster fits on the card")
     return {"name": "delta_codec", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/delta_codec.cu",
             "replaces": "src/repro/kernels/delta_codec/kernel.py:81",
-            "max_abs_err": worst, "ms": total["ms"],
-            "plain_ms": total["plain_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "c_entry_ms": c_entry_ms, "c_entry_ms_by_codec": by_codec,
+            "clusters_resident": active}
 
 
 def check_weighted_avg(torch, device):
@@ -768,7 +853,7 @@ def phase_batched_path(torch, device):
     res, launches, valued = drive(torch, device, cfg, "batched")
     expect_launches("batched path", launches, {
         "prefix_avg": 6 * valued, "ce_loss": valued,
-        "cohort_gather": cfg.rounds, "delta_codec": 6 * cfg.rounds,
+        "cohort_gather": cfg.rounds, "delta_codec": cfg.rounds,
         "weighted_avg": 0, "flash_attention": 0})
     same = all((a == b).all() for a, b in zip(res.selections,
                                               loop.selections))

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time weighted_avg and cohort_gather as the main path calls them, for
-the port under --src (this checkout's `src` by default), so that two
-versions can be timed in turns on one card.
+"""Time weighted_avg, cohort_gather and delta_codec as the main path calls
+them, for the port under --src (this checkout's `src` by default), so that
+two versions can be timed in turns on one card.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -18,7 +18,12 @@ Every version gets the same inputs, made from fixed seeds:
   tree wrapper `cohort_gather(stacks, ids)`, once with the ids on the
   card (what the engine passed before the gather checked its ids on the
   host) and, where the version takes them, once with host ids (what the
-  engine passes since).
+  engine passes since);
+- delta_codec: the batched engine's upload codec, quant8_topk on the
+  full-width MLP's six stacked leaves (M = 5 clients at one round's
+  distance from the server weights), through the tree wrapper
+  `delta_codec_roundtrip(stacked, params, "quant8_topk")`, which also
+  forms the deltas and adds the server weights back.
 
 Each time is a CUDA-event mean over back-to-back calls (`chip_smoke.
 time_ms`), taken `--repeats` times; the launches per call are counted.
@@ -56,6 +61,7 @@ def main() -> int:
     from repro_torch.federated.server import FLConfig, setup_run
     from repro_torch.kernels.cohort_gather import cohort_gather
     from repro_torch.kernels.cohort_gather import kernel as gather_kernel
+    from repro_torch.kernels.delta_codec import delta_codec_roundtrip
     from repro_torch.kernels.weighted_avg import weighted_avg
 
     device = torch.device("cuda")
@@ -76,12 +82,16 @@ def main() -> int:
               "sigma": torch.as_tensor(s.sigma_k_all, dtype=torch.float32,
                                        device=device)}
     sel = np.array([7, 31, 2, 49, 18])
+    clients, server = _stacked_mlp(torch, device,
+                                   torch.Generator().manual_seed(4), m, 0.01)
     calls = {"weighted_avg": (lambda _: weighted_avg(stacked, weights), 20),
              "cohort_gather cuda ids": (lambda _: cohort_gather(
                  stacks, torch.as_tensor(sel, device=device)), 200)}
     if hasattr(gather_kernel, "checked_ids"):    # takes host ids
         calls["cohort_gather host ids"] = (
             lambda _: cohort_gather(stacks, sel), 200)
+    calls["delta_codec"] = (lambda _: delta_codec_roundtrip(
+        clients, server, "quant8_topk"), 200)
 
     out = {"label": args.label, "device": torch.cuda.get_device_name(0)}
     for name, (fn, iters) in calls.items():

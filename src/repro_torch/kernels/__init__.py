@@ -133,10 +133,10 @@ def build() -> Build:
 
 
 _PTR, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-# C entry points: each takes device pointers (cohort_gather and weighted_avg
-# also a host table of leaves, passed to the kernel by value), sizes, the
-# device index and the stream, and returns cudaGetLastError() after its
-# launch (or the error of a check that refused it)
+# C entry points: each takes device pointers (cohort_gather, delta_codec and
+# weighted_avg a host table of leaves, passed to the kernel by value),
+# sizes, the device index and the stream, and returns cudaGetLastError()
+# after its launch (or the error of a check that refused it)
 _SIGNATURES = {
     "prefix_avg_f32": [_PTR] * 5 + [_I64] * 4 + [_PTR],
     "prefix_avg_bf16": [_PTR] * 5 + [_I64] * 4 + [_PTR],
@@ -144,7 +144,10 @@ _SIGNATURES = {
     "ce_loss_bf16": [_PTR] * 3 + [_I64] * 6 + [_PTR],
     # (leaf table, leaves, host ids, M, blocks, device, stream)
     "cohort_gather": [_PTR, _I64, _PTR] + [_I64] * 3 + [_PTR],
-    "delta_codec_f32": [_PTR] * 2 + [_I64] * 5 + [_PTR],
+    # (leaf table, leaves, rows, codec, shared memory, device, stream)
+    "delta_codec_f32": [_PTR] + [_I64] * 5 + [_PTR],
+    # (shared memory, device, out: clusters)
+    "delta_codec_occupancy": [_I64, _I64, _PTR],
     # (leaf table, leaves, weights, R, M, rows, blocks, device, stream)
     "weighted_avg_f32": [_PTR, _I64, _PTR] + [_I64] * 5 + [_PTR],
     "weighted_avg_bf16": [_PTR, _I64, _PTR] + [_I64] * 5 + [_PTR],

@@ -5,22 +5,21 @@
 (M, *s) client weights minus the (*s,) server weights become an (M, d)
 delta matrix, roundtripped rowwise, and added back.  The sparse codecs keep
 `leaf_topk_k(d)` entries per row, the per-leaf codecs' rule, so the result
-equals `federated.compression`'s per-client roundtrip bitwise.  A CUDA leaf
-goes to the CUDA kernel whatever its width (the reference's 2048 <= d <=
-2^18 window exists only for its VMEM-resident row); a CPU leaf goes to the
-plain version.
+equals `federated.compression`'s per-client roundtrip bitwise.  The CUDA
+leaves of one device go to the CUDA kernel together, in one launch whatever
+their widths (the reference's 2048 <= d <= 2^18 window exists only for its
+VMEM-resident row), with the subtraction and the addition inside it; a CPU
+leaf goes to the plain version.
 """
 from __future__ import annotations
 
 import math
 from typing import Any
 
-import torch
-
 from repro_torch.kernels import use_kernel
-from repro_torch.kernels.delta_codec.kernel import delta_codec_cuda
+from repro_torch.kernels.delta_codec.kernel import delta_codec_leaves_cuda
 from repro_torch.kernels.delta_codec.ref import delta_codec_ref
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 Tree = Any
 
@@ -32,16 +31,23 @@ def delta_codec_roundtrip(stacked: Tree, params: Tree, codec: str) -> Tree:
 
     if codec == "identity":
         return stacked
-
-    def one(leaf: torch.Tensor, ref_leaf: torch.Tensor) -> torch.Tensor:
-        m = leaf.shape[0]
-        d = math.prod(leaf.shape[1:])
-        delta = leaf.reshape(m, d) - ref_leaf.reshape(1, d)
-        k = leaf_topk_k(d) if codec != "quant8" else 0
+    leaves, refs = tree_leaves(stacked), tree_leaves(params)
+    ks = [leaf_topk_k(math.prod(leaf.shape[1:])) if codec != "quant8" else 0
+          for leaf in leaves]
+    outs: list = [None] * len(leaves)
+    groups: dict = {}
+    for i, (leaf, ref_leaf) in enumerate(zip(leaves, refs, strict=True)):
         if use_kernel(leaf):
-            rt = delta_codec_cuda(delta.contiguous(), codec, k)
-        else:
-            rt = delta_codec_ref(delta, codec, k)
-        return (ref_leaf.reshape(1, d) + rt).reshape(leaf.shape)
-
-    return tree_map(one, stacked, params)
+            groups.setdefault(leaf.device, []).append(i)
+            continue
+        m, d = leaf.shape[0], math.prod(leaf.shape[1:])
+        delta = leaf.reshape(m, d) - ref_leaf.reshape(1, d)
+        rt = delta_codec_ref(delta, codec, ks[i])
+        outs[i] = (ref_leaf.reshape(1, d) + rt).reshape(leaf.shape)
+    for idx in groups.values():
+        for i, out in zip(idx, delta_codec_leaves_cuda(
+                [leaves[i].contiguous() for i in idx],
+                [refs[i].contiguous() for i in idx], codec,
+                [ks[i] for i in idx])):
+            outs[i] = out
+    return tree_unflatten(stacked, outs)

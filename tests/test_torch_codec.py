@@ -27,7 +27,10 @@ from repro_torch.federated.compression import (
 from repro_torch.kernels.delta_codec import (
     delta_codec_ref, delta_codec_roundtrip,
 )
-from repro_torch.kernels.delta_codec.kernel import delta_codec_cuda
+from repro_torch.kernels.delta_codec.kernel import (
+    MAX_LEAVES, delta_codec_cuda, delta_codec_leaves_cuda, launch_plan,
+    leaf_slice, leaf_tables,
+)
 from repro_torch.tree import tree_leaves
 
 CODECS = ["quant8", "topk", "quant8_topk"]
@@ -216,3 +219,99 @@ def test_codec_launcher_and_plain_version_checks():
         delta_codec_cuda(x, "zstd")
     with pytest.raises(ValueError, match="codec"):
         delta_codec_ref(x, "zstd")
+    with pytest.raises(TypeError):
+        delta_codec_cuda(torch.zeros(8), "quant8")
+    with pytest.raises(ValueError, match="k must be"):
+        delta_codec_cuda(x, "topk", 9)
+    with pytest.raises(ValueError, match="codec"):
+        delta_codec_leaves_cuda([x], [None], "zstd", [0])
+    # an empty stack needs no launch and no keep count
+    assert delta_codec_leaves_cuda([], [], "topk", []) == []
+
+
+_S, _R = torch.zeros((3, 40)), torch.zeros(40)
+
+
+@pytest.mark.parametrize("stacks,refs,ks,error,match", [
+    ([_S.bfloat16()], [None], [4], TypeError, "float32"),
+    ([_S], [_R.double()], [4], TypeError, "reference of torch.float64"),
+    ([_S[:, ::2]], [None], [4], ValueError, "stack must be contiguous"),
+    ([_S], [torch.zeros((40, 2))[:, 0]], [4], ValueError,
+     "reference must be contiguous"),
+    ([_S, torch.zeros((2, 40))], [_R, _R], [4, 4], ValueError, "same M"),
+    ([_S], [torch.zeros(39)], [4], ValueError, "reference of 39"),
+    ([_S], [_R], [0], ValueError, "k must be in"),
+    ([_S], [_R], [41], ValueError, "k must be in"),
+    ([_S], [_R], [4], ValueError, "one CUDA device"),
+    ([_S], [None], [4], ValueError, "one CUDA device"),
+    ([_S], [_R], [4, 4], ValueError, "zip"),
+])
+def test_codec_launcher_refuses(stacks, refs, ks, error, match):
+    """The tree launcher takes contiguous float32 stacks of one M with a
+    reference row of d entries (or none) and a keep count in [1, d], on
+    one CUDA device; it checks all of that before it builds a table."""
+    with pytest.raises(error, match=match):
+        delta_codec_leaves_cuda(stacks, refs, "quant8_topk", ks)
+
+
+# the MLP's six leaves in tree order: layer0/b, layer0/w, layer1/b,
+# layer1/w, layer2/b, layer2/w
+_MLP_D = (200, 156800, 100, 20000, 10, 1000)
+
+
+@pytest.mark.parametrize("widths,offset,ref,want,smem", [
+    # the main path: 16-byte words but at d = 10, every slice staged; the
+    # widest slice (19,600 columns) sizes the shared memory
+    (_MLP_D, 0, True, [(28, 4, True), (19600, 4, True), (16, 4, True),
+                       (2500, 4, True), (4, 1, True), (128, 4, True)],
+     78400),
+    # a stack 4 bytes past a 16-byte boundary takes 4-byte words
+    ((156800, 1000), 4, True, [(19600, 1, True), (128, 1, True)], 78400),
+    ((156800, 1000), 4, False, [(19600, 1, True), (128, 1, True)], 78400),
+    # 220 KB of shared memory a block at most: a slice of 56,320 columns is
+    # staged, one of 56,324 is re-read from global memory in every pass
+    ((450560, 450561, 3), 0, True, [(56320, 4, True), (56324, 1, False),
+                                    (4, 1, True)], 225280),
+    ((8_000_000,), 0, False, [(1_000_000, 4, False)], 0),
+])
+def test_codec_launch_plan(widths, offset, ref, want, smem):
+    """Each leaf's row is cut into CLUSTER slices of a multiple of 4
+    columns; a leaf takes 16-byte words when d is a multiple of 4 and its
+    stack, reference and output start on 16-byte boundaries; the launch's
+    shared memory is the widest slice that fits in 220 KB."""
+    base = 1 << 20
+    plans, got_smem = launch_plan([(d, base + offset, base if ref else 0,
+                                    base) for d in widths])
+    assert [tuple(p) for p in plans] == want and got_smem == smem
+    assert [p.slice for p in plans] == [leaf_slice(d) for d in widths]
+
+
+@pytest.mark.parametrize("n_leaves", [6, MAX_LEAVES, 70])
+def test_codec_leaf_tables(n_leaves):
+    """One table of at most MAX_LEAVES leaves a launch, each leaf's seven
+    fields (stack, reference or 0, output, d, k, slice, word) in tree
+    order, and each launch's shared memory from its own leaves."""
+    widths = [_MLP_D[i % 6] for i in range(n_leaves)]
+    stacks = [torch.zeros((5, d)) for d in widths]
+    refs = [torch.zeros(d) if i % 3 else None for i, d in enumerate(widths)]
+    outs = [torch.empty_like(s) for s in stacks]
+    ks = [leaf_topk_k(d) for d in widths]
+    tables = leaf_tables(list(zip(stacks, refs, outs, ks)))
+    assert [n for _, n, _ in tables] == \
+        [min(MAX_LEAVES, n_leaves - i) for i in range(0, n_leaves,
+                                                      MAX_LEAVES)]
+    for t, (fields, n, smem) in enumerate(tables):
+        assert len(fields) == 7 * n
+        lo = t * MAX_LEAVES
+        want_smem = 0
+        for j in range(n):
+            s, r, o, k = stacks[lo + j], refs[lo + j], outs[lo + j], ks[lo + j]
+            d = s.shape[1]
+            plan = launch_plan([(d, s.data_ptr(),
+                                 0 if r is None else r.data_ptr(),
+                                 o.data_ptr())])[0][0]
+            assert fields[7 * j:7 * j + 7] == [
+                s.data_ptr(), 0 if r is None else r.data_ptr(), o.data_ptr(),
+                d, k, plan.slice, plan.vec]
+            want_smem = max(want_smem, 4 * plan.slice)
+        assert smem == want_smem

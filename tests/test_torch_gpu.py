@@ -31,8 +31,12 @@ from repro_torch.kernels.ce_loss.ref import ce_loss_ref
 from repro_torch.kernels.cohort_gather import (
     cohort_gather, cohort_gather_ref, cohort_take,
 )
-from repro_torch.kernels.delta_codec import delta_codec_ref
-from repro_torch.kernels.delta_codec.kernel import delta_codec_cuda
+from repro_torch.kernels.delta_codec import (
+    delta_codec_ref, delta_codec_roundtrip,
+)
+from repro_torch.kernels.delta_codec.kernel import (
+    delta_codec_cuda, delta_codec_leaves_cuda, leaf_slice,
+)
 from repro_torch.kernels.prefix_avg.ops import prefix_avg
 from repro_torch.kernels.prefix_avg.ref import prefix_avg_ref
 from repro_torch.kernels.weighted_avg import weighted_avg, weighted_avg_ref
@@ -361,6 +365,146 @@ def test_delta_codec_kernel_passes_non_finite_values_like_plain(cuda, codec,
         assert bool(torch.isnan(got[0, 3])) and bool(torch.isnan(got[3, 2]))
 
 
+def _roundtrip_plain(stack, ref, codec, k):
+    """The tree wrapper's function on one leaf, op by op: ref + rt(w - ref)."""
+    m, d = stack.shape[0], ref.numel()
+    delta = stack.reshape(m, d) - ref.reshape(1, d)
+    return (ref.reshape(1, d) + delta_codec_ref(delta, codec, k)
+            ).reshape(stack.shape)
+
+
+@pytest.mark.parametrize("codec", ["quant8", "topk", "quant8_topk"])
+@pytest.mark.parametrize("model", ["mlp", "cnn"])
+def test_delta_codec_tree_in_one_launch_bitwise(cuda, model, codec):
+    """The batched round's call: every leaf of the MLP (six) or the CNN
+    (eight; dense0/w's 524,288 columns are too wide to stage in shared
+    memory) at M = 5 in one launch, the delta and the add-back inside it,
+    bitwise equal to `params + delta_codec_ref(stack - params)` on the card
+    and on the CPU."""
+    from repro_torch.models.mlp_cnn import make_cnn, make_mlp
+    from repro_torch.tree import tree_leaves, tree_map
+    gen = torch.Generator().manual_seed(17)
+    params = (make_mlp() if model == "mlp" else make_cnn()).init(
+        gen, torch.device("cpu"))
+    stacked = tree_map(lambda p: p[None] + 0.01 * torch.randn(
+        (5,) + p.shape, generator=gen), params)
+    tree_leaves(params)[0][::3] = -0.0    # ref + (+0.0) keeps no -0.0
+    on = tree_map(lambda t: t.to(cuda), stacked)
+    ref_on = tree_map(lambda t: t.to(cuda), params)
+    before = kernels.LAUNCHES["delta_codec"]
+    got = delta_codec_roundtrip(on, ref_on, codec)
+    assert kernels.LAUNCHES["delta_codec"] == before + 1
+    cpu = delta_codec_roundtrip(stacked, params, codec)
+    for g, c, s, p in zip(tree_leaves(got), tree_leaves(cpu),
+                          tree_leaves(on), tree_leaves(ref_on)):
+        k = max(1, int(0.1 * p.numel())) if codec != "quant8" else 0
+        want = _roundtrip_plain(s, p, codec, k)
+        assert g.shape == s.shape
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+        assert torch.equal(g.cpu().view(torch.int32), c.view(torch.int32))
+
+
+def _straddling_rows(gen, d):
+    """Rows whose ties cross the cluster's slice boundaries: one value in
+    every column; a run of ties over two boundaries among smaller
+    entries; ties at the top in the first and last blocks; and plain
+    deltas."""
+    sl = leaf_slice(d)
+    x = _codec_rows(gen, 5, d)
+    x[0] = 0.125
+    lo, hi = max(0, sl - 50), min(d, 2 * sl + 50)
+    x[1, lo:hi] = -0.25
+    x[2, [0, d - 1]] = 3.0
+    x[3] = 0.5 * torch.sign(torch.randn(d, generator=gen))
+    return x, hi - lo
+
+
+@pytest.mark.parametrize("codec", ["topk", "quant8_topk"])
+@pytest.mark.parametrize("d", [10, 2049, 20000, 156800])
+def test_delta_codec_ties_straddle_cluster_slices(cuda, codec, d):
+    """Ties are ranked in column order across the blocks of a cluster: at
+    k = 1, half the run, d // 10 and k = d, through the single-matrix
+    launcher and through the tree wrapper with a reference row."""
+    gen = torch.Generator().manual_seed(d + 1)
+    x, run = _straddling_rows(gen, d)
+    ref = torch.randn(d, generator=gen)
+    x, ref = x.to(cuda), ref.to(cuda)
+    for k in sorted({1, max(1, run // 2), max(1, d // 10), d}):
+        got = delta_codec_cuda(x, codec, k)
+        want = delta_codec_ref(x, codec, k)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+        stack = ref[None] + x
+        got = delta_codec_leaves_cuda([stack], [ref], codec, [k])[0]
+        want = _roundtrip_plain(stack, ref, codec, k)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+
+
+@pytest.mark.parametrize("codec", ["quant8", "topk", "quant8_topk"])
+@pytest.mark.parametrize("d", [1, 3, 10])
+def test_delta_codec_leaf_narrower_than_the_cluster(cuda, codec, d):
+    """d = 10 fills 3 of the cluster's 8 blocks (slices of 4 columns);
+    the empty blocks still take part in every cluster barrier."""
+    gen = torch.Generator().manual_seed(d)
+    x = _codec_rows(gen, 6, d)
+    x[1] = 0.25
+    x[2] = -0.0
+    x = x.to(cuda)
+    for k in ([0] if codec == "quant8" else range(1, d + 1)):
+        got = delta_codec_cuda(x, codec, k)
+        want = delta_codec_ref(x, codec, k)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), k
+
+
+@pytest.mark.parametrize("codec", ["quant8", "topk", "quant8_topk"])
+@pytest.mark.parametrize("d", [2049, 156800])
+def test_delta_codec_non_finite_values_in_different_blocks(cuda, codec, d):
+    """NaNs and infs in slices of different blocks: the abs-max and the
+    keep set are combined across the cluster as in one block."""
+    gen = torch.Generator().manual_seed(9)
+    sl = leaf_slice(d)
+    x = _codec_rows(gen, 4, d)
+    x[0, [3, 5 * sl + 1]] = float("nan")
+    x[1, [sl + 7, 6 * sl]] = float("inf")
+    x[1, 2 * sl] = float("-inf")
+    x.view(torch.int32)[2, [1, 4 * sl + 2]] = 0x7fc01234
+    x[2, [3 * sl + 5, d - 1]] = float("inf")
+    x.view(torch.int32)[3, 7 * sl] = -4194303       # 0xffc00001, a -NaN
+    x = x.to(cuda)
+    for k in ([0] if codec == "quant8" else [1, 2, 3, 4, d // 10]):
+        got = delta_codec_cuda(x, codec, k)
+        want = delta_codec_ref(x, codec, k)
+        assert _same_bits_or_both_nan(got, want), k
+
+
+def test_delta_codec_mixed_leaves_in_one_launch(cuda):
+    """Leaves the launch handles differently side by side: a slice too
+    wide for shared memory (re-read from global memory each pass), a stack
+    4 bytes off a 16-byte boundary (4-byte words), a leaf without a
+    reference row, and 40 leaves in two launches."""
+    gen = torch.Generator().manual_seed(23)
+    m = 2
+    wide = torch.randn((m, 500_000), generator=gen)
+    wide_ref = torch.randn(500_000, generator=gen)
+    wide[0, 100_000:300_000] = 5.0        # the top 200,000, over 4 blocks
+    wide_ref[100_000:300_000] = 0.0
+    buf = torch.randn(1 + m * 3000, generator=gen)
+    leaves = [(wide, wide_ref),
+              (buf[1:].view(m, 3000), torch.randn(3000, generator=gen)),
+              (torch.randn((m, 20000), generator=gen), None)]
+    leaves += [(torch.randn((m, 100 + i), generator=gen),
+                torch.randn(100 + i, generator=gen)) for i in range(37)]
+    stacks = [s.to(cuda) for s, _ in leaves]
+    refs = [None if r is None else r.to(cuda) for _, r in leaves]
+    ks = [max(1, s.shape[1] // 10) for s in stacks]
+    before = kernels.LAUNCHES["delta_codec"]
+    got = delta_codec_leaves_cuda(stacks, refs, "quant8_topk", ks)
+    assert kernels.LAUNCHES["delta_codec"] == before + 2
+    for g, s, r, k in zip(got, stacks, refs, ks):
+        want = (delta_codec_ref(s, "quant8_topk", k) if r is None else
+                _roundtrip_plain(s, r, "quant8_topk", k))
+        assert torch.equal(g.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.parametrize("r,m,d,dtype", [
     (1250, 5, 156800, torch.float32), (1250, 5, 10, torch.float32),
     (7, 3, 2049, torch.float32), (3, 1, 4096, torch.float32),
@@ -522,10 +666,10 @@ def test_batched_path_runs_through_all_five_kernels(cuda):
     dense = run_federated(FLConfig(shapley_impl="batched", **base))
     valued = [(r.shapley_evals - 2 * 3) // (6 * 3) for r in (res, dense)]
     assert min(valued) > 0
-    # one cohort_gather a round (four stacks) and one weighted_avg a valued
-    # dense round (six leaves)
+    # one cohort_gather a round (four stacks), one delta_codec a round (six
+    # leaves) and one weighted_avg a valued dense round (six leaves)
     assert streaming == {"prefix_avg": 6 * valued[0], "ce_loss": valued[0],
-                         "cohort_gather": 3, "delta_codec": 6 * 3,
+                         "cohort_gather": 3, "delta_codec": 3,
                          "weighted_avg": 0, "flash_attention": 0}
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": valued[1],
                                 "cohort_gather": 3, "delta_codec": 0,
