@@ -28,11 +28,14 @@ exits non-zero without a result line:
    time over f32 SDPA's; weighted_avg (one launch for the tree, the
    cohort's stack values in registers, 16-byte evict-first stores),
    cohort_gather (one launch for the tree, ids checked on the host and
-   passed by value, no flag and no sync) and delta_codec (one launch for
+   passed by value, no flag and no sync), delta_codec (one launch for
    the tree, each row split over a cluster of 8 blocks that keep it in
-   shared memory, the delta and the add-back inside the kernel) are timed
-   as the main path calls them, over the six leaves and the four stacks
-   at once; prefix_avg is timed over `torch.matmul` of its prefix-weight
+   shared memory, the delta and the add-back inside the kernel) and
+   prefix_avg (one launch for the tree, each block's walks staged in
+   shared memory with their weights and running sizes formed there, the
+   stack words in registers, 16-byte evict-first stores) are timed as the
+   main path calls them, over the six leaves and the four stacks at once;
+   prefix_avg and weighted_avg over `torch.matmul` of the prefix-weight
    matrix;
 4. full-width Shapley: streaming GTG-Shapley of five full-width MNIST MLPs
    on the card against the port's CPU path on the same walks (atol 1e-5);
@@ -166,91 +169,143 @@ def phase_build():
             log(f"[build] {line.strip()}")
 
 
-def time_prefix_avg(torch, flats, perms, n_k):
-    """(kernel ms, plain ms, bound ms, bound_by) for building the prefix
-    models of the (M, D) matrices `flats` along the walks `perms`."""
+def time_prefix_avg(torch, tree, perms, n_k):
+    """(ms through the tree wrapper, plain ms, bound ms, bound_by) for
+    building the prefix models of every (M, ...) leaf of `tree` along the
+    walks `perms`, as the main path calls it."""
     from repro_torch import kernels
-    from repro_torch.kernels.prefix_avg.kernel import prefix_avg_cuda
-    from repro_torch.kernels.prefix_avg.ref import prefix_avg_ref, walk_weights
+    from repro_torch.kernels.prefix_avg import prefix_avg, prefix_avg_ref
+    from repro_torch.tree import tree_leaves
 
     r, m = perms.shape
-    scale, ncum = walk_weights(perms, n_k)
+    leaves = tree_leaves(tree)
     saved = kernels.LAUNCHES["prefix_avg"]
-    ms = time_ms(lambda i: [prefix_avg_cuda(f, perms, scale, ncum)
-                            for f in flats])
+    ms = time_ms(lambda i: prefix_avg(tree, perms, n_k))
     kernels.LAUNCHES["prefix_avg"] = saved     # timing launches do not count
-    plain_ms = time_ms(lambda i: [prefix_avg_ref(f, perms, n_k)
-                                  for f in flats], iters=5, warmup=1)
-    # each input read once, each output written once; perms/scale/ncum
-    # are R*M * (8 + 4 + 4) bytes per launch; 3 flops per output element
-    n_bytes = sum(f.numel() * f.element_size() * (1 + r) + r * m * 16
-                  for f in flats)
-    b_ms, b_by = bound_ms(n_bytes, 3 * r * sum(f.numel() for f in flats))
+    plain_ms = time_ms(lambda i: [prefix_avg_ref(x.reshape(m, -1), perms, n_k)
+                                  for x in leaves], iters=5, warmup=1)
+    # each input read once (the stacks, the (R, M) int64 perms and the (M,)
+    # f32 n_k), each output written once; 3 flops per output element
+    n_bytes = sum(x.numel() * x.element_size() * (1 + r) for x in leaves) \
+        + perms.numel() * 8 + m * 4
+    b_ms, b_by = bound_ms(n_bytes, 3 * r * sum(x.numel() for x in leaves))
     return ms, plain_ms, b_ms, b_by
 
 
 def check_prefix_avg(torch, device):
-    """Bitwise against the plain walk at every main-path leaf and at edge
-    shapes, each timed; the JSON entry is the main path's six leaves, with
-    `torch.matmul` of the prefix-weight matrix as its library call."""
+    """Bitwise against the plain walk at every main-path leaf, all six in
+    one launch as the streaming walk makes it, and at edge cases, each tree
+    in one launch: M = 1, 3, 5 and 12 (above the eight clients held in
+    registers), bf16, 16-byte and one-column leaves side by side, views 4
+    bytes past a 16-byte boundary, R not a multiple of the walks a block
+    takes, non-integer n_k, and a slice of the walks (a chunked walk).
+    Each case is timed through the tree wrapper; the JSON entry is the main
+    path's round, through the wrapper (`ms`) and the C entry alone
+    (`c_entry_ms`), with `torch.matmul` of the prefix-weight matrix as its
+    library call."""
+    from repro_torch import kernels
     from repro_torch.core.shapley_batched import prefix_weight_matrix
-    from repro_torch.kernels.prefix_avg.ops import prefix_avg
-    from repro_torch.kernels.prefix_avg.ref import prefix_avg_ref
-    from repro_torch.models.mlp_cnn import make_mlp
+    from repro_torch.kernels.prefix_avg import prefix_avg, prefix_avg_ref
+    from repro_torch.kernels.prefix_avg.kernel import c_args, walks_per_block
     from repro_torch.tree import tree_leaves, tree_paths
 
     gen = torch.Generator().manual_seed(0)
     m, r = 5, 250                                 # main path: R = 50 * M
-    params = make_mlp().init(gen, torch.device("cpu"))
-    stacked = {k: {n: torch.stack([t + 0.1 * torch.randn(t.shape,
-                                                         generator=gen)
-                                   for _ in range(m)]).to(device)
-                   for n, t in v.items()} for k, v in params.items()}
+    stacked, _ = _stacked_mlp(torch, device, gen, m, 0.1)
     perms = torch.stack([torch.randperm(m, generator=gen)
                          for _ in range(r)]).to(device)
     n_k = torch.randint(20, 300, (m,), generator=gen).float().to(device)
-    cases = [(path, leaf.reshape(m, -1), perms, n_k) for path, leaf in
-             zip(tree_paths(stacked), tree_leaves(stacked))]
-    for mm, rr, d, dtype in ((3, 7, 2049, torch.float32),
-                             (1, 4, 4096, torch.float32),
-                             (5, 250, 20000, torch.bfloat16)):
-        cases.append((f"edge {str(dtype)[6:]}",
-                      torch.randn((mm, d), generator=gen).to(device, dtype),
-                      torch.stack([torch.randperm(mm, generator=gen)
-                                   for _ in range(rr)]).to(device),
-                      torch.randint(1, 300, (mm,), generator=gen
-                                    ).float().to(device)))
+
+    def walks(mm, rr):
+        return torch.stack([torch.randperm(mm, generator=gen)
+                            for _ in range(rr)]).to(device)
+
+    def edge_tree(mm, dtype, widths):
+        flat = torch.randn((1 + mm * 1000,), generator=gen).to(device, dtype)
+        tree = {f"d{d}": torch.randn((mm, d), generator=gen).to(device, dtype)
+                for d in widths}
+        tree["offset"] = flat[1:].view(mm, 1000)  # 4 or 2 bytes past 16
+        return tree
+
+    cases = [("main path", stacked, perms, n_k)]
+    for mm, rr, dtype, widths, whole in (
+            (3, 7, torch.float32, (2049,), True),
+            (1, 4, torch.float32, (4096,), True),
+            (5, 250, torch.bfloat16, (20000,), True),
+            (5, 13, torch.float32, (2048, 2049, 10, 1000), False),
+            (12, 11, torch.float32, (3000, 10), False),
+            (12, 9, torch.bfloat16, (4096, 1001), True),
+            (5, 250, torch.bfloat16, (20000, 100, 10, 1001), False)):
+        n = torch.randint(1, 300, (mm,), generator=gen).float()
+        if not whole:                              # non-integer counts
+            n = n + torch.rand((mm,), generator=gen)
+        cases.append((f"M={mm} {str(dtype)[6:]}",
+                      edge_tree(mm, dtype, widths), walks(mm, rr),
+                      n.to(device)))
+    cases.append(("walk slice", stacked, perms[100:150], n_k))
 
     worst = 0.0
-    for name, x, p, nk in cases:
-        got = prefix_avg({"w": x}, p, nk)["w"]
-        want = prefix_avg_ref(x, p, nk)
-        err = float((got.float() - want.float()).abs().max())
-        worst = max(worst, err)
-        require(torch.equal(got, want),
-                f"prefix_avg {name} not bitwise equal (max err {err})")
-        ms, plain_ms, b_ms, b_by = time_prefix_avg(torch, [x], p, nk)
-        log(f"[prefix_avg] {name:10s} M={x.shape[0]} R={p.shape[0]} "
-            f"D={x.shape[1]:6d}: bitwise equal; kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    for name, tree, p, nk in cases:
+        before = kernels.LAUNCHES["prefix_avg"]
+        got = prefix_avg(tree, p, nk)
+        require(kernels.LAUNCHES["prefix_avg"] == before + 1,
+                f"prefix_avg {name}: the tree took more than one launch")
+        kernels.LAUNCHES["prefix_avg"] = before   # checks do not count
+        mm = p.shape[1]
+        for path, x, y in zip(tree_paths(tree), tree_leaves(tree),
+                              tree_leaves(got)):
+            want = prefix_avg_ref(x.reshape(mm, -1), p, nk).reshape(y.shape)
+            err = float((y.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            require(torch.equal(y, want),
+                    f"prefix_avg {name} {path} not bitwise equal (max err "
+                    f"{err})")
+        del got
+        ms, plain_ms, b_ms, b_by = time_prefix_avg(torch, tree, p, nk)
+        log(f"[prefix_avg] {name:12s} M={mm:2d} R={p.shape[0]:3d} "
+            f"D={sum(x[0].numel() for x in tree_leaves(tree)):6d} in "
+            f"{len(tree_leaves(tree))} leaves: bitwise equal; through the "
+            f"wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
 
-    flats = [x for _, x, _, _ in cases[:len(tree_leaves(stacked))]]
-    ms, plain_ms, b_ms, b_by = time_prefix_avg(torch, flats, perms, n_k)
+    ms, plain_ms, b_ms, b_by = time_prefix_avg(torch, stacked, perms, n_k)
+    flats = [x.reshape(m, -1) for x in tree_leaves(stacked)]
+    outs = [torch.empty((r * m, f.shape[1]), device=device) for f in flats]
+    calls = c_args(list(zip(flats, outs)), perms, n_k)
+    require(len(calls) == 1, "prefix_avg: six leaves need one launch")
+    lib = kernels.library()
+    c_entry_ms = time_ms(lambda i: kernels.check_launch(
+        lib.prefix_avg_f32(*calls[0]), "prefix_avg"))
+    # the C entry at other walks a block (argument 6): longer blocks make
+    # fewer, longer waves
+    by_walks = {}
+    for w in (2, 4, 12, 50):
+        args = list(calls[0])
+        args[6] = w
+        by_walks[w] = time_ms(lambda i: kernels.check_launch(
+            lib.prefix_avg_f32(*args), "prefix_avg"))
+    log(f"[prefix_avg] C entry by walks a block: {walks_per_block(m)} (the "
+        f"plan's) {c_entry_ms:.4f} ms, " + ", ".join(
+            f"{w} {t:.4f} ms" for w, t in by_walks.items()))
+    del outs
     # the same function as one product a leaf: the (R*M, M) prefix weights
     # (built outside the timer) times the leaf's (M, D) stack
     weights = prefix_weight_matrix(perms.cpu(), n_k.cpu()).reshape(
         r * m, m).to(device)
     library_ms = time_ms(lambda i: [torch.matmul(weights, f) for f in flats])
-    log(f"[prefix_avg] main-path round (6 leaves, D="
-        f"{sum(f.shape[1] for f in flats)}): kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.matmul of the prefix weights "
-        f"{library_ms:.4f} ms (kernel / torch.matmul "
-        f"{ms / library_ms:.3f}), bound {b_ms:.4f} ms ({b_by})")
+    log(f"[prefix_avg] main-path round (6 leaves, one launch, D="
+        f"{sum(f.shape[1] for f in flats)}): through the wrapper {ms:.4f} "
+        f"ms, the C entry alone {c_entry_ms:.4f} ms; plain {plain_ms:.4f} "
+        f"ms, torch.matmul of the prefix weights {library_ms:.4f} ms "
+        f"(wrapper / torch.matmul {ms / library_ms:.3f}, C entry / "
+        f"torch.matmul {c_entry_ms / library_ms:.3f}), bound {b_ms:.4f} ms "
+        f"({b_by}; C entry / bound {c_entry_ms / b_ms:.3f})")
     return {"name": "prefix_avg", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/prefix_avg.cu",
             "replaces": "src/repro/kernels/prefix_avg/kernel.py:57",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+            "c_entry_ms": c_entry_ms, "c_entry_ms_by_walks": by_walks}
 
 
 def check_ce_loss(torch, device):
@@ -827,7 +882,7 @@ def phase_main_path(torch, device):
     cfg = FLConfig(rounds=12)
     res, launches, valued = drive(torch, device, cfg, "main")
     expect_launches("loop main path", launches, {
-        "prefix_avg": 6 * valued, "ce_loss": valued, "cohort_gather": 0,
+        "prefix_avg": valued, "ce_loss": valued, "cohort_gather": 0,
         "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0})
     require(res.final_acc > 0.2, f"final accuracy {res.final_acc} <= 0.2")
     return launches
@@ -852,7 +907,7 @@ def phase_batched_path(torch, device):
     cfg = dataclasses.replace(loop_cfg, engine="batched")
     res, launches, valued = drive(torch, device, cfg, "batched")
     expect_launches("batched path", launches, {
-        "prefix_avg": 6 * valued, "ce_loss": valued,
+        "prefix_avg": valued, "ce_loss": valued,
         "cohort_gather": cfg.rounds, "delta_codec": cfg.rounds,
         "weighted_avg": 0, "flash_attention": 0})
     same = all((a == b).all() for a, b in zip(res.selections,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time weighted_avg, cohort_gather and delta_codec as the main path calls
-them, for the port under --src (this checkout's `src` by default), so that
-two versions can be timed in turns on one card.
+"""Time prefix_avg, weighted_avg, cohort_gather and delta_codec as the main
+path calls them, for the port under --src (this checkout's `src` by
+default), so that two versions can be timed in turns on one card.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -10,6 +10,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Every version gets the same inputs, made from fixed seeds:
 
+- prefix_avg: the streaming Shapley walk's call, the prefix models of 250
+  walks over the full-width MLP's six stacked leaves (M = 5), through the
+  tree wrapper `prefix_avg(stacked, perms, n_k)` with the perms and n_k
+  on the card, as the walk passes them (its perms range check included);
 - weighted_avg: the dense oracle's call, the (1250, 5) prefix weights of
   250 walks over the full-width MLP's six stacked leaves (M = 5), through
   the tree wrapper `weighted_avg(stacked, weights)`;
@@ -62,6 +66,7 @@ def main() -> int:
     from repro_torch.kernels.cohort_gather import cohort_gather
     from repro_torch.kernels.cohort_gather import kernel as gather_kernel
     from repro_torch.kernels.delta_codec import delta_codec_roundtrip
+    from repro_torch.kernels.prefix_avg import prefix_avg
     from repro_torch.kernels.weighted_avg import weighted_avg
 
     device = torch.device("cuda")
@@ -84,7 +89,10 @@ def main() -> int:
     sel = np.array([7, 31, 2, 49, 18])
     clients, server = _stacked_mlp(torch, device,
                                    torch.Generator().manual_seed(4), m, 0.01)
-    calls = {"weighted_avg": (lambda _: weighted_avg(stacked, weights), 20),
+    perms_dev, n_k_dev = perms.to(device), n_k.to(device)
+    calls = {"prefix_avg": (lambda _: prefix_avg(stacked, perms_dev,
+                                                 n_k_dev), 20),
+             "weighted_avg": (lambda _: weighted_avg(stacked, weights), 20),
              "cohort_gather cuda ids": (lambda _: cohort_gather(
                  stacks, torch.as_tensor(sel, device=device)), 200)}
     if hasattr(gather_kernel, "checked_ids"):    # takes host ids

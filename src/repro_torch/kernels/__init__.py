@@ -133,13 +133,15 @@ def build() -> Build:
 
 
 _PTR, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
-# C entry points: each takes device pointers (cohort_gather, delta_codec and
-# weighted_avg a host table of leaves, passed to the kernel by value),
-# sizes, the device index and the stream, and returns cudaGetLastError()
-# after its launch (or the error of a check that refused it)
+# C entry points: each takes device pointers (cohort_gather, delta_codec,
+# prefix_avg and weighted_avg a host table of leaves, passed to the kernel
+# by value), sizes, the device index and the stream, and returns
+# cudaGetLastError() after its launch (or the error of a check that
+# refused it)
 _SIGNATURES = {
-    "prefix_avg_f32": [_PTR] * 5 + [_I64] * 4 + [_PTR],
-    "prefix_avg_bf16": [_PTR] * 5 + [_I64] * 4 + [_PTR],
+    # (leaf table, leaves, perms, n_k, R, M, walks, blocks, device, stream)
+    "prefix_avg_f32": [_PTR, _I64, _PTR, _PTR] + [_I64] * 5 + [_PTR],
+    "prefix_avg_bf16": [_PTR, _I64, _PTR, _PTR] + [_I64] * 5 + [_PTR],
     "ce_loss_f32": [_PTR] * 3 + [_I64] * 6 + [_PTR],
     "ce_loss_bf16": [_PTR] * 3 + [_I64] * 6 + [_PTR],
     # (leaf table, leaves, host ids, M, blocks, device, stream)

@@ -35,53 +35,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kWordThreads;
 constexpr int kChunk = 8;        // stack values per column held at a time
-constexpr int kMaxLeaves = 32;
-constexpr int kLeafFields = 5;   // the wrapper's table: src, out, d, blk0, vec
-
-struct Leaf {
-  const void* src;   // (M, d) stack
-  void* out;         // (R, d) output
-  int64_t d;
-  int64_t blk0;      // first column block of the leaf in grid.x
-  int64_t vec;       // columns per thread: Word<T>::kN, or 1
-};
-
-struct Table {
-  Leaf leaf[kMaxLeaves];
-  int64_t n;
-};
-
-// A thread's columns of one row: one 16-byte word (kN of them) or one
-// element.
-template <typename T, bool kWide> struct Cols;
-
-template <typename T> struct Cols<T, false> {
-  static constexpr int kN = 1;
-  static __device__ __forceinline__ void load(const T* p, float* x) {
-    x[0] = Elem<T>::load(*p);
-  }
-  static __device__ __forceinline__ void store(T* p, const float* x) {
-    *p = Elem<T>::store(x[0]);
-  }
-};
-
-template <typename T> struct Cols<T, true> {
-  static constexpr int kN = Word<T>::kN;
-  static __device__ __forceinline__ void load(const T* p, float* x) {
-    Word<T>::unpack(*reinterpret_cast<const uint4*>(p), x);
-  }
-  static __device__ __forceinline__ void store(T* p, const float* x) {
-    __stcs(reinterpret_cast<uint4*>(p), Word<T>::pack(x));
-  }
-};
 
 // Rows r0 .. r0+nr-1 of one leaf at this thread's columns of `tile`.
 template <typename T, bool kWide>
-__device__ __forceinline__ void average_tile(const Leaf& leaf, int64_t tile,
-                                             const float* w_s, int64_t r0,
-                                             int64_t nr, int64_t m) {
+__device__ __forceinline__ void average_tile(const WordLeaf& leaf,
+                                             int64_t tile, const float* w_s,
+                                             int64_t r0, int64_t nr,
+                                             int64_t m) {
   constexpr int V = Cols<T, kWide>::kN;
   const int64_t d = leaf.d;
   const int64_t col = (tile * kThreads + threadIdx.x) * V;
@@ -116,7 +78,7 @@ __device__ __forceinline__ void average_tile(const Leaf& leaf, int64_t tile,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-weighted_avg_kernel(const __grid_constant__ Table t,
+weighted_avg_kernel(const __grid_constant__ WordTable t,
                     const T* __restrict__ weights, int64_t r, int64_t m,
                     int64_t rows) {
   extern __shared__ float w_s[];  // rows * m weights of this block
@@ -126,9 +88,7 @@ weighted_avg_kernel(const __grid_constant__ Table t,
     w_s[i] = Elem<T>::load(weights[r0 * m + i]);
   }
   __syncthreads();
-  int i = 0;
-  while (i + 1 < t.n && (int64_t)blockIdx.x >= t.leaf[i + 1].blk0) ++i;
-  const Leaf& leaf = t.leaf[i];
+  const WordLeaf& leaf = word_leaf(t, blockIdx.x);
   const int64_t tile = (int64_t)blockIdx.x - leaf.blk0;
   if (leaf.vec == 1) {
     average_tile<T, false>(leaf, tile, w_s, r0, nr, m);
@@ -137,8 +97,6 @@ weighted_avg_kernel(const __grid_constant__ Table t,
   }
 }
 
-bool aligned(const void* p) { return (uintptr_t)p % 16 == 0; }
-
 template <typename T>
 int launch(const int64_t* leaves, int64_t n, const void* weights, int64_t r,
            int64_t m, int64_t rows, int64_t blocks_x, int64_t device,
@@ -146,29 +104,13 @@ int launch(const int64_t* leaves, int64_t n, const void* weights, int64_t r,
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   const int64_t blocks_y = rows < 1 ? 0 : (r + rows - 1) / rows;
-  if (n < 1 || n > kMaxLeaves || rows < 1 || blocks_y < 1 ||
-      blocks_y > 65535 || blocks_x < 1 || blocks_x > 0x7fffffff ||
+  if (rows < 1 || blocks_y < 1 || blocks_y > 65535 ||
       rows * m * 4 > 48 * 1024) {
     return (int)cudaErrorInvalidConfiguration;
   }
-  Table t{};
-  t.n = n;
-  for (int64_t i = 0; i < n; ++i) {
-    const int64_t* f = leaves + i * kLeafFields;
-    t.leaf[i] = {(const void*)f[0], (void*)f[1], f[2], f[3], f[4]};
-  }
-  for (int64_t i = 0; i < n; ++i) {
-    const Leaf& leaf = t.leaf[i];
-    const int64_t end = i + 1 < n ? t.leaf[i + 1].blk0 : blocks_x;
-    // a 16-byte path needs whole words in every row of stack and output
-    const bool wide = leaf.vec == Word<T>::kN && leaf.d % leaf.vec == 0 &&
-                      aligned(leaf.src) && aligned(leaf.out);
-    if ((leaf.vec != 1 && !wide) || leaf.d < 1 ||
-        (i == 0 && leaf.blk0 != 0) || end <= leaf.blk0 ||
-        (end - leaf.blk0) * kThreads * leaf.vec < leaf.d) {
-      return (int)cudaErrorInvalidValue;
-    }
-  }
+  WordTable t;
+  err = fill_word_table<T>(leaves, n, blocks_x, &t);
+  if (err != cudaSuccess) return (int)err;
   weighted_avg_kernel<T><<<dim3((unsigned)blocks_x, (unsigned)blocks_y),
                            kThreads, rows * m * sizeof(float),
                            (cudaStream_t)stream>>>(t, (const T*)weights, r,
@@ -178,8 +120,8 @@ int launch(const int64_t* leaves, int64_t n, const void* weights, int64_t r,
 
 }  // namespace
 
-// leaves: n rows of kLeafFields int64 in host memory (src, out, d, blk0,
-// vec), in increasing blk0; the kernel takes them by value.
+// leaves: n rows of kWordLeafFields int64 in host memory (src, out, d,
+// blk0, vec), in increasing blk0; the kernel takes them by value.
 extern "C" int weighted_avg_f32(const int64_t* leaves, int64_t n,
                                 const void* weights, int64_t r, int64_t m,
                                 int64_t rows, int64_t blocks_x,

@@ -2,10 +2,12 @@
 `repro/kernels/prefix_avg/ref.py`).
 
 The walk accumulates strictly left to right, one position at a time, as
-`acc = acc + s * g; out = acc / n` with one rounding per operation.  That
-add order is the contract the CUDA kernel keeps bit for bit (it uses
-non-contracting `__fmul_rn`/`__fadd_rn`/`__fdiv_rn`), and it is the order
-the reference's `lax.scan` ref states.
+`acc = acc + s * g; out = acc / n` with one rounding per operation, and so
+does its running size n.  That add order is the contract the CUDA kernel
+keeps bit for bit (it uses non-contracting `__fmul_rn`/`__fadd_rn`/
+`__fdiv_rn`), and it is the order the reference's `lax.scan` ref states
+(its running sizes are a `jnp.cumsum`, which equals the left-to-right sum
+for the integer counts it is given).
 """
 from __future__ import annotations
 
@@ -15,9 +17,14 @@ import torch
 def walk_weights(perms: torch.Tensor, n_k: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """(R, M) walks -> (scale, ncum), both (R, M) float32: n_k gathered in
-    walk order and its running sum (integer-valued, exact below 2^24)."""
+    walk order and its running sum, added strictly left to right with one
+    float32 rounding per position, as the CUDA kernel forms it (exact for
+    integer counts below 2^24)."""
     scale = n_k.to(torch.float32)[perms]
-    return scale, torch.cumsum(scale, dim=1)
+    ncum = scale.clone()
+    for j in range(1, scale.shape[1]):
+        ncum[:, j] = ncum[:, j - 1] + scale[:, j]
+    return scale, ncum
 
 
 def prefix_avg_ref(stacked: torch.Tensor, perms: torch.Tensor,

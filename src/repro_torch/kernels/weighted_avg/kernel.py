@@ -20,9 +20,9 @@ from repro_torch.kernels import (
 
 _ENTRY = {torch.float32: "weighted_avg_f32",
           torch.bfloat16: "weighted_avg_bf16"}
-THREADS = 256              # csrc/weighted_avg.cu::kThreads
+THREADS = 256              # csrc/common.cuh::kWordThreads
 WORD_BYTES = 16            # a thread's columns on the wide path
-MAX_LEAVES = 32            # csrc/weighted_avg.cu::kMaxLeaves
+MAX_LEAVES = 32            # csrc/common.cuh::kMaxWordLeaves
 MAX_ROWS = 64              # weight rows staged per block
 SMEM_FLOATS = 12 * 1024    # 48 KB of shared memory, the static limit
 

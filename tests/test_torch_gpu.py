@@ -59,7 +59,7 @@ def _walks(gen, r, m, device):
 @pytest.mark.parametrize("m,d,r,dtype", [
     (5, 20000, 250, torch.float32), (3, 2049, 7, torch.float32),
     (1, 4096, 3, torch.float32), (4, 300, 9, torch.float32),
-    (5, 5000, 11, torch.bfloat16)])
+    (5, 5000, 11, torch.bfloat16), (12, 3001, 13, torch.float32)])
 def test_prefix_avg_kernel_bitwise_equals_plain(cuda, m, d, r, dtype):
     gen = torch.Generator().manual_seed(d)
     stacked = torch.randn((m, d), generator=gen).to(cuda, dtype)
@@ -72,6 +72,132 @@ def test_prefix_avg_kernel_bitwise_equals_plain(cuda, m, d, r, dtype):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (r * m, d)
     assert torch.equal(got, want)
+
+
+def _assert_prefix_tree_bitwise(tree, got, perms, n_k):
+    m = perms.shape[1]
+    for name, x in tree.items():
+        want = prefix_avg_ref(x.reshape(m, -1), perms, n_k).reshape(
+            (perms.numel(),) + tuple(x.shape[1:]))
+        assert got[name].dtype == x.dtype, name
+        assert torch.equal(got[name], want), name
+
+
+def test_prefix_avg_mlp_tree_in_one_launch(cuda):
+    """The main path's call: the full-width MLP's six leaves (D = 178,110 in
+    all, one of them 10 wide), M = 5, R = 250 walks, in one launch."""
+    gen = torch.Generator().manual_seed(18)
+    m, r = 5, 250
+    widths = {"layer0/w": (784, 200), "layer0/b": (200,),
+              "layer1/w": (200, 100), "layer1/b": (100,),
+              "layer2/w": (100, 10), "layer2/b": (10,)}
+    tree = {k: torch.randn((m,) + s, generator=gen).to(cuda)
+            for k, s in widths.items()}
+    perms = _walks(gen, r, m, cuda)
+    n_k = torch.randint(20, 300, (m,), generator=gen).float().to(cuda)
+    before = kernels.LAUNCHES["prefix_avg"]
+    got = prefix_avg(tree, perms, n_k)
+    assert kernels.LAUNCHES["prefix_avg"] == before + 1
+    _assert_prefix_tree_bitwise(tree, got, perms, n_k)
+
+
+@pytest.mark.parametrize("m,r,dtype,whole", [
+    (1, 70, torch.float32, True), (5, 13, torch.float32, False),
+    (12, 11, torch.float32, False), (12, 7, torch.bfloat16, True),
+    (5, 250, torch.bfloat16, False), (8, 9, torch.float32, False)])
+def test_prefix_avg_edge_leaves_in_one_launch(cuda, m, r, dtype, whole):
+    """16-byte and one-column leaves side by side (D a multiple of the word
+    or not, a leaf narrower than a word, a leaf of rank 3), a view 4 (f32)
+    or 2 (bf16) bytes past a 16-byte boundary, M = 1, 5, 8 (the most held
+    in registers) and 12 (reloaded), R not a multiple of the walks a block
+    takes, and integer or non-integer n_k: one launch, bitwise."""
+    gen = torch.Generator().manual_seed(m * 100 + r)
+    tree = {f"d{d}": torch.randn((m, d), generator=gen).to(cuda, dtype)
+            for d in (2048, 2049, 10, 1001)}
+    tree["rank3"] = torch.randn((m, 4, 25), generator=gen).to(cuda, dtype)
+    flat = torch.randn((1 + m * 1000,), generator=gen).to(cuda, dtype)
+    tree["offset"] = flat[1:].view(m, 1000)
+    perms = _walks(gen, r, m, cuda)
+    n_k = torch.randint(1, 300, (m,), generator=gen).float()
+    if not whole:
+        n_k = n_k + torch.rand((m,), generator=gen)
+    n_k = n_k.to(cuda)
+    before = kernels.LAUNCHES["prefix_avg"]
+    got = prefix_avg(tree, perms, n_k)
+    assert kernels.LAUNCHES["prefix_avg"] == before + 1
+    _assert_prefix_tree_bitwise(tree, got, perms, n_k)
+
+
+def test_prefix_avg_chunked_streaming_walk(cuda):
+    """`sv_chunk > 0`: the streaming walk calls the kernel once per chunk
+    of walks, on row slices of the padded perms; every chunk's prefix
+    models equal the plain version's on the same slice."""
+    from repro_torch.core.shapley_batched import gtg_shapley_streaming
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator().manual_seed(7)
+    m, n_perms, sv_chunk = 3, 10, 7           # 3 walks a chunk, 4 chunks
+    tree = {"w": torch.randn((m, 2, 1000), generator=gen).to(cuda),
+            "b": torch.randn((m, 10), generator=gen).to(cuda)}
+    w_prev = {k: torch.zeros(v.shape[1:], device=cuda)
+              for k, v in tree.items()}
+    n_k = (torch.randint(1, 50, (m,), generator=gen).float()
+           + 0.5).to(cuda)
+    perms = _walks(gen, n_perms, m, cuda)
+    seen = []
+
+    def batched(models):
+        seen.append(models)
+        return torch.stack([x.reshape(x.shape[0], -1).sum(1)
+                            for x in tree_leaves(models)]).sum(0)
+
+    before = kernels.LAUNCHES["prefix_avg"]
+    gtg_shapley_streaming(
+        tree, n_k, w_prev, lambda p: sum(x.sum() for x in tree_leaves(p)),
+        batched, perms, sv_chunk=sv_chunk)
+    assert kernels.LAUNCHES["prefix_avg"] == before + 4 == before + len(seen)
+    padded = torch.cat([perms, torch.arange(m, device=cuda).expand(2, m)])
+    for c, models in enumerate(seen):
+        _assert_prefix_tree_bitwise(tree, models, padded[3 * c:3 * c + 3],
+                                    n_k)
+
+
+@pytest.mark.parametrize("lo,hi", [(-1, 0), (0, 5)])
+def test_prefix_avg_raises_on_perms_out_of_range(cuda, lo, hi):
+    stacked = torch.zeros((5, 100), device=cuda)
+    perms = _walks(torch.Generator().manual_seed(0), 4, 5, cuda)
+    perms[1, 2], perms[3, 0] = lo, hi
+    before = kernels.LAUNCHES["prefix_avg"]
+    with pytest.raises(ValueError, match=r"perms must index \[0, 5\)"):
+        prefix_avg({"w": stacked}, perms, torch.ones(5, device=cuda))
+    assert kernels.LAUNCHES["prefix_avg"] == before
+
+
+def test_prefix_avg_c_entry_refuses_a_bad_launch(cuda):
+    """The C entry checks its table, grid and shared memory and returns an
+    error instead of launching; the launcher raises on it."""
+    from repro_torch.kernels.prefix_avg.kernel import c_args
+    stacked = torch.zeros((5, 2000), device=cuda)
+    out = torch.empty((20, 2000), device=cuda)
+    perms = _walks(torch.Generator().manual_seed(0), 4, 5, cuda)
+    (args,) = c_args([(stacked, out)], perms, torch.ones(5, device=cuda))
+    lib = kernels.library()
+    assert lib.prefix_avg_f32(*args) == 0
+    misaligned = list(args[0])
+    misaligned[0] += 4
+    # (argument index, value): 0 the table, 1 its leaves, 5 M, 6 walks a
+    # block, 7 column blocks
+    for i, v in ((1, 0),            # no leaves
+                 (1, 33),           # more leaves than the table holds
+                 (5, 10_000),       # 1.9 MB of walk steps a block
+                 (6, 0),            # no walks a block
+                 (7, 0),            # no column blocks
+                 (7, 1),            # 1,024 columns for a 2,000-wide leaf
+                 (0, kernels.host_table(misaligned))):  # stack 4 bytes past
+        bad = list(args)                                # 16 on the wide path
+        bad[i] = v
+        with pytest.raises(RuntimeError, match="prefix_avg"):
+            kernels.check_launch(lib.prefix_avg_f32(*bad), "prefix_avg")
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("rows,v,dtype", [(4096, 10, torch.float32),
@@ -133,10 +259,11 @@ def test_main_path_runs_through_the_kernels(cuda):
     kernels.reset_launches()
     res = run_federated(cfg)
     # a valued round costs n_perms*M + 2 utility evals, a truncated one 2;
-    # each valued round builds the 6 MLP leaves' prefixes and scores them
+    # each valued round builds the 6 MLP leaves' prefixes in one launch and
+    # scores them
     valued = (res.shapley_evals - 2 * cfg.rounds) // (6 * cfg.m)
     assert valued > 0
-    assert kernels.LAUNCHES["prefix_avg"] == 6 * valued
+    assert kernels.LAUNCHES["prefix_avg"] == valued
     assert kernels.LAUNCHES["ce_loss"] == valued
     assert np.isfinite(res.final_acc) and np.isfinite(res.sv_final).all()
     assert tuple(res.params["layer0"]["w"].shape) == (784, 200)
@@ -667,8 +794,9 @@ def test_batched_path_runs_through_all_five_kernels(cuda):
     valued = [(r.shapley_evals - 2 * 3) // (6 * 3) for r in (res, dense)]
     assert min(valued) > 0
     # one cohort_gather a round (four stacks), one delta_codec a round (six
-    # leaves) and one weighted_avg a valued dense round (six leaves)
-    assert streaming == {"prefix_avg": 6 * valued[0], "ce_loss": valued[0],
+    # leaves), one prefix_avg a valued streaming round (six leaves) and one
+    # weighted_avg a valued dense round (six leaves)
+    assert streaming == {"prefix_avg": valued[0], "ce_loss": valued[0],
                          "cohort_gather": 3, "delta_codec": 3,
                          "weighted_avg": 0, "flash_attention": 0}
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": valued[1],

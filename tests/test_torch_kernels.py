@@ -27,7 +27,9 @@ from repro_torch import kernels
 from repro_torch.kernels.ce_loss.kernel import ce_loss_cuda, launch_plan
 from repro_torch.kernels.ce_loss.ops import ce_loss
 from repro_torch.kernels.ce_loss.ref import ce_loss_ref
-from repro_torch.kernels.prefix_avg.kernel import prefix_avg_cuda
+from repro_torch.kernels.prefix_avg.kernel import (
+    MAX_LEAVES, launch_plan as prefix_plan, prefix_avg_cuda, walks_per_block,
+)
 from repro_torch.kernels.prefix_avg.ops import prefix_avg
 from repro_torch.kernels.prefix_avg.ref import prefix_avg_ref, walk_weights
 
@@ -100,6 +102,31 @@ def test_walk_weights_are_exact_running_sizes():
     assert ncum.tolist() == [[15.0, 20.0, 30.0], [10.0, 25.0, 30.0]]
 
 
+def test_walk_weights_sum_non_integer_counts_left_to_right():
+    """The running size is one float32 sum per position, left to right, as
+    the CUDA kernel forms it: 1 + 2^-24 rounds back to 1 at every step
+    (a sum kept in double, as torch.cumsum keeps it on the CPU, reaches
+    1 + 2^-23), and 2^-24 + 2^-24 + 1 is exact in that order.  On random
+    non-integer counts it matches the reference's jnp.cumsum at 2e-6."""
+    tiny = 2.0 ** -24
+    perms = torch.tensor([[0, 1, 2], [1, 2, 0]])
+    _, ncum = walk_weights(perms, torch.tensor([1.0, tiny, tiny]))
+    assert ncum.tolist() == [[1.0, 1.0, 1.0], [tiny, 2 * tiny, 1 + 2 * tiny]]
+    rng = np.random.default_rng(12)
+    perms = _walks(rng, 9, 7)
+    n_k = (rng.random(7) * 300).astype(np.float32)
+    scale, ncum = walk_weights(torch.from_numpy(perms).long(),
+                               torch.from_numpy(n_k))
+    want = np.cumsum(n_k[perms], axis=1, dtype=np.float32)
+    for j in range(1, 7):                      # numpy's sum, left to right
+        want[:, j] = want[:, j - 1] + n_k[perms[:, j]]
+    np.testing.assert_array_equal(ncum.numpy(), want)
+    np.testing.assert_array_equal(scale.numpy(), n_k[perms])
+    np.testing.assert_allclose(
+        ncum.numpy(), np.asarray(jnp.cumsum(jnp.asarray(n_k)[perms], axis=1)),
+        rtol=2e-6, atol=0)
+
+
 @pytest.mark.parametrize("d_small", [200, 1000])
 def test_prefix_avg_tree_wrapper_matches_reference_ops_routing(d_small):
     """The reference's ops send D < 2048 leaves to its ref and D >= 2048 to
@@ -128,11 +155,66 @@ def test_prefix_avg_tree_wrapper_matches_reference_ops_routing(d_small):
 def test_prefix_avg_launcher_rejects_cpu_tensors():
     x = torch.zeros((2, 8))
     perms = torch.tensor([[0, 1]])
-    s = torch.ones((1, 2))
+    n_k = torch.ones(2)
     with pytest.raises(ValueError, match="CUDA"):
-        prefix_avg_cuda(x, perms, s, s)
+        prefix_avg_cuda([x], perms, n_k)
     with pytest.raises(TypeError):
-        prefix_avg_cuda(x.double(), perms, s, s)
+        prefix_avg_cuda([x.double()], perms, n_k)
+    for bad in (torch.ones(3), torch.ones((1, 2)), torch.ones(2).double()):
+        with pytest.raises(ValueError, match="n_k"):
+            prefix_avg_cuda([x], perms, bad)
+    with pytest.raises(ValueError, match="int64"):
+        prefix_avg_cuda([x], perms.int(), n_k)
+
+
+# the MLP's six leaves in tree order: layer0/b, layer0/w, layer1/b,
+# layer1/w, layer2/b, layer2/w
+_MLP_D = (200, 156800, 100, 20000, 10, 1000)
+
+
+@pytest.mark.parametrize("widths,itemsize,offset,want,total", [
+    (_MLP_D, 4, 0, [(4, 0, 1), (4, 1, 154), (4, 155, 1), (4, 156, 20),
+                    (1, 176, 1), (4, 177, 1)], 178),
+    (_MLP_D, 2, 0, [(8, 0, 1), (8, 1, 77), (1, 78, 1), (8, 79, 10),
+                    (1, 89, 1), (8, 90, 1)], 91),
+    ((10, 156800), 4, 0, [(1, 0, 1), (4, 1, 154)], 155),
+    ((156800, 10), 4, 0, [(4, 0, 154), (1, 154, 1)], 155),
+    ((156800, 2049), 4, 0, [(4, 0, 154), (1, 154, 9)], 163),
+    ((156800, 1000), 4, 4, [(1, 0, 613), (1, 613, 4)], 617),
+    ((20000,), 2, 2, [(1, 0, 79)], 79)])
+def test_prefix_avg_launch_plan(widths, itemsize, offset, want, total):
+    """A leaf takes 16-byte words (4 f32 or 8 bf16 columns a thread) when D
+    is a multiple of the word and its stack and output start on 16-byte
+    boundaries, else one column a thread; its column blocks of 256 threads
+    follow the previous leaf's along grid.x, all in one launch."""
+    base = 1 << 20
+    (plans, blocks), = prefix_plan([(d, base + offset, base) for d in widths],
+                                   itemsize)
+    assert [tuple(p) for p in plans] == want and blocks == total
+    (plans, _), = prefix_plan([(d, base, base + offset) for d in widths],
+                              itemsize)
+    assert [p.vec for p in plans] == [v for v, _, _ in want]
+
+
+def test_prefix_avg_launch_plan_splits_at_32_leaves():
+    """Up to MAX_LEAVES leaves a launch; each launch's blocks start at 0."""
+    base = 1 << 20
+    leaves = [(d, base, base) for d in (10, 156800) * 33]          # 66
+    launches = prefix_plan(leaves, 4)
+    assert MAX_LEAVES == 32
+    assert [len(p) for p, _ in launches] == [32, 32, 2]
+    for plans, blocks in launches:
+        assert [p.blk0 for p in plans[:3]] == [0, 1, 155][:len(plans)]
+        assert blocks == plans[-1].blk0 + plans[-1].blocks
+    assert [b for _, b in launches] == [16 * 155, 16 * 155, 155]
+    assert prefix_plan([], 4) == []
+
+
+def test_prefix_avg_walks_per_block():
+    """About 8 prefix models a block (one walk at M = 5), at least one walk:
+    short blocks keep the grid's last wave short."""
+    assert [walks_per_block(m) for m in (1, 2, 3, 5, 8, 12, 3072)] == \
+        [8, 4, 2, 1, 1, 1, 1]
 
 
 # --------------------------------------------------------------- ce_loss ----
