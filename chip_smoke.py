@@ -24,9 +24,11 @@ exits non-zero without a result line:
    alone is timed too (`c_entry_ms`).  ce_loss (rows packed per block,
    16-byte loads, a persistent grid) is timed over F.cross_entropy at
    four shapes; flash_attention (bf16 on wgmma tensor cores fed by a TMA
-   ring) gives its TFLOP/s and its time over SDPA's, and its f32 route's
-   time over f32 SDPA's; weighted_avg (one launch for the tree, the
-   cohort's stack values in registers, 16-byte evict-first stores),
+   ring) gives its TFLOP/s and its time over SDPA's, and its f32 route
+   (split-TF32 products on the same tensor cores) its time over f32
+   SDPA's, beside the split-TF32 bound and the f32 CUDA-core bound;
+   weighted_avg (one launch for the tree, the cohort's stack values in
+   registers, 16-byte evict-first stores),
    cohort_gather (one launch for the tree, ids checked on the host and
    passed by value, no flag and no sync), delta_codec (one launch for
    the tree, each row split over a cluster of 8 blocks that keep it in
@@ -69,7 +71,10 @@ with the same banded mask as a yardstick the port never calls.  The bf16
 route rounds the softmax probabilities to bf16 before they multiply V
 (the reference keeps them in f32); its error is printed and held to the
 same atol 3e-2, and besides elementwise to 5e-3 + 1e-2 |want| and in the
-mean to 5e-3 of mean |want|.
+mean to 5e-3 of mean |want|.  The f32 route keeps f32 P and takes each
+product as three TF32 products of split operands (hi hi + hi lo + lo hi);
+its bound counts those three at the TF32 peak, and the f32 FMA bound of the
+CUDA cores is printed beside it.
 
 Each path of phases 6-9 runs with the launch counters zeroed just before
 it and read just after; every kernel must launch on its path.  The line
@@ -89,6 +94,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 F32_PEAK_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
+TF32_PEAK_FLOPS = 495e12    # H100 SXM TF32 tensor cores, dense
 BF16_PEAK_FLOPS = 989e12    # H100 SXM bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 
@@ -165,7 +171,8 @@ def phase_build():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             log(f"[build] entry {demangled[entry[1]]}")
-        elif "registers" in line or "spill" in line:
+        elif ("registers" in line or "spill" in line
+              or "Performance" in line):
             log(f"[build] {line.strip()}")
 
 
@@ -1087,17 +1094,34 @@ def check_flash_attention(torch, device):
                      iters=5, warmup=1)
         pairs = band_pairs(s_len, s_len, window) * b * hq
         n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
-        peak = BF16_PEAK_FLOPS if dtype == torch.bfloat16 else F32_PEAK_FLOPS
-        b_ms, b_by = bound_ms(n_bytes, 4 * hd * pairs, peak)
+        if dtype == torch.bfloat16:
+            b_ms, b_by = bound_ms(n_bytes, 4 * hd * pairs, BF16_PEAK_FLOPS)
+            b_name = ""
+        else:
+            # the work the f32 route does: three TF32 products a product
+            b_ms, b_by = bound_ms(n_bytes, 3 * 4 * hd * pairs,
+                                  TF32_PEAK_FLOPS)
+            fma_ms, fma_by = bound_ms(n_bytes, 4 * hd * pairs)
+            b_name = (f" (split TF32: 3 products at 495 TFLOP/s; as f32 FMA "
+                      f"on the CUDA cores {fma_ms:.4f} ms, {fma_by})")
         line = (f"[flash_attention] B={b} Hq={hq} Kh={kh} S=T={s_len} "
                 f"hd={hd} window={window} {str(dtype)[6:]}: {verdict}; "
                 f"kernel {ms:.4f} ms "
                 f"({4 * hd * pairs / ms / 1e9:.2f} TFLOP/s on {pairs} "
-                f"unmasked pairs), bound {b_ms:.4f} ms ({b_by})")
+                f"unmasked pairs), bound {b_ms:.4f} ms ({b_by}){b_name}")
         if dtype == torch.float32 and window == 4096:
-            # the f32 route's yardstick: f32 SDPA on the same inputs
+            # the f32 route's yardsticks: its plain version and f32 SDPA
+            # on the same inputs
+            plain_ms = time_ms(lambda _: [w for *_, w in _plain_by_heads(
+                torch, q, k, v, window)], iters=1, warmup=0)
             lib_ms, backend, lib_out = _sdpa_ms(torch, q, k, v, window)
-            f32_route = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
+            line += f", plain {plain_ms:.4f} ms"
+            f32_route = {"ms": ms, "plain_ms": plain_ms,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "bound": "split TF32: 3 x 4 hd flops a pair at "
+                                  "495 TFLOP/s",
+                         "f32_fma_bound_ms": fma_ms,
+                         "max_abs_err": err,
                          "library_ms": lib_ms,
                          "library": "scaled_dot_product_attention "
                                     f"({backend})"}

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time prefix_avg, weighted_avg, cohort_gather and delta_codec as the main
-path calls them, for the port under --src (this checkout's `src` by
-default), so that two versions can be timed in turns on one card.
+"""Time prefix_avg, weighted_avg, cohort_gather, delta_codec and
+flash_attention as their callers call them, for the port under --src (this
+checkout's `src` by default), so that two versions can be timed in turns on
+one card.
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
@@ -27,7 +28,11 @@ Every version gets the same inputs, made from fixed seeds:
   full-width MLP's six stacked leaves (M = 5 clients at one round's
   distance from the server weights), through the tree wrapper
   `delta_codec_roundtrip(stacked, params, "quant8_topk")`, which also
-  forms the deltas and adds the server weights back.
+  forms the deltas and adds the server weights back;
+- flash_attention: one H2O-Danube-3-4B prefill layer (B = 4, S = T =
+  8192, Hq = 32, Kh = 8, hd = 120, window 4096) through
+  `flash_attention_gqa`, in bf16 (the serving route, as a control, timed
+  first) and in float32 (the f32 route).
 
 Each time is a CUDA-event mean over back-to-back calls (`chip_smoke.
 time_ms`), taken `--repeats` times; the launches per call are counted.
@@ -66,6 +71,7 @@ def main() -> int:
     from repro_torch.kernels.cohort_gather import cohort_gather
     from repro_torch.kernels.cohort_gather import kernel as gather_kernel
     from repro_torch.kernels.delta_codec import delta_codec_roundtrip
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
     from repro_torch.kernels.prefix_avg import prefix_avg
     from repro_torch.kernels.weighted_avg import weighted_avg
 
@@ -100,6 +106,16 @@ def main() -> int:
             lambda _: cohort_gather(stacks, sel), 200)
     calls["delta_codec"] = (lambda _: delta_codec_roundtrip(
         clients, server, "quant8_topk"), 200)
+    agen = torch.Generator(device=device).manual_seed(6)
+    qkv = [torch.randn(shape, generator=agen, device=device)
+           for shape in ((4, 8192, 32, 120), (4, 8192, 8, 120),
+                         (4, 8192, 8, 120))]
+    qkv_bf16 = [x.to(torch.bfloat16) for x in qkv]
+    # the bf16 control first, before the f32 route's load warms the card
+    calls["flash_attention bf16"] = (lambda _: flash_attention_gqa(
+        *qkv_bf16, window=4096), 20)
+    calls["flash_attention f32"] = (lambda _: flash_attention_gqa(
+        *qkv, window=4096), 3)
 
     out = {"label": args.label, "device": torch.cuda.get_device_name(0)}
     for name, (fn, iters) in calls.items():

@@ -11,7 +11,7 @@
 //   s_j = NEG_INF (the finite -1e30) where key j is masked:
 //         causal: j <= pos_i;  window > 0: j > pos_i - window
 //   o_i = sum_j softmax(s)_j v_j                   (in q's dtype)
-// by the online softmax over key tiles (64 keys on the f32 route, 128 on
+// by the online softmax over key tiles (32 keys on the f32 route, 128 on
 // the bf16 route), with (m, l, acc) in float32 and o = acc / max(l, 1e-30),
 // as the TPU kernel does.  Key positions are 0 .. T-1; query positions come
 // from `q_pos` (0 .. S-1 on prefill).  Query head h reads KV head h / G
@@ -20,7 +20,7 @@
 // through their (batch, seq, head) strides, so the model's (B, S, H, hd)
 // tensors need no transpose.
 //
-// Tile skipping: a 64-row group of queries visits only the key tiles that
+// Tile skipping: a group of 64 query rows visits only the key tiles that
 // meet the band [min pos - window + 1, max pos] of its rows, so the window
 // path costs O(S * W), not O(S^2).  Under the finite sentinel this gives
 // the same result as visiting every tile: a row whose first visited tile is
@@ -69,13 +69,76 @@
 // memory: Q 32 KB plus 64 KB a stage at hd 128, 160 KB in all; one block
 // per SM.
 //
-// f32: the CUDA-core kernel of the first port, kept for float32 inputs (the
-// serving-parity checks run in f32 at 2e-5): one block of 256 threads per
-// (64-row query tile, head, batch); Q and each K/V tile staged in shared
-// memory as float32 rows padded to 4 floats past 64 or 128 columns (the
-// pad zeroed, so hd = 120 needs no special case); each thread owns 4 rows
-// x 4 keys of a score tile and 4 rows x hd/16 columns of the accumulator,
-// both products in f32 FMA (67 TFLOP/s peak).
+// f32: split-TF32 products on the tensor cores.  The same 128-row blocks
+// of two warpgroups, TMA ring of 2 stages, masking and band skipping as
+// the bf16 route, and the reference's f32 P (never rounded to bf16), but
+// no producer warp: thread 0 issues the copies (see Registers below).
+// What bounds it: operations.  Each f32 product a.b is taken as
+// a_hi b_hi + a_hi b_lo + a_lo b_hi, where a_hi is a rounded to TF32
+// (cvt.rna, 10 mantissa bits) and a_lo = a - a_hi exactly in f32; the
+// tensor core reads the top 19 bits of each operand, so it reads a_hi
+// exactly and a_lo truncated, and
+// the dropped a_lo b_lo leaves ~2^-22 of each product.  This departs from
+// f32 FMA, but holds the route's 2e-5 against the f32 plain version
+// (`ref.py::attention_split_tf32` emulates the operands' split on the CPU,
+// where the tests hold it to the reference; it does not emulate the
+// tensor core's own sums, below).  At the Danube layer above in f32 that is
+// 3 x 1.55 TFLOP of TF32 products, 9.37 ms at the 495 TFLOP/s TF32 peak,
+// against 1.26 GB of q/k/v/o traffic, 0.38 ms; 1.55 TFLOP of f32 FMA on the
+// CUDA cores (67 TFLOP/s) would take 23.08 ms.  No setting of
+// torch.backends.cuda.matmul.allow_tf32 reaches it: the split is the
+// kernel's own.
+//
+// Operand layouts.  wgmma takes .tf32 operands from shared memory only
+// K-major (no transpose bit, unlike bf16).  Per 32-key tile a consumer
+// warpgroup runs
+//   Q_hi K_lo^T | Q_hi K_hi^T         m64n64k8: Q_hi and K's 64 rows (the
+//                                     32 keys' lo, then their hi) from
+//                                     shared memory, both as loaded
+//                                     (hd contiguous: K-major);
+//   Q_lo K_hi^T                       m64n32k8, Q_lo from registers, into
+//                                     the Q_hi K_lo^T registers;
+//   p = exp2(S * scale * log2 e - m)  f32, masked as the bf16 route;
+//   T = P_hi V_hi + P_hi V_lo + P_lo V_hi   m64n64k8 per 64 columns of the
+//                                     head, P split in registers (the A
+//                                     operand), V^T from shared memory;
+//   O = O * corr + T                  f32 FMA in registers.
+// The tensor core truncates the sums it accumulates.  Left to accumulate
+// O over a row's 128 tiles (and the small terms of S together with the
+// large one), that cost 1.5e-5 at the Danube layer, 11 times the error of
+// f32 FMA on the CUDA cores; so each sum the tensor core takes is short
+// (32 keys, or hd) and the parts meet in f32 adds, as the split-TF32
+// GEMMs of Ootomo and Yokota (2022) do: 2.6e-6 at the same layer.
+// V's tile as loaded is MN-major for O += P V, so the consumers write it
+// transposed (V^T: hd rows of the tile's 32 keys, one 128-byte swizzled
+// row each) together with its split.  The other way out, O^T = V^T P^T
+// with V^T split in registers, would have each warpgroup split V again
+// and its accumulator indexed by query columns, which makes the rescale
+// a shared-memory exchange.  The accumulator layout of S holds keys 2
+// quad, 2 quad + 1 of each 8-key step where the TF32 A layout wants
+// columns quad, quad + 4, so V^T's keys are stored in the order 0 2 4 6
+// 1 3 5 7 within each 8 and the registers go over as they are.  Q is split
+// once per block: each thread rounds its own A-fragment elements in
+// place and keeps their lo.  Each tile is split once for both
+// warpgroups: all 256 threads round K in place and write its lo and
+// V^T's hi and lo, then meet at a block barrier (after fence.proxy.async:
+// wgmma reads shared memory through the async proxy), after which thread 0
+// loads tile j + 1 into the stage tile j - 1 has released.
+//
+// Shared memory at hd padded to 128: Q 64 KB (128 rows, hi in place);
+// a stage 80 KB (K 16 KB + its lo 16 KB, V 16 KB as loaded, V^T hi and
+// lo 16 KB each); two stages; 224 KB in all of the 227 KB, one block per
+// SM.  32-key tiles are what fits two stages: at 64 keys one stage is
+// 160 KB.  Keeping Q_lo in shared memory too (another 64 KB) would leave
+// room for one stage, so it stays in registers.  Registers per thread:
+// O 64, Q_lo 64, the scores 32 (S's two parts, then P_hi and P_lo), the
+// tile's T 32: 192 before addresses and temporaries; ptxas takes 254 at
+// hd 128 (185 at 64) and spills none.  An SM's registers sit in four
+// partitions, one per warp scheduler: with a producer warp (9 warps, 3 on
+// one partition) ptxas gave each thread 168 and spilled 572 bytes,
+// serialising the products; at 8 warps a thread may hold 255.  Splitting
+// tile j + 1 while tile j's P V runs was tried and dropped: it spilled 28
+// bytes and ran no faster.
 #include <cuda.h>
 #include <limits.h>
 #include <math_constants.h>
@@ -90,222 +153,8 @@ struct Strides {
   int64_t b, s, h;
 };
 
-// ------------------------------------------------------------ f32 route --
-
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-
-template <int HD_PAD>
-struct Layout {
-  static constexpr int kRow = HD_PAD + 4;      // q/k/v row stride, floats
-  static constexpr int kPRow = kBlockK + 4;    // score row stride, floats
-  static constexpr int kCols = HD_PAD / 16;    // acc columns per thread
-  static constexpr size_t kBytes =
-      sizeof(float) * (3 * kBlockQ * kRow + kBlockQ * kPRow);
-};
-
-// Stage rows [row0, row0 + n) of one head, zero past n and hd.
-template <int HD_PAD>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      Strides st, int64_t row0, int64_t n,
-                                      int64_t hd) {
-  constexpr int kRow = Layout<HD_PAD>::kRow;
-  for (int i = threadIdx.x; i < kBlockQ * HD_PAD; i += kThreads) {
-    const int r = i / HD_PAD, d = i % HD_PAD;
-    float x = 0.0f;
-    if (r < n && d < hd) x = src[(row0 + r) * st.s + d];
-    dst[r * kRow + d] = x;
-  }
-}
-
-template <int HD_PAD>
-__global__ void __launch_bounds__(kThreads)
-flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 const int32_t* __restrict__ q_pos, int64_t s_len,
-                 int64_t t_len, int64_t group, int64_t hd, Strides qs,
-                 Strides ks, Strides vs, Strides os, int causal,
-                 int64_t window, float scale) {
-  using L = Layout<HD_PAD>;
-  constexpr int kRow = L::kRow, kPRow = L::kPRow, kCols = L::kCols;
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);   // [kBlockQ][kRow]
-  float* k_s = q_s + kBlockQ * kRow;              // [kBlockK][kRow]
-  float* v_s = k_s + kBlockK * kRow;              // [kBlockK][kRow]
-  float* p_s = v_s + kBlockK * kRow;              // [kBlockQ][kPRow]
-  __shared__ int32_t pos_s[kBlockQ];
-
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;   // rows ty*4.., keys tx + 16j
-  const int64_t q0 = (int64_t)blockIdx.x * kBlockQ;
-  const int64_t h = blockIdx.y, b = blockIdx.z, kvh = h / group;
-  const int64_t nq = (s_len - q0) < kBlockQ ? (s_len - q0) : kBlockQ;
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + kvh * ks.h;
-  const float* vb = v + b * vs.b + kvh * vs.h;
-  float* ob = o + b * os.b + h * os.h;
-
-  stage<HD_PAD>(q_s, qb, qs, q0, nq, hd);
-  // rows past S take row 0's position, which leaves the band unchanged
-  if (tid < kBlockQ) pos_s[tid] = q_pos[q0 + (tid < nq ? tid : 0)];
-  __syncthreads();
-
-  int64_t pos[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) pos[i] = pos_s[ty * 4 + i];
-  int64_t qmin = pos_s[0], qmax = pos_s[0];
-  for (int r = 1; r < kBlockQ; ++r) {
-    qmin = pos_s[r] < qmin ? pos_s[r] : qmin;
-    qmax = pos_s[r] > qmax ? pos_s[r] : qmax;
-  }
-  int64_t k_lo = 0, k_hi = t_len - 1;
-  if (causal && qmax < k_hi) k_hi = qmax;
-  if (window > 0 && qmin - window + 1 > k_lo) k_lo = qmin - window + 1;
-
-  float m[4], l[4], acc[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
-  }
-  const int hd4 = (int)((hd + 3) & ~int64_t(3));
-
-  for (int64_t kt = k_lo / kBlockK * kBlockK; k_lo <= k_hi && kt <= k_hi;
-       kt += kBlockK) {
-    const int64_t nk = (t_len - kt) < kBlockK ? (t_len - kt) : kBlockK;
-    __syncthreads();                 // the last tile's readers are done
-    stage<HD_PAD>(k_s, kb, ks, kt, nk, hd);
-    stage<HD_PAD>(v_s, vb, vs, kt, nk, hd);
-    __syncthreads();
-
-    // scores: rows ty*4 + i, keys tx + 16 j
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
-    for (int d = 0; d < hd4; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&q_s[(ty * 4 + i) * kRow + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(&k_s[(tx + 16 * j) * kRow + d]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = sc[i][j];
-          a = fmaf(qv[i].x, kv[j].x, a);
-          a = fmaf(qv[i].y, kv[j].y, a);
-          a = fmaf(qv[i].z, kv[j].z, a);
-          a = fmaf(qv[i].w, kv[j].w, a);
-          sc[i][j] = a;
-        }
-    }
-
-    // mask, online softmax, probabilities to shared memory
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float rmax = -CUDART_INF_F;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int64_t kp = kt + c;
-        float s;
-        if (c >= nk) {
-          s = -CUDART_INF_F;             // past T: not a key
-        } else if ((causal && kp > pos[i]) ||
-                   (window > 0 && kp <= pos[i] - window)) {
-          s = kNegInf;
-        } else {
-          s = sc[i][j] * scale;
-        }
-        sc[i][j] = s;
-        rmax = fmaxf(rmax, s);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off, 16));
-      const float m_new = fmaxf(m[i], rmax);
-      float rsum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(sc[i][j] - m_new);
-        p_s[(ty * 4 + i) * kPRow + tx + 16 * j] = p;
-        rsum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off, 16);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + rsum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-    // acc += P V: rows ty*4 + i, columns 64 u + 4 tx + e
-    for (int c = 0; c < kBlockK; c += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&p_s[(ty * 4 + i) * kPRow + c]);
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
-#pragma unroll
-        for (int u = 0; u < kCols / 4; ++u) {
-          const float4 vv = *reinterpret_cast<const float4*>(
-              &v_s[(c + cc) * kRow + 64 * u + 4 * tx]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float p = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y
-                          : cc == 2 ? pv[i].z : pv[i].w;
-            acc[i][4 * u + 0] = fmaf(p, vv.x, acc[i][4 * u + 0]);
-            acc[i][4 * u + 1] = fmaf(p, vv.y, acc[i][4 * u + 1]);
-            acc[i][4 * u + 2] = fmaf(p, vv.z, acc[i][4 * u + 2]);
-            acc[i][4 * u + 3] = fmaf(p, vv.w, acc[i][4 * u + 3]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r >= nq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int64_t d = 64 * (c / 4) + 4 * tx + (c % 4);
-      if (d < hd) ob[(q0 + r) * os.s + d] = acc[i][c] / denom;
-    }
-  }
-}
-
-template <int HD_PAD>
-int launch_f32_hd(dim3 grid, cudaStream_t stream, const void* q,
-                  const void* k, const void* v, void* o, const void* q_pos,
-                  int64_t s_len, int64_t t_len, int64_t group, int64_t hd,
-                  Strides qs, Strides ks, Strides vs, Strides os, int causal,
-                  int64_t window, float scale) {
-  const size_t bytes = Layout<HD_PAD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<HD_PAD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  flash_f32_kernel<HD_PAD><<<grid, kThreads, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o,
-      (const int32_t*)q_pos, s_len, t_len, group, hd, qs, ks, vs, os, causal,
-      window, scale);
-  return (int)cudaGetLastError();
-}
+constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 
 // ----------------------------------------------------------- bf16 route --
 
@@ -547,11 +396,12 @@ __device__ __forceinline__ void key_band(int64_t pmin, int64_t pmax,
   if (window > 0 && pmin - window + 1 > lo) lo = pmin - window + 1;
 }
 
-// true when no key of tile [kt, kt + kTcKeys) is masked for a row at `pos`
+// true when no key of tile [kt, kt + KEYS) is masked for a row at `pos`
+template <int KEYS>
 __device__ __forceinline__ bool tile_open(int64_t kt, int64_t pos,
                                           int64_t t_len, int causal,
                                           int64_t window) {
-  return kt + kTcKeys <= t_len && (!causal || kt + kTcKeys - 1 <= pos) &&
+  return kt + KEYS <= t_len && (!causal || kt + KEYS - 1 <= pos) &&
          (window <= 0 || kt > pos - window);
 }
 
@@ -727,8 +577,9 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       // meets a masked key, mask by selects, with no branch per lane.
 #pragma unroll
       for (int i = 0; i < kNS; ++i) sc[i] *= sl2;
-      const bool open = tile_open(kt, pos_a, t_len, causal, window) &&
-                        tile_open(kt, pos_b, t_len, causal, window);
+      const bool open =
+          tile_open<kTcKeys>(kt, pos_a, t_len, causal, window) &&
+          tile_open<kTcKeys>(kt, pos_b, t_len, causal, window);
       if (__any_sync(0xffffffffu, !open)) {
         const int64_t k0 = kt + 2 * quad;          // the key of sc[0]
         const int t_rel = clamp_rel(t_len - k0);
@@ -839,6 +690,534 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ------------------------------------------------------------ f32 route --
+
+constexpr int kF32Rows = 128;           // query rows per block, 64 a warpgroup
+constexpr int kF32Keys = 32;            // keys a tile: a 128-byte row of V^T
+constexpr int kF32Stages = 2;           // K/V tiles in flight
+constexpr int kF32Threads = 256;        // two warpgroups, no producer warp
+constexpr int kF32Cols = kSwizzleRow / 4;   // f32 columns in a 128-byte row
+
+template <int HD_PAD>
+struct F32Layout {
+  static constexpr int kChunks = HD_PAD / kF32Cols;   // 32-column chunks
+  static constexpr int kQChunk = kF32Rows * kSwizzleRow;         // 16 KB
+  // K: rows 0..31 the tile's lo, rows 32..63 the tile (rounded to TF32 in
+  // place)
+  static constexpr int kKChunk = 2 * kF32Keys * kSwizzleRow;     // 8 KB
+  static constexpr int kKHi = kF32Keys * kSwizzleRow;   // 4 KB: the hi rows
+  static constexpr int kVChunk = kF32Keys * kSwizzleRow;         // 4 KB
+  static constexpr int kQBytes = kChunks * kQChunk;
+  static constexpr int kKBytes = kChunks * kKChunk;
+  static constexpr int kVBytes = kChunks * kVChunk;
+  static constexpr int kVtBytes = HD_PAD * kSwizzleRow;  // V^T hi, or lo
+  static constexpr int kStage = kKBytes + kVBytes + 2 * kVtBytes;
+  static constexpr int kOffStage = kQBytes;
+  static constexpr int kOffBar = kOffStage + kF32Stages * kStage;
+  // TMA bytes of one tile: K and V as loaded
+  static constexpr uint32_t kTx = 2 * kChunks * kF32Keys * kSwizzleRow;
+  // Q, the stages, 1 + stages mbarriers, slack to align to 1 KB
+  static constexpr size_t kBytes = kOffBar + 8 * (1 + kF32Stages) + 1024;
+};
+
+__device__ __forceinline__ float lds_f32(uint32_t a) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(a) : "memory");
+  return x;
+}
+
+__device__ __forceinline__ void sts_f32(uint32_t a, float x) {
+  asm volatile("st.shared.f32 [%0], %1;\n" :: "r"(a), "f"(x) : "memory");
+}
+
+__device__ __forceinline__ float4 lds_f32x4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts_f32x4(uint32_t a, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as an f32
+// whose low 13 bits are zero, so the tensor core reads it exactly; the
+// split's lo is x - tf32_hi(x), exact in f32
+__device__ __forceinline__ float tf32_hi(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+__device__ __forceinline__ float4 tf32_hi4(float4 x) {
+  return make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
+}
+
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+// generic-proxy writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of (row, col) in a 128-byte-swizzled block of 128-byte rows
+// of f32 (the 16-byte unit of a row is XORed with the row's index mod 8;
+// every block starts 1 KB aligned)
+__device__ __forceinline__ uint32_t swz_f32(int row, int col) {
+  return (uint32_t)(row * kSwizzleRow + ((((col >> 2) ^ row) & 7) << 4) +
+                    ((col & 3) << 2));
+}
+
+// D (64 x 64, f32) += A (64 x 8, tf32, K-major) * B (64 x 8, tf32, K-major),
+// both from shared memory through their descriptors; scale_d = 0 ignores D
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 32, f32) += A (64 x 8, tf32 in registers) * B (32 x 8, tf32,
+// K-major in shared memory through its descriptor); D is d[0..15], the
+// columns 0..31 of an n64 accumulator (ptxas serialises the products when
+// it is the upper half); scale_d = 0 ignores D
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[32], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, f32) += A (64 x 8, tf32 in registers) * B (64 x 8, tf32,
+// K-major in shared memory through its descriptor); scale_d = 0 ignores D
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// T (64 x 64) (+)= P (64 x 8) V (8 x 64) for 8 keys of the tile from the
+// score registers p[i0 + 4 j .. i0 + 4 j + 3] (rows r, r, r + 8, r + 8;
+// keys 2 quad, 2 quad + 1 of the step): the TF32 A layout holds columns
+// quad and quad + 4, so column c of the step is key 2c (c < 4) or
+// 2(c - 4) + 1, the order V^T's keys are stored in
+__device__ __forceinline__ void wgmma_tf32_pv_step(float (&t)[32],
+                                                   const float (&p)[32],
+                                                   int i0, int j, uint64_t db,
+                                                   int scale_d) {
+  const int i = i0 + 4 * j;
+  wgmma_tf32_rs_n64(t, __float_as_uint(p[i]), __float_as_uint(p[i + 2]),
+                    __float_as_uint(p[i + 1]), __float_as_uint(p[i + 3]), db,
+                    scale_d);
+}
+
+template <int HD_PAD>
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_f32_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    float* __restrict__ o, const int32_t* __restrict__ q_pos,
+                    int64_t s_len, int64_t t_len, int64_t group, int64_t hd,
+                    Strides os, int causal, int64_t window, float scale) {
+  using L = F32Layout<HD_PAD>;
+  constexpr int kChunks = L::kChunks;
+  constexpr int kKS = HD_PAD / 8;            // k8 steps of Q K^T
+  constexpr int kNS = kF32Keys / 2;          // score registers per thread
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int32_t pos_s[kF32Rows];
+  __shared__ int32_t pmin_s[kF32Rows / 32], pmax_s[kF32Rows / 32];
+
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_base = base;
+  const uint32_t stage0 = base + L::kOffStage;
+  const uint32_t bar_q = base + L::kOffBar;
+  const uint32_t bar_full = bar_q + 8;                      // [stage]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t n_qt = (s_len + kF32Rows - 1) / kF32Rows;
+  // the last query tiles have the longest bands: launch them first
+  const int64_t q0 = (n_qt - 1 - (int64_t)blockIdx.x) * kF32Rows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (int)group;
+
+  if (tid < kF32Rows) {
+    const bool valid = q0 + tid < s_len;
+    const int32_t p = valid ? q_pos[q0 + tid] : 0;
+    pos_s[tid] = p;
+    int32_t mn = valid ? p : INT_MAX, mx = valid ? p : INT_MIN;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    if (lane == 0) {
+      pmin_s[warp] = mn;
+      pmax_s[warp] = mx;
+    }
+  }
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kF32Stages; ++s) mbar_init(bar_full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int64_t lo[2], hi[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    key_band(min(pmin_s[2 * w], pmin_s[2 * w + 1]),
+             max(pmax_s[2 * w], pmax_s[2 * w + 1]), t_len, causal, window,
+             lo[w], hi[w]);
+  }
+  int64_t b_lo = INT64_MAX, b_hi = -1;
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    if (lo[w] <= hi[w]) {
+      b_lo = lo[w] < b_lo ? lo[w] : b_lo;
+      b_hi = hi[w] > b_hi ? hi[w] : b_hi;
+    }
+  }
+  const int kt0 = __shfl_sync(
+      0xffffffffu, (int)(b_hi >= 0 ? b_lo / kF32Keys * kF32Keys : 0), 0);
+  const int n_tiles = __shfl_sync(
+      0xffffffffu, (int)(b_hi >= 0 ? (b_hi - kt0) / kF32Keys + 1 : 0), 0);
+
+  // Thread 0 issues every copy: Q and the first tile now, tile it + 1
+  // once every thread has passed tile it's split (below), when the stage
+  // it takes has been read for the last time (by tile it - 1's products).
+  const auto load_tile = [&](int it) {
+    const int s = it % kF32Stages;
+    const uint32_t full = bar_full + 8 * s;
+    const uint32_t k_s = stage0 + s * L::kStage;
+    const uint32_t v_s = k_s + L::kKBytes;
+    const int kt = kt0 + it * kF32Keys;
+    mbar_expect_tx(full, L::kTx);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      tma_load_4d(k_s + c * L::kKChunk + L::kKHi, &k_map, full, kF32Cols * c,
+                  kt, kvh, b);
+      tma_load_4d(v_s + c * L::kVChunk, &v_map, full, kF32Cols * c, kt, kvh,
+                  b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, L::kQBytes);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      tma_load_4d(q_base + c * L::kQChunk, &q_map, bar_q, kF32Cols * c,
+                  (int)q0, h, b);
+    }
+    if (n_tiles > 0) load_tile(0);
+  }
+
+  // ---- warpgroup wg owns rows 64 wg .. 64 wg + 63 ----
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int r_a = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // and r_a + 8
+  const int quad = lane & 3;
+  const int64_t pos_a = pos_s[r_a], pos_b = pos_s[r_a + 8];
+  const float sl2 = scale * kLog2e;
+  const float sentinel = kNegInf * kLog2e;
+  const uint32_t q_wg = q_base + wg * 64 * kSwizzleRow;
+
+  const int64_t w_lo = wg ? lo[1] : lo[0], w_hi = wg ? hi[1] : hi[0];
+  int it_first = n_tiles, it_last = -1;
+  if (w_lo <= w_hi && n_tiles > 0) {
+    it_first = (int)((w_lo - kt0) / kF32Keys);
+    it_last = (int)((w_hi - kt0) / kF32Keys);
+    if (it_last > n_tiles - 1) it_last = n_tiles - 1;
+  }
+  it_first = __shfl_sync(0xffffffffu, it_first, 0);
+  it_last = __shfl_sync(0xffffffffu, it_last, 0);
+
+  // Split Q once: each thread rounds the elements of its own A fragments
+  // (rows r_a, r_a + 8; columns 8 ks + quad, + 4) to TF32 in place and
+  // keeps their lo in registers, the A operand of Q_lo K_hi^T.  The
+  // fragments of a warpgroup cover its 64 rows exactly; the first tile's
+  // barrier below orders these writes before any product reads them.
+  mbar_wait(bar_q, 0);
+  float qlo[HD_PAD / 2];
+#pragma unroll
+  for (int ks = 0; ks < kKS; ++ks) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r_a + 8 * (e & 1);
+      const int col = 8 * ks + quad + 4 * (e >> 1);
+      const uint32_t a = q_base + (col / kF32Cols) * L::kQChunk +
+                         swz_f32(row, col % kF32Cols);
+      const float x = lds_f32(a);
+      const float x_hi = tf32_hi(x);
+      sts_f32(a, x_hi);
+      qlo[4 * ks + e] = x - x_hi;
+    }
+  }
+
+  float m_a = sentinel, m_b = sentinel, l_a = 0.0f, l_b = 0.0f;
+  // sp[0..15]: Q_hi K_lo^T + Q_lo K_hi^T, then P_hi; sp[16..31]: Q_hi
+  // K_hi^T, then P_lo; t: one tile's P V over 64 columns of the head
+  float acc[HD_PAD / 2], sp[2 * kNS], t[32];
+#pragma unroll
+  for (int i = 0; i < HD_PAD / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 2 * kNS; ++i) sp[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) t[i] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kF32Stages;
+    const uint32_t k_s = stage0 + s * L::kStage;
+    const uint32_t v_s = k_s + L::kKBytes;
+    const uint32_t vt_hi = v_s + L::kVBytes;
+    const uint32_t vt_lo = vt_hi + L::kVtBytes;
+    mbar_wait(bar_full + 8 * s, (uint32_t)((it / kF32Stages) & 1));
+
+    // Split the tile, shared by both warpgroups.  K (32 keys x 128-byte
+    // rows a chunk): hi in place, lo 32 rows above, the same swizzle.
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      const uint32_t a = k_s + c * L::kKChunk + L::kKHi + 16 * tid;
+      const float4 x = lds_f32x4(a);
+      const float4 x_hi = tf32_hi4(x);
+      sts_f32x4(a, x_hi);
+      sts_f32x4(a - L::kKHi, sub4(x, x_hi));
+    }
+    // V (keys x hd) to V^T (hd rows of 32 keys, K-major for wgmma's B):
+    // 16-byte unit u of row d holds keys 8 (u / 2) + (u & 1) + 2 w, w =
+    // 0..3, the order of the A fragments (wgmma_tf32_pv_step).  A warp
+    // takes 32 consecutive d at one u: its reads cover one 128-byte row of
+    // V, its 16-byte writes 8 rows of distinct swizzle, no bank conflict.
+#pragma unroll
+    for (int m = 0; m < HD_PAD * 8 / kF32Threads; ++m) {
+      const int i = tid + m * kF32Threads;
+      const int d = i % HD_PAD, u = i / HD_PAD;
+      const int key0 = 8 * (u >> 1) + (u & 1);
+      const uint32_t src = v_s + (d / kF32Cols) * L::kVChunk;
+      float4 x;
+      x.x = lds_f32(src + swz_f32(key0, d % kF32Cols));
+      x.y = lds_f32(src + swz_f32(key0 + 2, d % kF32Cols));
+      x.z = lds_f32(src + swz_f32(key0 + 4, d % kF32Cols));
+      x.w = lds_f32(src + swz_f32(key0 + 6, d % kF32Cols));
+      const float4 x_hi = tf32_hi4(x);
+      const uint32_t dst = swz_f32(d, 4 * u);
+      sts_f32x4(vt_hi + dst, x_hi);
+      sts_f32x4(vt_lo + dst, sub4(x, x_hi));
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0 && it + 1 < n_tiles) load_tile(it + 1);
+
+    if (it >= it_first && it <= it_last) {
+      const int64_t kt = kt0 + it * kF32Keys;
+
+      // S = Q_hi K_hi^T + (Q_hi K_lo^T + Q_lo K_hi^T).  One n64 product
+      // against K's 64 rows (lo, hi) gives Q_hi K_lo^T in sp[0..15] and
+      // Q_hi K_hi^T in sp[16..31]; Q_lo from registers adds its term to
+      // the former.  The tensor core truncates its sums, so the small terms
+      // accumulate apart from the large one and meet it in one f32 add.
+      fence_regs(sp);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        const uint32_t col = (ks % 4) * 32;
+        wgmma_tf32_ss_n64(
+            sp, desc128(q_wg + (ks / 4) * L::kQChunk + col, 16, 1024),
+            desc128(k_s + (ks / 4) * L::kKChunk + col, 16, 1024), ks > 0);
+      }
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        const uint32_t col = (ks % 4) * 32;
+        wgmma_tf32_rs_n32(sp, __float_as_uint(qlo[4 * ks]),
+                          __float_as_uint(qlo[4 * ks + 1]),
+                          __float_as_uint(qlo[4 * ks + 2]),
+                          __float_as_uint(qlo[4 * ks + 3]),
+                          desc128(k_s + (ks / 4) * L::kKChunk + L::kKHi + col,
+                                  16, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sp);
+
+      // scores in log2 units; sp[i] is row r_a (i & 2 == 0) or r_a + 8,
+      // key kt + 2 quad + 8 (i / 4) + (i & 1); masked as the bf16 route
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) sp[i] = (sp[i] + sp[i + kNS]) * sl2;
+      const bool open =
+          tile_open<kF32Keys>(kt, pos_a, t_len, causal, window) &&
+          tile_open<kF32Keys>(kt, pos_b, t_len, causal, window);
+      if (__any_sync(0xffffffffu, !open)) {
+        const int64_t k0 = kt + 2 * quad;
+        const int t_rel = clamp_rel(t_len - k0);
+        const int far = 1 << 30;
+        const int hi_a = causal ? clamp_rel(pos_a - k0) : far;
+        const int hi_b = causal ? clamp_rel(pos_b - k0) : far;
+        const int lo_a = window > 0 ? clamp_rel(pos_a - window + 1 - k0) : -far;
+        const int lo_b = window > 0 ? clamp_rel(pos_b - window + 1 - k0) : -far;
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const int c = 8 * (i >> 2) + (i & 1);
+          const int hi_r = (i & 2) ? hi_b : hi_a, lo_r = (i & 2) ? lo_b : lo_a;
+          const float x = (c <= hi_r && c >= lo_r) ? sp[i] : sentinel;
+          sp[i] = c < t_rel ? x : -CUDART_INF_F;
+        }
+      }
+
+      // online softmax over f32 p; l sums the unsplit p
+      float mx_a = -CUDART_INF_F, mx_b = -CUDART_INF_F;
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        if (i & 2) {
+          mx_b = fmaxf(mx_b, sp[i]);
+        } else {
+          mx_a = fmaxf(mx_a, sp[i]);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float corr_a = exp2f(m_a - mn_a), corr_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const float p = exp2f(sp[i] - ((i & 2) ? mn_b : mn_a));
+        if (i & 2) {
+          sum_b += p;
+        } else {
+          sum_a += p;
+        }
+        const float p_hi = tf32_hi(p);    // P split like any operand
+        sp[i] = p_hi;
+        sp[i + kNS] = p - p_hi;
+      }
+      l_a = l_a * corr_a + sum_a;
+      l_b = l_b * corr_b + sum_b;
+
+      // T = P_hi V_hi + P_hi V_lo + P_lo V_hi over this tile's 32 keys (8
+      // keys, 32 bytes of each V^T row, a step), 64 columns of the head at
+      // a time, taken into a fresh accumulator: summed across the row's
+      // tiles inside the tensor core, its truncation would grow with the
+      // row (1.5e-5 at the Danube layer).  O = O * corr + T in f32.
+#pragma unroll
+      for (int half = 0; half < HD_PAD / 64; ++half) {
+        const uint32_t vh = vt_hi + half * 64 * kSwizzleRow;
+        const uint32_t vl = vt_lo + half * 64 * kSwizzleRow;
+        fence_regs(t);
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+          wgmma_tf32_pv_step(t, sp, 0, j, desc128(vh + 32 * j, 16, 1024),
+                             j > 0);
+        }
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+          wgmma_tf32_pv_step(t, sp, 0, j, desc128(vl + 32 * j, 16, 1024), 1);
+        }
+#pragma unroll
+        for (int j = 0; j < kF32Keys / 8; ++j) {
+          wgmma_tf32_pv_step(t, sp, kNS, j, desc128(vh + 32 * j, 16, 1024),
+                             1);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(t);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          float& o_i = acc[32 * half + i];
+          o_i = fmaf(o_i, (i & 2) ? corr_b : corr_a, t[i]);
+        }
+      }
+    }
+  }
+
+  // o = acc / max(l, 1e-30) by IEEE division, stored as f32; rows past S
+  // and columns past hd are not
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  const bool pairs = ((os.s | os.h | os.b) & 1) == 0;
+  float* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int j = 0; j < HD_PAD / 8; ++j) {
+    const int64_t d = 8 * j + 2 * quad;
+    if (d >= hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t row = q0 + r_a + 8 * half;
+      if (row >= s_len) continue;
+      const float den = half ? den_b : den_a;
+      const float x0 = acc[4 * j + 2 * half] / den;
+      const float x1 = acc[4 * j + 2 * half + 1] / den;
+      float* dst = ob + row * os.s + d;
+      if (pairs && d + 1 < hd) {
+        *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+      } else {
+        dst[0] = x0;
+        if (d + 1 < hd) dst[1] = x1;
+      }
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled from libcuda, looked up through the CUDA runtime
 // (the library links only the runtime)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -863,36 +1242,37 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map (hd, seq, heads, batch) of a bf16 tensor read through its
-// strides, boxes of 64 columns x `rows` rows of one head, 128-byte swizzle.
-// head_dim is a dimension of its own, of size hd, so the columns of a box
-// past hd are out of bounds and arrive as zeros.  TMA needs a 16-byte
-// aligned base and strides that are multiples of 16 bytes; the wrapper
-// copies a tensor that does not qualify.  A dimension of size 1 is never
-// stepped, so its stride is replaced by a valid one.
-int make_map(CUtensorMap* map, const void* base, int64_t hd, int64_t seq,
-             int64_t heads, int64_t batch, Strides st, uint32_t rows) {
+// A 4-D map (hd, seq, heads, batch) of a bf16 or f32 tensor read through
+// its strides, boxes of one 128-byte row (64 bf16 or 32 f32 columns) x
+// `rows` rows of one head, 128-byte swizzle.  head_dim is a dimension of
+// its own, of size hd, so the columns of a box past hd are out of bounds
+// and arrive as zeros.  TMA needs a 16-byte aligned base and strides that
+// are multiples of 16 bytes; the wrapper copies a tensor that does not
+// qualify.  A dimension of size 1 is never stepped, so its stride is
+// replaced by a valid one.
+int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+             int64_t elem, int64_t hd, int64_t seq, int64_t heads,
+             int64_t batch, Strides st, uint32_t rows) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
   if ((uintptr_t)base & 15) return (int)cudaErrorMisalignedAddress;
   const int64_t size[3] = {seq, heads, batch};
   const int64_t stride[3] = {st.s, st.h, st.b};
-  const int64_t spare = ((hd * 2 + 15) / 16) * 16 * seq * heads;
+  const int64_t spare = ((hd * elem + 15) / 16) * 16 * seq * heads;
   cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)seq, (cuuint64_t)heads,
                         (cuuint64_t)batch};
   cuuint64_t strides[3];
   for (int i = 0; i < 3; ++i) {
-    const int64_t bytes = size[i] == 1 ? spare : stride[i] * 2;
+    const int64_t bytes = size[i] == 1 ? spare : stride[i] * elem;
     if (bytes <= 0 || bytes % 16) return (int)cudaErrorInvalidValue;
     strides[i] = (cuuint64_t)bytes;
   }
-  const cuuint32_t box[4] = {64, rows, 1, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(kSwizzleRow / elem), rows, 1, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -903,9 +1283,12 @@ int launch_tc_hd(cudaStream_t stream, const void* q, const void* k,
                  int64_t hd, Strides qs, Strides ks, Strides vs, Strides os,
                  int causal, int64_t window, float scale) {
   CUtensorMap q_map, k_map, v_map;
-  int rc = make_map(&q_map, q, hd, s_len, hq, b, qs, kTcRows);
-  if (rc == 0) rc = make_map(&k_map, k, hd, t_len, kh, b, ks, kTcKeys);
-  if (rc == 0) rc = make_map(&v_map, v, hd, t_len, kh, b, vs, kTcKeys);
+  int rc = make_map(&q_map, q, kBf16, 2, hd, s_len, hq, b, qs,
+                    kTcRows);
+  if (rc == 0) rc = make_map(&k_map, k, kBf16, 2, hd, t_len, kh, b, ks,
+                               kTcKeys);
+  if (rc == 0) rc = make_map(&v_map, v, kBf16, 2, hd, t_len, kh, b, vs,
+                               kTcKeys);
   if (rc != 0) return rc;
   const size_t bytes = TcLayout<HD_PAD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -917,6 +1300,32 @@ int launch_tc_hd(cudaStream_t stream, const void* q, const void* k,
   flash_tc_kernel<HD_PAD><<<grid, kTcThreads, bytes, stream>>>(
       q_map, k_map, v_map, (__nv_bfloat16*)o, (const int32_t*)q_pos, s_len,
       t_len, hq / kh, hd, os, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD_PAD>
+int launch_f32_hd(cudaStream_t stream, const void* q, const void* k,
+                  const void* v, void* o, const void* q_pos, int64_t b,
+                  int64_t s_len, int64_t t_len, int64_t hq, int64_t kh,
+                  int64_t hd, Strides qs, Strides ks, Strides vs, Strides os,
+                  int causal, int64_t window, float scale) {
+  CUtensorMap q_map, k_map, v_map;
+  int rc = make_map(&q_map, q, kF32, 4, hd, s_len, hq, b, qs, kF32Rows);
+  if (rc == 0) rc = make_map(&k_map, k, kF32, 4, hd, t_len, kh, b, ks,
+                             kF32Keys);
+  if (rc == 0) rc = make_map(&v_map, v, kF32, 4, hd, t_len, kh, b, vs,
+                             kF32Keys);
+  if (rc != 0) return rc;
+  const size_t bytes = F32Layout<HD_PAD>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_tc_kernel<HD_PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((s_len + kF32Rows - 1) / kF32Rows), (unsigned)hq,
+                  (unsigned)b);
+  flash_f32_tc_kernel<HD_PAD><<<grid, kF32Threads, bytes, stream>>>(
+      q_map, k_map, v_map, (float*)o, (const int32_t*)q_pos, s_len, t_len,
+      hq / kh, hd, os, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -943,18 +1352,16 @@ extern "C" int flash_attention_f32(
   if (err != cudaSuccess) return (int)err;
   const int bad = check_shape(b, s_len, t_len, hq, kh, hd);
   if (bad) return bad;
-  const dim3 grid((unsigned)((s_len + kBlockQ - 1) / kBlockQ), (unsigned)hq,
-                  (unsigned)b);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh};
   const int c = causal ? 1 : 0;
   if (hd <= 64) {
-    return launch_f32_hd<64>(grid, (cudaStream_t)stream, q, k, v, o, q_pos,
-                             s_len, t_len, hq / kh, hd, qs, ks, vs, os, c,
+    return launch_f32_hd<64>((cudaStream_t)stream, q, k, v, o, q_pos, b,
+                             s_len, t_len, hq, kh, hd, qs, ks, vs, os, c,
                              window, scale);
   }
-  return launch_f32_hd<128>(grid, (cudaStream_t)stream, q, k, v, o, q_pos,
-                            s_len, t_len, hq / kh, hd, qs, ks, vs, os, c,
+  return launch_f32_hd<128>((cudaStream_t)stream, q, k, v, o, q_pos, b,
+                            s_len, t_len, hq, kh, hd, qs, ks, vs, os, c,
                             window, scale);
 }
 

@@ -8,15 +8,20 @@ positions q_pos (S,) -> o (B, S, Hq, hd) in q's dtype.  Query head h reads
 KV head h // (Hq // Kh).  Head dims up to 128; S and T need not be
 multiples of the tiles.
 
-bfloat16 runs on the tensor cores, with Q, K and V brought in by TMA,
+Both dtypes run on the tensor cores, with Q, K and V brought in by TMA,
 which needs each tensor's base 16-byte aligned and its batch, sequence and
-head strides multiples of 16 bytes (8 elements).  The model's tensors meet
-both.  A bf16 view that does not is first copied here into a contiguous
-tensor whose rows are padded to a multiple of 8 elements, and the same
-kernel then reads the copy; no other route is ever taken.  The bf16 route
-rounds the softmax probabilities to bf16 before multiplying them by V, as
-the reference does not (it multiplies float32 probabilities); float32
-inputs run the CUDA-core kernel, with float32 probabilities.
+head strides multiples of 16 bytes (8 bf16 or 4 f32 elements).  The
+model's tensors meet both.  A view that does not is first copied here
+into a contiguous tensor whose rows are padded to a multiple of 16 bytes,
+and the same kernel then reads the copy; no other route is ever taken.
+The bf16 route rounds the softmax probabilities to bf16 before
+multiplying them by V, as the reference does not (it multiplies float32
+probabilities).  The float32 route keeps float32 probabilities and takes
+each product as three TF32 products of the operands split into a TF32
+part and its remainder (hi * hi + hi * lo + lo * hi), which holds 2e-5
+against the float32 plain version; `ref.py::attention_split_tf32` is that
+arithmetic on the CPU.  It does not depend on
+`torch.backends.cuda.matmul.allow_tf32`.
 """
 from __future__ import annotations
 
@@ -101,8 +106,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hq > 65535 or b > 65535:
         raise ValueError(f"flash_attention takes at most 65535 heads and "
                          f"batch rows, got Hq={hq}, B={b}")
-    if q.dtype == torch.bfloat16:
-        q, k, v = (t if tma_ready(t) else tma_copy(t) for t in (q, k, v))
+    q, k, v = (t if tma_ready(t) else tma_copy(t) for t in (q, k, v))
     scale = ctypes.c_float(np.float32(hd ** -0.5))   # JAX's weak-typed f32
     rc = getattr(library(), _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -8,8 +8,9 @@ KV head h // G for query head h in place and masks ragged S and T (the
 reference's repeat of KV per group and its `S % block_q == 0` cut-over
 exist only for the Pallas kernel's layout); a CPU tensor goes to the plain
 version, `attention_ref`, with KV repeated per group as the reference does.
-On the card, bf16 inputs run on the tensor cores with the softmax
-probabilities rounded to bf16 before they multiply V (see `kernel.py`).
+On the card both dtypes run on the tensor cores: bf16 with the softmax
+probabilities rounded to bf16 before they multiply V, float32 as split-TF32
+products with float32 probabilities (see `kernel.py`).
 """
 from __future__ import annotations
 

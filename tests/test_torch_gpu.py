@@ -13,7 +13,8 @@ on rows the gold logit dominates; cohort_gather and delta_codec bitwise
 (a raw copy; the same IEEE division, rounding and keep set; a NaN that
 delta_codec makes is held as a NaN, whatever its payload); weighted_avg
 at rtol 1e-6, atol 1e-7 (f32 sums of M products in another order);
-flash_attention at 2e-5 in float32 (f32 sums in another order) and 3e-2
+flash_attention at 2e-5 in float32 (split-TF32 products: ~2^-22 of each
+product, and f32 sums in another order) and 3e-2
 in bf16 (one bf16 rounding of outputs of magnitude ~1, the reference
 test's bound), the bf16 route also elementwise at 5e-3 + 1e-2 |want| and
 its mean error at 5e-3 of mean |want| (it rounds P to bf16, which moves
@@ -900,6 +901,95 @@ def test_flash_attention_bf16_copies_views_tma_cannot_read(cuda):
     assert kernels.LAUNCHES["flash_attention"] == before + 1
     want = flash_attention_gqa(q, k, v, window=64)
     _assert_bf16_attention_close(got, want)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 72, 120, 128])
+@pytest.mark.parametrize("s,win", [(200, 0), (333, 1), (1000, 128),
+                                   (1000, 40)])
+def test_flash_attention_f32_tensor_cores_match_plain(cuda, hd, s, win):
+    """The f32 route (split-TF32 wgmma, TMA) at head dims that pad to 64 or
+    128 columns (72: a 32-column chunk wholly past hd), S a multiple of
+    neither tile (32 keys, 128 query rows), window 1, and windows 128 and
+    40, where the last rows of a warpgroup find the first key tile of its
+    band fully masked."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q, k, v = _attn_inputs(hd + s + win, 2, s, s, 4, 2, hd, torch.float32,
+                           cuda)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = flash_attention_gqa(q, k, v, window=win)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_gqa(q.cpu(), k.cpu(), v.cpu(), window=win)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+
+
+def test_flash_attention_f32_positions_not_from_zero(cuda):
+    """Query positions 300..399 of 400 keys (a query tile that starts
+    mid-sequence), causal with windows 0 and 256, and non-causal."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q, _, _ = _attn_inputs(11, 2, 100, 100, 8, 2, 120, torch.float32, "cpu")
+    _, k, v = _attn_inputs(12, 2, 400, 400, 8, 2, 120, torch.float32, "cpu")
+    pos = torch.arange(300, 400)
+    for causal, win in ((True, 0), (True, 256), (False, 0)):
+        got = flash_attention_gqa(q.to(cuda), k.to(cuda), v.to(cuda),
+                                  q_pos=pos.to(cuda), causal=causal,
+                                  window=win)
+        want = flash_attention_gqa(q, k, v, q_pos=pos, causal=causal,
+                                   window=win)
+        torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+
+
+def test_flash_attention_f32_copies_views_tma_cannot_read(cuda):
+    """q with rows of 121 floats (a stride of 484 bytes) and k starting one
+    element into its buffer: the wrapper copies both into padded tensors
+    and launches the same kernel once; v is read in place."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.kernel import tma_ready
+    gen = torch.Generator().manual_seed(14)
+    q = torch.randn((2, 150, 4, 121), generator=gen)[..., :120]
+    k = torch.randn((2, 150, 2, 121), generator=gen)[..., 1:]
+    v = torch.randn((2, 150, 2, 120), generator=gen)
+    vc = v.to(cuda)
+    qc = torch.empty((2, 150, 4, 121), device=cuda)[..., :120].copy_(q)
+    kc = torch.empty((2, 150, 2, 121), device=cuda)[..., 1:].copy_(k)
+    assert not tma_ready(qc) and not tma_ready(kc) and tma_ready(vc)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = flash_attention_gqa(qc, kc, vc, window=64)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_gqa(q, k, v, window=64)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("s,hd,win", [(256, 120, 0), (200, 128, 128)])
+def test_flash_attention_f32_large_scores(cuda, s, hd, win):
+    """q and k scaled alike so that the largest |score| is 30, where the
+    softmax is sharpest and an error in S shows most in the output."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q, k, v = _attn_inputs(s + hd, 1, s, s, 4, 2, hd, torch.float32, "cpu")
+    kr = k.repeat_interleave(2, dim=2)
+    s0 = float(torch.einsum("bqhd,bkhd->bhqk", q, kr).abs().max()) * hd ** -0.5
+    c = (30.0 / s0) ** 0.5
+    q, k = q * c, k * c
+    got = flash_attention_gqa(q.to(cuda), k.to(cuda), v.to(cuda), window=win)
+    want = flash_attention_gqa(q, k, v, window=win)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+
+
+def test_flash_attention_f32_ignores_the_tf32_switch(cuda):
+    """The split is the kernel's own: allowing TF32 matmuls in PyTorch does
+    not change a bit of the f32 route's output."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q, k, v = _attn_inputs(21, 2, 300, 300, 8, 2, 120, torch.float32, cuda)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = flash_attention_gqa(q, k, v, window=100)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = flash_attention_gqa(q, k, v, window=100)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert torch.equal(off, on)
 
 
 def test_flash_attention_kernel_reads_strided_views_and_positions(cuda):

@@ -192,6 +192,43 @@ def test_flash_plain_matches_reference_kernel_and_ref(b, s, hq, kh, hd, win,
     np.testing.assert_allclose(_f32(got_ref), _f32(want_ref), atol=atol)
 
 
+@pytest.mark.parametrize("s,hd,win,s_max", [
+    (256, 64, 0, None), (256, 64, 128, None), (256, 120, 0, None),
+    (256, 120, 128, None), (256, 128, 0, None), (256, 128, 128, None),
+    (200, 120, 128, None), (333, 64, 0, None), (256, 120, 0, 30.0),
+    (200, 128, 128, 30.0)])
+def test_split_tf32_arithmetic_holds_the_f32_tolerance(s, hd, win, s_max):
+    """The f32 CUDA route's split-TF32 arithmetic (`attention_split_tf32`,
+    three TF32 products a product) against the reference's Pallas kernel
+    (interpret mode; its plain ref where S is not a multiple of the block)
+    and its attention_ref, at the f32 route's 2e-5: hd 64/120/128, windows
+    0 and 128, ragged S, and inputs scaled so that max |s| is `s_max`."""
+    from repro_torch.kernels.flash_attention.ref import attention_split_tf32
+    b, hq, kh = 1, 4, 2
+    q, k, v = _qkv(s + hd + win, b, s, hq, kh, hd)
+    if s_max is not None:      # q and k scaled alike: max |s| = s_max
+        g = hq // kh
+        kr = np.repeat(k, g, axis=2)
+        s0 = np.abs(np.einsum("bqhd,bkhd->bhqk", q, kr)).max() * hd ** -0.5
+        c = np.float32(np.sqrt(s_max / s0))
+        q, k = q * c, k * c
+    qj, kj, vj = (jnp.asarray(a) for a in (q, k, v))
+    g = hq // kh
+    fold = lambda x: x.reshape(b, s, kh, g, hd).transpose(0, 2, 3, 1, 4
+                                                          ).reshape(-1, s, hd)
+    qf = fold(q)
+    kf = np.repeat(k.transpose(0, 2, 1, 3), g, axis=1).reshape(-1, s, hd)
+    vf = np.repeat(v.transpose(0, 2, 1, 3), g, axis=1).reshape(-1, s, hd)
+    got = _f32(attention_split_tf32(_t(qf), _t(kf), _t(vf), window=win))
+    want_kernel = fold(_f32(flash_attention_tpu(
+        qj, kj, vj, causal=True, window=win, block_q=128, block_k=128,
+        interpret=True)))
+    want_ref = _f32(jax_attn_ref(jnp.asarray(qf), jnp.asarray(kf),
+                                 jnp.asarray(vf), causal=True, window=win))
+    np.testing.assert_allclose(got, want_kernel, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got, want_ref, atol=2e-5, rtol=0)
+
+
 def test_flash_plain_with_query_positions_and_non_causal():
     q, k, v = _qkv(7, 1, 40, 2, 2, 16)
     pos = np.arange(20, 60)
