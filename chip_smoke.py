@@ -38,7 +38,11 @@ exits non-zero without a result line:
    stack words in registers, 16-byte evict-first stores) are timed as the
    main path calls them, over the six leaves and the four stacks at once;
    prefix_avg and weighted_avg over `torch.matmul` of the prefix-weight
-   matrix;
+   matrix; cohort_gather's device-id entry (the scan engine's: ids read on
+   the card, an id out of range written into an error word) is held
+   bitwise against its plain version at the main path's four stacks, an
+   id of N must set the word and raise when it is read, and it is timed
+   through the wrapper and as a C entry;
 4. full-width Shapley: streaming GTG-Shapley of five full-width MNIST MLPs
    on the card against the port's CPU path on the same walks (atol 1e-5);
 5. reference run: a small GreedyFed run on the card against the same run
@@ -49,14 +53,22 @@ exits non-zero without a result line:
 7. main path, batched engine: `FLConfig(engine="batched", rounds=12,
    upload_codec="quant8_topk")` against the loop engine on the same config
    and draws (selections and bytes equal, params and SVs at atol 1e-4);
-8. dense oracle: `shapley_impl="batched"` on the batched engine for 4
+8. scan engine: `FLConfig(engine="scan", rounds=12,
+   upload_codec="quant8_topk")` against the batched engine in the same
+   call (selections, bytes and eval history equal, params and SVs within
+   1e-6, bitwise expected), and again in segments of 4 rounds (bitwise the
+   whole run); the round captured as a CUDA graph and replayed under
+   `set_sync_debug_mode("error")`; both engines' round times, the capture
+   and staging times, the host syncs of each run and the memory above the
+   set-up;
+9. dense oracle: `shapley_impl="batched"` on the batched engine for 4
    rounds against the streaming estimator on the same walks (atol 1e-4);
-9. serving: `serve_requests` on full-width, full-depth H2O-Danube-3-4B
+10. serving: `serve_requests` on full-width, full-depth H2O-Danube-3-4B
    (bf16 activations, f32 params, random weights from a seed): B = 4
    prompts of 8192 tokens, 32 greedy decode steps against the 4096-slot
    window ring, exact Shapley over the 4 requests; prefill must launch
    flash_attention once per layer (24) and decode never;
-10. serving parity: the same model at full width, 2 layers and window
+11. serving parity: the same model at full width, 2 layers and window
    1024, f32, an S = 2048 prompt (flash prefill, S > window, S % window
    == 0), on the card against the port's CPU path with the same weights,
    decode teacher-forced with the CPU's tokens: prefill cache and logits
@@ -76,8 +88,11 @@ product as three TF32 products of split operands (hi hi + hi lo + lo hi);
 its bound counts those three at the TF32 peak, and the f32 FMA bound of the
 CUDA cores is printed beside it.
 
-Each path of phases 6-9 runs with the launch counters zeroed just before
-it and read just after; every kernel must launch on its path.  The line
+Each path of phases 6-10 runs with the launch counters zeroed just before
+it and read just after; every kernel must launch on its path.  A captured
+graph's launches are counted when it is captured and not when it is
+replayed, so the scan path counts its warm-up round's launches plus each
+graph's times its replays.  The line
 before the last is a JSON object with one entry per kernel; the last line
 is `{"ok": true, "device": {...}}`.
 """
@@ -424,7 +439,9 @@ def check_cohort_gather(torch, device):
     from repro_torch.kernels.cohort_gather import (
         cohort_gather, cohort_gather_ref, cohort_take,
     )
-    from repro_torch.kernels.cohort_gather.kernel import c_args, checked_ids
+    from repro_torch.kernels.cohort_gather.kernel import (
+        c_args, checked_ids, device_c_args, error_word, raise_on_error,
+    )
 
     s = setup_run(FLConfig(), device=device)
     stacks = {"xs": s.xs, "ys": s.ys, "n_valid": s.n_valid,
@@ -474,15 +491,47 @@ def check_cohort_gather(torch, device):
     log(f"[cohort_gather] ids outside [0, {n}) raise IndexError, from the "
         f"host and from the card")
 
+    # the device-id entry, as a captured round calls it: ids on the card,
+    # the caller's error word, nothing read back until the caller reads it
+    word = error_word(device)
+    got = cohort_gather(stacks, sel_dev, error=word)
+    for name, table in stacks.items():
+        want = cohort_gather_ref(table.reshape(table.shape[0], -1), sel_dev
+                                 ).reshape(got[name].shape)
+        require(torch.equal(words(got[name]), words(want)),
+                f"cohort_gather device ids {name} not bitwise equal")
+        worst = max(worst, float((got[name].double() - want.double()
+                                  ).abs().max()))
+    raise_on_error(word, n)
+    bad = sel_dev.clone()
+    bad[2] = n
+    cohort_gather(stacks, bad, error=word)
+    require(int(word.item()) == n, f"error word {int(word.item())}, not {n}")
+    try:
+        raise_on_error(word, n)
+        raise AssertionError("an id of N did not raise after the run")
+    except IndexError:
+        pass
+    log(f"[cohort_gather] device-id entry at the main path's four stacks: "
+        f"bitwise equal; an id of N={n} set the error word to {n} and "
+        f"raised IndexError when the word was read after the launch")
+
     flats = {k: t.reshape(t.shape[0], -1) for k, t in stacks.items()}
     ms = time_ms(lambda _: cohort_gather(stacks, sel), iters=200)
     cuda_ids_ms = time_ms(lambda _: cohort_gather(stacks, sel_dev), iters=200)
+    word = error_word(device)
+    device_ids_ms = time_ms(lambda _: cohort_gather(stacks, sel_dev,
+                                                    error=word), iters=200)
     lib = kernels.library()
     outs = [torch.empty((5, f.shape[1]), dtype=f.dtype, device=device)
             for f in flats.values()]
     args = c_args(list(zip(flats.values(), outs)), checked_ids(sel, n))
     c_entry_ms = time_ms(lambda _: kernels.check_launch(
         lib.cohort_gather(*args), "cohort_gather"), iters=200)
+    dargs = device_c_args(list(zip(flats.values(), outs)), sel_dev, word)
+    device_c_entry_ms = time_ms(lambda _: kernels.check_launch(
+        lib.cohort_gather_ids(*dargs), "cohort_gather"), iters=200)
+    raise_on_error(word, n)
     kernels.LAUNCHES["cohort_gather"] = saved  # check launches do not count
     total = {"plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
     for name, flat in flats.items():
@@ -501,9 +550,11 @@ def check_cohort_gather(torch, device):
             f"{b_ms:.4f} ms ({b_by})")
     b_ms, b_by = bound_ms(total["bytes"], 0)
     log(f"[cohort_gather] main-path round (4 stacks, one launch): through "
-        f"the wrapper with host ids {ms:.4f} ms (with CUDA ids, one copy "
-        f"to the host, {cuda_ids_ms:.4f} ms), the C entry alone "
-        f"{c_entry_ms:.4f} ms; plain {total['plain_ms']:.4f} ms, "
+        f"the wrapper with host ids {ms:.4f} ms, the C entry alone "
+        f"{c_entry_ms:.4f} ms; device ids (the scan's form): through the "
+        f"wrapper with the caller's error word {device_ids_ms:.4f} ms, with "
+        f"its own word read back {cuda_ids_ms:.4f} ms, the C entry alone "
+        f"{device_c_entry_ms:.4f} ms; plain {total['plain_ms']:.4f} ms, "
         f"index_select {total['library_ms']:.4f} ms (wrapper / index_select "
         f"{ms / total['library_ms']:.3f}), bound {b_ms:.4f} ms ({b_by})")
     return {"name": "cohort_gather", "route": "cuda",
@@ -512,7 +563,8 @@ def check_cohort_gather(torch, device):
             "max_abs_err": worst, "ms": ms, "plain_ms": total["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": total["library_ms"], "c_entry_ms": c_entry_ms,
-            "cuda_ids_ms": cuda_ids_ms}
+            "cuda_ids_ms": cuda_ids_ms, "device_ids_ms": device_ids_ms,
+            "device_ids_c_entry_ms": device_c_entry_ms}
 
 
 def check_delta_codec(torch, device):
@@ -940,6 +992,115 @@ def phase_batched_path(torch, device):
     return launches
 
 
+def count_syncs(torch, fn):
+    """(fn's result, the host syncs PyTorch reports while it runs): every
+    synchronizing CUDA call, counted under set_sync_debug_mode("warn")."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_scan_path(torch, device):
+    """engine="scan" at the reference's defaults (synthetic MNIST, N = 50,
+    M = 5, E = B = 5, the full-width 784-200-100-10 MLP, R = 250 walks,
+    greedyfed, quant8_topk, 12 rounds) against the batched engine in the
+    same call: selections, bytes and the eval history equal, params and
+    SVs within 1e-6; a second scan run in segments of 4 rounds equal to
+    the whole run bitwise.  The engine replays under set_sync_debug_mode(
+    "error").  Launches: the warm-up round's (counted when they launch)
+    plus each captured graph's times its replays."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.federated.server import FLConfig, run_federated
+    from repro_torch.tree import tree_leaves
+
+    cfg = FLConfig(rounds=12, upload_codec="quant8_topk", engine="batched")
+    batched, _, _ = drive(torch, device, cfg, "scan-batched")
+    scan_cfg = dataclasses.replace(cfg, engine="scan")
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    kernels.reset_launches()
+    t_run = time.perf_counter()
+    scan = run_federated(scan_cfg, device=device)
+    wall = time.perf_counter() - t_run
+    counted = dict(kernels.LAUNCHES)
+    peak_gb = (torch.cuda.max_memory_allocated(device) - base) / 1e9
+    g, n_evals = scan.graph_launches, len(scan.test_acc)
+    launches = {k: counted[k] - g["round"][k] - g["eval"][k]
+                + g["round"][k] * cfg.rounds + g["eval"][k] * n_evals
+                for k in counted}
+    seg = run_federated(scan_cfg, device=device, rounds_per_segment=4)
+    _, syncs_batched = count_syncs(torch, lambda: run_federated(
+        cfg, device=device))
+    _, syncs_scan = count_syncs(torch, lambda: run_federated(
+        scan_cfg, device=device))
+    _, syncs_seg = count_syncs(torch, lambda: run_federated(
+        scan_cfg, device=device, rounds_per_segment=4))
+
+    same = all((a == b).all() for a, b in zip(scan.selections,
+                                              batched.selections))
+    p_err = _max_err(scan.params, batched.params)
+    sv_err = float(np.abs(scan.sv_final - batched.sv_final).max())
+    bitwise = p_err == 0.0 and sv_err == 0.0
+    seg_same = (all((a == b).all() for a, b in zip(seg.selections,
+                                                   scan.selections))
+                and np.array_equal(seg.sv_final, scan.sv_final)
+                and seg.test_acc == scan.test_acc
+                and seg.val_loss == scan.val_loss
+                and all(torch.equal(a, b) for a, b in zip(
+                    tree_leaves(seg.params), tree_leaves(scan.params))))
+    steady = 1e3 * sum(scan.round_time_s) / cfg.rounds
+    b_mean = 1e3 * sum(batched.round_time_s[1:]) / (cfg.rounds - 1)
+    for t, sel in enumerate(scan.selections):
+        log(f"[scan] round {t:2d} sel {sel.tolist()}")
+    log(f"[scan] 12 rounds, quant8_topk, one read-back: steady replay "
+        f"{steady:.3f} ms a round (device time of the replays over the "
+        f"rounds), batched {b_mean:.2f} ms a round in the same call "
+        f"({b_mean / steady:.2f}x); capture (warm-up round and both "
+        f"graphs) {1e3 * scan.compile_time_s:.1f} ms; draw staging "
+        f"{1e3 * scan.stage_time_s:.1f} ms on the host; whole run "
+        f"{1e3 * wall:.1f} ms; replays {scan.dispatches}")
+    log(f"[scan] segmented (4 rounds a segment): steady replay "
+        f"{1e3 * sum(seg.round_time_s) / cfg.rounds:.3f} ms a round; "
+        f"equal to the whole run bitwise: {seg_same}")
+    log(f"[scan] host syncs a run (set-up included), counted by "
+        f"set_sync_debug_mode('warn'): batched {syncs_batched}, scan "
+        f"{syncs_scan}, scan in 3 segments {syncs_seg}; between replays "
+        f"none (the engine replays under 'error')")
+    log(f"[scan] peak memory above the set-up {peak_gb:.3f} GB (the two "
+        f"graphs' pools, the staged draws, the outputs)")
+    log(f"[scan] vs batched: selections equal {same}; upload bytes "
+        f"{scan.upload_bytes} vs {batched.upload_bytes}; eval history "
+        f"{scan.test_acc} vs {batched.test_acc}; max param err {p_err:.2e}, "
+        f"max SV err {sv_err:.2e} (bitwise {bitwise}; bound 1e-6)")
+    log(f"[scan] graph launches a replay {g}; path launches {launches}")
+    require(same, "scan and batched selections differ")
+    require(scan.upload_bytes == batched.upload_bytes
+            and scan.download_bytes == batched.download_bytes,
+            "scan and batched byte counts differ")
+    require(scan.test_acc == batched.test_acc
+            and scan.val_loss == batched.val_loss,
+            "scan and batched eval histories differ")
+    require(p_err <= 1e-6 and sv_err <= 1e-6, "scan and batched disagree")
+    require(seg_same, "the segmented scan differs from the whole run")
+    require(scan.final_acc > 0.2, f"final accuracy {scan.final_acc} <= 0.2")
+    expect_launches("scan path", launches, {
+        "prefix_avg": cfg.rounds + 1, "ce_loss": cfg.rounds + 1,
+        "cohort_gather": cfg.rounds + 1, "delta_codec": cfg.rounds + 1,
+        "weighted_avg": 0, "flash_attention": 0})
+    return launches
+
+
 def phase_dense_oracle(torch, device):
     """shapley_impl="batched" on the batched engine for 4 (round-robin)
     rounds, against the streaming estimator on the same walks."""
@@ -1342,6 +1503,7 @@ def main() -> int:
     phase_reference_run(torch, device)
     paths = {"loop": phase_main_path(torch, device),
              "batched": phase_batched_path(torch, device),
+             "scan": phase_scan_path(torch, device),
              "dense_oracle": phase_dense_oracle(torch, device),
              "serve": phase_serve(torch, device)}
     phase_serve_parity(torch, device)

@@ -16,6 +16,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
    kernel, memcpy and memset time over the sum of the rounds' wall times
    (the profiler's own host cost lengthens the rounds, so the share is a
    lower bound), and the kernels that take the most device time.
+3. The scan engine's replays: the same run captured (warm-up and capture
+   outside the profiler), then its rounds replayed under the profiler;
+   the kernel, memcpy and memset time over the replays' window between
+   two CUDA events, and the kernels that take the most device time.
 
 Exits non-zero without a card.
 """
@@ -147,6 +151,57 @@ def busy_share(torch, device, rounds):
     return out
 
 
+def scan_busy_share(torch, device, rounds):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.engine.round_engine import (
+        SegmentCarry, make_segment_step, round_plan,
+    )
+    from repro_torch.engine.scan_engine import make_scan_spec, scan_operands
+    from repro_torch.federated.draws import stack_rounds
+    from repro_torch.federated.server import FLConfig, setup_run
+
+    cfg = FLConfig(rounds=rounds, upload_codec="quant8_topk", engine="scan")
+    s = setup_run(cfg, device=device)
+    spec = make_scan_spec(cfg, (s.sel_spec,))
+    step = make_segment_step(s.model, cfg.client, spec,
+                             scan_operands(cfg, s))
+    plan = round_plan(spec.round, cfg.client, spec.selectors,
+                      cfg.n_clients, cfg.m, s.params,
+                      s.n_valid.cpu().numpy())
+    draws = stack_rounds([s.draws.round(t, plan) for t in range(rounds)])
+    step.stage(SegmentCarry(s.params, s.sel_state, torch.zeros(
+        (), dtype=torch.int64, device=device)), 0, draws)    # captures
+    torch.cuda.synchronize(device)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        step.replay(0, rounds)
+        end.record()
+        torch.cuda.synchronize(device)
+    window_ms = start.elapsed_time(end)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total", 0) for e in events)
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"rounds": rounds, "replays": step.replays,
+           "replay_window_ms": window_ms, "device_ms": dev_us / 1e3,
+           "busy_share": dev_us / 1e3 / window_ms if dev_us else None,
+           "top": [(e.key[:80], e.self_device_time_total / 1e3, e.count)
+                   for e in top]}
+    if not dev_us:
+        print("[profile] scan: the profiler saw no device time in the "
+              "replays: busy share not measured")
+        return out
+    print(f"[profile] scan: {rounds} rounds replayed, window "
+          f"{window_ms:.1f} ms, device {dev_us / 1e3:.1f} ms -> busy "
+          f"{100 * out['busy_share']:.1f}% (profiled)")
+    for name, ms, count in out["top"]:
+        print(f"[profile] scan:   {ms:9.3f} ms  x{count:<6d} {name}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=4)
@@ -166,7 +221,8 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     print(f"[env] torch {torch.__version__}; {smi}")
     result = {"device": smi, "train": local_training(torch, device),
-              "profile": busy_share(torch, device, args.rounds)}
+              "profile": busy_share(torch, device, args.rounds),
+              "scan": scan_busy_share(torch, device, args.rounds)}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(result, indent=1))

@@ -21,9 +21,10 @@ Every version gets the same inputs, made from fixed seeds:
 - cohort_gather: the batched engine's gather of M = 5 of N = 50 clients
   out of the four client stacks of `setup_run(FLConfig())`, through the
   tree wrapper `cohort_gather(stacks, ids)`, once with the ids on the
-  card (what the engine passed before the gather checked its ids on the
-  host) and, where the version takes them, once with host ids (what the
-  engine passes since);
+  card (in older versions copied to the host first; where the version
+  has the device-id entry, read on the card, with the entry's error word
+  read back after the call) and, where the version takes them, once with
+  host ids (what the loop and batched engines pass);
 - delta_codec: the batched engine's upload codec, quant8_topk on the
   full-width MLP's six stacked leaves (M = 5 clients at one round's
   distance from the server weights), through the tree wrapper

@@ -6,16 +6,25 @@ strategies are select/update pairs over one state and context signature:
 
     spec  = make_selector_spec("greedyfed", n_clients=N, m=M)
     state = init_device_state(spec, seed, device)
-    sel, state = device_select(spec, state, ctx, draws, t)
+    sel, state = device_select(spec, state, ctx, draw)
     state      = device_update(spec, state, sel, sv)
 
-The random draws of `random`, `power_of_choice` and `s_fedavg` come from a
-`federated.draws.RunDraws` (`choice` / `gumbel`), so a test can hand the
+The state is all tensors on the run's device, its round counter and
+freeze flag too, and no strategy reads the card back: the round-robin
+phase and the dropout freeze are `torch.where` selects, as in the
+reference, so one selection can be captured in a CUDA graph and replayed
+round after round.  `device_select_any` / `device_update_any` switch over
+a static tuple of specs by a device `strategy_id`.
+
+The random draws of `random`, `power_of_choice` and `s_fedavg` come in as
+a `SelectionDraw` (the round's cohort or Gumbel noise), made by a
+`federated.draws.RunDraws` before the round, so a test can hand the
 reference's own draws to the port.  Every ranking sorts stably, so ties
 resolve by client index, as the reference's stable `jnp.argsort` does.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -58,20 +67,33 @@ class SelectorSpec(NamedTuple):
         """greedyfed_dropout: active-set size after the RR phase (>= m)."""
         return max(self.m, int(round((1.0 - self.drop_frac) * self.n_clients)))
 
+    @property
+    def selection_draws(self) -> tuple:
+        """The `SelectionDraw` fields the strategy reads."""
+        return {"random": ("choice",), "power_of_choice": ("gumbel",),
+                "s_fedavg": ("gumbel",)}.get(self.name, ())
+
 
 class DeviceSelectorState(NamedTuple):
     valuation: ValuationState   # (N,) sv / counts / initialised
-    round: int                  # current round t
+    round: torch.Tensor         # () int64 current round t
     rr_order: torch.Tensor      # (N,) int64 fixed random round-robin order
     active: torch.Tensor        # (N,) bool dropout active-mask
-    frozen: bool                # has the active-mask been frozen
+    frozen: torch.Tensor        # () bool has the active-mask been frozen
 
 
 class DeviceSelectionContext(NamedTuple):
     """Per-round inputs any strategy may need (zeros if unused)."""
     data_fractions: torch.Tensor  # (N,) q_k
     local_losses: torch.Tensor    # (N,) loss of w^t per client (PoC)
-    poc_d: int                    # this round's candidate count d
+    poc_d: object                 # this round's candidate count d: an int
+                                  # or a () device tensor
+
+
+class SelectionDraw(NamedTuple):
+    """A round's selection randomness, drawn before the round."""
+    choice: Optional[torch.Tensor] = None   # (m,) `random`'s cohort
+    gumbel: Optional[torch.Tensor] = None   # (N,) PoC / S-FedAvg noise
 
 
 def init_device_state(spec: SelectorSpec, seed: int = 0,
@@ -80,11 +102,11 @@ def init_device_state(spec: SelectorSpec, seed: int = 0,
     rng = np.random.default_rng(seed)
     return DeviceSelectorState(
         valuation=init_valuation(spec.n_clients, device),
-        round=0,
+        round=torch.zeros((), dtype=torch.int64, device=device),
         rr_order=torch.as_tensor(rng.permutation(spec.n_clients),
                                  dtype=torch.int64, device=device),
         active=torch.ones((spec.n_clients,), dtype=torch.bool, device=device),
-        frozen=False,
+        frozen=torch.zeros((), dtype=torch.bool, device=device),
     )
 
 
@@ -173,10 +195,11 @@ def sfedavg_probs(val: ValuationState, temperature: float) -> torch.Tensor:
     return p / torch.sum(p)
 
 
-def ucb_scores(val: ValuationState, round_t: int, c: float) -> torch.Tensor:
+def ucb_scores(val: ValuationState, round_t: torch.Tensor,
+               c: float) -> torch.Tensor:
     """UCB acquisition: SV_k + c * sqrt(ln t / N_k) (t clipped at 2)."""
     counts = torch.clamp_min(val.counts.to(torch.float32), 1.0)
-    t = torch.tensor(float(max(round_t, 2)), device=counts.device)
+    t = torch.clamp_min(round_t, 2).to(torch.float32)
     return val.sv + c * torch.sqrt(torch.log(t) / counts)
 
 
@@ -203,51 +226,52 @@ def _rr_select(spec: SelectorSpec, state: DeviceSelectorState) -> torch.Tensor:
     return state.rr_order[idx]
 
 
-def _sel_random(spec, state, ctx, draws, t):
-    return draws.choice(t, spec.n_clients, spec.m), state
+def _sel_random(spec, state, ctx, draw):
+    return draw.choice, state
 
 
-def _sel_power_of_choice(spec, state, ctx, draws, t):
+def _sel_power_of_choice(spec, state, ctx, draw):
     # candidates = the first d of the full Gumbel order
-    order = _gumbel_order(draws.gumbel(t, spec.n_clients),
-                          poc_probs(ctx.data_fractions))
+    order = _gumbel_order(draw.gumbel, poc_probs(ctx.data_fractions))
     cand_losses = ctx.local_losses[order]
     in_draw = torch.arange(spec.n_clients, device=order.device) < ctx.poc_d
     masked = torch.where(in_draw, cand_losses, -torch.inf)
     return order[_top_m(masked, spec.m)], state
 
 
-def _sel_s_fedavg(spec, state, ctx, draws, t):
-    order = _gumbel_order(draws.gumbel(t, spec.n_clients),
+def _sel_s_fedavg(spec, state, ctx, draw):
+    order = _gumbel_order(draw.gumbel,
                           sfedavg_probs(state.valuation, spec.temperature))
     return order[: spec.m], state
 
 
-def _sel_ucb(spec, state, ctx, draws, t):
-    if state.round < spec.rr_rounds:
-        return _rr_select(spec, state), state
-    return _top_m(ucb_scores(state.valuation, state.round, spec.c),
-                  spec.m), state
+def _round_robin_or(spec, state, top):
+    """Alg. 1: round-robin for the first ceil(N / M) rounds, then `top`."""
+    return torch.where(state.round < spec.rr_rounds,
+                       _rr_select(spec, state), top)
 
 
-def _sel_greedyfed(spec, state, ctx, draws, t):
-    if state.round < spec.rr_rounds:
-        return _rr_select(spec, state), state
-    return _top_m(state.valuation.sv, spec.m), state
+def _sel_ucb(spec, state, ctx, draw):
+    top = _top_m(ucb_scores(state.valuation, state.round, spec.c), spec.m)
+    return _round_robin_or(spec, state, top), state
 
 
-def _sel_greedyfed_dropout(spec, state, ctx, draws, t):
-    if state.round < spec.rr_rounds:
-        return _rr_select(spec, state), state
-    if not state.frozen:
-        # freeze the active set at the first post-RR selection: keep the
-        # top n_keep by cumulative SV, drop the rest for good
-        rank = torch.argsort(-state.valuation.sv, stable=True)
-        active = torch.zeros_like(state.active)
-        active[rank[: spec.n_keep]] = True
-        state = state._replace(active=active, frozen=True)
-    sv_masked = torch.where(state.active, state.valuation.sv, -torch.inf)
-    return _top_m(sv_masked, spec.m), state
+def _sel_greedyfed(spec, state, ctx, draw):
+    return _round_robin_or(spec, state,
+                           _top_m(state.valuation.sv, spec.m)), state
+
+
+def _sel_greedyfed_dropout(spec, state, ctx, draw):
+    post_rr = state.round >= spec.rr_rounds
+    # freeze the active set at the first post-RR selection: keep the top
+    # n_keep by cumulative SV, drop the rest for good
+    rank = torch.argsort(-state.valuation.sv, stable=True)
+    keep = torch.zeros_like(state.active).scatter(0, rank[: spec.n_keep],
+                                                  True)
+    active = torch.where(post_rr & ~state.frozen, keep, state.active)
+    state = state._replace(active=active, frozen=state.frozen | post_rr)
+    sv_masked = torch.where(active, state.valuation.sv, -torch.inf)
+    return _round_robin_or(spec, state, _top_m(sv_masked, spec.m)), state
 
 
 _SELECT_FNS = {
@@ -261,16 +285,17 @@ _SELECT_FNS = {
 
 
 def device_select(spec: SelectorSpec, state: DeviceSelectorState,
-                  ctx: DeviceSelectionContext, draws, t: int
+                  ctx: DeviceSelectionContext, draw: SelectionDraw
                   ) -> tuple[torch.Tensor, DeviceSelectorState]:
-    """Select round t's cohort: (sel (m,) int64, new state).  `draws` is a
-    `RunDraws`; only the randomised strategies read it."""
+    """Select the round's cohort: (sel (m,) int64, new state).  `draw`
+    holds the round's selection randomness; only the randomised strategies
+    read it."""
     try:
         fn = _SELECT_FNS[spec.name]
     except KeyError:
         raise ValueError(f"unknown selector {spec.name!r}; "
                          f"options: {sorted(_SELECT_FNS)}") from None
-    sel, state = fn(spec, state, ctx, draws, t)
+    sel, state = fn(spec, state, ctx, draw)
     return sel.to(torch.int64), state
 
 
@@ -280,13 +305,72 @@ def device_update(spec: SelectorSpec, state: DeviceSelectorState,
     """Post-round bookkeeping: value the cohort (strategies that use SV)
     or only bump its selection counts, then advance the round."""
     val = state.valuation
+    sel = sel.to(torch.int64)
     if sv_round is not None and spec.uses_shapley:
         val = update_valuation(val, sel, sv_round, mode=spec.sv_mode,
                                alpha=spec.sv_alpha)
     else:
-        initialised = val.initialised.clone()
-        initialised[sel] = True
         val = ValuationState(sv=val.sv, counts=bump_counts(val.counts, sel),
-                             initialised=initialised)
+                             initialised=val.initialised.index_fill(
+                                 0, sel, True))
     return state._replace(valuation=val, round=state.round + 1)
 
+
+@functools.lru_cache(maxsize=64)
+def jitted_selector(spec: SelectorSpec):
+    """The `(select, update)` pair for one spec, cached process-wide (the
+    reference's compiled pair; the port compiles nothing, and a captured
+    round holds the calls)."""
+    return (functools.partial(device_select, spec),
+            functools.partial(device_update, spec))
+
+
+def _where_state(pick: torch.Tensor, a, b):
+    """`a` where `pick`, else `b`, leaf by leaf over (nested) tuples of
+    tensors."""
+    if isinstance(a, tuple):
+        parts = [_where_state(pick, x, y) for x, y in zip(a, b)]
+        return type(a)(*parts) if hasattr(a, "_fields") else tuple(parts)
+    return torch.where(pick, a, b)
+
+
+def _switch(specs: tuple, strategy_id: torch.Tensor, outs: list):
+    """The branch `strategy_id` of every branch's output: each branch runs,
+    and a device select keeps one, so no host reads the id."""
+    out = outs[-1]
+    for i in range(len(specs) - 2, -1, -1):
+        out = _where_state(strategy_id == i, outs[i], out)
+    return out
+
+
+def device_select_any(specs: tuple[SelectorSpec, ...],
+                      strategy_id: torch.Tensor,
+                      state: DeviceSelectorState,
+                      ctx: DeviceSelectionContext, draw: SelectionDraw
+                      ) -> tuple[torch.Tensor, DeviceSelectorState]:
+    """Select by the strategy `strategy_id` (a () device tensor) of a
+    static tuple of specs, which must share (n_clients, m); one branch
+    when the tuple has one spec.  `draw` must hold what every branch
+    reads."""
+    if len(specs) == 1:
+        return device_select(specs[0], state, ctx, draw)
+    return _switch(specs, strategy_id,
+                   [device_select(sp, state, ctx, draw) for sp in specs])
+
+
+def device_update_any(specs: tuple[SelectorSpec, ...],
+                      strategy_id: torch.Tensor, state: DeviceSelectorState,
+                      sel: torch.Tensor,
+                      sv_round: Optional[torch.Tensor] = None
+                      ) -> DeviceSelectorState:
+    if len(specs) == 1:
+        return device_update(specs[0], state, sel, sv_round)
+    return _switch(specs, strategy_id,
+                   [device_update(sp, state, sel, sv_round) for sp in specs])
+
+
+def device_dropped_fraction(state: DeviceSelectorState) -> torch.Tensor:
+    """Fraction of clients dropped from the protocol (0 until frozen)."""
+    return torch.where(state.frozen,
+                       1.0 - torch.mean(state.active.to(torch.float32)),
+                       0.0)

@@ -16,6 +16,16 @@ injects the reference's).  The dense oracle `gtg_shapley_batched`
 (R*M, M) prefix-weight matrix and contracts it against the stacked
 updates with the `weighted_avg` kernel: the two estimators compute the
 same Monte-Carlo average and differ only in float association.
+
+A captured round (`engine="scan"`) cannot branch on the truncation test
+or read the card back, so with `skip_truncated=False` the estimators
+compute the walk whatever the test says and select on the device: a
+truncated round gives zero SVs and 2 utility evals, as the reference's
+`lax.cond` does; only the time differs.  Their stats are then () device
+tensors.  `checked=True` says the walks and the validation labels were
+range-checked where they were made, so the kernel wrappers read nothing
+back.  The host engines keep the defaults: the test is read on the host
+and a truncated round skips the walk.
 """
 from __future__ import annotations
 
@@ -79,13 +89,37 @@ def _walk_sv(vs: torch.Tensor, perms: torch.Tensor, v0: torch.Tensor,
     return torch.sum(table, dim=0) / n_perms
 
 
-def _round_stats(truncated: bool, n_evals: int, n_perms: int, v0: float,
-                 v_m: float) -> ShapleyStats:
+def _round_stats(truncated, n_evals: int, n_perms: int, v0: torch.Tensor,
+                 v_m: torch.Tensor) -> ShapleyStats:
     """`iterations` reports the permutations actually walked — 0 when
-    between-round truncation skipped the whole MC run."""
+    between-round truncation skipped the whole MC run.  A host `truncated`
+    gives host stats; a device one, () device tensors and no host read."""
+    if isinstance(truncated, torch.Tensor):
+        zero = torch.zeros((), dtype=torch.int32, device=v0.device)
+        return ShapleyStats(
+            iterations=torch.where(truncated, zero, n_perms),
+            utility_evals=torch.where(truncated, zero, n_evals) + 2,
+            v0=v0, vM=v_m, truncated_round=truncated)
     return ShapleyStats(iterations=0 if truncated else n_perms,
-                        utility_evals=n_evals + 2, v0=v0, vM=v_m,
-                        truncated_round=truncated)
+                        utility_evals=n_evals + 2, v0=float(v0),
+                        vM=float(v_m), truncated_round=truncated)
+
+
+def _truncation(v0: torch.Tensor, v_m: torch.Tensor, eps: float,
+                skip_truncated: bool):
+    """The between-round test |v_M - v_0| < eps in float32: a host bool
+    when the caller skips truncated rounds, else a () device tensor."""
+    truncated = torch.abs(v_m - v0) < float(np.float32(eps))
+    return bool(truncated) if skip_truncated else truncated
+
+
+def _finish(sv: torch.Tensor, truncated, n_evals: int, n_perms: int,
+            v0: torch.Tensor, v_m: torch.Tensor):
+    """A walked round's (sv, stats); zero SVs where a device test says the
+    round was truncated."""
+    if isinstance(truncated, torch.Tensor):
+        sv = torch.where(truncated, torch.zeros_like(sv), sv)
+    return sv, _round_stats(truncated, n_evals, n_perms, v0, v_m)
 
 
 def chunk_walks_for(sv_chunk: int, n_perms: int, m: int,
@@ -110,6 +144,8 @@ def gtg_shapley_streaming(
     *,
     eps: float = 1e-4,
     sv_chunk: int = 0,
+    skip_truncated: bool = True,
+    checked: bool = False,
 ) -> tuple[torch.Tensor, ShapleyStats]:
     """Streaming SV estimate over the (R, M) walks `perms`.
 
@@ -126,10 +162,10 @@ def gtg_shapley_streaming(
                                 torch.ones((m,), device=device))
         v0 = utility_fn(w_prev)
         v_m = utility_fn(w_full)
-        v0_f, v_m_f = float(v0), float(v_m)
-        if float(torch.abs(v_m - v0)) < float(np.float32(eps)):  # f32 test
+        truncated = _truncation(v0, v_m, eps, skip_truncated)
+        if truncated is True:
             return (torch.zeros((m,), device=device),
-                    _round_stats(True, 0, n_perms, v0_f, v_m_f))
+                    _round_stats(True, 0, n_perms, v0, v_m))
 
         chunk_walks = chunk_walks_for(sv_chunk, n_perms, m, device)
         n_chunks = -(-n_perms // chunk_walks)
@@ -143,11 +179,12 @@ def gtg_shapley_streaming(
         vs = torch.cat([
             batched_utility_fn(prefix_avg(
                 stacked_updates,
-                perms_padded[c * chunk_walks:(c + 1) * chunk_walks], n_k))
+                perms_padded[c * chunk_walks:(c + 1) * chunk_walks], n_k,
+                checked=checked))
             for c in range(n_chunks)])[: n_perms * m]
         sv = _walk_sv(vs.reshape(n_perms, m), perms, v0, n_perms, m)
-    return sv, _round_stats(False, n_chunks * chunk_walks * m, n_perms,
-                            v0_f, v_m_f)
+    return _finish(sv, truncated, n_chunks * chunk_walks * m, n_perms, v0,
+                   v_m)
 
 
 def gtg_shapley_batched(
@@ -160,6 +197,7 @@ def gtg_shapley_batched(
     *,
     eps: float = 1e-4,
     use_kernel: bool = True,
+    skip_truncated: bool = True,
 ) -> tuple[torch.Tensor, ShapleyStats]:
     """Dense SV estimate over the (R, M) walks `perms`: all R*M prefix
     models in one contraction, kept as the parity oracle of the streaming
@@ -172,10 +210,10 @@ def gtg_shapley_batched(
                                 torch.ones((m,), device=device))
         v0 = utility_fn(w_prev)
         v_m = utility_fn(w_full)
-        v0_f, v_m_f = float(v0), float(v_m)
-        if float(torch.abs(v_m - v0)) < float(np.float32(eps)):  # f32 test
+        truncated = _truncation(v0, v_m, eps, skip_truncated)
+        if truncated is True:
             return (torch.zeros((m,), device=device),
-                    _round_stats(True, 0, n_perms, v0_f, v_m_f))
+                    _round_stats(True, 0, n_perms, v0, v_m))
 
         perms = perms.to(device=device, dtype=torch.int64)
         flat_w = prefix_weight_matrix(perms, n_k).reshape(n_perms * m, m)
@@ -186,15 +224,18 @@ def gtg_shapley_batched(
                 flat_w.to(leaf.dtype), leaf, dims=1), stacked_updates)
         vs = batched_utility_fn(models).reshape(n_perms, m)
         sv = _walk_sv(vs, perms, v0, n_perms, m)
-    return sv, _round_stats(False, n_perms * m, n_perms, v0_f, v_m_f)
+    return _finish(sv, truncated, n_perms * m, n_perms, v0, v_m)
 
 
-def make_batched_mlp_utility(model, x_val: torch.Tensor, y_val: torch.Tensor):
+def make_batched_mlp_utility(model, x_val: torch.Tensor, y_val: torch.Tensor,
+                             *, checked: bool = False):
     """-(val CE) of every model in a batch stacked on a leading axis, one
-    batched forward and one `ce_loss` call for the whole batch."""
+    batched forward and one `ce_loss` call for the whole batch (`checked`:
+    the labels were range-checked beforehand)."""
     def utility(params_b):
         with torch.no_grad():
-            return -ce_loss(model.apply_batched(params_b, x_val), y_val)
+            return -ce_loss(model.apply_batched(params_b, x_val), y_val,
+                            checked=checked)
 
     return utility
 

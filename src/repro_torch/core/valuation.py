@@ -49,8 +49,7 @@ def update_valuation(state: ValuationState, selected: torch.Tensor,
         new_vals = torch.where(first, sv_round, ema)
     else:
         raise ValueError(f"unknown valuation mode: {mode!r}")
-    sv = state.sv.clone()
-    sv[selected] = new_vals.to(torch.float32)
-    initialised = state.initialised.clone()
-    initialised[selected] = True
-    return ValuationState(sv=sv, counts=counts, initialised=initialised)
+    sv = state.sv.index_put((selected,), new_vals.to(torch.float32))
+    return ValuationState(sv=sv, counts=counts,
+                          initialised=state.initialised.index_fill(
+                              0, selected, True))

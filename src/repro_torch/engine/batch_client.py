@@ -2,7 +2,8 @@
 batch of M models (counterpart of `repro/engine/batch_client.py`).
 
 `cohort_update` gathers the cohort's rows out of the (N, cap, ...) client
-stacks with one `cohort_gather` call (the ids are host ints), then
+stacks with one `cohort_gather` call (host ids on the host engines, device
+ids in a captured round), then
 `batched_client_update` runs the M local trainings together: params and
 momentum live stacked as (M, *shape) leaves, and each SGD step is one
 autograd backward over all M clients' losses, one `sgd_step` on the
@@ -17,22 +18,27 @@ into a different top-k entry, ~1e-3 apart.  So the batched engine is
 bitwise the loop engine, and the codecs, Shapley walk and average after it
 agree exactly.  A batch-invariant batched GEMM kernel is later work.
 
-Draws: the minibatch index tables and noise leaves are inputs, drawn per
-client by `RunDraws.client(t, i, ...)` in the loop engine's order, so the
-two engines see the same minibatches and noise.  Stragglers: client k runs
+Draws: the minibatch index tables and noise leaves are inputs, made by
+`RunDraws.round` for the round's slots (`federated/draws.py`), so every
+engine sees the same minibatches and noise.  Stragglers: client k runs
 E_k * B of the E * B steps.  The batch runs max_k E_k * B steps, and after
 its budget a client keeps both its params and its momentum (the
 reference's vmapped `fori_loop` with a batched trip count does the same).
+With host budgets (the batched engine) the trip count and the straggler
+mask come from the host, and a step where every client is active skips
+the mask; with device budgets (a captured round) the caller gives a
+static trip count, `n_steps`, and every step applies the device mask
+`E_k * B > i`, which keeps a finished client's params and momentum bit
+for bit.
 """
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.federated.client import ClientConfig, make_local_loss
-from repro_torch.federated.draws import RunDraws
 from repro_torch.kernels.cohort_gather import cohort_gather
 from repro_torch.models.mlp_cnn import ClassifierModel
 from repro_torch.optim.sgd import SGDState, sgd_init, sgd_step
@@ -41,42 +47,38 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 Params = Any
 
 
-def cohort_draws(draws: RunDraws, ccfg: ClientConfig, t: int,
-                 n_valid: Sequence[int], shapes: Sequence[tuple], device
-                 ) -> tuple[torch.Tensor, list[torch.Tensor]]:
-    """Round t's draws for a cohort whose clients hold `n_valid` rows,
-    taken client by client in the loop engine's order: the (M, E*B, batch)
-    minibatch tables and the noise leaves stacked to (M, *shape)."""
-    n_steps = ccfg.epochs * ccfg.batches_per_epoch
-    per = [draws.client(t, i, n_steps, ccfg.batch_size, int(n), shapes)
-           for i, n in enumerate(n_valid)]
-    idx = torch.stack([d[0] for d in per]).to(device)
-    noise = [torch.stack(leaves).to(device)
-             for leaves in zip(*(d[1] for d in per))]
-    return idx, noise
-
-
 def batched_client_update(
     model: ClassifierModel,
     ccfg: ClientConfig,
     params: Params,               # server model w^t, shared by the cohort
     xs: torch.Tensor,             # (M, cap, ...) cohort padded data
     ys: torch.Tensor,             # (M, cap)
-    epochs_k: np.ndarray,         # (M,) host ints: local epochs E_k
+    epochs_k,                     # (M,) local epochs E_k: host ints, or
+                                  # a device tensor (with n_steps)
     sigma_k: torch.Tensor,        # (M,) privacy noise levels
     idx: torch.Tensor,            # (M, E*B, batch) int64 minibatch rows
     noise: Sequence[torch.Tensor],  # leaves (M, *shape) in tree order
+    *,
+    n_steps: Optional[int] = None,  # trip count (default max_k E_k * B)
 ) -> Params:
     """The cohort's noisy w_k^{t+1}; leaves come back (M, *shape)."""
     params0 = tree_map(lambda p: p.detach(), params)
     m = xs.shape[0]
     local_loss_fn = make_local_loss(model, ccfg, params0)
-    steps_k = np.asarray(epochs_k, np.int64) * ccfg.batches_per_epoch
+    on_host = not isinstance(epochs_k, torch.Tensor)
+    if on_host:
+        steps_k = np.asarray(epochs_k, np.int64) * ccfg.batches_per_epoch
+        if n_steps is None:
+            n_steps = int(steps_k.max(initial=0))
+    else:
+        if n_steps is None:
+            raise ValueError("device epoch budgets need a static n_steps")
+        steps_k = epochs_k.to(torch.int64) * ccfg.batches_per_epoch
     rows = torch.arange(m, device=xs.device)[:, None]
     p = tree_map(lambda t: t.expand((m,) + t.shape).clone(), params0)
     opt = sgd_init(p)
     n_leaves = len(tree_leaves(p))
-    for i in range(int(steps_k.max(initial=0))):
+    for i in range(n_steps):
         sel_rows = idx[:, i]                                  # (M, batch)
         xb, yb = xs[rows, sel_rows], ys[rows, sel_rows]
         views = [tree_map(lambda t: t[c].detach().requires_grad_(True), p)
@@ -91,12 +93,15 @@ def batched_client_update(
                                    for j in range(n_leaves)])
             new_p, new_opt = sgd_step(g, opt, p, lr=ccfg.lr,
                                       momentum=ccfg.momentum)
-            active = steps_k > i
-            if active.all():
-                p, opt = new_p, new_opt
-                continue
+            if on_host:
+                active = steps_k > i
+                if active.all():
+                    p, opt = new_p, new_opt
+                    continue
+                mask = torch.as_tensor(active, device=xs.device)
+            else:
+                mask = steps_k > i
             # a client past its budget keeps its params and its momentum
-            mask = torch.as_tensor(active, device=xs.device)
             keep = (lambda new, old: torch.where(
                 mask.reshape((m,) + (1,) * (new.dim() - 1)), new, old))
             p = tree_map(keep, new_p, p)
@@ -117,17 +122,22 @@ def cohort_update(
     ys_all: torch.Tensor,         # (N, cap)
     nv_all: torch.Tensor,         # (N,)
     sigma_all: torch.Tensor,      # (N,)
-    sel,                          # (M,) host ints: selected client ids
-    epochs_k: np.ndarray,         # (M,)
+    sel,                          # (M,) selected client ids: host ints
+                                  # or a device tensor
+    epochs_k,                     # (M,) host ints or a device tensor
     idx: torch.Tensor,            # (M, E*B, batch)
     noise: Sequence[torch.Tensor],
+    *,
+    n_steps: Optional[int] = None,
+    error: Optional[torch.Tensor] = None,
 ) -> tuple[Params, torch.Tensor]:
     """Gather the cohort out of the full stacks (one `cohort_gather` call,
-    one launch on the card) and train it as one batch.  Returns (stacked
-    updates, n_k of the cohort as float32)."""
+    one launch on the card; `error` is the device-id gather's error word)
+    and train it as one batch.  Returns (stacked updates, n_k of the cohort
+    as float32)."""
     cohort = cohort_gather({"xs": xs_all, "ys": ys_all, "nv": nv_all,
-                            "sigma": sigma_all}, sel)
+                            "sigma": sigma_all}, sel, error=error)
     xs, ys, nv, sg = (cohort[k] for k in ("xs", "ys", "nv", "sigma"))
     stacked = batched_client_update(model, ccfg, params, xs, ys, epochs_k,
-                                    sg, idx, noise)
+                                    sg, idx, noise, n_steps=n_steps)
     return stacked, nv.to(torch.float32)

@@ -1,6 +1,7 @@
-"""The fused round engine: one Python call per communication round
-(counterpart of `repro/engine/round_engine.py`: `RoundSpec`, `RoundOutput`,
-`make_round_step`, `RoundEngine`).
+"""The fused round engine and the whole-run scan body (counterpart of
+`repro/engine/round_engine.py`: `RoundSpec`, `RoundOutput`,
+`make_round_step`, `RoundEngine`, `ScanSpec`, `SegmentCarry`,
+`SegmentOutput`, `ScanRunOutput`, `make_segment_step`, `make_run_scan`).
 
 The loop engine issues, per round, M client updates, a GTG-Shapley pass and
 an average from the server loop.  `round_step` runs the whole round for the
@@ -11,33 +12,58 @@ cohort at once, in the reference's order:
   3. the streaming (`prefix_avg`) or dense (`weighted_avg`) Shapley pass;
   4. `weighted_average(stacked, normalized_weights(n_k))`.
 
-The reference's round key becomes the round's draws (minibatch tables,
-noise leaves, walks), which `RoundEngine.step` takes from a `RunDraws` in
-the loop engine's order, so the two engines make the same run.  The
-hardened round (faults, quarantine) comes with the faults slice of the
-port, and the scan body (`make_run_scan`, `make_segment_step`) with the
-scan-engine slice.
+The reference's round key becomes the round's draws (minibatch rows, noise
+leaves, walks), made by `RunDraws.round` before the round, so every engine
+makes the same run.  The hardened round (faults, quarantine) comes with the
+faults slice of the port.
+
+engine="scan" (`engine/scan_engine.py`) runs the same round with the
+selection and the valuation update around it (`_make_scan_body`), on
+tensors that never leave the card: the selector state, the round counter
+and the eval slot are device tensors, the cohort ids stay on the card
+(`cohort_gather`'s device-id entry), the straggler budgets are a device
+gather with a static trip count, the Shapley truncation is a device select
+and the kernel wrappers read nothing back.  `make_segment_step` keeps the
+carry and the per-round outputs in static device buffers and, on the card,
+captures one round as a CUDA graph (and the eval as a second one), then
+replays it round after round with no host sync in between; on the CPU the
+same functions run eagerly in a Python loop.  Capture needs the round's
+inputs in static buffers, a warm-up before it and no host work in the
+body: a segment's draws are staged on the card before its replays and each
+round gathers its own by the device round counter.
 """
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.core.aggregation import normalized_weights, weighted_average
-from repro_torch.core.shapley_batched import (
-    SHAPLEY_IMPLS, make_batched_mlp_utility, shapley_stage,
+from repro_torch.core.selection import (
+    DeviceSelectionContext, DeviceSelectorState, device_select_any,
+    device_update_any,
 )
-from repro_torch.engine.batch_client import cohort_draws, cohort_update
-from repro_torch.federated.client import ClientConfig
+from repro_torch.core.shapley_batched import (
+    SHAPLEY_IMPLS, gtg_shapley_batched, gtg_shapley_streaming,
+    make_batched_mlp_utility, shapley_stage,
+)
+from repro_torch.engine.batch_client import cohort_update
+from repro_torch.federated.client import ClientConfig, local_loss
 from repro_torch.federated.compression import codec_nbytes
-from repro_torch.federated.draws import RunDraws
+from repro_torch.federated.draws import (
+    DrawPlan, RoundDraws, RunDraws, minibatch_rows, round_at,
+)
+from repro_torch.kernels.cohort_gather.kernel import error_word
 from repro_torch.kernels.delta_codec import delta_codec_roundtrip
 from repro_torch.models.mlp_cnn import ClassifierModel
 from repro_torch.tree import tree_leaves
 
 Params = Any
+
 
 class RoundSpec(NamedTuple):
     """Static round-execution config (the reference's fields)."""
@@ -54,25 +80,33 @@ class RoundSpec(NamedTuple):
 class RoundOutput(NamedTuple):
     params: Params             # w^{t+1}
     sv: torch.Tensor           # (M,) this round's GTG-SV (zeros if unused)
-    utility_evals: int
-    sv_truncated: bool         # between-round truncation fired
+    utility_evals: Any         # int, or () int32 tensor in a captured round
+    sv_truncated: Any          # bool, or () bool tensor: truncation fired
     ok: torch.Tensor           # (M,) bool: every row survives (no faults)
-    quarantined: int           # quarantined cohort rows (0 without faults)
+    quarantined: Any           # quarantined cohort rows (0 without faults)
     shapley_time_s: float = 0.0   # the port's own: synchronised SV seconds
 
 
 def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
-                    spec: RoundSpec) -> Callable[..., RoundOutput]:
+                    spec: RoundSpec, *, capturable: bool = False,
+                    n_steps: Optional[int] = None
+                    ) -> Callable[..., RoundOutput]:
     """Build the round function:
 
         (params, xs_all, ys_all, nv_all, sigma_all, x_val, y_val, sel,
-         epochs_k, idx, noise, walks) -> RoundOutput
+         epochs_k, idx, noise, walks, *, error=None) -> RoundOutput
 
-    sel holds the cohort's M client ids as host ints, which the cohort
-    gather checks on the host; idx (M, E*B, batch) and noise (leaves
-    (M, *shape)) are the cohort's draws; `walks` is the (R, M) walk tensor
-    of the streaming and dense estimators, or the serial estimator's batch
-    callable.
+    idx (M, E*B, batch) and noise (leaves (M, *shape)) are the cohort's
+    draws; `walks` is the (R, M) walk tensor of the streaming and dense
+    estimators, or the serial estimator's batch callable.  The host
+    engines pass sel and epochs_k as host ints.
+
+    `capturable=True` builds the round a CUDA graph can hold: sel and
+    epochs_k are device tensors, the local training runs the static
+    `n_steps`, the gather reports a bad id into the word `error`, the
+    Shapley stage is neither timed nor skipped (a truncated round computes
+    its walk and zeroes it on the device), the walks and validation labels
+    come checked, and the stats come back as () device tensors.
     """
     if spec.shapley_impl not in SHAPLEY_IMPLS:
         raise ValueError(f"unknown shapley_impl {spec.shapley_impl!r}; "
@@ -82,12 +116,41 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
             "the hardened round (faults, quarantine) is not ported yet: it "
             "comes with the faults/quarantine slice of the PyTorch port "
             "(see ROADMAP.md)")
+    if capturable and spec.shapley_impl == "serial":
+        raise NotImplementedError(
+            "shapley_impl='serial' under engine='scan' is not ported yet: "
+            "its within-round truncation is a host loop; it comes with a "
+            "later slice of the PyTorch port (see ROADMAP.md)")
+
+    def shapley(stacked, n_k_sel, params, x_val, y_val, walks):
+        def utility_fn(p):  # U(w) = -L(w; D_val), as in the loop engine
+            with torch.no_grad():
+                return -model.loss(p, x_val, y_val)
+
+        batched = make_batched_mlp_utility(model, x_val, y_val,
+                                           checked=capturable)
+        if not capturable:
+            return shapley_stage(
+                spec.shapley_impl, stacked, n_k_sel, params, utility_fn,
+                batched, walks, eps=spec.shapley_eps,
+                max_iters=spec.shapley_max_iters, sv_chunk=spec.sv_chunk)
+        if spec.shapley_impl == "streaming":
+            sv, stats = gtg_shapley_streaming(
+                stacked, n_k_sel, params, utility_fn, batched, walks,
+                eps=spec.shapley_eps, sv_chunk=spec.sv_chunk,
+                skip_truncated=False, checked=True)
+        else:
+            sv, stats = gtg_shapley_batched(
+                stacked, n_k_sel, params, utility_fn, batched, walks,
+                eps=spec.shapley_eps, skip_truncated=False)
+        return sv, stats, 0.0
 
     def round_step(params, xs_all, ys_all, nv_all, sigma_all, x_val, y_val,
-                   sel, epochs_k, idx, noise, walks) -> RoundOutput:
+                   sel, epochs_k, idx, noise, walks, *,
+                   error=None) -> RoundOutput:
         stacked, n_k_sel = cohort_update(
             model, ccfg, params, xs_all, ys_all, nv_all, sigma_all, sel,
-            epochs_k, idx, noise)
+            epochs_k, idx, noise, n_steps=n_steps, error=error)
         if spec.upload_codec != "identity":
             stacked = delta_codec_roundtrip(stacked, params,
                                             spec.upload_codec)
@@ -96,26 +159,42 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
         device = n_k_sel.device
         sv = torch.zeros((m,), device=device)
         evals, truncated, sv_s = 0, False, 0.0
+        if capturable:
+            evals = torch.zeros((), dtype=torch.int32, device=device)
+            truncated = torch.zeros((), dtype=torch.bool, device=device)
         if spec.needs_sv:
-            def utility_fn(p):  # U(w) = -L(w; D_val), as in the loop engine
-                with torch.no_grad():
-                    return -model.loss(p, x_val, y_val)
-
-            sv, stats, sv_s = shapley_stage(
-                spec.shapley_impl, stacked, n_k_sel, params, utility_fn,
-                make_batched_mlp_utility(model, x_val, y_val), walks,
-                eps=spec.shapley_eps, max_iters=spec.shapley_max_iters,
-                sv_chunk=spec.sv_chunk)
+            sv, stats, sv_s = shapley(stacked, n_k_sel, params, x_val,
+                                      y_val, walks)
             evals, truncated = stats.utility_evals, stats.truncated_round
 
         with torch.no_grad():
             new_params = weighted_average(stacked,
                                           normalized_weights(n_k_sel))
+        quarantined = (torch.zeros((), dtype=torch.int32, device=device)
+                       if capturable else 0)
         return RoundOutput(new_params, sv, evals, truncated,
                            torch.ones((m,), dtype=torch.bool, device=device),
-                           0, sv_s)
+                           quarantined, sv_s)
 
     return round_step
+
+
+def round_plan(spec: RoundSpec, ccfg: ClientConfig, selectors: tuple,
+               n_clients: int, m: int, params: Params,
+               n_valid: np.ndarray) -> DrawPlan:
+    """The draws one round of `spec` takes under the SelectorSpecs
+    `selectors`.  The serial estimator draws its walks as it goes
+    (`RunDraws.perm_batches`), so its plan has none."""
+    walked = spec.needs_sv and spec.shapley_impl != "serial"
+    return DrawPlan(
+        selection=tuple(sorted({k for sp in selectors
+                                for k in sp.selection_draws})),
+        n_clients=n_clients, m=m,
+        n_steps=ccfg.epochs * ccfg.batches_per_epoch,
+        batch_size=ccfg.batch_size,
+        shapes=tuple(tuple(x.shape) for x in tree_leaves(params)),
+        n_perms=spec.shapley_max_iters if walked else 0,
+        n_valid=tuple(int(n) for n in n_valid))
 
 
 class RoundEngine:
@@ -123,8 +202,8 @@ class RoundEngine:
 
     One instance per `run_federated` call: the padded client stacks,
     privacy sigmas and validation split are bound once; per round only
-    (params, sel, epochs_k, t) come in, and the round's draws are taken
-    from `draws` in the loop engine's order.
+    (params, sel, epochs_k) and the round's draws, on the device, come in
+    (`step` makes round t's draws itself when none are given).
     """
 
     def __init__(self, model: ClassifierModel, ccfg: ClientConfig,
@@ -140,22 +219,415 @@ class RoundEngine:
                                           device=device), x_val, y_val)
         self._nv_host = nv_all.cpu().numpy()
 
-    def step(self, params: Params, sel, epochs_k, t: int) -> RoundOutput:
-        """Execute one full communication round as one call."""
+    def step(self, params: Params, sel, epochs_k, t: int,
+             rd: Optional[RoundDraws] = None) -> RoundOutput:
+        """Execute one full communication round as one call.  `rd` holds
+        round t's draws, on the run's device."""
         sel = np.asarray(sel, np.int64)
         m = len(sel)
-        device = self._operands[2].device
-        idx, noise = cohort_draws(
-            self.draws, self.ccfg, t, self._nv_host[sel],
-            [tuple(x.shape) for x in tree_leaves(params)], device)
+        nv_all = self._operands[2]
+        if rd is None:
+            rd = self.draws.round(t, round_plan(
+                self.spec, self.ccfg, (), len(self._nv_host), m, params,
+                self._nv_host)).to(nv_all.device)
+        idx = minibatch_rows(rd.rows, torch.as_tensor(sel,
+                                                      device=nv_all.device),
+                             nv_all)
         spec, walks = self.spec, None
         if spec.needs_sv:
             walks = (self.draws.perm_batches(t, m)
-                     if spec.shapley_impl == "serial"
-                     else self.draws.perms(t, m, spec.shapley_max_iters))
+                     if spec.shapley_impl == "serial" else rd.walks)
         return self._step(params, *self._operands, sel,
-                          np.asarray(epochs_k), idx, noise, walks)
+                          np.asarray(epochs_k), idx, rd.noise, walks)
 
     def upload_nbytes_per_client(self, params: Params) -> int:
         """Wire bytes of one client upload under this spec's codec."""
         return codec_nbytes(self.spec.upload_codec, params)
+
+
+# --------------------------------------------------------------------------
+# the whole-run scan: one round's body, segments of captured replays
+# --------------------------------------------------------------------------
+
+class ScanSpec(NamedTuple):
+    """Static config of a whole-run scan.
+
+    `selectors` is a tuple of SelectorSpecs: length 1 selects statically;
+    longer tuples switch by a device `strategy_id` (all entries share
+    n_clients / m).  `rounds_per_segment` K > 0 runs the run as segments
+    of K rounds whose carry the host reads back between them; 0 is one
+    segment of `rounds`.  The eval cadence is the (T,) host table
+    `ScanOperands.eval_table`, not part of the spec.  `live_tap` (the
+    reference's in-scan telemetry stream) comes with the telemetry slice.
+    """
+    round: RoundSpec
+    selectors: tuple            # tuple[SelectorSpec, ...]
+    rounds: int                 # T: total rounds of the run
+    rounds_per_segment: int = 0  # K: rounds a segment (0 = whole run)
+    live_tap: bool = False
+
+
+class ScanOperands(NamedTuple):
+    """A scan run's constant operands, on its device (the eval table on
+    the host, where it picks which captured graph a round replays)."""
+    xs_all: torch.Tensor        # (N, cap, ...) padded client data
+    ys_all: torch.Tensor        # (N, cap) int64
+    nv_all: torch.Tensor        # (N,) int64
+    sigma_all: torch.Tensor     # (N,) float32
+    x_val: torch.Tensor
+    y_val: torch.Tensor         # range-checked once, at set-up
+    x_test: torch.Tensor
+    y_test: torch.Tensor
+    fractions: torch.Tensor     # (N,) float32
+    epochs_table: torch.Tensor  # (T, N) int64 local-epoch budgets
+    fault_table: torch.Tensor   # (T, N) int64 fault codes (zeros)
+    d_sched: torch.Tensor       # (T,) int64 Power-of-Choice candidates
+    eval_table: np.ndarray      # (T,) bool, host
+    strategy_id: torch.Tensor   # () int64 index into spec.selectors
+    n_steps: int                # max(epochs_table) * B: the trip count
+
+
+class SegmentCarry(NamedTuple):
+    """What a scan run threads between rounds, and so what crosses a
+    segment boundary.  The reference's `key` has no counterpart: the
+    draws of round t are `RunDraws.round(t, ...)`."""
+    params: Params
+    sel_state: DeviceSelectorState
+    eval_slot: torch.Tensor     # () int64 evals done so far
+
+
+class SegmentOutput(NamedTuple):
+    """One segment's carry-out plus its stacked (K, ...) round outputs."""
+    carry: SegmentCarry
+    selections: torch.Tensor    # (K, M) int64
+    epochs: torch.Tensor        # (K, M) int64
+    sv: torch.Tensor            # (K, M)
+    utility_evals: torch.Tensor  # (K,) int32
+    sv_truncated: torch.Tensor  # (K,) bool
+    test_acc: torch.Tensor      # (K,) NaN on non-eval rounds
+    val_loss: torch.Tensor      # (K,) NaN on non-eval rounds
+    granted: torch.Tensor       # (K,) int64 active (granted) cohort size
+    quarantined: torch.Tensor   # (K,) int32 (zeros without faults)
+
+
+class ScanRunOutput(NamedTuple):
+    params: Params              # w^T
+    sel_state: DeviceSelectorState
+    selections: torch.Tensor    # (T, M)
+    epochs: torch.Tensor        # (T, M) E_k actually granted
+    sv: torch.Tensor            # (T, M) per-round GTG-SV (zeros if unused)
+    utility_evals: torch.Tensor  # (T,)
+    sv_truncated: torch.Tensor  # (T,)
+    test_acc: torch.Tensor      # (T,) NaN on non-eval rounds
+    val_loss: torch.Tensor      # (T,) NaN on non-eval rounds
+    granted: torch.Tensor       # (T,)
+    quarantined: torch.Tensor   # (T,)
+    eval_count: torch.Tensor    # () evals performed
+
+
+_OUTPUTS = ("selections", "epochs", "sv", "utility_evals", "sv_truncated",
+            "granted", "quarantined")
+
+
+def _make_scan_body(model: ClassifierModel, ccfg: ClientConfig,
+                    spec: ScanSpec, n_steps: int):
+    """The per-round body that `make_segment_step` captures: selection,
+    the straggler E_k gather, training, codec, GTG-Shapley, the valuation
+    update; and the eval, apart, since the host picks the rounds it runs
+    on.  Everything is tensors in, tensors out, with no host read."""
+    round_step = make_round_step(model, ccfg, spec.round, capturable=True,
+                                 n_steps=n_steps)
+    uses_losses = any(sp.uses_local_losses for sp in spec.selectors)
+    needs_sv = spec.round.needs_sv
+
+    def bind(ops: ScanOperands):
+        def body(carry: SegmentCarry, per_round, error):
+            params, sstate, eval_slot = carry
+            epochs_row, d_t, rd = per_round
+            if uses_losses:   # Power-of-Choice ranks clients by w^t loss
+                losses = local_loss(model, params, ops.xs_all, ops.ys_all,
+                                    ops.nv_all)
+            else:
+                losses = torch.zeros_like(ops.fractions)
+            ctx = DeviceSelectionContext(data_fractions=ops.fractions,
+                                         local_losses=losses, poc_d=d_t)
+            sel, sstate = device_select_any(spec.selectors, ops.strategy_id,
+                                            sstate, ctx, rd.selection)
+            epochs_k = epochs_row.index_select(0, sel)
+            # active mask at select time: dropout strategies freeze it here
+            active_sel = sstate.active.index_select(0, sel)
+            idx = minibatch_rows(rd.rows, sel, ops.nv_all)
+            out = round_step(params, ops.xs_all, ops.ys_all, ops.nv_all,
+                             ops.sigma_all, ops.x_val, ops.y_val, sel,
+                             epochs_k, idx, rd.noise, rd.walks, error=error)
+            # the granted cohort: active under the strategy's mask and not
+            # refused by a fault screen (`ok` is all true without faults)
+            granted = torch.sum(active_sel & out.ok)
+            sstate = device_update_any(spec.selectors, ops.strategy_id,
+                                       sstate, sel,
+                                       out.sv if needs_sv else None)
+            ys = {"selections": sel, "epochs": epochs_k, "sv": out.sv,
+                  "utility_evals": out.utility_evals,
+                  "sv_truncated": out.sv_truncated, "granted": granted,
+                  "quarantined": out.quarantined}
+            return SegmentCarry(out.params, sstate, eval_slot), ys
+
+        def evaluate(params):
+            with torch.no_grad():
+                return (model.accuracy(params, ops.x_test, ops.y_test),
+                        model.loss(params, ops.x_val, ops.y_val))
+
+        return body, evaluate
+
+    return bind
+
+
+def _copy_tree(dst, src) -> None:
+    """Copy a (nested) tuple / dict of tensors into one of the same shape."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_tree(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for a, b in zip(dst, src):
+            _copy_tree(a, b)
+    else:
+        dst.copy_(src)
+
+
+def _clone_tree(x):
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        parts = [_clone_tree(v) for v in x]
+        return type(x)(*parts) if hasattr(x, "_fields") else tuple(parts)
+    return x.clone() if x is not None else None
+
+
+def _buffers_like(rd: RoundDraws, k: int, device) -> RoundDraws:
+    """Static (K, ...) staging buffers for K rounds of draws shaped `rd`."""
+    def make(x):
+        return None if x is None else torch.empty((k,) + tuple(x.shape[1:]),
+                                                  dtype=x.dtype,
+                                                  device=device)
+    sel = rd.selection
+    return RoundDraws(type(sel)(make(sel.choice), make(sel.gumbel)),
+                      make(rd.rows), [make(x) for x in rd.noise],
+                      make(rd.walks))
+
+
+def _stage(dst: RoundDraws, src: RoundDraws, device) -> None:
+    """Copy a segment's host draws into the head of the staging buffers:
+    from pinned memory without waiting on the card."""
+    pin = device.type == "cuda"
+
+    def copy(d, s):
+        if d is not None:
+            if pin:
+                s = s.pin_memory()
+            d[: s.shape[0]].copy_(s, non_blocking=pin)
+
+    copy(dst.selection.choice, src.selection.choice)
+    copy(dst.selection.gumbel, src.selection.gumbel)
+    copy(dst.rows, src.rows)
+    for d, s in zip(dst.noise, src.noise):
+        copy(d, s)
+    copy(dst.walks, src.walks)
+
+
+class SegmentStep:
+    """`make_segment_step`'s callable: runs rounds [t0, t0 + k) of a scan
+    from a carry, on static device buffers.
+
+    On a CUDA device the first call warms the round up on a side stream
+    (then restores the carry), captures the round and the eval as two CUDA
+    graphs and replays them; every later call only stages its draws and
+    replays.  A failed capture raises: nothing runs eagerly on the card.
+    Between replays nothing syncs the host (`torch.cuda.set_sync_debug_mode
+    ("error")` is on around them).  On the CPU the same two functions run
+    eagerly.  Kernel launches made while a graph was captured are counted
+    in `graph_launches` (a replay launches them again uncounted), and
+    `replays` counts the graphs replayed (or bodies run on the CPU).
+    """
+
+    def __init__(self, model, ccfg, spec: ScanSpec, ops: ScanOperands):
+        if spec.live_tap:
+            raise NotImplementedError(
+                "live_tap is not ported yet: it comes with the telemetry "
+                "slice of the PyTorch port (see ROADMAP.md)")
+        self.spec, self.ops = spec, ops
+        self.k = spec.rounds_per_segment or spec.rounds
+        self.device = ops.nv_all.device
+        self.body, self.evaluate = _make_scan_body(
+            model, ccfg, spec, ops.n_steps)(ops)
+        self.error = error_word(self.device)
+        self.graphs = None
+        self.graph_launches = {"round": {}, "eval": {}}
+        self.replays = 0
+        self.capture_time_s = 0.0
+        self.carry = None
+
+    def _allocate(self, carry: SegmentCarry, draws_seg: RoundDraws) -> None:
+        k, dev = self.k, self.device
+        m = self.spec.selectors[0].m
+        self.carry = _clone_tree(carry)
+        self.t0 = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.staged = _buffers_like(draws_seg, k, dev)
+        nan = (lambda: torch.full((k,), float("nan"), device=dev))
+        self.outs = {
+            "selections": torch.zeros((k, m), dtype=torch.int64, device=dev),
+            "epochs": torch.zeros((k, m), dtype=torch.int64, device=dev),
+            "sv": torch.zeros((k, m), device=dev),
+            "utility_evals": torch.zeros((k,), dtype=torch.int32, device=dev),
+            "sv_truncated": torch.zeros((k,), dtype=torch.bool, device=dev),
+            "granted": torch.zeros((k,), dtype=torch.int64, device=dev),
+            "quarantined": torch.zeros((k,), dtype=torch.int32, device=dev),
+            "test_acc": nan(), "val_loss": nan()}
+
+    # the two captured functions: all their inputs and outputs are static
+    def _round(self) -> None:
+        ops, carry = self.ops, self.carry
+        t = carry.sel_state.round.reshape(1)
+        k = t - self.t0
+        per_round = (ops.epochs_table.index_select(0, t)[0],
+                     ops.d_sched.index_select(0, t)[0],
+                     round_at(self.staged, k))
+        new, ys = self.body(carry, per_round, self.error)
+        for name in _OUTPUTS:
+            self.outs[name].index_copy_(0, k, ys[name][None].to(
+                self.outs[name].dtype))
+        _copy_tree(carry, new)
+
+    def _eval(self) -> None:
+        carry = self.carry
+        k = carry.sel_state.round.reshape(1) - 1 - self.t0
+        acc, vloss = self.evaluate(carry.params)
+        self.outs["test_acc"].index_copy_(0, k, acc.reshape(1))
+        self.outs["val_loss"].index_copy_(0, k, vloss.reshape(1))
+        carry.eval_slot.add_(1)
+
+    def _capture(self) -> None:
+        """Warm up on a side stream, restore the carry, capture both."""
+        t_start = time.perf_counter()
+        saved = _clone_tree(self.carry)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            self._round()
+            self._eval()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        _copy_tree(self.carry, saved)
+        self.error.zero_()
+        graphs = {}
+        for name, fn in (("round", self._round), ("eval", self._eval)):
+            before = dict(kernels.LAUNCHES)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                fn()
+            self.graph_launches[name] = {
+                n: kernels.LAUNCHES[n] - before[n] for n in before}
+            graphs[name] = g
+        self.graphs = graphs
+        torch.cuda.synchronize(self.device)
+        self.capture_time_s = time.perf_counter() - t_start
+
+    def stage(self, carry: SegmentCarry, t0: int,
+              draws_seg: RoundDraws) -> None:
+        """Put the carry, t0 and the segment's host draws (checked, one
+        leading round axis) into the static buffers; capture on the first
+        call on the card."""
+        if self.carry is None:
+            self._allocate(carry, draws_seg)
+        n = draws_seg.rows.shape[0]
+        if n > self.k or t0 + n > self.spec.rounds:
+            raise ValueError(f"a segment of {n} rounds from round {t0}: at "
+                             f"most {self.k} a segment, {self.spec.rounds} "
+                             "in all")
+        _copy_tree(self.carry, carry)
+        self.t0.fill_(t0)
+        _stage(self.staged, draws_seg, self.device)
+        if self.device.type == "cuda" and self.graphs is None:
+            self._capture()
+        # after the warm-up's eval: a round without one reads NaN
+        self.outs["test_acc"].fill_(float("nan"))
+        self.outs["val_loss"].fill_(float("nan"))
+
+    def replay(self, t0: int, n: int) -> None:
+        """Run rounds [t0, t0 + n) of the staged segment, each with its
+        eval where the host's eval table says."""
+        cuda = self.device.type == "cuda"
+        guard = (_sync_debug_error() if cuda else contextlib.nullcontext())
+        with guard:
+            for t in range(t0, t0 + n):
+                self._run("round")
+                if self.ops.eval_table[t]:
+                    self._run("eval")
+
+    def _run(self, name: str) -> None:
+        self.replays += 1
+        if self.graphs is not None:
+            self.graphs[name].replay()
+        else:
+            (self._round if name == "round" else self._eval)()
+
+    def __call__(self, carry: SegmentCarry, t0: int,
+                 draws_seg: RoundDraws) -> SegmentOutput:
+        n = draws_seg.rows.shape[0]
+        self.stage(carry, t0, draws_seg)
+        self.replay(t0, n)
+        return self.output(n)
+
+    def output(self, n: int) -> SegmentOutput:
+        """The carry and the first n rounds' outputs, as device copies."""
+        o = self.outs
+        return SegmentOutput(
+            _clone_tree(self.carry), *(o[k][:n].clone() for k in (
+                "selections", "epochs", "sv", "utility_evals",
+                "sv_truncated", "test_acc", "val_loss", "granted",
+                "quarantined")))
+
+
+@contextlib.contextmanager
+def _sync_debug_error():
+    previous = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(previous)
+
+
+def make_segment_step(model: ClassifierModel, ccfg: ClientConfig,
+                      spec: ScanSpec, ops: ScanOperands) -> SegmentStep:
+    """The K-round segment step over the operands `ops`:
+
+        step(carry: SegmentCarry, t0, draws_seg: RoundDraws) -> SegmentOutput
+
+    where `draws_seg` holds rounds [t0, t0 + k) of the run's draws on the
+    host (k <= K = spec.rounds_per_segment or spec.rounds), stacked on a
+    leading round axis, their walks already range-checked.  Chaining
+    segments from t0 = 0 reproduces `make_run_scan` bit for bit: the same
+    captured round, the same carry, the same draws."""
+    return SegmentStep(model, ccfg, spec, ops)
+
+
+def make_run_scan(model: ClassifierModel, ccfg: ClientConfig,
+                  spec: ScanSpec, ops: ScanOperands
+                  ) -> Callable[..., ScanRunOutput]:
+    """The whole run as one segment of T rounds:
+
+        run_scan(params, sel_state, draws_all) -> ScanRunOutput
+
+    with `draws_all` the run's T rounds of draws, stacked."""
+    whole = spec._replace(rounds_per_segment=0)
+    step = make_segment_step(model, ccfg, whole, ops)
+
+    def run_scan(params, sel_state, draws_all: RoundDraws) -> ScanRunOutput:
+        zero = torch.zeros((), dtype=torch.int64, device=ops.nv_all.device)
+        out = step(SegmentCarry(params, sel_state, zero), 0, draws_all)
+        return ScanRunOutput(out.carry.params, out.carry.sel_state,
+                             out.selections, out.epochs, out.sv,
+                             out.utility_evals, out.sv_truncated,
+                             out.test_acc, out.val_loss, out.granted,
+                             out.quarantined, out.carry.eval_slot)
+
+    return run_scan

@@ -1,20 +1,23 @@
 """The federated server loop — GreedyFed Alg. 1 plus all baselines.
 
-Counterpart of `repro/federated/server.py`, engines "loop" and "batched".
-`run_federated` drives T communication rounds:
+Counterpart of `repro/federated/server.py`, engines "loop", "batched" and
+"scan".  `run_federated` drives T communication rounds:
   select clients -> ClientUpdate at each -> optional upload codec ->
   GTG-Shapley -> ModelAverage -> cumulative-SV update -> eval.
 The loop engine runs the round's steps from this loop, client by client;
 the batched engine runs each round as one `RoundEngine.step` call
-(`engine/round_engine.py`), with the cohort trained as one batch.
+(`engine/round_engine.py`), with the cohort trained as one batch; the scan
+engine runs the whole run on the card with no host sync between rounds,
+as CUDA-graph replays of one captured round (`engine/scan_engine.py`).
 The six strategies share this loop through a `SelectorSpec` and its
 selector state (`repro_torch.core.selection`).
 
 The numpy set-up (`setup_run`) consumes the run's rng in the reference's
 order, so a seed gives the same data, partition, stragglers and noise
 levels.  Random draws of the rounds come from a `RunDraws`
-(`federated/draws.py`).  Parts of the reference that later slices of the
-port bring raise `NotImplementedError` naming that slice.
+(`federated/draws.py`), round t's all at once before the round, so the
+three engines make the same run.  Parts of the reference that later
+slices of the port bring raise `NotImplementedError` naming that slice.
 """
 from __future__ import annotations
 
@@ -33,6 +36,9 @@ from repro_torch.core.selection import (
     device_select, device_update, init_device_state, make_selector_spec,
     poc_d_schedule,
 )
+from repro_torch.federated.draws import (
+    DrawPlan, RunDraws, TorchDraws, minibatch_rows,
+)
 from repro_torch.core.shapley_batched import (
     SHAPLEY_IMPLS, make_batched_mlp_utility, shapley_stage,
 )
@@ -44,7 +50,6 @@ from repro_torch.engine.schedule import (
 )
 from repro_torch.federated.client import ClientConfig, client_update, local_loss
 from repro_torch.federated.compression import compress_update
-from repro_torch.federated.draws import RunDraws, TorchDraws
 from repro_torch.federated.partition import (
     client_cap, dirichlet_partition, padded_x_block, padded_y_block,
     power_law_fractions, valid_counts,
@@ -64,7 +69,7 @@ class FLConfig:
     selector: str = "greedyfed"
     selector_kwargs: dict = field(default_factory=dict)
     client: ClientConfig = ClientConfig()
-    # round-execution engine: "loop" | "batched" ("scan" is a later slice)
+    # round-execution engine: "loop" | "batched" | "scan"
     engine: str = "loop"
     # heterogeneity knobs (paper Section IV)
     dirichlet_alpha: float = 1e-4
@@ -113,9 +118,15 @@ class FLResult(NamedTuple):
     execute_time_s: float = 0.0
     quarantined_total: int = 0
     # the port's own: per-round wall seconds and the GTG-Shapley part of
-    # each, both measured after a device synchronise
+    # each, both measured after a device synchronise (the scan: its
+    # replays' device time over the rounds, and no Shapley part)
     round_time_s: tuple = ()
     shapley_time_s: tuple = ()
+    # the scan's: host seconds making and staging the draws, and the kernel
+    # launches recorded in its captured graphs ({"round": {...}, "eval":
+    # {...}}, each replayed once a replay; None when nothing was captured)
+    stage_time_s: float = 0.0
+    graph_launches: Optional[dict] = None
 
 
 def _not_in_slice(what: str, slice_: str) -> NotImplementedError:
@@ -132,8 +143,9 @@ def check_config(cfg: FLConfig) -> None:
     if cfg.shapley_impl not in SHAPLEY_IMPLS:
         raise ValueError(f"unknown shapley_impl {cfg.shapley_impl!r}; "
                          f"options: {SHAPLEY_IMPLS}")
-    if cfg.engine == "scan":
-        raise _not_in_slice("engine='scan'", "the scan-engine slice")
+    if cfg.engine == "scan" and cfg.shapley_impl == "serial":
+        raise _not_in_slice("shapley_impl='serial' under engine='scan'",
+                            "a later scan slice")
     if cfg.faults is not None:
         raise _not_in_slice("faults", "the faults/quarantine slice")
     if cfg.quarantine:
@@ -265,30 +277,43 @@ def round_epochs(cfg: FLConfig, s: RunSetup, sel: np.ndarray,
     return out
 
 
-def _make_round_engine(cfg: FLConfig, s: RunSetup, needs_sv: bool,
-                       max_iters: int):
-    from repro_torch.engine.round_engine import RoundEngine, RoundSpec
-    spec = RoundSpec(needs_sv=needs_sv, shapley_impl=cfg.shapley_impl,
+def _round_spec(cfg: FLConfig, needs_sv: bool, max_iters: int):
+    from repro_torch.engine.round_engine import RoundSpec
+    return RoundSpec(needs_sv=needs_sv, shapley_impl=cfg.shapley_impl,
                      shapley_eps=cfg.shapley_eps, shapley_max_iters=max_iters,
                      sv_chunk=cfg.sv_chunk, upload_codec=cfg.upload_codec,
                      faults=cfg.faults, quarantine=cfg.quarantine)
-    return RoundEngine(s.model, cfg.client, spec, s.xs, s.ys, s.n_valid,
-                       s.sigma_k_all, s.x_val, s.y_val, s.draws)
+
+
+def _make_round_engine(cfg: FLConfig, s: RunSetup, needs_sv: bool,
+                       max_iters: int):
+    from repro_torch.engine.round_engine import RoundEngine
+    return RoundEngine(s.model, cfg.client, _round_spec(cfg, needs_sv,
+                                                        max_iters),
+                       s.xs, s.ys, s.n_valid, s.sigma_k_all, s.x_val,
+                       s.y_val, s.draws)
 
 
 def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
                   model: Optional[ClassifierModel] = None, *,
                   device=None, draws: Optional[RunDraws] = None,
-                  telemetry=None) -> FLResult:
+                  telemetry=None, rounds_per_segment: int = 0) -> FLResult:
     """Drive one federated run on `device` (default: the CUDA card).
 
     `draws` replaces the run's default torch-generator draws (a test hands
-    the reference's draws in through it).
+    the reference's draws in through it).  Under engine="scan",
+    `rounds_per_segment` K > 0 reads the run back every K rounds (the
+    segmented run equals the whole run bit for bit); other engines ignore
+    it.
     """
     t_start = time.perf_counter()
     if telemetry is not None:
         raise _not_in_slice("telemetry", "the telemetry slice")
     s = setup_run(cfg, data, model, device=device, draws=draws)
+    if cfg.engine == "scan":
+        from repro_torch.engine.scan_engine import run_federated_scan
+        return run_federated_scan(cfg, s, t_start,
+                                  rounds_per_segment=rounds_per_segment)
     device = s.n_valid.device
     model, params, draws = s.model, s.params, s.draws
     spec, sstate = s.sel_spec, s.sel_state
@@ -300,20 +325,23 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
     batched_utility_fn = make_batched_mlp_utility(model, s.x_val, s.y_val)
     needs_sv = spec.uses_shapley
     max_iters = cfg.shapley_max_iters or 50 * cfg.m
-    shapes = [tuple(x.shape) for x in tree_leaves(params)]
 
     fractions = torch.as_tensor(s.fractions, dtype=torch.float32,
                                 device=device)
     zero_losses = torch.zeros((cfg.n_clients,), device=device)
     d_sched = poc_d_schedule(spec, cfg.rounds)
     emask = eval_mask(cfg.rounds, cfg.eval_every)
-    n_valid_host = s.n_valid.cpu().numpy()
 
     engine = None
     codec_bytes = s.model_bytes
     if cfg.engine == "batched":
         engine = _make_round_engine(cfg, s, needs_sv, max_iters)
         codec_bytes = engine.upload_nbytes_per_client(params)
+    from repro_torch.engine.round_engine import round_plan
+    plan = round_plan(engine.spec if engine is not None else
+                      _round_spec(cfg, needs_sv, max_iters), cfg.client,
+                      (spec,), cfg.n_clients, cfg.m, params,
+                      s.n_valid.cpu().numpy())
 
     test_acc, val_loss_hist, selections = [], [], []
     round_times, shapley_times = [], []
@@ -331,7 +359,8 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
         ctx = DeviceSelectionContext(data_fractions=fractions,
                                      local_losses=losses,
                                      poc_d=int(d_sched[t]))
-        sel_dev, sstate = device_select(spec, sstate, ctx, draws, t)
+        rd = draws.round(t, plan).to(device)
+        sel_dev, sstate = device_select(spec, sstate, ctx, rd.selection)
         sel = sel_dev.cpu().numpy().astype(np.int64)
         selections.append(sel)
         epochs_k = round_epochs(cfg, s, sel, t)
@@ -340,7 +369,7 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
         sv_round = None
         if engine is not None:
             # ---- fused round: ONE call for train+codec+SV+average --------
-            out = engine.step(params, sel, epochs_k, t)
+            out = engine.step(params, sel, epochs_k, t, rd)
             params = out.params
             if needs_sv:
                 sv_round = out.sv
@@ -351,14 +380,12 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
         else:
             # ---- ClientUpdate at each selected client --------------------
             updates, nbytes_list = [], []
-            n_steps = cfg.client.epochs * cfg.client.batches_per_epoch
+            idx = minibatch_rows(rd.rows, sel_t, s.n_valid)
             for i, k_id in enumerate(sel):
-                idx, noise = draws.client(t, i, n_steps,
-                                          cfg.client.batch_size,
-                                          int(n_valid_host[k_id]), shapes)
                 upd = client_update(model, cfg.client, params, s.xs[k_id],
                                     s.ys[k_id], int(epochs_k[i]),
-                                    float(s.sigma_k_all[k_id]), idx, noise)
+                                    float(s.sigma_k_all[k_id]), idx[i],
+                                    [n[i] for n in rd.noise])
                 if cfg.upload_codec != "identity":
                     upd, nbytes = compress_update(cfg.upload_codec, upd,
                                                   params)
@@ -376,8 +403,7 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
             # engine draws them before its round step
             if needs_sv:
                 walks = (draws.perm_batches(t, cfg.m)
-                         if cfg.shapley_impl == "serial"
-                         else draws.perms(t, cfg.m, max_iters))
+                         if cfg.shapley_impl == "serial" else rd.walks)
                 sv_round, stats, sv_s = shapley_stage(
                     cfg.shapley_impl, stacked, n_k_sel, params, utility_fn,
                     batched_utility_fn, walks, eps=cfg.shapley_eps,
@@ -443,7 +469,8 @@ def run_centralized(cfg: FLConfig, data: Optional[SynthDataset] = None,
                     device=None, draws: Optional[RunDraws] = None
                     ) -> FLResult:
     """Upper bound: the server trains on the pooled data, same step budget.
-    Round t's minibatch table and noise come from `draws.client(t, 0, ...)`.
+    Round t's minibatch table and noise are those of slot 0 of a one-slot
+    round over the pooled data (`draws.round(t, ...)`).
     """
     device = resolve_device(device)
     if data is None:
@@ -460,15 +487,21 @@ def run_centralized(cfg: FLConfig, data: Optional[SynthDataset] = None,
     y = torch.as_tensor(data.y_train, dtype=torch.int64, device=device)
     x_test = torch.as_tensor(data.x_test, device=device)
     y_test = torch.as_tensor(data.y_test, dtype=torch.int64, device=device)
-    n_steps = cfg.client.epochs * cfg.client.batches_per_epoch
+    n_rows = torch.tensor([x.shape[0]])
+    plan = DrawPlan(selection=(), n_clients=1, m=1,
+                    n_steps=cfg.client.epochs * cfg.client.batches_per_epoch,
+                    batch_size=cfg.client.batch_size, shapes=tuple(shapes),
+                    n_perms=0, n_valid=(x.shape[0],))
     t_start = time.perf_counter()
     test_acc = []
     emask = eval_mask(cfg.rounds, cfg.eval_every)
     for t in range(cfg.rounds):
-        idx, noise = draws.client(t, 0, n_steps, cfg.client.batch_size,
-                                  x.shape[0], shapes)
+        rd = draws.round(t, plan)
+        idx = minibatch_rows(rd.rows, torch.zeros((1,), dtype=torch.int64),
+                             n_rows)[0]
         params = client_update(model, cfg.client, params, x, y,
-                               cfg.client.epochs, 0.0, idx, noise)
+                               cfg.client.epochs, 0.0, idx.to(device),
+                               [n[0].to(device) for n in rd.noise])
         if emask[t]:
             with torch.no_grad():
                 test_acc.append((t + 1, float(model.accuracy(params, x_test,

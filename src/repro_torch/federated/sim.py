@@ -5,11 +5,12 @@
 (`engine/batch_client.py`) and averages it; `device_selected_round`
 extends the step upward through the strategy layer: select -> gather ->
 train -> aggregate in one call, the single-round building block of the
-whole-run scan engine (a later slice of the port), exposed standalone.
-Neither is on the engines' path.
+whole-run scan engine, exposed standalone.  Neither is on the engines'
+path.
 
-The reference's keys become draws: the cohort's minibatch tables and noise
-leaves come from `RunDraws.client(t, i, ...)`, as in the engines.
+The reference's keys become draws: the round's selection draw, minibatch
+rows and noise leaves come from `RunDraws.round(t, ...)`, as in the
+engines.
 """
 from __future__ import annotations
 
@@ -24,12 +25,12 @@ from repro_torch.core.selection import (
     device_update,
 )
 from repro_torch.engine.batch_client import (
-    batched_client_update, cohort_draws, cohort_update,
+    batched_client_update, cohort_update,
 )
+from repro_torch.engine.round_engine import RoundSpec, round_plan
 from repro_torch.federated.client import ClientConfig
-from repro_torch.federated.draws import RunDraws
+from repro_torch.federated.draws import RunDraws, minibatch_rows
 from repro_torch.models.mlp_cnn import ClassifierModel
-from repro_torch.tree import tree_leaves
 
 Params = Any
 
@@ -75,14 +76,15 @@ def device_selected_round(
     selector state with bumped counts, w^{t+1}).  SV-driven strategies feed
     their valuation separately through `device_update` once the round's
     Shapley values exist."""
-    sel, state = device_select(spec, state, ctx, draws, t)
+    rd = draws.round(t, round_plan(RoundSpec(), ccfg, (spec,),
+                                   spec.n_clients, spec.m, params,
+                                   nv_all.cpu().numpy())).to(nv_all.device)
+    sel, state = device_select(spec, state, ctx, rd.selection)
     sel_host = sel.cpu().numpy()
-    idx, noise = cohort_draws(
-        draws, ccfg, t, nv_all.cpu().numpy()[sel_host],
-        [tuple(x.shape) for x in tree_leaves(params)], nv_all.device)
     stacked, n_k_sel = cohort_update(
         model, ccfg, params, xs_all, ys_all, nv_all, sigma_all, sel_host,
-        np.asarray(epochs_all)[sel_host], idx, noise)
+        np.asarray(epochs_all)[sel_host], minibatch_rows(rd.rows, sel, nv_all),
+        rd.noise)
     with torch.no_grad():
         new_params = weighted_average(stacked, normalized_weights(n_k_sel))
     state = device_update(spec, state, sel)

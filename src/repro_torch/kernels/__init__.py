@@ -146,6 +146,8 @@ _SIGNATURES = {
     "ce_loss_bf16": [_PTR] * 3 + [_I64] * 6 + [_PTR],
     # (leaf table, leaves, host ids, M, blocks, device, stream)
     "cohort_gather": [_PTR, _I64, _PTR] + [_I64] * 3 + [_PTR],
+    # (leaf table, leaves, device ids, M, blocks, error word, device, stream)
+    "cohort_gather_ids": [_PTR, _I64, _PTR, _I64, _I64, _PTR, _I64, _PTR],
     # (leaf table, leaves, rows, codec, shared memory, device, stream)
     "delta_codec_f32": [_PTR] + [_I64] * 5 + [_PTR],
     # (shared memory, device, out: clusters)

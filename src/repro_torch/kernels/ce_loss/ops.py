@@ -3,7 +3,10 @@
 
 CUDA logits go to the CUDA kernel at any vocabulary size (it needs no
 vocab tile, so the reference's V < 2048 cut-over to its ref has no
-counterpart on the card); CPU logits go to the plain version.
+counterpart on the card); CPU logits go to the plain version.  The card's
+path checks the labels' range first, which reads the card back;
+`checked=True` skips that read for labels the caller checked where it
+made them (a captured round reads nothing back).
 """
 from __future__ import annotations
 
@@ -14,7 +17,8 @@ from repro_torch.kernels.ce_loss.kernel import ce_loss_cuda
 from repro_torch.kernels.ce_loss.ref import ce_loss_ref
 
 
-def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+            checked: bool = False) -> torch.Tensor:
     """Mean CE over rows: (..., R, V) logits, (R,) int labels -> (...) f32.
 
     A 2-D input gives the reference's scalar; a leading model axis scores
@@ -26,10 +30,19 @@ def ce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                          f"{tuple(labels.shape)}")
     if not use_kernel(logits):
         return torch.mean(ce_loss_ref(logits, labels), dim=-1)
+    if not checked:
+        check_labels(labels, v)
+    per = ce_loss_cuda(logits.reshape(-1, v).contiguous(),
+                       labels.to(torch.int64).contiguous())
+    return torch.mean(per.reshape(logits.shape[:-1]), dim=-1)
+
+
+def check_labels(labels: torch.Tensor, v: int) -> None:
+    """Raise ValueError unless every label indexes [0, V) (one read of the
+    labels' range)."""
+    if not labels.numel():
+        return
     lo, hi = torch.aminmax(labels)
     if int(lo) < 0 or int(hi) >= v:
         raise ValueError(f"labels must index [0, {v}), got [{int(lo)}, "
                          f"{int(hi)}]")
-    per = ce_loss_cuda(logits.reshape(-1, v).contiguous(),
-                       labels.to(torch.int64).contiguous())
-    return torch.mean(per.reshape(logits.shape[:-1]), dim=-1)

@@ -4,16 +4,24 @@
 
 A list of contiguous tables (N_i, ...) of any dtype x M cohort ids -> a
 list of (M, ...): a raw copy of the selected rows.  One launch covers up
-to MAX_LEAVES tables.  The ids are checked on the host (`checked_ids`) and
-go to the kernel by value with a table of leaves (`launch_plan`), so the
-call allocates no flag, launches no memset and does not wait for the card.
-The card's time is a few microseconds, so the host's time per call bounds
-a round's gather: the launcher keeps to host ints and one array of them.
+to MAX_LEAVES tables, with a table of leaves passed by value
+(`launch_plan`).  Host ids are checked on the host (`checked_ids`) and go
+to the kernel by value too, so the call allocates no flag, launches no
+memset and does not wait for the card; the card's time is a few
+microseconds, so the host's time per call bounds a round's gather.
+
+CUDA ids go to the device-id entry (`cohort_gather_ids`), which reads them
+from the card's memory: the form a captured round needs, whose cohort is
+chosen on the card.  An id outside a table's rows is written into an
+int64 error word on the card (`error_word`) and its row is not copied;
+`raise_on_error` reads the word and raises IndexError.  A caller that
+passes its own word (a captured run) reads it once, after the run; a call
+without one makes its own word and reads it back at once.
 """
 from __future__ import annotations
 
 from math import prod
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -26,6 +34,7 @@ THREADS = 256          # csrc/cohort_gather.cu::kThreads
 UNROLL = 4             # words in flight per thread (kUnroll)
 MAX_LEAVES = 16        # csrc/cohort_gather.cu::kMaxLeaves
 MAX_IDS = 256          # csrc/cohort_gather.cu::kMaxIds: ids passed by value
+MAX_DEVICE_IDS = 65535  # device ids: one grid.y slot each
 
 
 class LeafPlan(NamedTuple):
@@ -81,10 +90,39 @@ def launch_plan(leaves: Sequence[tuple[int, int, int]]
     return plans, blk0
 
 
-def cohort_gather_cuda(tables: Sequence[torch.Tensor],
-                       ids) -> list[torch.Tensor]:
+def error_word(device) -> torch.Tensor:
+    """A zeroed (1,) int64 error word for the device-id entry."""
+    return torch.zeros((1,), dtype=torch.int64, device=device)
+
+
+def raise_on_error(error: torch.Tensor, n: int) -> None:
+    """Read an error word back (a sync) and raise IndexError if a gather
+    met an id outside [0, n)."""
+    bad = int(error.reshape(()).item())
+    if bad:
+        raise IndexError(f"cohort ids must index [0, {n}), got {bad}")
+
+
+def _device_ids(ids: torch.Tensor, device) -> torch.Tensor:
+    if ids.dim() != 1 or ids.dtype.is_floating_point or ids.dtype.is_complex \
+            or ids.dtype == torch.bool:
+        raise ValueError(f"ids must be a 1-D tensor of integers, got "
+                         f"{ids.dtype} of shape {tuple(ids.shape)}")
+    if ids.device != device:
+        raise ValueError(f"ids are on {ids.device}, the tables on {device}")
+    if len(ids) > MAX_DEVICE_IDS:
+        raise ValueError(f"the cohort_gather kernel takes at most "
+                         f"{MAX_DEVICE_IDS} device ids, got {len(ids)}")
+    return ids.to(torch.int64).contiguous()
+
+
+def cohort_gather_cuda(tables: Sequence[torch.Tensor], ids,
+                       error: Optional[torch.Tensor] = None
+                       ) -> list[torch.Tensor]:
     """Gather rows `ids` of every (N_i, ...) table, in one launch per
-    MAX_LEAVES tables on PyTorch's current stream."""
+    MAX_LEAVES tables on PyTorch's current stream.  CUDA ids go to the
+    device-id entry, which writes an id out of range into `error` (made and
+    read back here when None); other ids are checked on the host."""
     if not tables:
         return []
     dev = tables[0].get_device()
@@ -95,27 +133,65 @@ def cohort_gather_cuda(tables: Sequence[torch.Tensor],
         if t.dim() == 0 or not t.is_contiguous():
             raise ValueError(f"tables must be contiguous with a row axis, "
                              f"got shape {tuple(t.shape)}")
-    host = checked_ids(ids, min(t.shape[0] for t in tables))
-    outs = [torch.empty((len(host),) + t.shape[1:], dtype=t.dtype,
+    n = min(t.shape[0] for t in tables)
+    on_card = isinstance(ids, torch.Tensor) and ids.is_cuda
+    if on_card:
+        ids = _device_ids(ids, tables[0].device)
+        m = len(ids)
+    else:
+        host = checked_ids(ids, n)
+        m = len(host)
+    outs = [torch.empty((m,) + t.shape[1:], dtype=t.dtype,
                         device=t.device) for t in tables]
     work = [(t, o) for t, o in zip(tables, outs) if o.numel()]
+    if not on_card:
+        for i in range(0, len(work), MAX_LEAVES):
+            rc = library().cohort_gather(*c_args(work[i:i + MAX_LEAVES],
+                                                 host))
+            check_launch(rc, "cohort_gather")
+            LAUNCHES["cohort_gather"] += 1
+        return outs
+    word = error_word(tables[0].device) if error is None else error
+    if error is not None and (error.dtype != torch.int64 or error.numel() != 1
+                              or error.device != tables[0].device):
+        raise ValueError("error must be one int64 on the tables' device")
     for i in range(0, len(work), MAX_LEAVES):
-        rc = library().cohort_gather(*c_args(work[i:i + MAX_LEAVES], host))
+        rc = library().cohort_gather_ids(*device_c_args(
+            work[i:i + MAX_LEAVES], ids, word))
         check_launch(rc, "cohort_gather")
         LAUNCHES["cohort_gather"] += 1
+    if error is None:
+        raise_on_error(word, n)
     return outs
 
 
-def c_args(work: Sequence[tuple[torch.Tensor, torch.Tensor]],
-           host_ids: list[int]) -> tuple:
-    """The C entry's arguments for (table, output) pairs and checked host
-    ids."""
+def _leaf_table(work: Sequence[tuple[torch.Tensor, torch.Tensor]]
+                ) -> tuple:
+    """(leaf table, leaves, blocks) for (table, output) pairs."""
     leaves = [(prod(t.shape[1:]) * t.element_size(), t.data_ptr(),
                o.data_ptr()) for t, o in work]
     plans, blocks_x = launch_plan(leaves)
     fields = []
     for (row_bytes, src, dst), p, (t, _) in zip(leaves, plans, work):
         fields += (src, dst, row_bytes, t.shape[0], p.blk0, p.unit)
+    return host_table(fields), len(work), blocks_x
+
+
+def c_args(work: Sequence[tuple[torch.Tensor, torch.Tensor]],
+           host_ids: list[int]) -> tuple:
+    """The C entry's arguments for (table, output) pairs and checked host
+    ids."""
+    table, n, blocks_x = _leaf_table(work)
     t0 = work[0][0]
-    return (host_table(fields), len(work), host_table(host_ids),
-            len(host_ids), blocks_x, t0.get_device(), stream_ptr(t0))
+    return (table, n, host_table(host_ids), len(host_ids), blocks_x,
+            t0.get_device(), stream_ptr(t0))
+
+
+def device_c_args(work: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                  ids: torch.Tensor, error: torch.Tensor) -> tuple:
+    """The device-id C entry's arguments for (table, output) pairs, (M,)
+    int64 CUDA ids and the error word."""
+    table, n, blocks_x = _leaf_table(work)
+    t0 = work[0][0]
+    return (table, n, ids.data_ptr(), len(ids), blocks_x, error.data_ptr(),
+            t0.get_device(), stream_ptr(t0))

@@ -6,11 +6,14 @@ and gathers the M rows `ids`; `cohort_take(arr, ids)` is its one-leaf
 form.  The CUDA leaves of one device go to the CUDA kernel together, in
 one launch whatever their widths (the reference's D < 2048 cut-over to its
 ref exists only for its 2048-lane tile); a CPU leaf goes to the plain
-version.  On the card the ids are checked on the host: pass them as host
-ints (a list, a numpy array or a CPU tensor); CUDA ids are copied to the
-host first, which waits for the card.  The reference's cross-shard path
-(`axis_name`, a bitcast-psum over a client mesh axis) comes with the
-client-sharding slice of the port.
+version.  On the card, host ids (a list, a numpy array or a CPU tensor)
+are checked on the host and passed to the kernel by value; CUDA ids go to
+the device-id entry, which reads them from the card and writes an id out
+of range into the int64 word `error` (`kernel.error_word`; the caller
+reads it with `kernel.raise_on_error` after its run), or, without
+`error`, into a word of its own that it reads back at once.  The
+reference's cross-shard path (`axis_name`, a bitcast-psum over a client
+mesh axis) comes with the client-sharding slice of the port.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 Tree = Any
 
 
-def cohort_gather(tree: Tree, ids, *, axis_name: Optional[str] = None
-                  ) -> Tree:
+def cohort_gather(tree: Tree, ids, *, axis_name: Optional[str] = None,
+                  error: Optional[torch.Tensor] = None) -> Tree:
     """Every (N, ...) leaf gathered to (M, ...) at rows `ids`, bitwise."""
     if axis_name is not None:
         raise NotImplementedError(
@@ -46,7 +49,7 @@ def cohort_gather(tree: Tree, ids, *, axis_name: Optional[str] = None
             outs[i] = flat.reshape((flat.shape[0],) + leaf.shape[1:])
     for idx in groups.values():
         for i, out in zip(idx, cohort_gather_cuda(
-                [leaves[i].contiguous() for i in idx], ids)):
+                [leaves[i].contiguous() for i in idx], ids, error)):
             outs[i] = out
     return tree_unflatten(tree, outs)
 

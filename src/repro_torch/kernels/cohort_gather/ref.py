@@ -10,5 +10,6 @@ import torch
 
 
 def cohort_gather_ref(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table (N, D) x ids (M,) -> (M, D): `out[i] = table[ids[i]]`."""
+    """table (N, D) x ids (M,) on the table's device (host or card) ->
+    (M, D): `out[i] = table[ids[i]]`."""
     return torch.index_select(table, 0, ids.to(torch.int64))

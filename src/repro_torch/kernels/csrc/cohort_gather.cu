@@ -24,6 +24,15 @@
 // moves 16 KB of a 16-byte-aligned row.  The C entry checks every id
 // against every leaf's rows again before it launches, so the kernel never
 // reads outside a table.
+//
+// A second entry, cohort_gather_ids, takes the ids as a device pointer, for
+// a round captured in a CUDA graph, whose cohort is chosen on the card and
+// whose by-value parameters would be frozen at capture.  Each block reads
+// its slot's id from global memory and checks it against its leaf's rows;
+// an id outside [0, rows) is written into a device error word (the first
+// one to arrive wins, by compare-and-swap on zero) and its row is not
+// copied.  The host reads the word once, after the run, and raises
+// IndexError as index_select does.  No row is ever clamped.
 #include "common.cuh"
 
 namespace {
@@ -40,12 +49,21 @@ struct Leaf {
   int64_t row_bytes;
   int64_t blk0;      // first row chunk of the leaf in grid.x
   int64_t unit;      // bytes per word: 16, 4 or 1
+  int64_t rows;      // n, the table's rows
 };
 
 struct Table {
   Leaf leaf[kMaxLeaves];
   int32_t ids[kMaxIds];
   int64_t n;
+};
+
+// The device-id entry's parameters: no ids by value.
+struct DeviceTable {
+  Leaf leaf[kMaxLeaves];
+  int64_t n;
+  const int64_t* ids;               // (m,) cohort ids in device memory
+  unsigned long long* error;        // the first id out of range, or 0
 };
 
 template <typename U>
@@ -68,14 +86,8 @@ __device__ __forceinline__ void copy_chunk(const Leaf& leaf, int64_t id,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-cohort_gather_kernel(const __grid_constant__ Table t) {
-  int i = 0;
-  while (i + 1 < t.n && (int64_t)blockIdx.x >= t.leaf[i + 1].blk0) ++i;
-  const Leaf& leaf = t.leaf[i];
-  const int64_t chunk = (int64_t)blockIdx.x - leaf.blk0;
-  const int64_t slot = blockIdx.y;
-  const int64_t id = t.ids[slot];
+__device__ __forceinline__ void copy_row_chunk(const Leaf& leaf, int64_t id,
+                                               int64_t slot, int64_t chunk) {
   if (leaf.unit == 16) {
     copy_chunk<uint4>(leaf, id, slot, chunk);
   } else if (leaf.unit == 4) {
@@ -85,7 +97,62 @@ cohort_gather_kernel(const __grid_constant__ Table t) {
   }
 }
 
+template <typename T>
+__device__ __forceinline__ int leaf_of(const T& t) {
+  int i = 0;
+  while (i + 1 < t.n && (int64_t)blockIdx.x >= t.leaf[i + 1].blk0) ++i;
+  return i;
+}
+
+__global__ void __launch_bounds__(kThreads)
+cohort_gather_kernel(const __grid_constant__ Table t) {
+  const Leaf& leaf = t.leaf[leaf_of(t)];
+  const int64_t slot = blockIdx.y;
+  copy_row_chunk(leaf, t.ids[slot], slot, (int64_t)blockIdx.x - leaf.blk0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cohort_gather_ids_kernel(const __grid_constant__ DeviceTable t) {
+  const Leaf& leaf = t.leaf[leaf_of(t)];
+  const int64_t slot = blockIdx.y;
+  const int64_t id = t.ids[slot];
+  if (id < 0 || id >= leaf.rows) {
+    if (threadIdx.x == 0) {
+      atomicCAS(t.error, 0ull, (unsigned long long)id);
+    }
+    return;
+  }
+  copy_row_chunk(leaf, id, slot, (int64_t)blockIdx.x - leaf.blk0);
+}
+
 bool aligned(const void* p, int64_t a) { return (uintptr_t)p % a == 0; }
+
+// Fills `leaf` from n_leaves rows of kLeafFields int64 (src, dst, row
+// bytes, rows, blk0, unit), in increasing blk0; false if a row is not a
+// valid launch.
+bool parse_leaves(const int64_t* leaves, int64_t n_leaves, int64_t blocks_x,
+                  Leaf* leaf) {
+  for (int64_t i = 0; i < n_leaves; ++i) {
+    const int64_t* f = leaves + i * kLeafFields;
+    const int64_t end = i + 1 < n_leaves ? leaves[(i + 1) * kLeafFields + 4]
+                                         : blocks_x;
+    Leaf& l = leaf[i];
+    l = {(const char*)f[0], (char*)f[1], f[2], f[4], f[5], f[3]};
+    const int64_t chunk_bytes = (int64_t)kThreads * kUnroll * l.unit;
+    if ((l.unit != 16 && l.unit != 4 && l.unit != 1) || l.row_bytes < 1 ||
+        l.row_bytes % l.unit != 0 || l.rows < 1 || !aligned(l.src, l.unit) ||
+        !aligned(l.dst, l.unit) || (i == 0 && l.blk0 != 0) ||
+        end <= l.blk0 || (end - l.blk0) * chunk_bytes < l.row_bytes) {
+      return false;
+    }
+  }
+  return true;
+}
+
+bool bad_shape(int64_t n_leaves, int64_t m, int64_t max_m, int64_t blocks_x) {
+  return n_leaves < 1 || n_leaves > kMaxLeaves || m < 1 || m > max_m ||
+         blocks_x < 1 || blocks_x > 0x7fffffff;
+}
 
 }  // namespace
 
@@ -97,29 +164,17 @@ extern "C" int cohort_gather(const int64_t* leaves, int64_t n_leaves,
                              int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  if (n_leaves < 1 || n_leaves > kMaxLeaves || m < 1 || m > kMaxIds ||
-      blocks_x < 1 || blocks_x > 0x7fffffff) {
+  if (bad_shape(n_leaves, m, kMaxIds, blocks_x)) {
     return (int)cudaErrorInvalidConfiguration;
   }
   Table t{};
   t.n = n_leaves;
+  if (!parse_leaves(leaves, n_leaves, blocks_x, t.leaf)) {
+    return (int)cudaErrorInvalidValue;
+  }
   for (int64_t i = 0; i < n_leaves; ++i) {
-    const int64_t* f = leaves + i * kLeafFields;
-    const int64_t rows = f[3];
-    const int64_t end = i + 1 < n_leaves ? leaves[(i + 1) * kLeafFields + 4]
-                                         : blocks_x;
-    Leaf& leaf = t.leaf[i];
-    leaf = {(const char*)f[0], (char*)f[1], f[2], f[4], f[5]};
-    const int64_t chunk_bytes = (int64_t)kThreads * kUnroll * leaf.unit;
-    if ((leaf.unit != 16 && leaf.unit != 4 && leaf.unit != 1) ||
-        leaf.row_bytes < 1 || leaf.row_bytes % leaf.unit != 0 ||
-        !aligned(leaf.src, leaf.unit) || !aligned(leaf.dst, leaf.unit) ||
-        (i == 0 && leaf.blk0 != 0) || end <= leaf.blk0 ||
-        (end - leaf.blk0) * chunk_bytes < leaf.row_bytes) {
-      return (int)cudaErrorInvalidValue;
-    }
     for (int64_t s = 0; s < m; ++s) {
-      if (ids[s] < 0 || ids[s] >= rows || ids[s] > 0x7fffffff) {
+      if (ids[s] < 0 || ids[s] >= t.leaf[i].rows || ids[s] > 0x7fffffff) {
         return (int)cudaErrorInvalidValue;
       }
     }
@@ -127,5 +182,31 @@ extern "C" int cohort_gather(const int64_t* leaves, int64_t n_leaves,
   for (int64_t s = 0; s < m; ++s) t.ids[s] = (int32_t)ids[s];
   cohort_gather_kernel<<<dim3((unsigned)blocks_x, (unsigned)m), kThreads, 0,
                          (cudaStream_t)stream>>>(t);
+  return (int)cudaGetLastError();
+}
+
+// leaves as above, in host memory (by value); ids: m int64 in device
+// memory; error: one int64 in device memory that the kernel sets to the
+// first id it finds outside a leaf's rows (the caller zeroes it first and
+// reads it after its run).
+extern "C" int cohort_gather_ids(const int64_t* leaves, int64_t n_leaves,
+                                 const int64_t* ids, int64_t m,
+                                 int64_t blocks_x, int64_t* error,
+                                 int64_t device, void* stream) {
+  cudaError_t err = cudaSetDevice((int)device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_shape(n_leaves, m, 65535, blocks_x) || ids == nullptr ||
+      error == nullptr || !aligned(ids, 8) || !aligned(error, 8)) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  DeviceTable t{};
+  t.n = n_leaves;
+  t.ids = ids;
+  t.error = reinterpret_cast<unsigned long long*>(error);
+  if (!parse_leaves(leaves, n_leaves, blocks_x, t.leaf)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cohort_gather_ids_kernel<<<dim3((unsigned)blocks_x, (unsigned)m), kThreads,
+                             0, (cudaStream_t)stream>>>(t);
   return (int)cudaGetLastError();
 }

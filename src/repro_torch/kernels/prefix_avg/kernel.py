@@ -48,11 +48,13 @@ def launch_plan(leaves: Sequence[tuple[int, int, int]], itemsize: int
 
 
 def prefix_avg_cuda(stacks: Sequence[torch.Tensor], perms: torch.Tensor,
-                    n_k: torch.Tensor) -> list[torch.Tensor]:
+                    n_k: torch.Tensor, *, checked: bool = False
+                    ) -> list[torch.Tensor]:
     """Build the prefix models of every (M, ...) stack along the (R, M)
     walks, in one launch per MAX_LEAVES stacks on PyTorch's current
     stream.  Raises ValueError, before launching, on perms outside
-    [0, M): the kernel gathers rows by them."""
+    [0, M): the kernel gathers rows by them.  `checked=True` takes perms
+    already checked where they were made and reads nothing back."""
     r, m = perms.shape
     if perms.dtype != torch.int64:
         raise ValueError(f"perms must be int64, got {perms.dtype}")
@@ -84,7 +86,8 @@ def prefix_avg_cuda(stacks: Sequence[torch.Tensor], perms: torch.Tensor,
                          f"M = {m}, got {r}")
     # the bounds come back in one read, once the launch is prepared, so
     # that the host's preparation overlaps the card's earlier work
-    bounds = torch.stack(torch.aminmax(perms)) if perms.numel() else None
+    bounds = (torch.stack(torch.aminmax(perms))
+              if perms.numel() and not checked else None)
     outs = [torch.empty((r * m,) + s.shape[1:], dtype=dtype, device=s.device)
             for s in stacks]
     work = [(s, o) for s, o in zip(stacks, outs) if o.numel()]

@@ -8,7 +8,8 @@ leaves of one device and dtype go to the CUDA kernel together, in one
 launch whatever their widths (the kernel masks the ragged edge, so the
 reference's D < 2048 cut-over to its ref has no counterpart on the card);
 a CPU leaf goes to the plain version.  The launcher raises ValueError on
-perms outside [0, M).
+perms outside [0, M), which reads the card back; `checked=True` skips that
+read for walks the caller checked where it made them.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ Tree = Any
 
 
 def prefix_avg(stacked_tree: Tree, perms: torch.Tensor,
-               n_k: torch.Tensor) -> Tree:
+               n_k: torch.Tensor, *, checked: bool = False) -> Tree:
     """stacked_tree leaves (M, *s); perms (R, M) -> leaves (R*M, *s)."""
     r, m = perms.shape
     leaves = tree_leaves(stacked_tree)
@@ -41,6 +42,7 @@ def prefix_avg(stacked_tree: Tree, perms: torch.Tensor,
         for i, out in zip(idx, prefix_avg_cuda(
                 [leaves[i].contiguous() for i in idx],
                 perms.to(device=device, dtype=torch.int64).contiguous(),
-                n_k.to(device=device, dtype=torch.float32).contiguous())):
+                n_k.to(device=device, dtype=torch.float32).contiguous(),
+                checked=checked)):
             outs[i] = out
     return tree_unflatten(stacked_tree, outs)

@@ -386,10 +386,10 @@ def test_cohort_update_gathers_the_cohort(sel, monkeypatch):
              for p in tree_leaves(params)]
     seen = {}
 
-    def spy(model_, ccfg_, params_, xs, ys, epochs_k, sigma_k, *rest):
+    def spy(model_, ccfg_, params_, xs, ys, epochs_k, sigma_k, *rest, **kw):
         seen.update(xs=xs, ys=ys, sigma=sigma_k)
         return batched_client_update(model_, ccfg_, params_, xs, ys,
-                                     epochs_k, sigma_k, *rest)
+                                     epochs_k, sigma_k, *rest, **kw)
 
     monkeypatch.setattr(bc, "batched_client_update", spy)
     stacked, n_k = cohort_update(model, ccfg, params, xs_all, ys_all, nv_all,
@@ -536,7 +536,6 @@ def test_device_selected_round_matches_reference():
     )
     from repro_torch.core.selection import DeviceSelectionContext
     from repro_torch.federated.sim import device_selected_round
-    from test_torch_server import _client_draws
 
     kw = dict(SLICE, selector="fedavg", privacy_sigma=0.05)
     jax_model = jax_make_mlp(784, (16,), 10)
@@ -553,17 +552,9 @@ def test_device_selected_round_matches_reference():
             poc_d=jnp.asarray(0, jnp.int32)), key)
 
     sel_key, round_key = jax.random.split(key)
-    ckeys = jax.random.split(round_key, kw["m"] + 1)
-
-    class SimDraws(JaxReplayDraws):
-        def choice(self, t, n, m):
-            return _t(jax.random.choice(sel_key, n, (m,), replace=False))
-
-        def client(self, t, i, n_steps, batch_size, n_valid, shapes):
-            return _client_draws(ckeys[i], n_steps, batch_size, n_valid,
-                                 shapes)
-
-    draws = SimDraws(kw["seed"], jax_model, 1, kw["m"])
+    draws = JaxReplayDraws(kw["seed"], jax_model, 1, kw["m"])
+    draws.sel_keys = [sel_key]              # the round's own key split
+    draws.ckeys = [jax.random.split(round_key, kw["m"] + 1)]
     cfg = FLConfig(client=ClientConfig(**CLIENT), **kw)
     s = setup_run(cfg, model=make_mlp(784, (16,), 10), device="cpu",
                   draws=draws)

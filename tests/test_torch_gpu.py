@@ -366,8 +366,10 @@ def test_cohort_gather_kernel_bitwise_equals_plain(cuda, n, d, dtype):
 
 @pytest.mark.parametrize("where", ["cuda", "host"])
 def test_cohort_gather_kernel_raises_on_ids_out_of_range(cuda, where):
-    """Host ids and CUDA ids (copied to the host first) are checked before
-    the launch: IndexError, and no kernel launched."""
+    """Host ids are checked before the launch: IndexError, and no kernel
+    launched.  CUDA ids go to the device-id entry, which reports an id out
+    of range in its error word, read back after the launch: IndexError
+    too.  Only host ids pass by value, so only they are capped at 256."""
     table = torch.arange(4000, dtype=torch.float32, device=cuda).view(4, 1000)
     make = ((lambda ids: torch.tensor(ids, device=cuda)) if where == "cuda"
             else np.array)
@@ -377,11 +379,57 @@ def test_cohort_gather_kernel_raises_on_ids_out_of_range(cuda, where):
             cohort_take(table, make(bad))
         with pytest.raises(IndexError):
             cohort_gather({"a": table, "b": table[:2]}, make([3]))
-    assert kernels.LAUNCHES["cohort_gather"] == before
-    with pytest.raises(ValueError):
-        cohort_take(table, make([0] * 257))
+    assert kernels.LAUNCHES["cohort_gather"] == before + (
+        6 if where == "cuda" else 0)
+    if where == "host":
+        with pytest.raises(ValueError):
+            cohort_take(table, make([0] * 257))
+    else:
+        assert torch.equal(cohort_take(table, make([1] * 257)),
+                           table[1:2].expand(257, 1000))
     torch.cuda.synchronize()
     assert torch.equal(cohort_take(table, make([3])), table[3:])
+
+
+@pytest.mark.parametrize("ids", [[7, 31, 2, 49, 18], [5, 5, 0]])
+def test_cohort_gather_device_ids_bitwise_with_error_word(cuda, ids):
+    """The device-id entry, given the caller's error word, launches once
+    for the tree, reads nothing back, and equals the plain gather bitwise;
+    an id of N sets the word, which raises when read after the run, and
+    leaves the other slots' rows right."""
+    from repro_torch.kernels.cohort_gather.kernel import (
+        error_word, raise_on_error,
+    )
+    tree = _gather_tree(torch.Generator().manual_seed(9), cuda)
+    words = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    word = error_word(cuda)
+    sel = torch.tensor(ids, device=cuda)
+    before = kernels.LAUNCHES["cohort_gather"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cohort_gather(tree, sel, error=word)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert kernels.LAUNCHES["cohort_gather"] == before + 1
+    raise_on_error(word, 50)
+    for name, table in tree.items():
+        want = cohort_gather_ref(table.reshape(table.shape[0], -1), sel
+                                 ).reshape(got[name].shape)
+        w = words.get(table.dtype, table.dtype)
+        assert torch.equal(got[name].view(w), want.view(w)), name
+    bad = sel.clone()
+    bad[1] = 50
+    got = cohort_gather(tree, bad, error=word)
+    assert int(word.item()) == 50
+    with pytest.raises(IndexError, match="got 50"):
+        raise_on_error(word, 50)
+    for name, table in tree.items():
+        w = words.get(table.dtype, table.dtype)
+        keep = [0] + list(range(2, len(ids)))
+        want = cohort_gather_ref(table.reshape(table.shape[0], -1),
+                                 sel[keep]).reshape(
+            (len(keep),) + got[name].shape[1:])
+        assert torch.equal(got[name][keep].view(w), want.view(w)), name
 
 
 def _gather_tree(gen, cuda):
@@ -1108,3 +1156,90 @@ def test_decode_on_the_card_matches_forward(cuda):
         torch.testing.assert_close(lg, full[:, -1], atol=2e-3, rtol=2e-3)
         cache, lg = M.decode_step(cfg, params, cache,
                                   {"token": tokens[:, 128 + i]})
+
+
+# --------------------------------------------------------- engine="scan" ---
+def _scan_cfg(**over):
+    from repro_torch.federated.client import ClientConfig
+    from repro_torch.federated.server import FLConfig
+    return FLConfig(**{**dict(n_clients=6, m=3, rounds=4, n_train=600,
+                              n_val=100, n_test=100, eval_every=2,
+                              shapley_max_iters=6,
+                              client=ClientConfig(epochs=2,
+                                                  batches_per_epoch=2,
+                                                  batch_size=16)), **over})
+
+
+def _max_err(a, b):
+    from repro_torch.tree import tree_leaves
+    return max(float((x - y).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.parametrize("over", [
+    {"upload_codec": "quant8_topk"}, {"selector": "power_of_choice"},
+    {"selector": "random"}, {"selector": "s_fedavg"},
+    {"selector": "ucb", "shapley_impl": "batched"},
+    {"selector": "greedyfed_dropout", "rounds": 5, "straggler_frac": 0.5,
+     "privacy_sigma": 0.05}])
+def test_scan_on_the_card_matches_the_batched_engine(cuda, over):
+    """Captured and replayed, the scan makes the batched engine's choices
+    on the card: equal selections, bytes and eval rounds, params, SVs and
+    the eval history within 1e-6 (bitwise expected)."""
+    import dataclasses
+    from repro_torch.federated.server import run_federated
+    cfg = _scan_cfg(**over)
+    batched = run_federated(dataclasses.replace(cfg, engine="batched"),
+                            device=cuda)
+    scan = run_federated(dataclasses.replace(cfg, engine="scan"),
+                         device=cuda)
+    for a, b in zip(scan.selections, batched.selections):
+        np.testing.assert_array_equal(a, b)
+    assert scan.upload_bytes == batched.upload_bytes
+    assert scan.download_bytes == batched.download_bytes
+    assert scan.shapley_evals == batched.shapley_evals
+    assert [r for r, _ in scan.test_acc] == [r for r, _ in batched.test_acc]
+    np.testing.assert_allclose([v for _, v in scan.val_loss],
+                               [v for _, v in batched.val_loss], atol=1e-6)
+    np.testing.assert_allclose(scan.sv_final, batched.sv_final, atol=1e-6)
+    assert _max_err(scan.params, batched.params) <= 1e-6
+    assert scan.graph_launches is not None      # it was captured
+    assert scan.dispatches == cfg.rounds + len(scan.test_acc)
+
+
+def test_scan_segments_on_the_card_equal_the_whole_run(cuda):
+    from repro_torch.federated.server import run_federated
+    from repro_torch.tree import tree_leaves
+    cfg = _scan_cfg(engine="scan", rounds=5, upload_codec="quant8_topk")
+    whole = run_federated(cfg, device=cuda)
+    seg = run_federated(cfg, device=cuda, rounds_per_segment=2)
+    for a, b in zip(seg.selections, whole.selections):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(seg.sv_final, whole.sv_final)
+    assert seg.test_acc == whole.test_acc and seg.val_loss == whole.val_loss
+    for a, b in zip(tree_leaves(seg.params), tree_leaves(whole.params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("impl", ["streaming", "batched"])
+def test_scan_graph_holds_the_kernels_and_no_sync(cuda, impl):
+    """The captured round launches each kernel of its path once; the
+    replays run under set_sync_debug_mode("error"), which refuses a sync
+    (shown here), so a finished run made none between replays."""
+    from repro_torch.federated.server import run_federated
+    res = run_federated(_scan_cfg(engine="scan", shapley_impl=impl,
+                                  upload_codec="quant8_topk"), device=cuda)
+    dense = impl == "batched"
+    assert res.graph_launches["round"] == {
+        "prefix_avg": 0 if dense else 1, "ce_loss": 1, "cohort_gather": 1,
+        "delta_codec": 1, "weighted_avg": 1 if dense else 0,
+        "flash_attention": 0}
+    assert not any(res.graph_launches["eval"].values())
+    assert np.isfinite(res.final_acc) and res.params["layer0"]["w"].is_cuda
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError):
+            torch.ones((1,), device=cuda).item()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+

@@ -22,19 +22,14 @@ from repro_torch.tree import tree_leaves
 N, M, T = 10, 3, 8
 
 
-class KeyDraws:
-    """The reference's selection draws for round t from its own key."""
-
-    def __init__(self, keys):
-        self.keys = keys
-
-    def choice(self, t, n, m):
-        return torch.tensor(np.asarray(jax.random.choice(
-            self.keys[t], n, (m,), replace=False)))
-
-    def gumbel(self, t, n):
-        return torch.tensor(np.asarray(jax.random.gumbel(
-            self.keys[t], (n,), jnp.float32)))
+def key_draw(key, n=N, m=M):
+    """The reference's selection draws (cohort and Gumbel noise) from its
+    own key."""
+    return sel.SelectionDraw(
+        choice=torch.tensor(np.asarray(jax.random.choice(
+            key, n, (m,), replace=False))),
+        gumbel=torch.tensor(np.asarray(jax.random.gumbel(
+            key, (n,), jnp.float32))))
 
 
 KWARGS = {
@@ -61,7 +56,6 @@ def test_selections_bitwise_over_a_run(name):
     rng = np.random.default_rng(7)
     fractions = rng.dirichlet(np.ones(N)).astype(np.float32)
     keys = jax.random.split(jax.random.key(11), T)
-    draws = KeyDraws(keys)
     d_sched = jsel.poc_d_schedule(jspec, T)
     for t in range(T):
         losses = rng.random(N).astype(np.float32)
@@ -73,7 +67,8 @@ def test_selections_bitwise_over_a_run(name):
                                           torch.from_numpy(losses),
                                           int(d_sched[t]))
         jchosen, jstate = jsel.device_select(jspec, jstate, keys[t], jctx)
-        tchosen, tstate = sel.device_select(tspec, tstate, tctx, draws, t)
+        tchosen, tstate = sel.device_select(tspec, tstate, tctx,
+                                            key_draw(keys[t]))
         np.testing.assert_array_equal(tchosen.numpy(), np.asarray(jchosen),
                                       err_msg=f"round {t}")
         sv = np.round(rng.standard_normal(M), 1).astype(np.float32)  # ties

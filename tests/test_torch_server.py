@@ -24,7 +24,9 @@ from repro.federated.server import run_centralized as jax_run_centralized
 from repro.federated.server import run_federated as jax_run_federated
 from repro.models.mlp_cnn import make_mlp as jax_make_mlp
 from repro_torch import kernels
+from repro_torch.core.selection import SelectionDraw
 from repro_torch.federated.client import ClientConfig
+from repro_torch.federated.draws import RoundDraws
 from repro_torch.federated.server import (
     FLConfig, run_centralized, run_federated, run_federated_replicated,
 )
@@ -38,7 +40,10 @@ def _t(a):
 
 
 class JaxReplayDraws:
-    """`RunDraws` that replays the reference loop engine's key tree."""
+    """`RunDraws` that replays the reference loop engine's key tree (its
+    batched and scan engines split the same keys).  A slot's minibatch
+    table depends on the client it holds, so each slot gets every client's
+    table and the port picks the selected client's, on the device."""
 
     def __init__(self, seed, jax_model, rounds, m):
         key = jax.random.key(seed)
@@ -53,12 +58,21 @@ class JaxReplayDraws:
     def init_params(self, model):
         return params_from_numpy(jax.tree.map(np.asarray, self._init))
 
-    def client(self, t, i, n_steps, batch_size, n_valid, shapes):
-        return _client_draws(self.ckeys[t][i], n_steps, batch_size, n_valid,
-                             shapes)
-
-    def perms(self, t, m, n_perms):
-        return _t(jax_draw_perms(self.ckeys[t][-1], m, n_perms)).long()
+    def round(self, t, plan):
+        sel_key, choice, gumbel = self.sel_keys[t], None, None
+        if "choice" in plan.selection:
+            choice = _t(jax.random.choice(sel_key, plan.n_clients,
+                                          (plan.m,), replace=False))
+        if "gumbel" in plan.selection:
+            gumbel = _t(jax.random.gumbel(sel_key, (plan.n_clients,),
+                                          jnp.float32))
+        slots = [_slot_draws(self.ckeys[t][i], plan) for i in range(plan.m)]
+        walks = (_t(jax_draw_perms(self.ckeys[t][-1], plan.m, plan.n_perms)
+                    ).long() if plan.n_perms else None)
+        return RoundDraws(SelectionDraw(choice, gumbel),
+                          torch.stack([tables for tables, _ in slots]),
+                          [torch.stack(leaves) for leaves in
+                           zip(*(noise for _, noise in slots))], walks)
 
     def perm_batches(self, t, m):
         state = {"key": self.ckeys[t][-1]}
@@ -68,21 +82,18 @@ class JaxReplayDraws:
             return _t(jax_perm_batch(sub, m)).long()
         return next_batch
 
-    def choice(self, t, n, m):
-        return _t(jax.random.choice(self.sel_keys[t], n, (m,), replace=False))
 
-    def gumbel(self, t, n):
-        return _t(jax.random.gumbel(self.sel_keys[t], (n,), jnp.float32))
-
-
-def _client_draws(key, n_steps, batch_size, n_valid, shapes):
-    """client.py:52-55 and 75-78: index table, then per-leaf noise."""
+def _slot_draws(key, plan):
+    """client.py:52-55 and 75-78 for one cohort slot: the index table for
+    every client's n_valid, (N, E*B, batch), then the per-leaf noise."""
     idx_key, noise_key = jax.random.split(key)
-    idx = jax.random.randint(idx_key, (n_steps, batch_size), 0,
-                             max(n_valid, 1))
+    tables = {n: _t(jax.random.randint(idx_key, (plan.n_steps,
+                                                 plan.batch_size), 0,
+                                       max(n, 1))).long()
+              for n in set(plan.n_valid)}
     noise = [_t(jax.random.normal(k, s, jnp.float32)) for k, s in
-             zip(jax.random.split(noise_key, len(shapes)), shapes)]
-    return _t(idx).long(), noise
+             zip(jax.random.split(noise_key, len(plan.shapes)), plan.shapes)]
+    return torch.stack([tables[n] for n in plan.n_valid]), noise
 
 
 SLICE = dict(n_clients=6, m=3, rounds=4, n_train=600, n_val=100, n_test=100,
@@ -157,9 +168,10 @@ def test_centralized_run_matches_reference():
             return params_from_numpy(jax.tree.map(
                 np.asarray, jax_model.init(init_key)))
 
-        def client(self, t, i, n_steps, batch_size, n_valid, shapes):
-            return _client_draws(round_keys[t], n_steps, batch_size, n_valid,
-                                 shapes)
+        def round(self, t, plan):
+            tables, noise = _slot_draws(round_keys[t], plan)
+            return RoundDraws(SelectionDraw(), tables[None],
+                              [leaf[None] for leaf in noise], None)
 
     got = run_centralized(FLConfig(client=ClientConfig(**CLIENT), **kw),
                           model=make_mlp(784, (16,), 10), device="cpu",
@@ -196,7 +208,8 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("over", [
-    {"engine": "batched", "faults": object()}, {"engine": "scan"},
+    {"engine": "batched", "faults": object()},
+    {"engine": "scan", "shapley_impl": "serial"},
     {"engine": "batched", "quarantine": True},
     {"faults": object()}, {"quarantine": True}, {"clients_shards": 2},
 ])
