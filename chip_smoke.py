@@ -15,9 +15,9 @@ exits non-zero without a result line:
    entry function, ptxas's registers, shared memory and spills;
 3. kernel checks: each kernel against its plain PyTorch version on the
    card at the main path's shapes and at edge shapes (prefix_avg,
-   cohort_gather and delta_codec bitwise; ce_loss at rtol 1e-5 per model
-   mean, and per row at rtol 1e-5 plus atol 1e-6 * max|logit|;
-   weighted_avg at rtol 1e-6, atol 1e-7), with CUDA-event times of kernel,
+   cohort_gather, delta_codec and weighted_avg bitwise; ce_loss at rtol
+   1e-5 per model mean, and per row at rtol 1e-5 plus atol 1e-6 *
+   max|logit|), with CUDA-event times of kernel,
    plain version and, where one PyTorch call computes the same function,
    that call, beside the least time the card could take.  Kernels are
    timed through their wrappers; for the redesigned ones the C entry
@@ -42,7 +42,12 @@ exits non-zero without a result line:
    the card, an id out of range written into an error word) is held
    bitwise against its plain version at the main path's four stacks, an
    id of N must set the word and raise when it is read, and it is timed
-   through the wrapper and as a C entry;
+   through the wrapper and as a C entry; prefix_avg and weighted_avg
+   also take a quarantined cohort (two rows hold w_prev at weight 2^-100,
+   w_prev has entries below 2^-26, walks start with one or both of those
+   rows, so the walk's products are subnormal and the dense oracle's
+   prefix weights are clamped to ~7.9e-19) and must equal their plain
+   versions bit for bit (prefix_avg on the card and on the CPU);
 4. full-width Shapley: streaming GTG-Shapley of five full-width MNIST MLPs
    on the card against the port's CPU path on the same walks (atol 1e-5);
 5. reference run: a small GreedyFed run on the card against the same run
@@ -63,12 +68,22 @@ exits non-zero without a result line:
    set-up;
 9. dense oracle: `shapley_impl="batched"` on the batched engine for 4
    rounds against the streaming estimator on the same walks (atol 1e-4);
-10. serving: `serve_requests` on full-width, full-depth H2O-Danube-3-4B
+10. faults: phase 8's config with `faults=FaultSpec()` (rate 0.1, nan /
+   sign_flip / crash, scale 10) and `quarantine=True` on the loop,
+   batched and scan engines, 12 rounds: selections, quarantined counts
+   (which must be > 0), upload bytes and eval rounds equal, scan against
+   batched within 1e-6 (bitwise expected), loop against batched at 1e-4;
+   a NaN storm (rate 1, nan) on the scan for 4 rounds left at the initial
+   params bitwise, with no upload byte and all-zero SVs; the dense oracle
+   under the default faults for 4 rounds against the port's CPU run of
+   the same config (atol 1e-4); the scan's replay time a round with and
+   without hardening, in turns in the same call, held to no bound;
+11. serving: `serve_requests` on full-width, full-depth H2O-Danube-3-4B
    (bf16 activations, f32 params, random weights from a seed): B = 4
    prompts of 8192 tokens, 32 greedy decode steps against the 4096-slot
    window ring, exact Shapley over the 4 requests; prefill must launch
    flash_attention once per layer (24) and decode never;
-11. serving parity: the same model at full width, 2 layers and window
+12. serving parity: the same model at full width, 2 layers and window
    1024, f32, an S = 2048 prompt (flash prefill, S > window, S % window
    == 0), on the card against the port's CPU path with the same weights,
    decode teacher-forced with the CPU's tokens: prefill cache and logits
@@ -88,7 +103,7 @@ product as three TF32 products of split operands (hi hi + hi lo + lo hi);
 its bound counts those three at the TF32 peak, and the f32 FMA bound of the
 CUDA cores is printed beside it.
 
-Each path of phases 6-10 runs with the launch counters zeroed just before
+Each path of phases 6-11 runs with the launch counters zeroed just before
 it and read just after; every kernel must launch on its path.  A captured
 graph's launches are counted when it is captured and not when it is
 replayed, so the scan path counts its warm-up round's launches plus each
@@ -265,6 +280,8 @@ def check_prefix_avg(torch, device):
                       edge_tree(mm, dtype, widths), walks(mm, rr),
                       n.to(device)))
     cases.append(("walk slice", stacked, perms[100:150], n_k))
+    q_stacked, q_base, q_nk, q_perms = _quarantined_cohort(torch, device, gen)
+    cases.append(("quarantined", q_stacked, q_perms, q_nk))
 
     worst = 0.0
     for name, tree, p, nk in cases:
@@ -289,6 +306,31 @@ def check_prefix_avg(torch, device):
             f"{len(tree_leaves(tree))} leaves: bitwise equal; through the "
             f"wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
+
+    # the quarantined walks: the all-masked prefixes (rows 0 and 1 of walks
+    # 0-99, row 0 of walks 100-149) average 2^-100 w_prev / 2^-100, whose
+    # subnormal products move the entries below 2^-26 off w_prev: the
+    # kernel keeps them as the plain walk does, on the card and on the CPU
+    got = prefix_avg(q_stacked, q_perms[:150], q_nk)
+    kernels.LAUNCHES["prefix_avg"] -= 1
+    moved = masked_rows = 0
+    for x, y, b in zip(tree_leaves(q_stacked), tree_leaves(got),
+                       tree_leaves(q_base)):
+        want = prefix_avg_ref(x.reshape(m, -1).cpu(), q_perms[:150].cpu(),
+                              q_nk.cpu())
+        require(torch.equal(y.reshape(want.shape).cpu(), want),
+                "prefix_avg quarantined walks: card kernel != CPU plain")
+        rows = y.reshape(150, m, -1)
+        masked = torch.cat([rows[:100, :2].reshape(200, -1), rows[100:, 0]])
+        masked_rows = masked.shape[0]
+        moved += int((masked != b.reshape(1, -1)).sum())
+    require(moved > 0, "prefix_avg quarantined walks: no subnormal product "
+            "moved an all-masked prefix off w_prev")
+    log(f"[prefix_avg] quarantined walks: {masked_rows} all-masked prefix "
+        f"rows a leaf; {moved} of their entries below 2^-26 come out off "
+        f"w_prev through subnormal products, bitwise the plain walk on the "
+        f"card and on the CPU")
+    del got
 
     ms, plain_ms, b_ms, b_by = time_prefix_avg(torch, stacked, perms, n_k)
     flats = [x.reshape(m, -1) for x in tree_leaves(stacked)]
@@ -424,6 +466,32 @@ def _stacked_mlp(torch, device, gen, m, scale):
     base = {k: {n: t.to(device) for n, t in v.items()}
             for k, v in params.items()}
     return stacked, base
+
+
+def _quarantined_cohort(torch, device, gen, m=5, r=250):
+    """A main-path cohort after the quarantine screen: rows 1 and 3 are
+    quarantined, so they hold w_prev and weigh 2^-100 in the walks;
+    every fifth entry of w_prev is scaled by 2^-40, below 2^-26, so
+    2^-100 times it is subnormal.  Walks 0-49 start with rows 1 then 3,
+    walks 50-99 with 3 then 1, walks 100-149 with 1 alone.  Returns
+    (stacked, w_prev, n_k, perms)."""
+    from repro_torch.faults import TINY_WEIGHT
+    from repro_torch.tree import tree_leaves
+
+    stacked, base = _stacked_mlp(torch, device, gen, m, 0.1)
+    for s_leaf, b_leaf in zip(tree_leaves(stacked), tree_leaves(base)):
+        b_leaf.view(-1)[::5] *= 2.0 ** -40
+        s_leaf[1] = b_leaf
+        s_leaf[3] = b_leaf
+    n_k = torch.randint(20, 300, (m,), generator=gen).float()
+    n_k[[1, 3]] = TINY_WEIGHT
+    rows = []
+    for i in range(r):
+        rest = torch.randperm(m, generator=gen).tolist()
+        head = [1, 3] if i < 50 else [3, 1] if i < 100 else [1] \
+            if i < 150 else []
+        rows.append(head + [k for k in rest if k not in head])
+    return stacked, base, n_k.to(device), torch.tensor(rows).to(device)
 
 
 def check_cohort_gather(torch, device):
@@ -725,7 +793,8 @@ def check_delta_codec(torch, device):
 
 
 def check_weighted_avg(torch, device):
-    """At rtol 1e-6, atol 1e-7 against the plain f32 einsum at the dense
+    """Bitwise against the plain version (the same fma chain over the
+    clients in index order, emulated exactly) at the dense
     oracle's (1250, 5) weights x the six main-path leaves, all in one
     launch as the oracle makes it, and at edge shapes (M = 40, bf16 with
     D % 8 != 0 and 16-byte words side by side, a stack 4 bytes past a
@@ -750,13 +819,8 @@ def check_weighted_avg(torch, device):
         want = weighted_avg_ref(x.reshape(x.shape[0], -1), w.to(x.dtype)
                                 ).reshape(got.shape)
         err = float((got.float() - want.float()).abs().max())
-        if x.dtype == torch.float32:
-            require(bool(torch.allclose(got, want, rtol=1e-6, atol=1e-7)),
-                    f"weighted_avg {name}: max err {err}")
-        else:        # one bf16 rounding of f32 sums
-            require(bool(torch.allclose(got.float(), want.float(), rtol=8e-3,
-                                        atol=1e-6)),
-                    f"weighted_avg {name}: max err {err}")
+        require(torch.equal(got, want),
+                f"weighted_avg {name}: not bitwise (max err {err})")
         log(f"[weighted_avg] {name:14s} R={w.shape[0]} M={w.shape[1]} "
             f"D={x[0].numel():6d} {str(x.dtype)[6:]}: max abs err {err:.2e}")
         return err
@@ -787,6 +851,32 @@ def check_weighted_avg(torch, device):
             err = check(f"edge {k}", tree[k], out[k], w)
             if tree[k].dtype == torch.float32:
                 worst = max(worst, err)
+
+    # the dense oracle's weights under quarantine: rows 1 and 3 weigh
+    # 2^-100, so an all-masked prefix sums to ~1e-30, which the prefix
+    # weights clamp at 1e-12 (as the reference does): its weights are
+    # ~7.9e-19 and its model ~1e-18 w_prev.  Bitwise the plain version.
+    q_stacked, _, q_nk, q_perms = _quarantined_cohort(torch, device, gen)
+    q_w = prefix_weight_matrix(q_perms.cpu(), q_nk.cpu()).reshape(
+        r * m, m).to(device)
+    clamped = int((q_w.sum(-1) < 1e-6).sum())
+    got = weighted_avg(q_stacked, q_w)
+    for path, x, y in zip(tree_paths(q_stacked), tree_leaves(q_stacked),
+                          tree_leaves(got)):
+        want = weighted_avg_ref(x.reshape(m, -1), q_w).reshape(y.shape)
+        err = float((y - want).abs().max())
+        require(torch.equal(y, want),
+                f"weighted_avg quarantined {path}: not bitwise the plain "
+                f"version (max err {err})")
+    masked_prefixes = int(((q_perms == 1) | (q_perms == 3)).long().cumprod(
+        1).sum())
+    require(clamped == masked_prefixes, f"weighted_avg: {clamped} clamped "
+            f"rows, {masked_prefixes} all-masked prefixes")
+    log(f"[weighted_avg] quarantined walks: {clamped} of {r * m} weight rows "
+        f"clamped (all-masked prefixes, weights "
+        f"{float(q_w[0, 1]):.3e}); bitwise the plain version at all six "
+        f"leaves")
+    del got
 
     ms = time_ms(lambda _: weighted_avg(stacked, weights))
     flats = [x.reshape(m, -1) for x in tree_leaves(stacked)]
@@ -1124,6 +1214,156 @@ def phase_dense_oracle(torch, device):
     require(same and sv_err <= 1e-4 and p_err <= 1e-4,
             "dense oracle disagrees with the streaming estimator")
     return launches
+
+
+def _scan_run(torch, device, cfg):
+    """A scan run with the launch counters zeroed just before it and read
+    just after; its path launches are the warm-up round's (counted when
+    they launch) plus each captured graph's times its replays."""
+    from repro_torch import kernels
+    from repro_torch.federated.server import run_federated
+
+    kernels.reset_launches()
+    res = run_federated(cfg, device=device)
+    counted = dict(kernels.LAUNCHES)
+    g, n_evals = res.graph_launches, len(res.test_acc)
+    require(g is not None, "the scan captured no graph")
+    return res, {k: counted[k] - g["round"][k] - g["eval"][k]
+                 + g["round"][k] * cfg.rounds + g["eval"][k] * n_evals
+                 for k in counted}
+
+
+def phase_faults(torch, device):
+    """Fault injection and the quarantine screen at the reference's
+    defaults (phase 8's config with `faults=FaultSpec()`: rate 0.1, nan /
+    sign_flip / crash, scale 10; `quarantine=True`), 12 rounds on the
+    loop, batched and scan engines in one call: selections, quarantined
+    counts (> 0), upload bytes and eval rounds equal; scan against batched
+    within 1e-6 (bitwise expected), loop against batched at 1e-4.  A NaN
+    storm (rate 1, nan) on the scan for 4 rounds must leave the initial
+    params bitwise, with no upload byte and all-zero SVs; the dense oracle
+    under the default faults for 4 rounds must equal the port's CPU run of
+    the same config (selections, counts and bytes equal, params and SVs at
+    1e-4).  The scan's replay time a round is printed with and without
+    hardening, two runs of each in turns, and held to no bound."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.faults import FaultSpec
+    from repro_torch.federated.server import FLConfig, run_federated, setup_run
+    from repro_torch.tree import tree_leaves
+
+    base = FLConfig(rounds=12, upload_codec="quant8_topk", engine="scan")
+    clean, _ = _scan_run(torch, device, base)
+    cfg = dataclasses.replace(base, faults=FaultSpec(), quarantine=True)
+    path = []
+    loop, launches, valued = drive(torch, device, dataclasses.replace(
+        cfg, engine="loop"), "faults-loop")
+    expect_launches("faults loop", launches, {
+        "prefix_avg": valued, "ce_loss": valued, "cohort_gather": 0,
+        "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0})
+    path.append(launches)
+    batched, launches, valued = drive(torch, device, dataclasses.replace(
+        cfg, engine="batched"), "faults-batched")
+    expect_launches("faults batched", launches, {
+        "prefix_avg": valued, "ce_loss": valued,
+        "cohort_gather": cfg.rounds, "delta_codec": cfg.rounds,
+        "weighted_avg": 0, "flash_attention": 0})
+    path.append(launches)
+    scan, launches = _scan_run(torch, device, cfg)
+    expect_launches("faults scan", launches, {
+        "prefix_avg": cfg.rounds + 1, "ce_loss": cfg.rounds + 1,
+        "cohort_gather": cfg.rounds + 1, "delta_codec": cfg.rounds + 1,
+        "weighted_avg": 0, "flash_attention": 0})
+    path.append(launches)
+
+    runs = {"loop": loop, "batched": batched, "scan": scan}
+    for name, res in runs.items():
+        log(f"[faults] {name}: quarantined {res.quarantined_total}, upload "
+            f"bytes {res.upload_bytes}, final acc {res.final_acc:.4f}")
+    for name in ("loop", "scan"):
+        res = runs[name]
+        require(all((a == b).all() for a, b in zip(res.selections,
+                                                   batched.selections)),
+                f"faults: {name} and batched selections differ")
+        require(res.quarantined_total == batched.quarantined_total,
+                f"faults: {name} and batched quarantined counts differ")
+        require(res.upload_bytes == batched.upload_bytes
+                and res.download_bytes == batched.download_bytes,
+                f"faults: {name} and batched byte counts differ")
+        require([r for r, _ in res.test_acc]
+                == [r for r, _ in batched.test_acc],
+                f"faults: {name} and batched eval rounds differ")
+        require(np.isfinite(res.final_acc), f"faults: {name} accuracy")
+    require(batched.quarantined_total > 0, "faults: nothing was quarantined")
+    s_p, s_sv = (_max_err(scan.params, batched.params),
+                 float(np.abs(scan.sv_final - batched.sv_final).max()))
+    l_p, l_sv = (_max_err(loop.params, batched.params),
+                 float(np.abs(loop.sv_final - batched.sv_final).max()))
+    log(f"[faults] scan vs batched: max param err {s_p:.2e}, max SV err "
+        f"{s_sv:.2e} (bitwise {s_p == 0.0 and s_sv == 0.0}; bound 1e-6); "
+        f"loop vs batched: {l_p:.2e}, {l_sv:.2e} (atol 1e-4)")
+    require(s_p <= 1e-6 and s_sv <= 1e-6, "faults: scan and batched differ")
+    require(l_p <= 1e-4 and l_sv <= 1e-4, "faults: loop and batched differ")
+    # the replay time in turns (clean, hardened, hardened, clean): these
+    # two more runs only time, their launches are not the path's
+    scan2, _ = _scan_run(torch, device, cfg)
+    clean2, _ = _scan_run(torch, device, base)
+    turns = [1e3 * sum(r.round_time_s) / cfg.rounds
+             for r in (clean, scan, scan2, clean2)]
+    hard_ms, clean_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    log(f"[faults] scan replay a round in turns, clean / hardened / hardened "
+        f"/ clean: {' / '.join(f'{t:.3f}' for t in turns)} ms; hardened "
+        f"{hard_ms:.3f} against clean {clean_ms:.3f} ms "
+        f"({hard_ms - clean_ms:+.3f} ms, {hard_ms / clean_ms:.3f}x); capture "
+        f"{1e3 * scan.compile_time_s:.1f} ms and "
+        f"{1e3 * clean.compile_time_s:.1f} ms; graph launches a replay "
+        f"{scan.graph_launches}")
+
+    storm_cfg = dataclasses.replace(base, rounds=4, faults=FaultSpec(
+        rate=1.0, kinds=("nan",)), quarantine=True)
+    storm, launches = _scan_run(torch, device, storm_cfg)
+    path.append(launches)
+    init = setup_run(storm_cfg, device=device).params
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(storm.params),
+                                                 tree_leaves(init)))
+    log(f"[faults] NaN storm, scan, 4 rounds: quarantined "
+        f"{storm.quarantined_total}, upload bytes {storm.upload_bytes}, SV "
+        f"{float(np.abs(storm.sv_final).max())}, params the initial ones "
+        f"bitwise {same}")
+    require(same and storm.upload_bytes == 0
+            and not np.abs(storm.sv_final).any()
+            and storm.quarantined_total == 4 * cfg.m,
+            "faults: the NaN storm left the initial params")
+
+    dense_cfg = FLConfig(rounds=4, engine="batched", shapley_impl="batched",
+                         faults=FaultSpec(), quarantine=True)
+    dense, launches, valued = drive(torch, device, dense_cfg, "faults-dense")
+    expect_launches("faults dense oracle", launches, {
+        "prefix_avg": 0, "ce_loss": valued,
+        "cohort_gather": dense_cfg.rounds, "delta_codec": 0,
+        "weighted_avg": valued, "flash_attention": 0})
+    path.append(launches)
+    cpu = run_federated(dense_cfg, device="cpu")
+    same = all((a == b).all() for a, b in zip(dense.selections,
+                                              cpu.selections))
+    p_err = _max_err(dense.params, _to_device(cpu.params, device))
+    sv_err = float(np.abs(dense.sv_final - cpu.sv_final).max())
+    log(f"[faults] dense oracle, 4 rounds, card vs CPU: selections equal "
+        f"{same}; quarantined {dense.quarantined_total} vs "
+        f"{cpu.quarantined_total}; upload bytes {dense.upload_bytes} vs "
+        f"{cpu.upload_bytes}; max param err {p_err:.2e}, max SV err "
+        f"{sv_err:.2e} (atol 1e-4)")
+    require(same and dense.quarantined_total == cpu.quarantined_total
+            and dense.upload_bytes == cpu.upload_bytes
+            and p_err <= 1e-4 and sv_err <= 1e-4,
+            "faults: the dense oracle on the card differs from the CPU")
+    return {k: sum(n[k] for n in path) for k in path[0]}
+
+
+def _to_device(tree, device):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
 
 
 def band_pairs(s_len: int, t_len: int, window: int) -> int:
@@ -1505,6 +1745,7 @@ def main() -> int:
              "batched": phase_batched_path(torch, device),
              "scan": phase_scan_path(torch, device),
              "dense_oracle": phase_dense_oracle(torch, device),
+             "faults": phase_faults(torch, device),
              "serve": phase_serve(torch, device)}
     phase_serve_parity(torch, device)
     for e in entries:

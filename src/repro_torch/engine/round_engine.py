@@ -14,8 +14,11 @@ cohort at once, in the reference's order:
 
 The reference's round key becomes the round's draws (minibatch rows, noise
 leaves, walks), made by `RunDraws.round` before the round, so every engine
-makes the same run.  The hardened round (faults, quarantine) comes with the
-faults slice of the port.
+makes the same run.  The hardened round (`spec.faults`, `spec.quarantine`)
+runs `harden_cohort` after the codec on the cohort's (M,) fault codes,
+walks the Shapley stage with the masked weights `n_k_sv`, zeroes the SVs
+of quarantined rows and aggregates with `masked_average`; it is tensor
+code throughout, so the captured round holds it too.
 
 engine="scan" (`engine/scan_engine.py`) runs the same round with the
 selection and the valuation update around it (`_make_scan_body`), on
@@ -52,6 +55,7 @@ from repro_torch.core.shapley_batched import (
     make_batched_mlp_utility, shapley_stage,
 )
 from repro_torch.engine.batch_client import cohort_update
+from repro_torch.faults import harden_cohort, masked_average
 from repro_torch.federated.client import ClientConfig, local_loss
 from repro_torch.federated.compression import codec_nbytes
 from repro_torch.federated.draws import (
@@ -73,8 +77,11 @@ class RoundSpec(NamedTuple):
     shapley_max_iters: int = 250
     sv_chunk: int = 0
     upload_codec: str = "identity"
+    # fault injection (a FaultSpec) and the quarantine screen: both static;
+    # off, the round holds no hardening op at all
     faults: Optional[Any] = None
     quarantine: bool = False
+    quarantine_z: float = 8.0
 
 
 class RoundOutput(NamedTuple):
@@ -82,8 +89,8 @@ class RoundOutput(NamedTuple):
     sv: torch.Tensor           # (M,) this round's GTG-SV (zeros if unused)
     utility_evals: Any         # int, or () int32 tensor in a captured round
     sv_truncated: Any          # bool, or () bool tensor: truncation fired
-    ok: torch.Tensor           # (M,) bool: every row survives (no faults)
-    quarantined: Any           # quarantined cohort rows (0 without faults)
+    ok: torch.Tensor           # (M,) bool: survived the faults and screen
+    quarantined: Any           # () int32 quarantined rows (0 unhardened)
     shapley_time_s: float = 0.0   # the port's own: synchronised SV seconds
 
 
@@ -94,12 +101,15 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
     """Build the round function:
 
         (params, xs_all, ys_all, nv_all, sigma_all, x_val, y_val, sel,
-         epochs_k, idx, noise, walks, *, error=None) -> RoundOutput
+         epochs_k, idx, noise, walks, fault_codes=None, *, error=None)
+        -> RoundOutput
 
     idx (M, E*B, batch) and noise (leaves (M, *shape)) are the cohort's
     draws; `walks` is the (R, M) walk tensor of the streaming and dense
-    estimators, or the serial estimator's batch callable.  The host
-    engines pass sel and epochs_k as host ints.
+    estimators, or the serial estimator's batch callable; `fault_codes`
+    the cohort's (M,) fault codes on the device (read only by a hardened
+    round; None reads as no fault).  The host engines pass sel and
+    epochs_k as host ints.
 
     `capturable=True` builds the round a CUDA graph can hold: sel and
     epochs_k are device tensors, the local training runs the static
@@ -111,11 +121,9 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
     if spec.shapley_impl not in SHAPLEY_IMPLS:
         raise ValueError(f"unknown shapley_impl {spec.shapley_impl!r}; "
                          f"options: {SHAPLEY_IMPLS}")
-    if spec.faults is not None or spec.quarantine:
-        raise NotImplementedError(
-            "the hardened round (faults, quarantine) is not ported yet: it "
-            "comes with the faults/quarantine slice of the PyTorch port "
-            "(see ROADMAP.md)")
+    if spec.faults is not None:
+        spec.faults.validate()
+    hardened = spec.faults is not None or spec.quarantine
     if capturable and spec.shapley_impl == "serial":
         raise NotImplementedError(
             "shapley_impl='serial' under engine='scan' is not ported yet: "
@@ -146,7 +154,7 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
         return sv, stats, 0.0
 
     def round_step(params, xs_all, ys_all, nv_all, sigma_all, x_val, y_val,
-                   sel, epochs_k, idx, noise, walks, *,
+                   sel, epochs_k, idx, noise, walks, fault_codes=None, *,
                    error=None) -> RoundOutput:
         stacked, n_k_sel = cohort_update(
             model, ccfg, params, xs_all, ys_all, nv_all, sigma_all, sel,
@@ -157,16 +165,34 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
 
         m = sel.shape[0]
         device = n_k_sel.device
+        n_k_sv = n_k_sel
+        if hardened:
+            # inject the coded faults into the decoded cohort, screen it,
+            # and mask the failures out of everything downstream
+            if fault_codes is None:
+                fault_codes = torch.zeros((m,), dtype=torch.int64,
+                                          device=device)
+            h = harden_cohort(stacked, params, n_k_sel, fault_codes,
+                              faults=spec.faults, quarantine=spec.quarantine,
+                              z=spec.quarantine_z)
+            stacked, n_k_sv = h.stacked, h.n_k_sv
         sv = torch.zeros((m,), device=device)
         evals, truncated, sv_s = 0, False, 0.0
         if capturable:
             evals = torch.zeros((), dtype=torch.int32, device=device)
             truncated = torch.zeros((), dtype=torch.bool, device=device)
         if spec.needs_sv:
-            sv, stats, sv_s = shapley(stacked, n_k_sel, params, x_val,
+            sv, stats, sv_s = shapley(stacked, n_k_sv, params, x_val,
                                       y_val, walks)
             evals, truncated = stats.utility_evals, stats.truncated_round
+            if hardened:
+                # quarantined rows walked as w_prev at 2^-100: no credit
+                sv = torch.where(h.ok, sv, 0.0)
 
+        if hardened:
+            return RoundOutput(
+                masked_average(stacked, h.n_k_agg, h.ok, params), sv, evals,
+                truncated, h.ok, h.quarantined, sv_s)
         with torch.no_grad():
             new_params = weighted_average(stacked,
                                           normalized_weights(n_k_sel))
@@ -220,9 +246,11 @@ class RoundEngine:
         self._nv_host = nv_all.cpu().numpy()
 
     def step(self, params: Params, sel, epochs_k, t: int,
-             rd: Optional[RoundDraws] = None) -> RoundOutput:
+             rd: Optional[RoundDraws] = None,
+             fault_codes=None) -> RoundOutput:
         """Execute one full communication round as one call.  `rd` holds
-        round t's draws, on the run's device."""
+        round t's draws, on the run's device; `fault_codes` the cohort's
+        (M,) host fault codes (None: no fault)."""
         sel = np.asarray(sel, np.int64)
         m = len(sel)
         nv_all = self._operands[2]
@@ -237,8 +265,10 @@ class RoundEngine:
         if spec.needs_sv:
             walks = (self.draws.perm_batches(t, m)
                      if spec.shapley_impl == "serial" else rd.walks)
+        codes = (None if fault_codes is None else torch.as_tensor(
+            np.asarray(fault_codes, np.int64), device=nv_all.device))
         return self._step(params, *self._operands, sel,
-                          np.asarray(epochs_k), idx, rd.noise, walks)
+                          np.asarray(epochs_k), idx, rd.noise, walks, codes)
 
     def upload_nbytes_per_client(self, params: Params) -> int:
         """Wire bytes of one client upload under this spec's codec."""
@@ -280,7 +310,7 @@ class ScanOperands(NamedTuple):
     y_test: torch.Tensor
     fractions: torch.Tensor     # (N,) float32
     epochs_table: torch.Tensor  # (T, N) int64 local-epoch budgets
-    fault_table: torch.Tensor   # (T, N) int64 fault codes (zeros)
+    fault_table: torch.Tensor   # (T, N) int64 fault codes, range-checked
     d_sched: torch.Tensor       # (T,) int64 Power-of-Choice candidates
     eval_table: np.ndarray      # (T,) bool, host
     strategy_id: torch.Tensor   # () int64 index into spec.selectors
@@ -343,7 +373,7 @@ def _make_scan_body(model: ClassifierModel, ccfg: ClientConfig,
     def bind(ops: ScanOperands):
         def body(carry: SegmentCarry, per_round, error):
             params, sstate, eval_slot = carry
-            epochs_row, d_t, rd = per_round
+            epochs_row, fault_row, d_t, rd = per_round
             if uses_losses:   # Power-of-Choice ranks clients by w^t loss
                 losses = local_loss(model, params, ops.xs_all, ops.ys_all,
                                     ops.nv_all)
@@ -354,12 +384,14 @@ def _make_scan_body(model: ClassifierModel, ccfg: ClientConfig,
             sel, sstate = device_select_any(spec.selectors, ops.strategy_id,
                                             sstate, ctx, rd.selection)
             epochs_k = epochs_row.index_select(0, sel)
+            codes_k = fault_row.index_select(0, sel)
             # active mask at select time: dropout strategies freeze it here
             active_sel = sstate.active.index_select(0, sel)
             idx = minibatch_rows(rd.rows, sel, ops.nv_all)
             out = round_step(params, ops.xs_all, ops.ys_all, ops.nv_all,
                              ops.sigma_all, ops.x_val, ops.y_val, sel,
-                             epochs_k, idx, rd.noise, rd.walks, error=error)
+                             epochs_k, idx, rd.noise, rd.walks, codes_k,
+                             error=error)
             # the granted cohort: active under the strategy's mask and not
             # refused by a fault screen (`ok` is all true without faults)
             granted = torch.sum(active_sel & out.ok)
@@ -489,6 +521,7 @@ class SegmentStep:
         t = carry.sel_state.round.reshape(1)
         k = t - self.t0
         per_round = (ops.epochs_table.index_select(0, t)[0],
+                     ops.fault_table.index_select(0, t)[0],
                      ops.d_sched.index_select(0, t)[0],
                      round_at(self.staged, k))
         new, ys = self.body(carry, per_round, self.error)

@@ -26,8 +26,11 @@ capture (warm-up included) is `compile_time_s`, the host's draw staging
 Parity: on one device the scan makes the batched engine's run bit for
 bit (same draws, same ops; a finished straggler keeps its params through a
 device select, and a truncated round computes its walk and zeroes it).
-Faults, quarantine, client sharding, telemetry and the serial Shapley
-estimator raise `NotImplementedError`, each naming its slice.
+Faults and the quarantine screen run inside the captured round (the
+cohort's codes gathered from a device copy of the fault table by the
+round counter); the quarantined counts come back with the segment's other
+outputs.  Client sharding, telemetry and the serial Shapley estimator
+raise `NotImplementedError`, each naming its slice.
 """
 from __future__ import annotations
 
@@ -45,6 +48,7 @@ from repro_torch.engine.schedule import (
     VirtualClock, deadline_epochs_table, eval_mask, round_duration_s,
     straggler_epochs_table,
 )
+from repro_torch.faults.spec import CODE_CRASH, CODE_NONE
 from repro_torch.federated.compression import codec_nbytes
 from repro_torch.federated.draws import stack_rounds
 from repro_torch.kernels.ce_loss.ops import check_labels
@@ -68,16 +72,24 @@ def build_epochs_table(cfg, s) -> np.ndarray:
 
 
 def build_fault_table(cfg, s) -> np.ndarray:
-    """(T, N) int32 fault codes: zeros (faults raise until their slice)."""
+    """(T, N) int32 fault codes for a scan run: the table `setup_run` drew
+    (shared with the other engines), zeros when faults are off."""
+    if s.fault_table is not None:
+        return np.asarray(s.fault_table, np.int32)
     return np.zeros((cfg.rounds, cfg.n_clients), np.int32)
 
 
 def scan_operands(cfg, s) -> ScanOperands:
-    """A solo run's operands on its device.  The validation labels are
-    range-checked here, once, so the captured ce_loss reads nothing
-    back."""
+    """A solo run's operands on its device.  The validation labels and the
+    fault codes are range-checked here, once, so the captured round reads
+    nothing back for them."""
     device = s.n_valid.device
     table = build_epochs_table(cfg, s)
+    faults = build_fault_table(cfg, s)
+    if faults.size and (faults.min() < CODE_NONE or faults.max() > CODE_CRASH):
+        raise ValueError(f"fault codes must lie in [{CODE_NONE}, "
+                         f"{CODE_CRASH}], got [{faults.min()}, "
+                         f"{faults.max()}]")
 
     def dev(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -91,7 +103,7 @@ def scan_operands(cfg, s) -> ScanOperands:
         x_val=s.x_val, y_val=s.y_val, x_test=s.x_test, y_test=s.y_test,
         fractions=dev(s.fractions, torch.float32),
         epochs_table=dev(table, torch.int64),
-        fault_table=dev(build_fault_table(cfg, s), torch.int64),
+        fault_table=dev(faults, torch.int64),
         d_sched=dev(poc_d_schedule(s.sel_spec, cfg.rounds), torch.int64),
         eval_table=eval_mask(cfg.rounds, cfg.eval_every),
         strategy_id=torch.zeros((), dtype=torch.int64, device=device),
@@ -107,7 +119,8 @@ def make_scan_spec(cfg, selector_specs: tuple, *,
                       shapley_eps=cfg.shapley_eps,
                       shapley_max_iters=cfg.shapley_max_iters or 50 * cfg.m,
                       sv_chunk=cfg.sv_chunk, upload_codec=cfg.upload_codec,
-                      faults=cfg.faults, quarantine=cfg.quarantine)
+                      faults=cfg.faults, quarantine=cfg.quarantine,
+                      quarantine_z=cfg.quarantine_z)
     return ScanSpec(round=rspec, selectors=tuple(selector_specs),
                     rounds=cfg.rounds, rounds_per_segment=rounds_per_segment)
 

@@ -16,7 +16,10 @@ The numpy set-up (`setup_run`) consumes the run's rng in the reference's
 order, so a seed gives the same data, partition, stragglers and noise
 levels.  Random draws of the rounds come from a `RunDraws`
 (`federated/draws.py`), round t's all at once before the round, so the
-three engines make the same run.  Parts of the reference that later
+three engines make the same run.  Faults (`FLConfig.faults`, a
+`FaultSpec`) are pre-drawn into a (T, N) code table in `setup_run`; with
+them or `quarantine=True` every engine hardens its cohort after the codec
+(`repro_torch.faults.harden_cohort`).  Parts of the reference that later
 slices of the port bring raise `NotImplementedError` naming that slice.
 """
 from __future__ import annotations
@@ -47,6 +50,9 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.engine.schedule import (
     ScheduleConfig, VirtualClock, deadline_epochs, eval_mask,
     make_client_clock, round_duration_s, straggler_epochs_table,
+)
+from repro_torch.faults import (
+    FaultSpec, draw_fault_table, harden_cohort, masked_average,
 )
 from repro_torch.federated.client import ClientConfig, client_update, local_loss
 from repro_torch.federated.compression import compress_update
@@ -87,7 +93,8 @@ class FLConfig:
     sv_averaging: str = "mean"   # "mean" | "exponential"
     sv_alpha: float = 0.5
     upload_codec: str = "identity"
-    faults: Optional[Any] = None
+    # fault injection (a FaultSpec) and the in-round quarantine screen
+    faults: Optional[FaultSpec] = None
     quarantine: bool = False
     quarantine_z: float = 8.0
     # bookkeeping
@@ -147,9 +154,10 @@ def check_config(cfg: FLConfig) -> None:
         raise _not_in_slice("shapley_impl='serial' under engine='scan'",
                             "a later scan slice")
     if cfg.faults is not None:
-        raise _not_in_slice("faults", "the faults/quarantine slice")
-    if cfg.quarantine:
-        raise _not_in_slice("quarantine", "the faults/quarantine slice")
+        if getattr(cfg.faults, "_fields", None) != FaultSpec._fields:
+            raise ValueError(f"faults must be a FaultSpec, got "
+                             f"{type(cfg.faults).__name__}")
+        cfg.faults.validate()
     if cfg.clients_shards > 1:
         raise _not_in_slice("clients_shards > 1", "the client-sharding slice")
 
@@ -177,6 +185,7 @@ class RunSetup(NamedTuple):
     model_bytes: int
     clock: Any                # engine.schedule.ClientClock | None
     epochs_table: Any = None  # (T, N) pre-drawn straggler budgets
+    fault_table: Any = None   # (T, N) int32 pre-drawn fault codes
 
 
 def setup_run(cfg: FLConfig, data: Optional[SynthDataset] = None,
@@ -245,6 +254,12 @@ def setup_run(cfg: FLConfig, data: Optional[SynthDataset] = None,
         extra = rng.uniform(0.0, cfg.noise_level, cfg.n_clients)
         sigma_k_all = np.sqrt(sigma_k_all.astype(np.float64) ** 2
                               + extra ** 2).astype(np.float32)
+    # ---- faults: the (T, N) code table, after every other draw of rng,
+    # and only when faults are on, so fault-free runs keep their stream
+    fault_table = None
+    if cfg.faults is not None:
+        fault_table = draw_fault_table(cfg.faults, cfg.rounds,
+                                       cfg.n_clients, rng)
 
     def dev(a, dtype=None):
         return torch.as_tensor(a, dtype=dtype, device=device)
@@ -257,6 +272,7 @@ def setup_run(cfg: FLConfig, data: Optional[SynthDataset] = None,
         x_val=dev(data.x_val), y_val=dev(data.y_val, torch.int64),
         x_test=dev(data.x_test), y_test=dev(data.y_test, torch.int64),
         model_bytes=model_bytes, clock=clock, epochs_table=epochs_table,
+        fault_table=fault_table,
     )
 
 
@@ -282,7 +298,8 @@ def _round_spec(cfg: FLConfig, needs_sv: bool, max_iters: int):
     return RoundSpec(needs_sv=needs_sv, shapley_impl=cfg.shapley_impl,
                      shapley_eps=cfg.shapley_eps, shapley_max_iters=max_iters,
                      sv_chunk=cfg.sv_chunk, upload_codec=cfg.upload_codec,
-                     faults=cfg.faults, quarantine=cfg.quarantine)
+                     faults=cfg.faults, quarantine=cfg.quarantine,
+                     quarantine_z=cfg.quarantine_z)
 
 
 def _make_round_engine(cfg: FLConfig, s: RunSetup, needs_sv: bool,
@@ -332,6 +349,15 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
     d_sched = poc_d_schedule(spec, cfg.rounds)
     emask = eval_mask(cfg.rounds, cfg.eval_every)
 
+    # hardening: the loop engine calls the batched round's own
+    # `harden_cohort`, so all engines quarantine the same clients
+    hardened = cfg.faults is not None or cfg.quarantine
+
+    def round_codes(sel, t):
+        if s.fault_table is not None:
+            return s.fault_table[t][np.asarray(sel)]
+        return np.zeros(len(sel), np.int32)
+
     engine = None
     codec_bytes = s.model_bytes
     if cfg.engine == "batched":
@@ -346,6 +372,7 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
     test_acc, val_loss_hist, selections = [], [], []
     round_times, shapley_times = [], []
     total_evals = upload_bytes = download_bytes = dispatches = 0
+    quarantined_total = 0
     vclock = VirtualClock() if s.clock is not None else None
 
     for t in range(cfg.rounds):
@@ -369,13 +396,21 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
         sv_round = None
         if engine is not None:
             # ---- fused round: ONE call for train+codec+SV+average --------
-            out = engine.step(params, sel, epochs_k, t, rd)
+            out = engine.step(params, sel, epochs_k, t, rd,
+                              fault_codes=(round_codes(sel, t) if hardened
+                                           else None))
             params = out.params
             if needs_sv:
                 sv_round = out.sv
                 total_evals += out.utility_evals
             shapley_times.append(out.shapley_time_s)
-            upload_bytes += codec_bytes * len(sel)
+            if hardened:
+                # only survivors are charged: a quarantined upload never
+                # reaches the server (crash) or is dropped on arrival
+                quarantined_total += int(out.quarantined)
+                upload_bytes += codec_bytes * int(out.ok.sum())
+            else:
+                upload_bytes += codec_bytes * len(sel)
             dispatches += 1
         else:
             # ---- ClientUpdate at each selected client --------------------
@@ -398,6 +433,23 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
             stacked = tree_stack(updates)
             n_k_sel = s.n_k_all[sel_t]
 
+            # ---- hardening: inject, screen, mask --------------------------
+            h = None
+            n_k_sv = n_k_sel
+            round_upload = int(sum(nbytes_list))
+            if hardened:
+                codes = torch.as_tensor(round_codes(sel, t), device=device)
+                h = harden_cohort(stacked, params, n_k_sel, codes,
+                                  faults=cfg.faults,
+                                  quarantine=cfg.quarantine,
+                                  z=cfg.quarantine_z)
+                stacked, n_k_sv = h.stacked, h.n_k_sv
+                ok = h.ok.cpu().numpy()
+                quarantined_total += int(h.quarantined)
+                round_upload = int(sum(nb for nb, good in zip(nbytes_list, ok)
+                                       if good))
+                dispatches += 1
+
             # ---- GTG-Shapley at the PS ------------------------------------
             # the walks are drawn before the stage's timer, as the batched
             # engine draws them before its round step
@@ -405,21 +457,27 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
                 walks = (draws.perm_batches(t, cfg.m)
                          if cfg.shapley_impl == "serial" else rd.walks)
                 sv_round, stats, sv_s = shapley_stage(
-                    cfg.shapley_impl, stacked, n_k_sel, params, utility_fn,
+                    cfg.shapley_impl, stacked, n_k_sv, params, utility_fn,
                     batched_utility_fn, walks, eps=cfg.shapley_eps,
                     max_iters=max_iters, sv_chunk=cfg.sv_chunk)
                 shapley_times.append(sv_s)
                 total_evals += stats.utility_evals
                 dispatches += 1
+                if h is not None:
+                    # quarantined rows walked as w_prev at 2^-100: no credit
+                    sv_round = torch.where(h.ok, sv_round, 0.0)
             else:
                 shapley_times.append(0.0)
 
             # ---- ModelAverage (Alg. 1 line 9) ----------------------------
-            with torch.no_grad():
-                params = weighted_average(stacked,
-                                          normalized_weights(n_k_sel))
+            if h is not None:
+                params = masked_average(stacked, h.n_k_agg, h.ok, params)
+            else:
+                with torch.no_grad():
+                    params = weighted_average(stacked,
+                                              normalized_weights(n_k_sel))
             dispatches += 1
-            upload_bytes += int(sum(nbytes_list))
+            upload_bytes += round_upload
         download_bytes += s.model_bytes * len(sel)  # w^t broadcast
         if vclock is not None:
             vclock.advance(round_duration_s(s.clock, cfg.schedule, sel,
@@ -454,6 +512,7 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
         dispatches=dispatches,
         compile_time_s=0.0,
         execute_time_s=wall,
+        quarantined_total=quarantined_total,
         round_time_s=tuple(round_times),
         shapley_time_s=tuple(shapley_times),
     )

@@ -44,6 +44,7 @@ from repro_torch.engine import (
     RoundEngine, RoundSpec, batched_client_update, cohort_update,
     make_round_step,
 )
+from repro_torch.faults import FaultSpec
 from repro_torch.federated.client import ClientConfig, client_update
 from repro_torch.federated.compression import codec_nbytes
 from repro_torch.federated.server import FLConfig, run_federated, setup_run
@@ -203,6 +204,53 @@ def test_weighted_avg_plain_matches_reference(d):
         weighted_avg_ref(torch.from_numpy(stacked),
                          torch.from_numpy(weights)).numpy(),
         np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+def _exact_fma(a, b, c) -> np.ndarray:
+    """float32 round(a * b + c) with rationals, ties to even."""
+    from fractions import Fraction
+    out = np.empty(a.shape, np.float32)
+    for i in range(a.size):
+        x = (Fraction(float(a.flat[i])) * Fraction(float(b.flat[i]))
+             + Fraction(float(c.flat[i])))
+        f = np.float32(float(x))
+        near = [np.nextafter(f, np.float32(-np.inf)), f,
+                np.nextafter(f, np.float32(np.inf))]
+        out.flat[i] = min(near, key=lambda y: (abs(Fraction(float(y)) - x),
+                                               int(y.view(np.int32)) & 1))
+    return out
+
+
+@pytest.mark.parametrize("case", ["normal", "ties", "subnormal", "clamped"])
+def test_weighted_avg_plain_fma_is_exact(case):
+    """The plain version's float32 fma, emulated in float64, rounds once:
+    checked against rationals, on ties a float64 sum would round wrongly
+    (c = 2^20 + 2^-3, a * b = 2^-4 - 2^-50 sums to the float64 midpoint
+    2^20 + 2^-4 + 2^-3 and must round down to c), subnormal products
+    (2^-100 times entries below 2^-26) and the dense oracle's clamped
+    ~7.9e-19 weights."""
+    from repro_torch.kernels.weighted_avg.ref import fma_f32
+    rng = np.random.default_rng(1)
+    n = 400
+    if case == "normal":
+        a, b, c = (rng.standard_normal(n) for _ in range(3))
+    elif case == "ties":
+        a = np.full(n, 1 + 2.0 ** -23)
+        b = 2.0 ** -4 * (1 + rng.choice([-1, 1], n) * 2.0 ** -23)
+        c = 2.0 ** 20 + rng.integers(0, 64, n) * 2.0 ** -3
+    elif case == "subnormal":
+        a = np.full(n, 2.0 ** -100)
+        b = rng.standard_normal(n) * 2.0 ** -40
+        c = rng.standard_normal(n) * 2.0 ** -140
+    else:
+        a = np.full(n, 2.0 ** -100 / 1e-12)
+        b = rng.standard_normal(n)
+        c = rng.standard_normal(n) * 1e-18
+    a, b, c = (np.asarray(v, np.float32) for v in (a, b, c))
+    got = fma_f32(torch.from_numpy(a), torch.from_numpy(b),
+                  torch.from_numpy(c)).numpy()
+    np.testing.assert_array_equal(got.view(np.int32),
+                                  _exact_fma(a, b, c).view(np.int32))
 
 
 def test_weighted_avg_plain_bf16_and_tree_shapes_match_reference():
@@ -500,9 +548,11 @@ def test_batched_engine_matches_loop_engine(over):
 def test_round_engine_spec_and_byte_ledger():
     model = make_mlp(784, (16,), 10)
     ccfg = ClientConfig(**CLIENT)
-    for bad in ({"faults": object()}, {"quarantine": True}):
-        with pytest.raises(NotImplementedError, match="faults"):
-            make_round_step(model, ccfg, RoundSpec(**bad))
+    # the hardened round builds since the faults slice; a bad FaultSpec
+    # is refused where the round is made
+    with pytest.raises(ValueError, match="rate"):
+        make_round_step(model, ccfg, RoundSpec(faults=FaultSpec(rate=2.0)))
+    assert callable(make_round_step(model, ccfg, RoundSpec(quarantine=True)))
     with pytest.raises(ValueError, match="shapley_impl"):
         make_round_step(model, ccfg, RoundSpec(shapley_impl="magic"))
     cfg = FLConfig(client=ccfg, engine="batched", upload_codec="quant8_topk",

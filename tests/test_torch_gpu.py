@@ -12,7 +12,7 @@ relative plus 1e-6 * max|logit| absolute, since logsumexp - gold cancels
 on rows the gold logit dominates; cohort_gather and delta_codec bitwise
 (a raw copy; the same IEEE division, rounding and keep set; a NaN that
 delta_codec makes is held as a NaN, whatever its payload); weighted_avg
-at rtol 1e-6, atol 1e-7 (f32 sums of M products in another order);
+bitwise (its plain version is the kernel's fma chain, emulated exactly);
 flash_attention at 2e-5 in float32 (split-TF32 products: ~2^-22 of each
 product, and f32 sums in another order) and 3e-2
 in bf16 (one bf16 rounding of outputs of magnitude ~1, the reference
@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.faults import FaultSpec
 from repro_torch.kernels.ce_loss.kernel import ce_loss_cuda
 from repro_torch.kernels.ce_loss.ops import ce_loss
 from repro_torch.kernels.ce_loss.ref import ce_loss_ref
@@ -695,19 +696,12 @@ def test_weighted_avg_kernel_matches_plain(cuda, r, m, d, dtype):
     assert kernels.LAUNCHES["weighted_avg"] == before + 1
     want = weighted_avg_ref(stacked, weights.to(dtype))
     assert got.dtype == dtype and got.shape == (r, d)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
-    else:   # one bf16 rounding of f32 sums that may differ in the last bit
-        torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
-                                   atol=1e-6)
+    _assert_wavg_close(got, want)
 
 
 def _assert_wavg_close(got, want):
-    if got.dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-7)
-    else:   # one bf16 rounding of f32 sums that may differ in the last bit
-        torch.testing.assert_close(got.float(), want.float(), rtol=8e-3,
-                                   atol=1e-6)
+    # the plain version is the kernel's fma chain, emulated exactly
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("r,m,widths,dtype", [
@@ -1243,3 +1237,105 @@ def test_scan_graph_holds_the_kernels_and_no_sync(cuda, impl):
     finally:
         torch.cuda.set_sync_debug_mode(0)
 
+
+# ------------------------------------------------- faults and quarantine ---
+@pytest.mark.parametrize("over", [
+    {"upload_codec": "quant8_topk"}, {"shapley_impl": "batched"},
+    {"faults": FaultSpec(rate=1.0, kinds=("nan",))}])
+def test_hardened_scan_on_the_card_is_bitwise_the_batched_engine(cuda,
+                                                                  over):
+    """Faults and the quarantine screen inside the captured round: equal
+    selections, quarantined counts and bytes, params and SVs bitwise
+    against the batched engine on the card."""
+    import dataclasses
+    from repro_torch.federated.server import run_federated
+    from repro_torch.tree import tree_leaves
+    cfg = _scan_cfg(**({"faults": FaultSpec(rate=0.4), "quarantine": True}
+                       | over))
+    batched = run_federated(dataclasses.replace(cfg, engine="batched"),
+                            device=cuda)
+    scan = run_federated(dataclasses.replace(cfg, engine="scan"),
+                         device=cuda)
+    assert scan.graph_launches is not None      # it was captured
+    for a, b in zip(scan.selections, batched.selections):
+        np.testing.assert_array_equal(a, b)
+    assert scan.quarantined_total == batched.quarantined_total > 0
+    assert scan.upload_bytes == batched.upload_bytes
+    assert scan.test_acc == batched.test_acc
+    np.testing.assert_array_equal(scan.sv_final, batched.sv_final)
+    for a, b in zip(tree_leaves(scan.params), tree_leaves(batched.params)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("codes", [[0, 1, 3, 5, 0], [1, 1, 1, 1, 1],
+                                   [0, 0, 0, 0, 3], [1, 0, 0, 0, 0]])
+def test_screen_cohort_on_the_card_equals_the_cpu(cuda, codes):
+    """The screen on the card: the same masks and counts as the CPU, the
+    norms and cutoff at 1e-6 relative (f32 sums in another order)."""
+    from repro_torch.faults import harden_cohort
+    from repro_torch.faults.quarantine import screen_stats
+    from repro_torch.tree import tree_leaves, tree_map
+    gen = torch.Generator().manual_seed(11)
+    params = {"w": torch.randn((784, 200), generator=gen),
+              "b": torch.randn((200,), generator=gen)}
+    stacked = tree_map(lambda p: p[None] + 0.05 * torch.randn(
+        (5,) + tuple(p.shape), generator=gen), params)
+    n_k = torch.tensor([40.0, 90.0, 120.0, 35.0, 260.0])
+    spec = FaultSpec(kinds=("nan", "sign_flip", "crash"))
+    to = (lambda t: t.to(cuda))
+    want = harden_cohort(stacked, params, n_k, torch.tensor(codes),
+                         faults=spec, quarantine=True, z=8.0)
+    got = harden_cohort(tree_map(to, stacked), tree_map(to, params),
+                        n_k.to(cuda), torch.tensor(codes, device=cuda),
+                        faults=spec, quarantine=True, z=8.0)
+    assert torch.equal(got.ok.cpu(), want.ok)
+    assert int(got.quarantined) == int(want.quarantined)
+    assert torch.equal(got.n_k_sv.cpu(), want.n_k_sv)
+    for a, b in zip(tree_leaves(got.stacked), tree_leaves(want.stacked)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0,
+                                   equal_nan=True)
+    parts = [screen_stats(h.stacked, p, z=8.0) for h, p in
+             ((got, tree_map(to, params)), (want, params))]
+    for a, b in zip(parts[0], parts[1]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-6, atol=0,
+                                   equal_nan=True)
+
+
+def _quarantined_walks(cuda, m=5, r=60):
+    """A cohort after the screen: rows 1 and 3 hold w_prev at weight
+    2^-100, w_prev has entries below 2^-26, and walks start with one or
+    both quarantined rows."""
+    gen = torch.Generator().manual_seed(21)
+    base = torch.randn((20000,), generator=gen) * 0.05
+    base[::5] *= 2.0 ** -40
+    stacked = base[None] + 0.05 * torch.randn((m, 20000), generator=gen)
+    stacked[1] = stacked[3] = base
+    n_k = torch.randint(20, 300, (m,), generator=gen).float()
+    n_k[[1, 3]] = 2.0 ** -100
+    heads = [[1, 3], [3, 1], [1], []]
+    rows = []
+    for i in range(r):
+        head = heads[i % 4]
+        rest = [k for k in torch.randperm(m, generator=gen).tolist()
+                if k not in head]
+        rows.append(head + rest)
+    return stacked.to(cuda), n_k.to(cuda), torch.tensor(rows).to(cuda)
+
+
+def test_prefix_avg_and_weighted_avg_bitwise_on_quarantined_walks(cuda):
+    """Subnormal walk products and the dense oracle's clamped weights:
+    both kernels equal their plain versions bit for bit, on the card and
+    on the CPU."""
+    from repro_torch.core.shapley_batched import prefix_weight_matrix
+    stacked, n_k, perms = _quarantined_walks(cuda)
+    got = prefix_avg({"w": stacked}, perms, n_k)["w"]
+    assert torch.equal(got, prefix_avg_ref(stacked, perms, n_k))
+    assert torch.equal(got.cpu(), prefix_avg_ref(stacked.cpu(), perms.cpu(),
+                                                 n_k.cpu()))
+    weights = prefix_weight_matrix(perms.cpu(), n_k.cpu()).reshape(
+        -1, stacked.shape[0]).to(cuda)
+    assert int((weights.sum(-1) < 1e-6).sum()) > 0     # clamped prefixes
+    got = weighted_avg({"w": stacked}, weights)["w"]
+    assert torch.equal(got, weighted_avg_ref(stacked, weights))
+    assert torch.equal(got.cpu(), weighted_avg_ref(stacked.cpu(),
+                                                   weights.cpu()))

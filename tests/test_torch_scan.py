@@ -41,6 +41,7 @@ from repro_torch.engine import (
 )
 from repro_torch.engine.round_engine import round_plan
 from repro_torch.engine.schedule import ScheduleConfig
+from repro_torch.faults import FaultSpec
 from repro_torch.federated.client import ClientConfig
 from repro_torch.federated.draws import (
     minibatch_rows, stack_rounds,
@@ -350,7 +351,9 @@ def _raise(*args, **kwargs):
 @pytest.mark.parametrize("over", [
     {"upload_codec": "quant8_topk"}, {"selector": "power_of_choice"},
     {"selector": "greedyfed_dropout", "rounds": 5, "shapley_impl": "batched"},
-    {"selector": "ucb", "straggler_frac": 0.5}])
+    {"selector": "ucb", "straggler_frac": 0.5},
+    {"upload_codec": "quant8_topk", "quarantine": True,
+     "faults": FaultSpec(rate=0.4, kinds=("nan", "sign_flip", "crash"))}])
 def test_scan_body_reads_nothing_back(over, monkeypatch):
     """The replays (round bodies and evals) run with Tensor.item, .tolist,
     .cpu, .numpy, float(), int() and bool() of a tensor all raising, and
@@ -396,10 +399,15 @@ def test_scan_spec_and_later_slices():
         make_segment_step(s.model, cfg.client,
                           make_scan_spec(cfg, (s.sel_spec,))._replace(
                               live_tap=True), scan_operands(cfg, s))
-    for over in ({"shapley_impl": "serial"}, {"faults": object()},
-                 {"quarantine": True}, {"clients_shards": 2}):
+    for over in ({"shapley_impl": "serial"}, {"clients_shards": 2}):
         with pytest.raises(NotImplementedError, match="slice"):
             run_federated(_cfg(engine="scan", **over), device="cpu")
+    # faults and the screen run under the scan since the faults slice
+    with pytest.raises(ValueError, match="kinds"):
+        run_federated(_cfg(engine="scan", faults=FaultSpec(kinds=())),
+                      device="cpu")
+    res = run_federated(_cfg(engine="scan", quarantine=True), device="cpu")
+    assert len(res.selections) == SLICE["rounds"]
     bad = s._replace(y_val=s.y_val.clone().fill_(10))
     with pytest.raises(ValueError, match="labels"):
         scan_operands(cfg, bad)

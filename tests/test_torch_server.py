@@ -25,6 +25,7 @@ from repro.federated.server import run_federated as jax_run_federated
 from repro.models.mlp_cnn import make_mlp as jax_make_mlp
 from repro_torch import kernels
 from repro_torch.core.selection import SelectionDraw
+from repro_torch.faults import FaultSpec
 from repro_torch.federated.client import ClientConfig
 from repro_torch.federated.draws import RoundDraws
 from repro_torch.federated.server import (
@@ -210,12 +211,19 @@ def test_entry_points_default_to_the_card():
 @pytest.mark.parametrize("over", [
     {"engine": "batched", "faults": object()},
     {"engine": "scan", "shapley_impl": "serial"},
-    {"engine": "batched", "quarantine": True},
-    {"faults": object()}, {"quarantine": True}, {"clients_shards": 2},
+    {"engine": "batched", "faults": FaultSpec(kinds=("gremlin",))},
+    {"faults": FaultSpec(rate=1.5)}, {"engine": "batched",
+                                      "clients_shards": 2},
+    {"clients_shards": 2},
 ])
 def test_later_slices_raise_not_implemented(over):
+    """What no slice runs yet raises NotImplementedError naming its slice;
+    faults run since the faults slice, and a malformed fault spec is a
+    ValueError before anything runs."""
     cfg = dataclasses.replace(FLConfig(**SLICE), **over)
-    with pytest.raises(NotImplementedError, match="slice"):
+    error, match = ((ValueError, "FaultSpec|kinds|rate") if "faults" in over
+                    else (NotImplementedError, "slice"))
+    with pytest.raises(error, match=match):
         run_federated(cfg, device="cpu")
 
 
