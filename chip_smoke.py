@@ -88,7 +88,21 @@ exits non-zero without a result line:
    == 0), on the card against the port's CPU path with the same weights,
    decode teacher-forced with the CPU's tokens: prefill cache and logits
    at every step at atol 2e-3, rtol 2e-3, request SVs at 1e-4; and on the
-   card, decode logits against `forward` at the same position.
+   card, decode logits against `forward` at the same position;
+13. grid: `repro_torch.grid.run_grid` at phase 8's widths (the reference's
+   defaults, T = 12) over 9 cells in 4 partitions: greedyfed x seeds
+   {0, 1} with s_fedavg seed 0 (one partition switching two strategies
+   on the device); greedyfed x {0, 1} with quant8_topk; fedavg x {0, 1};
+   power_of_choice x {0, 1} with eval_every=3 on seed 1.  It runs in
+   segments of 4 rounds into a checkpoint directory; every cell must
+   equal its solo scan run on the card bit for bit (selections, bytes,
+   eval history, SVs, params); a second grid stopped after one segment
+   and resumed must equal the first bit for bit; each partition captures
+   one round graph holding its S replicas' rounds (one replay a round,
+   each kernel of a replica's round S times in it) and replays under
+   `set_sync_debug_mode("error")`.  Printed and held to no bound: each
+   partition's replay time a round beside the sum of its cells' solo
+   replay times, the capture and staging, the memory above the set-up.
 
 Phase 3 also holds flash_attention against its plain version at one
 layer's full prefill shape (B = 4, Hq = 32, Kh = 8, S = T = 8192, hd =
@@ -103,7 +117,7 @@ product as three TF32 products of split operands (hi hi + hi lo + lo hi);
 its bound counts those three at the TF32 peak, and the f32 FMA bound of the
 CUDA cores is printed beside it.
 
-Each path of phases 6-11 runs with the launch counters zeroed just before
+Each path of phases 6-11 and 13 runs with the launch counters zeroed just before
 it and read just after; every kernel must launch on its path.  A captured
 graph's launches are counted when it is captured and not when it is
 replayed, so the scan path counts its warm-up round's launches plus each
@@ -1361,6 +1375,127 @@ def phase_faults(torch, device):
     return {k: sum(n[k] for n in path) for k in path[0]}
 
 
+def _bitwise(torch, a, b) -> bool:
+    """Two FLResults of one config agree bit for bit."""
+    import numpy as np
+    from repro_torch.tree import tree_leaves
+    return (all((x == y).all() for x, y in zip(a.selections, b.selections))
+            and a.upload_bytes == b.upload_bytes
+            and a.download_bytes == b.download_bytes
+            and a.shapley_evals == b.shapley_evals
+            and a.quarantined_total == b.quarantined_total
+            and a.test_acc == b.test_acc and a.val_loss == b.val_loss
+            and np.array_equal(a.sv_final, b.sv_final)
+            and all(torch.equal(x, y) for x, y in zip(
+                tree_leaves(a.params), tree_leaves(b.params))))
+
+
+def phase_grid(torch, device):
+    """The experiment grid at the reference's defaults (phase 8's widths),
+    T = 12, 9 cells in 4 partitions, segments of 4 rounds into a
+    checkpoint directory: every cell bitwise its solo scan run on the
+    card; a grid killed after one segment and resumed bitwise the first;
+    one round graph a partition.  The "sv" partition holds greedyfed x
+    seeds (0, 1) and s_fedavg, so its replicas switch strategies on the
+    device.  Launches: each capture's warm-up (counted when it launches)
+    plus each graph's times its replays."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.federated.server import FLConfig, run_federated
+    from repro_torch.grid import GridCell, GridSpec, run_grid
+
+    base = FLConfig(rounds=12, engine="scan")
+    codec = {"upload_codec": "quant8_topk"}
+    cells = (GridCell("greedyfed", 0), GridCell("greedyfed", 1),
+             GridCell("greedyfed", 0, codec), GridCell("greedyfed", 1, codec),
+             GridCell("fedavg", 0), GridCell("fedavg", 1),
+             GridCell("power_of_choice", 0),
+             GridCell("power_of_choice", 1, {"eval_every": 3}),
+             GridCell("s_fedavg", 0))
+    spec = GridSpec(base, cells)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device)
+        kernels.reset_launches()
+        t_run = time.perf_counter()
+        grid, syncs = count_syncs(torch, lambda: run_grid(
+            spec, device=device, rounds_per_segment=4,
+            checkpoint_dir=f"{tmp}/whole"))
+        wall = time.perf_counter() - t_run
+        counted = dict(kernels.LAUNCHES)
+        peak_gb = (torch.cuda.max_memory_allocated(device) - before) / 1e9
+        require(not grid.failures, f"grid: failed cells {grid.failures}")
+        killed = run_grid(spec, device=device, rounds_per_segment=4,
+                          checkpoint_dir=f"{tmp}/killed", max_segments=1)
+        resumed = run_grid(spec, device=device, rounds_per_segment=4,
+                           checkpoint_dir=f"{tmp}/killed")
+    solos = [run_federated(c.config(base), device=device) for c in cells]
+
+    parts = grid.partitions
+    launches = dict(counted)
+    for p in parts:
+        require(p.graph_launches is not None, f"grid: {p.label} captured "
+                "no graph")
+        for name, g in p.graph_launches.items():
+            for k in launches:
+                launches[k] += g[k] * (p.replays[name] - 1)
+    for p in parts:
+        solo_ms = sum(1e3 * sum(solos[i].round_time_s) / base.rounds
+                      for i in p.cell_indices)
+        log(f"[grid] partition {p.label}: cells {list(p.cell_indices)}, "
+            f"replays {p.replays}, replay {1e3 * p.round_time_s:.3f} ms a "
+            f"round against {solo_ms:.3f} ms for its cells' solo replays "
+            f"summed ({1e3 * p.round_time_s / solo_ms:.3f}x); capture "
+            f"{1e3 * p.capture_time_s:.1f} ms, staging "
+            f"{1e3 * p.stage_time_s:.1f} ms; round graph launches "
+            f"{p.graph_launches['round']}")
+    same = [_bitwise(torch, r, s) for r, s in zip(grid.results, solos)]
+    resumed_same = (resumed is not None and all(
+        _bitwise(torch, a, b) for a, b in zip(resumed.results, grid.results)))
+    log(f"[grid] {len(cells)} cells, 12 rounds in 3 segments, whole grid "
+        f"{1e3 * wall:.1f} ms; peak memory above the set-up {peak_gb:.3f} "
+        f"GB (a solo scan: 2.109 GB, PERF.md); host syncs of the run "
+        f"(set-up of the {len(cells)} cells, checkpoint writes and read-backs "
+        f"included, counted by set_sync_debug_mode('warn')) {syncs}, none "
+        f"between replays (the replays run under 'error')")
+    log(f"[grid] each cell bitwise its solo scan run on the card: {same}; "
+        f"killed after one segment and resumed, bitwise the whole grid: "
+        f"{resumed_same} (first partition ran "
+        f"{resumed.partitions[0].dispatches if resumed else '-'} of "
+        f"{grid.n_segments} segments on resume); final accuracies "
+        f"{[round(r.final_acc, 4) for r in grid.results]}")
+    log(f"[grid] path launches {launches}")
+    require([(p.label, p.cell_indices, p.n_strategies) for p in parts] == [
+        ("sv", (0, 1, 8), 2), ("sv+quant8_topk", (2, 3), 1),
+        ("plain", (4, 5), 1), ("losses", (6, 7), 1)],
+        f"grid partitions {[(p.label, p.cell_indices) for p in parts]}")
+    # each kernel once a replica a round: warm-up, capture and replays
+    path = {k: 0 for k in launches}
+    for p in parts:
+        n = len(p.cell_indices)
+        want = {"cohort_gather": n,
+                "prefix_avg": n if p.needs_sv else 0,
+                "ce_loss": n if p.needs_sv else 0,
+                "delta_codec": n if p.upload_codec != "identity" else 0,
+                "weighted_avg": 0, "flash_attention": 0}
+        require(p.graph_launches["round"] == want and p.replays["round"]
+                == base.rounds, f"grid: {p.label} is not one round graph "
+                f"of {n} replicas replayed once a round")
+        for k in path:
+            path[k] += want[k] * (base.rounds + 1)
+    require(all(same), "grid cells differ from their solo scan runs")
+    require(killed is None and resumed_same
+            and resumed.partitions[0].dispatches == grid.n_segments - 1,
+            "the resumed grid differs from the whole grid")
+    require(all(np.isfinite(r.final_acc) for r in grid.results),
+            "grid: a final accuracy is not finite")
+    expect_launches("grid path", launches, path)
+    return launches
+
+
 def _to_device(tree, device):
     from repro_torch.tree import tree_map
     return tree_map(lambda t: t.to(device), tree)
@@ -1748,6 +1883,7 @@ def main() -> int:
              "faults": phase_faults(torch, device),
              "serve": phase_serve(torch, device)}
     phase_serve_parity(torch, device)
+    paths["grid"] = phase_grid(torch, device)
     for e in entries:
         by_path = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())

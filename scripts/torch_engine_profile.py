@@ -170,8 +170,8 @@ def scan_busy_share(torch, device, rounds):
                       cfg.n_clients, cfg.m, s.params,
                       s.n_valid.cpu().numpy())
     draws = stack_rounds([s.draws.round(t, plan) for t in range(rounds)])
-    step.stage(SegmentCarry(s.params, s.sel_state, torch.zeros(
-        (), dtype=torch.int64, device=device)), 0, draws)    # captures
+    step.stage([SegmentCarry(s.params, s.sel_state, torch.zeros(
+        (), dtype=torch.int64, device=device))], 0, [draws])  # captures
     torch.cuda.synchronize(device)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     with profile(activities=[ProfilerActivity.CPU,

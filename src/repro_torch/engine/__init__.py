@@ -6,17 +6,17 @@
                   and the scan body and its captured segments
     scan_engine   the whole run with no host sync between rounds
                   (engine="scan")
+    replicated    seeds of one config on the batched engine, and the
+                  seeds x strategies grid (`repro_torch.grid`)
     schedule      virtual clock: latencies, deadlines, time-derived E_k
-
-The replica engines are a later slice of the port.
 """
 from repro_torch.engine.batch_client import (
     batched_client_update, cohort_update,
 )
 from repro_torch.engine.round_engine import (
     RoundEngine, RoundOutput, RoundSpec, ScanOperands, ScanRunOutput,
-    ScanSpec, SegmentCarry, SegmentOutput, make_round_step, make_run_scan,
-    make_segment_step,
+    ScanSpec, SegmentCarry, SegmentOutput, SegmentStep, make_round_step,
+    make_run_scan, make_segment_step,
 )
 from repro_torch.engine.scan_engine import (
     build_epochs_table, build_fault_table, make_scan_spec,
@@ -32,7 +32,7 @@ __all__ = [
     "batched_client_update", "cohort_update",
     "RoundEngine", "RoundOutput", "RoundSpec", "make_round_step",
     "ScanOperands", "ScanRunOutput", "ScanSpec", "SegmentCarry",
-    "SegmentOutput", "make_run_scan", "make_segment_step",
+    "SegmentOutput", "SegmentStep", "make_run_scan", "make_segment_step",
     "build_epochs_table", "build_fault_table", "make_scan_spec",
     "results_from_scan", "run_federated_scan", "scan_operands",
     "ClientClock", "ScheduleConfig", "VirtualClock", "deadline_epochs",

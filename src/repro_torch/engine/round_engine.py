@@ -33,7 +33,9 @@ replays it round after round with no host sync in between; on the CPU the
 same functions run eagerly in a Python loop.  Capture needs the round's
 inputs in static buffers, a warm-up before it and no host work in the
 body: a segment's draws are staged on the card before its replays and each
-round gathers its own by the device round counter.
+round gathers its own by the device round counter.  A grid partition's
+replicas are one step of several runs, their S round bodies captured in
+sequence as one graph (`repro_torch.grid`).
 """
 from __future__ import annotations
 
@@ -47,8 +49,8 @@ import torch
 from repro_torch import kernels
 from repro_torch.core.aggregation import normalized_weights, weighted_average
 from repro_torch.core.selection import (
-    DeviceSelectionContext, DeviceSelectorState, device_select_any,
-    device_update_any,
+    DeviceSelectionContext, DeviceSelectorState, SelectionDraw,
+    device_select_any, device_update_any,
 )
 from repro_torch.core.shapley_batched import (
     SHAPLEY_IMPLS, gtg_shapley_batched, gtg_shapley_streaming,
@@ -359,6 +361,21 @@ _OUTPUTS = ("selections", "epochs", "sv", "utility_evals", "sv_truncated",
             "granted", "quarantined")
 
 
+def _complete_draw(need: set, m: int, draw: SelectionDraw,
+                   fractions: torch.Tensor) -> SelectionDraw:
+    """The selection draw with zeros for what another strategy of a
+    partition's switch reads (`need`) and this run does not draw: a
+    replica draws what its solo run draws, and the switch drops the other
+    branches' picks.  A solo run draws all it needs: nothing is added."""
+    choice, gumbel = draw
+    if "choice" in need and choice is None:
+        choice = torch.zeros((m,), dtype=torch.int64,
+                             device=fractions.device)
+    if "gumbel" in need and gumbel is None:
+        gumbel = torch.zeros_like(fractions)
+    return SelectionDraw(choice, gumbel)
+
+
 def _make_scan_body(model: ClassifierModel, ccfg: ClientConfig,
                     spec: ScanSpec, n_steps: int):
     """The per-round body that `make_segment_step` captures: selection,
@@ -369,6 +386,8 @@ def _make_scan_body(model: ClassifierModel, ccfg: ClientConfig,
                                  n_steps=n_steps)
     uses_losses = any(sp.uses_local_losses for sp in spec.selectors)
     needs_sv = spec.round.needs_sv
+    draws_needed = {k for sp in spec.selectors for k in sp.selection_draws}
+    m = spec.selectors[0].m
 
     def bind(ops: ScanOperands):
         def body(carry: SegmentCarry, per_round, error):
@@ -381,8 +400,10 @@ def _make_scan_body(model: ClassifierModel, ccfg: ClientConfig,
                 losses = torch.zeros_like(ops.fractions)
             ctx = DeviceSelectionContext(data_fractions=ops.fractions,
                                          local_losses=losses, poc_d=d_t)
-            sel, sstate = device_select_any(spec.selectors, ops.strategy_id,
-                                            sstate, ctx, rd.selection)
+            sel, sstate = device_select_any(
+                spec.selectors, ops.strategy_id, sstate, ctx,
+                _complete_draw(draws_needed, m, rd.selection,
+                               ops.fractions))
             epochs_k = epochs_row.index_select(0, sel)
             codes_k = fault_row.index_select(0, sel)
             # active mask at select time: dropout strategies freeze it here
@@ -466,36 +487,20 @@ def _stage(dst: RoundDraws, src: RoundDraws, device) -> None:
     copy(dst.walks, src.walks)
 
 
-class SegmentStep:
-    """`make_segment_step`'s callable: runs rounds [t0, t0 + k) of a scan
-    from a carry, on static device buffers.
-
-    On a CUDA device the first call warms the round up on a side stream
-    (then restores the carry), captures the round and the eval as two CUDA
-    graphs and replays them; every later call only stages its draws and
-    replays.  A failed capture raises: nothing runs eagerly on the card.
-    Between replays nothing syncs the host (`torch.cuda.set_sync_debug_mode
-    ("error")` is on around them).  On the CPU the same two functions run
-    eagerly.  Kernel launches made while a graph was captured are counted
-    in `graph_launches` (a replay launches them again uncounted), and
-    `replays` counts the graphs replayed (or bodies run on the CPU).
-    """
+class _Replica:
+    """One scan run's static device buffers (the carry, the staged draws
+    and the per-round outputs) and the two functions a graph captures,
+    `round` and `eval`, over its own `ScanOperands`.  `SegmentStep`
+    drives one or more of them."""
 
     def __init__(self, model, ccfg, spec: ScanSpec, ops: ScanOperands):
-        if spec.live_tap:
-            raise NotImplementedError(
-                "live_tap is not ported yet: it comes with the telemetry "
-                "slice of the PyTorch port (see ROADMAP.md)")
         self.spec, self.ops = spec, ops
         self.k = spec.rounds_per_segment or spec.rounds
         self.device = ops.nv_all.device
         self.body, self.evaluate = _make_scan_body(
             model, ccfg, spec, ops.n_steps)(ops)
         self.error = error_word(self.device)
-        self.graphs = None
-        self.graph_launches = {"round": {}, "eval": {}}
-        self.replays = 0
-        self.capture_time_s = 0.0
+        self.eval_table = None      # (T,) bool device table when gated
         self.carry = None
 
     def _allocate(self, carry: SegmentCarry, draws_seg: RoundDraws) -> None:
@@ -516,7 +521,7 @@ class SegmentStep:
             "test_acc": nan(), "val_loss": nan()}
 
     # the two captured functions: all their inputs and outputs are static
-    def _round(self) -> None:
+    def round(self) -> None:
         ops, carry = self.ops, self.carry
         t = carry.sel_state.round.reshape(1)
         k = t - self.t0
@@ -530,44 +535,28 @@ class SegmentStep:
                 self.outs[name].dtype))
         _copy_tree(carry, new)
 
-    def _eval(self) -> None:
+    def eval(self) -> None:
+        """The eval after the round just run.  Gated by `eval_table`, it
+        writes NaN, and leaves the eval slot, where the table is not set
+        for that round."""
         carry = self.carry
-        k = carry.sel_state.round.reshape(1) - 1 - self.t0
+        t = carry.sel_state.round.reshape(1) - 1
+        k = t - self.t0
         acc, vloss = self.evaluate(carry.params)
-        self.outs["test_acc"].index_copy_(0, k, acc.reshape(1))
-        self.outs["val_loss"].index_copy_(0, k, vloss.reshape(1))
-        carry.eval_slot.add_(1)
+        acc, vloss = acc.reshape(1), vloss.reshape(1)
+        if self.eval_table is not None:
+            do = self.eval_table.index_select(0, t)
+            nan = torch.full_like(acc, float("nan"))
+            acc, vloss = torch.where(do, acc, nan), torch.where(do, vloss, nan)
+        self.outs["test_acc"].index_copy_(0, k, acc)
+        self.outs["val_loss"].index_copy_(0, k, vloss)
+        carry.eval_slot.add_(1 if self.eval_table is None
+                             else do[0].to(carry.eval_slot.dtype))
 
-    def _capture(self) -> None:
-        """Warm up on a side stream, restore the carry, capture both."""
-        t_start = time.perf_counter()
-        saved = _clone_tree(self.carry)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            self._round()
-            self._eval()
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        _copy_tree(self.carry, saved)
-        self.error.zero_()
-        graphs = {}
-        for name, fn in (("round", self._round), ("eval", self._eval)):
-            before = dict(kernels.LAUNCHES)
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g):
-                fn()
-            self.graph_launches[name] = {
-                n: kernels.LAUNCHES[n] - before[n] for n in before}
-            graphs[name] = g
-        self.graphs = graphs
-        torch.cuda.synchronize(self.device)
-        self.capture_time_s = time.perf_counter() - t_start
-
-    def stage(self, carry: SegmentCarry, t0: int,
-              draws_seg: RoundDraws) -> None:
-        """Put the carry, t0 and the segment's host draws (checked, one
-        leading round axis) into the static buffers; capture on the first
-        call on the card."""
+    def load(self, carry: SegmentCarry, t0: int,
+             draws_seg: RoundDraws) -> None:
+        """Put the carry, t0 and the segment's host draws into the static
+        buffers."""
         if self.carry is None:
             self._allocate(carry, draws_seg)
         n = draws_seg.rows.shape[0]
@@ -578,36 +567,11 @@ class SegmentStep:
         _copy_tree(self.carry, carry)
         self.t0.fill_(t0)
         _stage(self.staged, draws_seg, self.device)
-        if self.device.type == "cuda" and self.graphs is None:
-            self._capture()
+
+    def clear_evals(self) -> None:
         # after the warm-up's eval: a round without one reads NaN
         self.outs["test_acc"].fill_(float("nan"))
         self.outs["val_loss"].fill_(float("nan"))
-
-    def replay(self, t0: int, n: int) -> None:
-        """Run rounds [t0, t0 + n) of the staged segment, each with its
-        eval where the host's eval table says."""
-        cuda = self.device.type == "cuda"
-        guard = (_sync_debug_error() if cuda else contextlib.nullcontext())
-        with guard:
-            for t in range(t0, t0 + n):
-                self._run("round")
-                if self.ops.eval_table[t]:
-                    self._run("eval")
-
-    def _run(self, name: str) -> None:
-        self.replays += 1
-        if self.graphs is not None:
-            self.graphs[name].replay()
-        else:
-            (self._round if name == "round" else self._eval)()
-
-    def __call__(self, carry: SegmentCarry, t0: int,
-                 draws_seg: RoundDraws) -> SegmentOutput:
-        n = draws_seg.rows.shape[0]
-        self.stage(carry, t0, draws_seg)
-        self.replay(t0, n)
-        return self.output(n)
 
     def output(self, n: int) -> SegmentOutput:
         """The carry and the first n rounds' outputs, as device copies."""
@@ -617,6 +581,137 @@ class SegmentStep:
                 "selections", "epochs", "sv", "utility_evals",
                 "sv_truncated", "test_acc", "val_loss", "granted",
                 "quarantined")))
+
+
+class SegmentStep:
+    """`make_segment_step`'s callable: runs rounds [t0, t0 + k) of one or
+    more scan runs in lock-step, from their carries, on static device
+    buffers.  A solo scan is one run; a grid partition's S replicas are S
+    runs over the partition's strategy tuple `spec.selectors`, each with
+    the `ScanOperands` its solo run builds and its strategy's index in
+    `ops.strategy_id`, so each makes its solo run bit for bit.
+
+    On a CUDA device the first call warms every run's round and eval up on
+    a side stream, puts the carries back and captures the S round bodies
+    in sequence as one CUDA graph (one pool: the transients of one body
+    are reused by the next) and the S evals as a second.  The host replays
+    the round graph once a round and the eval graph after the rounds where
+    any run's eval table is set; a run whose table is not that union is
+    gated by its own (T,) device table.  Between replays nothing syncs the
+    host (`torch.cuda.set_sync_debug_mode("error")` is on around them).  A
+    failed capture raises, its graphs reset: nothing runs eagerly on the
+    card.  On the CPU the same functions run eagerly.  Kernel launches
+    made while a graph was captured are counted in `graph_launches` (a
+    replay launches them again uncounted), and `replays` counts each
+    graph's replays (or eager runs on the CPU).
+
+        step.stage(carries, t0, draws_segs); step.replay(t0, n);
+        step.output(n) -> [SegmentOutput, ...]
+    """
+
+    def __init__(self, model, ccfg, spec: ScanSpec, ops_list: list):
+        if spec.live_tap:
+            raise NotImplementedError(
+                "live_tap is not ported yet: it comes with the telemetry "
+                "slice of the PyTorch port (see ROADMAP.md)")
+        self.runs = [_Replica(model, ccfg, spec, ops) for ops in ops_list]
+        self.spec, self.k = spec, self.runs[0].k
+        self.device = self.runs[0].device
+        self.eval_any = np.any([ops.eval_table for ops in ops_list], axis=0)
+        for run, ops in zip(self.runs, ops_list):
+            if not np.array_equal(ops.eval_table, self.eval_any):
+                run.eval_table = torch.as_tensor(ops.eval_table,
+                                                 device=self.device)
+        self.graphs = None
+        self.graph_launches = {"round": {}, "eval": {}}
+        self.replays = {"round": 0, "eval": 0}
+        self.capture_time_s = 0.0
+
+    def _round(self) -> None:
+        for run in self.runs:
+            run.round()
+
+    def _eval(self) -> None:
+        for run in self.runs:
+            run.eval()
+
+    def _capture(self) -> None:
+        """Warm both functions up on a side stream, put the carries and
+        error words back, capture each as a CUDA graph.  A capture that
+        raises resets the graphs made so far before the error goes on, so
+        their pools are released with them."""
+        t_start = time.perf_counter()
+        fns = {"round": self._round, "eval": self._eval}
+        saved = [_clone_tree(run.carry) for run in self.runs]
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for fn in fns.values():
+                fn()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        for run, carry in zip(self.runs, saved):
+            _copy_tree(run.carry, carry)
+            run.error.zero_()
+        graphs, launches = {}, {}
+        try:
+            for name, fn in fns.items():
+                before = dict(kernels.LAUNCHES)
+                graphs[name] = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graphs[name]):
+                    fn()
+                launches[name] = {n: kernels.LAUNCHES[n] - before[n]
+                                  for n in before}
+            torch.cuda.synchronize(self.device)
+        except BaseException:
+            for g in graphs.values():
+                g.reset()
+            raise
+        self.graphs, self.graph_launches = graphs, launches
+        self.capture_time_s = time.perf_counter() - t_start
+
+    def stage(self, carries: list, t0: int, draws_segs: list) -> None:
+        """Each run's carry, t0 and host draws (checked, one leading round
+        axis) into its static buffers; capture on the first call on the
+        card."""
+        for run, carry, draws_seg in zip(self.runs, carries, draws_segs):
+            run.load(carry, t0, draws_seg)
+        if self.device.type == "cuda" and self.graphs is None:
+            self._capture()
+        for run in self.runs:
+            run.clear_evals()
+
+    def replay(self, t0: int, n: int) -> None:
+        """Run rounds [t0, t0 + n) of the staged segment for every run,
+        the eval after the rounds some run evaluates."""
+        cuda = self.device.type == "cuda"
+        guard = (_sync_debug_error() if cuda else contextlib.nullcontext())
+        with guard:
+            for t in range(t0, t0 + n):
+                self._run("round")
+                if self.eval_any[t]:
+                    self._run("eval")
+
+    def _run(self, name: str) -> None:
+        self.replays[name] += 1
+        if self.graphs is not None:
+            self.graphs[name].replay()
+        else:
+            (self._round if name == "round" else self._eval)()
+
+    def output(self, n: int) -> list:
+        """Each run's carry and first n rounds' outputs, device copies."""
+        return [run.output(n) for run in self.runs]
+
+    @property
+    def errors(self) -> list:
+        """The runs' cohort-gather error words (read once a segment)."""
+        return [run.error for run in self.runs]
+
+    def __call__(self, carries: list, t0: int, draws_segs: list) -> list:
+        n = draws_segs[0].rows.shape[0]
+        self.stage(carries, t0, draws_segs)
+        self.replay(t0, n)
+        return self.output(n)
 
 
 @contextlib.contextmanager
@@ -630,17 +725,19 @@ def _sync_debug_error():
 
 
 def make_segment_step(model: ClassifierModel, ccfg: ClientConfig,
-                      spec: ScanSpec, ops: ScanOperands) -> SegmentStep:
-    """The K-round segment step over the operands `ops`:
+                      spec: ScanSpec, ops) -> SegmentStep:
+    """The K-round segment step over the operands `ops` (one run's
+    `ScanOperands`, or a list of runs' advanced together):
 
-        step(carry: SegmentCarry, t0, draws_seg: RoundDraws) -> SegmentOutput
+        step(carries, t0, draws_segs) -> [SegmentOutput, ...]
 
-    where `draws_seg` holds rounds [t0, t0 + k) of the run's draws on the
-    host (k <= K = spec.rounds_per_segment or spec.rounds), stacked on a
-    leading round axis, their walks already range-checked.  Chaining
-    segments from t0 = 0 reproduces `make_run_scan` bit for bit: the same
-    captured round, the same carry, the same draws."""
-    return SegmentStep(model, ccfg, spec, ops)
+    one entry a run: its SegmentCarry, and rounds [t0, t0 + k) of its
+    draws on the host (k <= K = spec.rounds_per_segment or spec.rounds),
+    stacked on a leading round axis, their walks already range-checked.
+    Chaining segments from t0 = 0 reproduces `make_run_scan` bit for bit:
+    the same captured round, the same carry, the same draws."""
+    return SegmentStep(model, ccfg, spec,
+                       ops if isinstance(ops, list) else [ops])
 
 
 def make_run_scan(model: ClassifierModel, ccfg: ClientConfig,
@@ -656,7 +753,8 @@ def make_run_scan(model: ClassifierModel, ccfg: ClientConfig,
 
     def run_scan(params, sel_state, draws_all: RoundDraws) -> ScanRunOutput:
         zero = torch.zeros((), dtype=torch.int64, device=ops.nv_all.device)
-        out = step(SegmentCarry(params, sel_state, zero), 0, draws_all)
+        (out,) = step([SegmentCarry(params, sel_state, zero)], 0,
+                      [draws_all])
         return ScanRunOutput(out.carry.params, out.carry.sel_state,
                              out.selections, out.epochs, out.sv,
                              out.utility_evals, out.sv_truncated,

@@ -15,10 +15,11 @@ back once a segment: once a run by default, or once every
 `rounds_per_segment` rounds.  On the CPU the same functions run eagerly.
 
 This module is the host side: the run's static tables (per-round epoch
-budgets, the Power-of-Choice candidate schedule, the eval table), the
-staging of each segment's draws on the card before its replays, and the
+budgets, the Power-of-Choice candidate schedule, the eval table) and the
 FLResult bookkeeping (byte ledger, virtual-clock replay, eval history)
-from the outputs read back.  `round_time_s` is the replays' device time
+from the outputs read back.  The segments themselves (draws staged on the
+card before the replays, one read-back after) are driven by
+`grid.segments.run_segments`, the grid's driver, with one replica.  `round_time_s` is the replays' device time
 (CUDA events; the host clock on the CPU) divided by the rounds; the
 capture (warm-up included) is `compile_time_s`, the host's draw staging
 `stage_time_s`.  `dispatches` counts graph replays.
@@ -41,8 +42,7 @@ import torch
 
 from repro_torch.core.selection import poc_d_schedule
 from repro_torch.engine.round_engine import (
-    RoundSpec, ScanOperands, ScanSpec, SegmentCarry, make_segment_step,
-    round_plan,
+    RoundSpec, ScanOperands, ScanSpec, SegmentCarry, round_plan,
 )
 from repro_torch.engine.schedule import (
     VirtualClock, deadline_epochs_table, eval_mask, round_duration_s,
@@ -50,7 +50,6 @@ from repro_torch.engine.schedule import (
 )
 from repro_torch.faults.spec import CODE_CRASH, CODE_NONE
 from repro_torch.federated.compression import codec_nbytes
-from repro_torch.federated.draws import stack_rounds
 from repro_torch.kernels.ce_loss.ops import check_labels
 
 
@@ -207,62 +206,23 @@ def run_federated_scan(cfg, s, t_start: float, *,
                        rounds_per_segment: int = 0):
     """Run `cfg.rounds` rounds from the RunSetup `s` as segments of
     captured round replays (one segment unless `rounds_per_segment` > 0),
-    reading the outputs back once a segment."""
+    reading the outputs back once a segment: `grid.segments.run_segments`
+    with one replica."""
+    from repro_torch.grid.segments import ReplicaBatch, run_segments
+
     spec = make_scan_spec(cfg, (s.sel_spec,),
                           rounds_per_segment=rounds_per_segment)
     ops = scan_operands(cfg, s)
-    n_valid = s.n_valid.cpu().numpy()
     plan = round_plan(spec.round, cfg.client, spec.selectors, cfg.n_clients,
-                      cfg.m, s.params, n_valid)
-    step = make_segment_step(s.model, cfg.client, spec, ops)
-    device = ops.nv_all.device
-    cuda = device.type == "cuda"
-    carry = SegmentCarry(s.params, s.sel_state,
-                         torch.zeros((), dtype=torch.int64, device=device))
-    parts = {name: [] for name in _READ}
-    stage_s, round_times = 0.0, []
-    for t0 in range(0, cfg.rounds, step.k):
-        n = min(step.k, cfg.rounds - t0)
-        t_stage = time.perf_counter()
-        draws_seg = stack_rounds([s.draws.round(t, plan)
-                                  for t in range(t0, t0 + n)])
-        check_draws(draws_seg, cfg.n_clients, cfg.m)
-        capture_s = step.capture_time_s
-        step.stage(carry, t0, draws_seg)
-        stage_s += (time.perf_counter() - t_stage
-                    - (step.capture_time_s - capture_s))
-        if cuda:
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            start.record()
-        t_replay = time.perf_counter()
-        step.replay(t0, n)
-        if cuda:
-            end.record()
-        seg = step.output(n)
-        carry = seg.carry
-        # the segment's one read-back: its outputs, the carry's valuation,
-        # eval count and the gather's error word
-        host = read_back({
-            **{name: getattr(seg, name) for name in _READ},
-            "sv_final": carry.sel_state.valuation.sv,
-            "counts": carry.sel_state.valuation.counts,
-            "eval_count": carry.eval_slot, "error": step.error})
-        if int(host["error"][0]):
-            raise IndexError(f"cohort ids must index [0, {cfg.n_clients}), "
-                             f"got {int(host['error'][0])}")
-        replay_s = (start.elapsed_time(end) / 1e3 if cuda
-                    else time.perf_counter() - t_replay)
-        round_times += [replay_s / n] * n
-        for name in _READ:
-            parts[name].append(host[name])
-    out = {name: np.concatenate(p) for name, p in parts.items()}
-    out.update(carry=carry, sv_final=host["sv_final"],
-               counts=host["counts"], eval_count=int(host["eval_count"]))
-    graph_launches = (dict(step.graph_launches) if step.graphs is not None
-                      else None)
+                      cfg.m, s.params, s.n_valid.cpu().numpy())
+    carry = SegmentCarry(s.params, s.sel_state, torch.zeros(
+        (), dtype=torch.int64, device=ops.nv_all.device))
+    (out,), rep = run_segments(s.model, cfg.client, spec, ReplicaBatch(
+        cfgs=(cfg,), setups=(s,), ops=(ops,), plans=(plan,),
+        carries=(carry,)))
     return results_from_scan(
         cfg, s, out, wall_time_s=time.perf_counter() - t_start,
-        dispatches=step.replays, uses_shapley=s.sel_spec.uses_shapley,
-        compile_time_s=step.capture_time_s, round_time_s=round_times,
-        stage_time_s=stage_s, graph_launches=graph_launches)
+        dispatches=sum(rep.replays.values()),
+        uses_shapley=s.sel_spec.uses_shapley,
+        compile_time_s=rep.compile_time_s, round_time_s=rep.round_time_s,
+        stage_time_s=rep.stage_time_s, graph_launches=rep.graph_launches)

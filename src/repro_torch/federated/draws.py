@@ -26,7 +26,10 @@ seed gives one run on every engine, on the CPU and on the card.
 
 `TorchDraws` is the default: one CPU `torch.Generator` seeded from the
 config's seed and consumed in call order.  `round` returns host tensors;
-the engines move them to the run's device.
+the engines move them to the run's device.  A resumed grid needs each
+source where the killed run left it: `state()` is a uint8 host tensor that
+`set_state` restores (the generator's state for `TorchDraws`); only a
+checkpointed grid calls them.
 """
 from __future__ import annotations
 
@@ -70,6 +73,10 @@ class RunDraws(Protocol):
     def round(self, t: int, plan: DrawPlan) -> RoundDraws: ...
 
     def perm_batches(self, t: int, m: int) -> Callable[[], torch.Tensor]: ...
+
+    def state(self) -> torch.Tensor: ...
+
+    def set_state(self, state: torch.Tensor) -> None: ...
 
 
 def _map(fn, rd: RoundDraws) -> RoundDraws:
@@ -150,3 +157,9 @@ class TorchDraws:
     def perm_batches(self, t, m):
         from repro_torch.core.shapley import _permutation_batch
         return lambda: _permutation_batch(self.gen, m).to(self.device)
+
+    def state(self):
+        return self.gen.get_state()
+
+    def set_state(self, state):
+        self.gen.set_state(state.to(torch.uint8).cpu())

@@ -19,8 +19,11 @@ levels.  Random draws of the rounds come from a `RunDraws`
 three engines make the same run.  Faults (`FLConfig.faults`, a
 `FaultSpec`) are pre-drawn into a (T, N) code table in `setup_run`; with
 them or `quarantine=True` every engine hardens its cohort after the codec
-(`repro_torch.faults.harden_cohort`).  Parts of the reference that later
-slices of the port bring raise `NotImplementedError` naming that slice.
+(`repro_torch.faults.harden_cohort`).  `run_federated_replicated` runs
+seeds of one config together (`engine/replicated.py`) or, under the scan
+engine, a strategies x seeds grid (`repro_torch.grid.run_grid`).  Parts of
+the reference that later slices of the port bring raise
+`NotImplementedError` naming that slice.
 """
 from __future__ import annotations
 
@@ -518,9 +521,33 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
     )
 
 
-def run_federated_replicated(*args, **kwargs):
-    raise _not_in_slice("run_federated_replicated",
-                        "the replicated/grid slice")
+def run_federated_replicated(cfg: FLConfig, seeds,
+                             data: Optional[SynthDataset] = None,
+                             model: Optional[ClassifierModel] = None,
+                             selectors=None, *, device=None, draws=None,
+                             **grid_kwargs) -> list[FLResult]:
+    """Run a replica batch on `device` (default: the CUDA card).
+
+    With ``cfg.engine != "scan"`` and no `selectors`, each seed is a solo
+    run on the batched engine (`engine/replicated.py::run_replicated`).  With ``cfg.engine ==
+    "scan"`` (or a `selectors` list of registry names) the whole
+    strategies x seeds table runs through `repro_torch.grid.run_grid`: one
+    captured round graph per capability partition, optionally segmented
+    and checkpointed through the keywords; results come back
+    selector-major, seed-minor.  `draws` gives one `RunDraws` source per
+    replica (a test hook, as `run_federated`'s)."""
+    from repro_torch.engine.replicated import (
+        run_replicated, run_replicated_scan,
+    )
+    if cfg.engine == "scan" or selectors is not None:
+        return run_replicated_scan(cfg, seeds, selectors=selectors,
+                                   data=data, model=model, device=device,
+                                   draws=draws, **grid_kwargs)
+    if grid_kwargs:
+        raise ValueError("grid options (rounds_per_segment, "
+                         "checkpoint_dir, ...) require engine='scan'")
+    return run_replicated(cfg, seeds, data=data, model=model, device=device,
+                          draws=draws)
 
 
 def run_centralized(cfg: FLConfig, data: Optional[SynthDataset] = None,

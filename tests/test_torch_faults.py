@@ -56,6 +56,17 @@ FAULTS = dict(rate=0.4, kinds=("nan", "sign_flip", "crash"), scale=10.0)
 MODEL = make_mlp(784, (16,), 10)      # narrow, as the other port run tests
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs six test files at once; at these small sizes torch's
+    intra-op threads only contend for the cores (a grid test took 28 s
+    with 8 threads beside a busy machine, 1 s with one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def run_federated(cfg, **kw):
     return _run_federated(cfg, model=MODEL, **kw)
 

@@ -19,7 +19,8 @@ in bf16 (one bf16 rounding of outputs of magnitude ~1, the reference
 test's bound), the bf16 route also elementwise at 5e-3 + 1e-2 |want| and
 its mean error at 5e-3 of mean |want| (it rounds P to bf16, which moves
 an output by at most 2^-8 of sum p |v| / l); the served model card-vs-CPU
-at 1e-4 (float32 products in another order).
+at 1e-4 (float32 products in another order).  A grid on the card is held
+bitwise to its cells' solo runs on the card, and to the CPU's grid at 1e-4.
 """
 import numpy as np
 import pytest
@@ -1339,3 +1340,122 @@ def test_prefix_avg_and_weighted_avg_bitwise_on_quarantined_walks(cuda):
     assert torch.equal(got, weighted_avg_ref(stacked, weights))
     assert torch.equal(got.cpu(), weighted_avg_ref(stacked.cpu(),
                                                    weights.cpu()))
+
+
+# ------------------------------------------------------- the grid ---------
+def _grid_spec():
+    from repro_torch.grid import GridCell, GridSpec
+    codec = {"upload_codec": "quant8_topk"}
+    # the "sv" partition switches between greedyfed and s_fedavg on the
+    # card by each replica's device strategy_id
+    return GridSpec(_scan_cfg(engine="scan"), (
+        GridCell("greedyfed", 0), GridCell("greedyfed", 1),
+        GridCell("s_fedavg", 1),
+        GridCell("greedyfed", 0, codec), GridCell("fedavg", 0),
+        GridCell("fedavg", 1), GridCell("power_of_choice", 0),
+        GridCell("power_of_choice", 1, {"eval_every": 3})))
+
+
+def _assert_runs_bitwise(got, want):
+    from repro_torch.tree import tree_leaves
+    for a, b in zip(got.selections, want.selections):
+        np.testing.assert_array_equal(a, b)
+    assert got.upload_bytes == want.upload_bytes
+    assert got.shapley_evals == want.shapley_evals
+    assert got.test_acc == want.test_acc and got.val_loss == want.val_loss
+    np.testing.assert_array_equal(got.sv_final, want.sv_final)
+    for a, b in zip(tree_leaves(got.params), tree_leaves(want.params)):
+        assert torch.equal(a, b)
+
+
+def test_grid_on_the_card_is_bitwise_the_solo_runs(cuda):
+    """Each partition's replicas in one captured round graph, replayed
+    once a round: every cell makes its solo scan run on the card bit for
+    bit, and each kernel of a replica's round sits in the graph once a
+    replica."""
+    from repro_torch.federated.server import run_federated
+    from repro_torch.grid import run_grid
+    spec = _grid_spec()
+    grid = run_grid(spec, device=cuda)
+    assert not grid.failures
+    for cell, res in zip(spec.cells, grid.results):
+        _assert_runs_bitwise(res, run_federated(cell.config(spec.base),
+                                                device=cuda))
+        assert res.params["layer0"]["w"].is_cuda
+    for p in grid.partitions:
+        s = len(p.cell_indices)
+        assert p.replays["round"] == spec.base.rounds
+        assert p.graph_launches["round"] == {
+            "prefix_avg": s * p.needs_sv, "ce_loss": s * p.needs_sv,
+            "cohort_gather": s,
+            "delta_codec": s * (p.upload_codec != "identity"),
+            "weighted_avg": 0, "flash_attention": 0}
+        assert not any(p.graph_launches["eval"].values())
+
+
+def test_grid_on_the_card_resumes_bitwise(cuda, tmp_path):
+    from repro_torch.grid import run_grid
+    spec = _grid_spec()
+    whole = run_grid(spec, device=cuda)
+    ckpt = str(tmp_path)
+    assert run_grid(spec, device=cuda, rounds_per_segment=2,
+                    checkpoint_dir=ckpt, max_segments=1) is None
+    resumed = run_grid(spec, device=cuda, rounds_per_segment=2,
+                       checkpoint_dir=ckpt)
+    for a, b in zip(resumed.results, whole.results):
+        _assert_runs_bitwise(a, b)
+    assert resumed.partitions[0].dispatches == 1
+    assert resumed.partitions[0].n_strategies == 2
+
+
+def test_grid_on_the_card_matches_the_cpu(cuda):
+    """The same grid and draws on the card and on the CPU: equal
+    selections, bytes and eval rounds, floats at 1e-4."""
+    from repro_torch.grid import run_grid
+    spec = _grid_spec()
+    card = run_grid(spec, device=cuda, rounds_per_segment=2)
+    cpu = run_grid(spec, device="cpu", rounds_per_segment=2)
+    for a, b in zip(card.results, cpu.results):
+        for x, y in zip(a.selections, b.selections):
+            np.testing.assert_array_equal(x, y)
+        assert a.upload_bytes == b.upload_bytes
+        assert [r for r, _ in a.test_acc] == [r for r, _ in b.test_acc]
+        np.testing.assert_allclose([v for _, v in a.val_loss],
+                                   [v for _, v in b.val_loss], atol=1e-4)
+        np.testing.assert_allclose(a.sv_final, b.sv_final, atol=1e-4)
+        assert _max_err(a.params, {k: {n: t.to(cuda) for n, t in v.items()}
+                                   for k, v in b.params.items()}) <= 1e-4
+
+
+def test_grid_capture_that_raises_degrades_to_cell_failures(cuda,
+                                                            monkeypatch):
+    """A partition whose capture raises ends its capture, drops its graphs
+    and comes back as CellFailures; the other partitions still make their
+    solo runs bit for bit, and the card captures and runs the same grid
+    afterwards."""
+    from repro_torch.engine import round_engine
+    from repro_torch.federated.server import run_federated
+    from repro_torch.grid import CellFailure, GridCell, GridSpec, run_grid
+    real = round_engine.SegmentStep._round
+
+    def failing(self):
+        if (self.spec.round.needs_sv
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError("injected capture failure")
+        real(self)
+
+    monkeypatch.setattr(round_engine.SegmentStep, "_round", failing)
+    spec = GridSpec(_scan_cfg(engine="scan"), (
+        GridCell("greedyfed", 0), GridCell("fedavg", 0),
+        GridCell("greedyfed", 1)))
+    grid = run_grid(spec, device=cuda)
+    assert [f.cell for f in grid.failures] == [0, 2]
+    assert all(isinstance(grid.results[i], CellFailure) for i in (0, 2))
+    assert "injected capture failure" in grid.failures[0].error
+    _assert_runs_bitwise(grid.results[1], run_federated(
+        spec.cells[1].config(spec.base), device=cuda))
+    monkeypatch.undo()
+    again = run_grid(spec, device=cuda)
+    assert not again.failures
+    _assert_runs_bitwise(again.results[0], run_federated(
+        spec.cells[0].config(spec.base), device=cuda))

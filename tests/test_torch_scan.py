@@ -61,6 +61,17 @@ SLICE = dict(n_clients=6, m=3, rounds=4, n_train=600, n_val=100, n_test=100,
 CLIENT = dict(epochs=2, batches_per_epoch=2, batch_size=16)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The suite runs six test files at once; at these small sizes torch's
+    intra-op threads only contend for the cores (a grid test took 28 s
+    with 8 threads beside a busy machine, 1 s with one)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg(**over):
     return FLConfig(client=ClientConfig(**CLIENT), **{**SLICE, **over})
 
@@ -144,7 +155,7 @@ def test_make_run_scan_is_one_segment_of_make_segment_step():
                                                             dtype=torch.int64))
     outs = []
     for t0 in (0, 2):
-        out = step(carry, t0, stack_rounds(draws[t0:t0 + 2]))
+        (out,) = step([carry], t0, [stack_rounds(draws[t0:t0 + 2])])
         outs.append(out)
         carry = out.carry
     assert torch.equal(torch.cat([o.selections for o in outs]),
@@ -160,7 +171,7 @@ def test_make_run_scan_is_one_segment_of_make_segment_step():
         assert torch.equal(a, b)
     assert torch.equal(whole.granted, torch.full((4,), 3))
     with pytest.raises(ValueError, match="segment"):
-        step(carry, 2, stack_rounds(draws[:3]))
+        step([carry], 2, [stack_rounds(draws[:3])])
 
 
 @pytest.mark.parametrize("over", [
@@ -366,10 +377,10 @@ def test_scan_body_reads_nothing_back(over, monkeypatch):
     plan = round_plan(spec.round, cfg.client, (s.sel_spec,),
                       cfg.n_clients, cfg.m, s.params, s.n_valid.numpy())
     step = make_segment_step(model, cfg.client, spec, ops)
-    step.stage(SegmentCarry(s.params, s.sel_state,
-                            torch.zeros((), dtype=torch.int64)), 0,
-               stack_rounds([s.draws.round(t, plan)
-                             for t in range(cfg.rounds)]))
+    step.stage([SegmentCarry(s.params, s.sel_state,
+                             torch.zeros((), dtype=torch.int64))], 0,
+               [stack_rounds([s.draws.round(t, plan)
+                              for t in range(cfg.rounds)])])
     with monkeypatch.context() as mp:
         for name in ("item", "tolist", "cpu", "numpy", "__float__",
                      "__int__", "__bool__"):
@@ -377,7 +388,7 @@ def test_scan_body_reads_nothing_back(over, monkeypatch):
         with pytest.raises(AssertionError, match="read a tensor back"):
             bool(torch.ones(()))
         step.replay(0, cfg.rounds)
-    out = step.output(cfg.rounds)
+    (out,) = step.output(cfg.rounds)
     want = run_federated(dataclasses.replace(cfg, engine="batched"),
                          model=model, device="cpu")
     for t in range(cfg.rounds):

@@ -234,5 +234,8 @@ def test_unknown_options_and_other_entry_points_raise():
         run_federated(FLConfig(shapley_impl="magic"), device="cpu")
     with pytest.raises(NotImplementedError, match="telemetry"):
         run_federated(FLConfig(**SLICE), device="cpu", telemetry=object())
-    with pytest.raises(NotImplementedError, match="slice"):
-        run_federated_replicated(FLConfig(**SLICE), seeds=(0, 1))
+    # the replicated engines run since the grid slice; grid options need
+    # the scan engine
+    with pytest.raises(ValueError, match="engine='scan'"):
+        run_federated_replicated(FLConfig(**SLICE), seeds=(0, 1),
+                                 device="cpu", rounds_per_segment=2)
