@@ -102,7 +102,22 @@ exits non-zero without a result line:
    each kernel of a replica's round S times in it) and replays under
    `set_sync_debug_mode("error")`.  Printed and held to no bound: each
    partition's replay time a round beside the sum of its cells' solo
-   replay times, the capture and staging, the memory above the set-up.
+   replay times, the capture and staging, the memory above the set-up;
+14. telemetry (`repro_torch.telemetry`) on phase 8's scan: off, with a
+   file sink, with the live tap (each round's record copied into a
+   pinned host ring inside the captured round, a host thread emitting
+   `round_tap` as rounds land) and with a capture window (`trace_dir`:
+   the round captured as one graph a stage between CUDA timing events,
+   and a `torch.profiler` trace), all four bitwise, every stream valid;
+   the loop and batched engines with a sink bitwise their runs without
+   one, their `round_metrics` the scan's in selections and bytes; phase
+   13's grid with a sink in segments of 4, killed after one segment and
+   resumed, bitwise phase 13's grid with each cell's rounds 0..11
+   streamed; liveness: a one-segment 12-round scan (a one-cell grid) must
+   emit at least half of its taps before its `segment_end`.  Printed and
+   held to no bound: the replay time a round off, with the sink and with
+   the tap, two turns in one call; the `profile` event's stage seconds
+   and source; the round's cost card and the compile seconds.
 
 Phase 3 also holds flash_attention against its plain version at one
 layer's full prefill shape (B = 4, Hq = 32, Kh = 8, S = T = 8192, hd =
@@ -117,8 +132,8 @@ product as three TF32 products of split operands (hi hi + hi lo + lo hi);
 its bound counts those three at the TF32 peak, and the f32 FMA bound of the
 CUDA cores is printed beside it.
 
-Each path of phases 6-11 and 13 runs with the launch counters zeroed just before
-it and read just after; every kernel must launch on its path.  A captured
+Each path of phases 6-11, 13 and 14 runs with the launch counters zeroed
+just before it and read just after; every kernel must launch on its path.  A captured
 graph's launches are counted when it is captured and not when it is
 replayed, so the scan path counts its warm-up round's launches plus each
 graph's times its replays.  The line
@@ -988,10 +1003,10 @@ def phase_reference_run(torch, device):
     require(err <= 1e-4 and sv_err <= 1e-4, "card run disagrees with CPU")
 
 
-def drive(torch, device, cfg, label):
+def drive(torch, device, cfg, label, **kw):
     """One full-width run of `cfg` on the card with the launch counters
     zeroed just before and read just after; prints per-round times, the
-    Shapley share and peak memory."""
+    Shapley share and peak memory.  `kw` go to `run_federated`."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.federated.server import run_federated
@@ -999,7 +1014,7 @@ def drive(torch, device, cfg, label):
 
     torch.cuda.reset_peak_memory_stats(device)
     kernels.reset_launches()
-    res = run_federated(cfg, device=device)
+    res = run_federated(cfg, device=device, **kw)
     launches = dict(kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     n_perms = cfg.shapley_max_iters or 50 * cfg.m
@@ -1230,7 +1245,7 @@ def phase_dense_oracle(torch, device):
     return launches
 
 
-def _scan_run(torch, device, cfg):
+def _scan_run(torch, device, cfg, **kw):
     """A scan run with the launch counters zeroed just before it and read
     just after; its path launches are the warm-up round's (counted when
     they launch) plus each captured graph's times its replays."""
@@ -1238,7 +1253,7 @@ def _scan_run(torch, device, cfg):
     from repro_torch.federated.server import run_federated
 
     kernels.reset_launches()
-    res = run_federated(cfg, device=device)
+    res = run_federated(cfg, device=device, **kw)
     counted = dict(kernels.LAUNCHES)
     g, n_evals = res.graph_launches, len(res.test_acc)
     require(g is not None, "the scan captured no graph")
@@ -1493,7 +1508,192 @@ def phase_grid(torch, device):
     require(all(np.isfinite(r.final_acc) for r in grid.results),
             "grid: a final accuracy is not finite")
     expect_launches("grid path", launches, path)
+    return launches, grid
+
+
+def _grid_launches(counted: dict, grid) -> dict:
+    """A grid run's path launches: each capture's warm-up (counted when it
+    launched) plus each graph's times its further replays."""
+    launches = dict(counted)
+    for p in grid.partitions:
+        for name, g in (p.graph_launches or {}).items():
+            for k in launches:
+                launches[k] += g[k] * (p.replays[name] - 1)
     return launches
+
+
+def phase_telemetry(torch, device, grid_ref):
+    """Telemetry on phase 8's scan (N = 50, M = 5, the 784-200-100-10 MLP,
+    R = 250, 12 rounds, quant8_topk), on the loop and batched engines and
+    on phase 13's grid.  The scan runs off, with a file sink, with the live
+    tap and with a capture window (`trace_dir`: the round captured as one
+    graph a stage between CUDA timing events): all four bitwise, every
+    stream valid.  Printed, held to no bound: the replay time a round off
+    against the host sink and against the live tap, two turns in one call;
+    the `profile` event's stage seconds and source, the round's cost card
+    and the compile seconds.  The loop and batched engines with a sink are
+    bitwise their runs without one, their `round_metrics` the scan's in
+    selections and bytes.  Phase 13's grid with a sink, in segments of 4
+    into a fresh checkpoint directory, killed after one segment and
+    resumed, is bitwise phase 13's grid cell for cell, with each cell's
+    `round_metrics` covering rounds 0..11.  Liveness: a one-cell grid of
+    the scan in one segment with the live tap must emit at least half of
+    its 12 taps before its `segment_end`.  prefix_avg, ce_loss,
+    cohort_gather and delta_codec must launch on this path."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.federated.server import FLConfig
+    from repro_torch.grid import GridCell, GridSpec, run_grid
+    from repro_torch.telemetry import Telemetry, read_events, validate_events
+
+    cfg = FLConfig(rounds=12, upload_codec="quant8_topk", engine="scan")
+    path = {k: 0 for k in kernels.LAUNCHES}
+
+    def add(launches):
+        for k in path:
+            path[k] += launches[k]
+
+    def streamed(tmp, name, **kw):
+        return Telemetry(f"{tmp}/{name}.jsonl", heartbeat_every_s=1e9, **kw)
+
+    def checked(tel):
+        tel.close()
+        events = read_events(tel.path)
+        require(validate_events(events) == len(events) > 0,
+                f"telemetry: {tel.path} does not validate")
+        return events
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, streams, times = {}, {}, {"off": [], "host": [], "live": []}
+        captures = {}
+        for turn in range(2):
+            for mode, kw in (("off", {}), ("host", {}),
+                             ("live", {"live_tap": True}),
+                             ("trace", {"trace_dir": f"{tmp}/trace"})):
+                if turn and mode == "trace":
+                    continue
+                tel = (None if mode == "off"
+                       else streamed(tmp, f"{mode}{turn}", **kw))
+                res, launches = _scan_run(torch, device, cfg, telemetry=tel)
+                add(launches)
+                captures.setdefault(mode, []).append(
+                    round(1e3 * res.compile_time_s, 1))
+                if mode in times:
+                    times[mode].append(1e3 * sum(res.round_time_s)
+                                       / cfg.rounds)
+                if turn == 0:
+                    runs[mode] = res
+                    streams[mode] = checked(tel) if tel is not None else []
+                elif tel is not None:
+                    checked(tel)
+        for mode in ("host", "live", "trace"):
+            require(_bitwise(torch, runs[mode], runs["off"]),
+                    f"telemetry: the {mode} scan differs from the run "
+                    "without telemetry")
+        taps = [e for e in streams["live"] if e["event"] == "round_tap"]
+        require(sorted(e["round"] for e in taps) == list(range(cfg.rounds))
+                and all(e["origin"] == "device" for e in taps),
+                f"telemetry: taps {[e['round'] for e in taps]}")
+        for e in taps:
+            t = e["round"]
+            require(e["selections"] == runs["off"].selections[t].tolist(),
+                    f"telemetry: tap {t} selections differ from the run's")
+        prof = [e for e in streams["trace"] if e["event"] == "profile"]
+        comp = [e for e in streams["host"] if e["event"] == "compile"]
+        require(len(prof) == 1 and len(comp) == 1,
+                "telemetry: no profile or compile event")
+        log(f"[telemetry] scan off / host sink / live tap / capture window: "
+            f"bitwise equal; taps {len(taps)} of {cfg.rounds} rounds")
+        log(f"[telemetry] replay a round, two turns in this call (ms): off "
+            f"{[round(x, 3) for x in times['off']]}, host sink "
+            f"{[round(x, 3) for x in times['host']]}, live tap "
+            f"{[round(x, 3) for x in times['live']]}")
+        log(f"[telemetry] profile: source {prof[0]['source']}, captured "
+            f"{prof[0]['captured']}, stage seconds {prof[0]['stage_wall_s']}"
+            f"; replays' device time {sum(runs['trace'].round_time_s):.6f} s")
+        log(f"[telemetry] compile event {comp[0]['seconds']:.4f} s (kernel "
+            f"build inside the run and the capture; the host sink's first "
+            f"run also counts the round's FLOPs in its warm-up); cost card "
+            f"{json.dumps(comp[0]['cost_card'])}; capture ms by mode and "
+            f"turn {captures}")
+
+        # the host engines with a sink, against their runs without one
+        scan_rounds = [e for e in streams["host"]
+                       if e["event"] == "round_metrics"]
+        for engine in ("loop", "batched"):
+            ecfg = dataclasses.replace(cfg, engine=engine)
+            off, launches, _ = drive(torch, device, ecfg, f"tel-{engine}")
+            add(launches)
+            tel = streamed(tmp, engine)
+            on, launches, _ = drive(torch, device, ecfg, f"tel-{engine}-sink",
+                                    telemetry=tel)
+            add(launches)
+            rounds = [e for e in checked(tel) if e["event"] == "round_metrics"]
+            require(_bitwise(torch, on, off) and on.dispatches == off.dispatches,
+                    f"telemetry: {engine} with a sink differs")
+            require([(e["selections"], e["upload_bytes"], e["download_bytes"])
+                     for e in rounds]
+                    == [(e["selections"], e["upload_bytes"], e["download_bytes"])
+                        for e in scan_rounds],
+                    f"telemetry: {engine} round_metrics differ from the scan's")
+            log(f"[telemetry] {engine}: bitwise its run without a sink, "
+                f"round_metrics equal to the scan's in selections and bytes")
+
+        # phase 13's grid with a sink, killed after one segment and resumed
+        spec = grid_ref.spec
+        tel = streamed(tmp, "grid")
+        kernels.reset_launches()
+        killed = run_grid(spec, device=device, rounds_per_segment=4,
+                          checkpoint_dir=f"{tmp}/grid", max_segments=1,
+                          telemetry=tel)
+        resumed = run_grid(spec, device=device, rounds_per_segment=4,
+                           checkpoint_dir=f"{tmp}/grid", telemetry=tel)
+        add(_grid_launches(dict(kernels.LAUNCHES), resumed))
+        events = checked(tel)
+        per_cell = {}
+        for e in events:
+            if e["event"] == "round_metrics":
+                per_cell.setdefault(e["cell"], []).append(e["round"])
+        kinds = [e["event"] for e in events]
+        same = [_bitwise(torch, a, b)
+                for a, b in zip(resumed.results, grid_ref.results)]
+        log(f"[telemetry] grid with a sink, killed after one segment and "
+            f"resumed: cells bitwise phase 13's {same}; events "
+            f"{ {k: kinds.count(k) for k in sorted(set(kinds))} }")
+        require(killed is None and all(same),
+                "telemetry: the observed grid differs from phase 13's")
+        require(all(per_cell.get(i) == list(range(cfg.rounds))
+                    for i in range(len(spec.cells))),
+                f"telemetry: per-cell rounds {per_cell}")
+        require(kinds.count("run_start") == 2 and "checkpoint_save" in kinds
+                and "checkpoint_load" in kinds
+                and kinds.count("segment_start") == kinds.count("segment_end"),
+                "telemetry: grid stream incomplete")
+
+        # liveness: one segment of 12 rounds with the live tap
+        one = GridSpec(cfg, (GridCell("greedyfed", 0),))
+        tel = streamed(tmp, "liveness", live_tap=True)
+        kernels.reset_launches()
+        live_grid = run_grid(one, device=device, telemetry=tel)
+        add(_grid_launches(dict(kernels.LAUNCHES), live_grid))
+        events = checked(tel)
+        end = [e["t_s"] for e in events if e["event"] == "segment_end"]
+        start = [e["t_s"] for e in events if e["event"] == "segment_start"]
+        taps = [e["t_s"] for e in events if e["event"] == "round_tap"]
+        early = sum(t < end[0] for t in taps)
+        log(f"[telemetry] liveness, one 12-round segment: {early} of "
+            f"{len(taps)} taps before segment_end (segment {start[0]:.4f} to "
+            f"{end[0]:.4f} s, taps at {[round(t, 4) for t in taps]})")
+        require(len(end) == 1 and len(taps) == cfg.rounds
+                and 2 * early >= len(taps), "telemetry: the tap is not live")
+        require(_bitwise(torch, live_grid.results[0], runs["off"]),
+                "telemetry: the one-cell grid differs from the solo scan")
+    log(f"[telemetry] path launches {path}")
+    for name in ("prefix_avg", "ce_loss", "cohort_gather", "delta_codec"):
+        require(path[name] > 0, f"telemetry: {name} never launched")
+    return path
 
 
 def _to_device(tree, device):
@@ -1883,7 +2083,8 @@ def main() -> int:
              "faults": phase_faults(torch, device),
              "serve": phase_serve(torch, device)}
     phase_serve_parity(torch, device)
-    paths["grid"] = phase_grid(torch, device)
+    paths["grid"], grid = phase_grid(torch, device)
+    paths["telemetry"] = phase_telemetry(torch, device, grid)
     for e in entries:
         by_path = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())

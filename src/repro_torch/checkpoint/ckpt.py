@@ -28,6 +28,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import time
 import zipfile
 import zlib
 from typing import Any, Callable, Sequence
@@ -210,19 +211,34 @@ def load_pytree(path: str, like: Tree) -> Tree:
     return rebuild_like(like, iter(new_leaves))
 
 
-def save_carry(path: str, carry: Tree, draws: Sequence = ()) -> None:
+def _npz(path: str) -> str:
+    return path if path.endswith(".npz") else path + ".npz"
+
+
+def save_carry(path: str, carry: Tree, draws: Sequence = (), *,
+               telemetry=None) -> None:
     """Checkpoint a scan-segment carry with the state of each draw source
-    that continues it (`RunDraws.state()`, read now)."""
+    that continues it (`RunDraws.state()`, read now).  With a telemetry
+    sink, emits `checkpoint_save` (path, bytes on disk, write seconds)."""
+    t0 = time.perf_counter()
     save_pytree(path, {"carry": carry, "draws": [d.state() for d in draws]})
+    if telemetry is not None:
+        telemetry.emit("checkpoint_save", path=_npz(path),
+                       nbytes=os.path.getsize(_npz(path)),
+                       seconds=time.perf_counter() - t0)
 
 
-def load_carry(path: str, like: Tree, draws: Sequence = ()) -> Tree:
+def load_carry(path: str, like: Tree, draws: Sequence = (), *,
+               telemetry=None) -> Tree:
     """Inverse of `save_carry`: returns the carry and puts each source in
-    `draws` back where it was when the carry was saved."""
+    `draws` back where it was when the carry was saved.  With a telemetry
+    sink, emits `checkpoint_load`."""
     snap = load_pytree(path, {"carry": like,
                               "draws": [d.state() for d in draws]})
     for d, state in zip(draws, snap["draws"]):
         d.set_state(state)
+    if telemetry is not None:
+        telemetry.emit("checkpoint_load", path=_npz(path))
     return snap["carry"]
 
 

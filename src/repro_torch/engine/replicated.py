@@ -5,7 +5,9 @@ Every benchmark table re-runs each (strategy, knob) cell across seeds.
 
   * `run_replicated`: S seeds of one config on the batched engine, one
     solo `run_federated(engine="batched")` run a seed, each with its own
-    dispatch count and round times.  The reference vmaps one fused round
+    dispatch count, round times and `compile_time_s` (its CompileTimer:
+    the kernels' build, if that run triggered it), each streaming its own
+    `kind="solo"` run into a shared telemetry sink.  The reference vmaps one fused round
     over a seed axis; fusing the port's replicas into wider launches is
     still to come (ROADMAP.md).
   * `run_replicated_scan`: seeds x strategies as one grid,
@@ -19,10 +21,10 @@ from typing import Optional, Sequence
 
 
 def run_replicated(cfg, seeds, data=None, model=None, *, device=None,
-                   draws: Optional[Sequence] = None):
+                   draws: Optional[Sequence] = None, telemetry=None):
     """See `federated.server.run_federated_replicated` (the public alias).
     `draws` gives one `RunDraws` source per seed (None: each seed's
-    default)."""
+    default); `telemetry` receives every seed's run."""
     from repro_torch.federated.server import run_federated
 
     seeds = list(seeds)
@@ -33,7 +35,8 @@ def run_replicated(cfg, seeds, data=None, model=None, *, device=None,
         raise ValueError(f"got {len(draws)} draw sources for {len(seeds)} "
                          "seeds")
     return [run_federated(dataclasses.replace(cfg, seed=s, engine="batched"),
-                          data, model, device=device, draws=d)
+                          data, model, device=device, draws=d,
+                          telemetry=telemetry)
             for s, d in zip(seeds, draws)]
 
 

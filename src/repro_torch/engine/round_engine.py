@@ -66,6 +66,8 @@ from repro_torch.federated.draws import (
 from repro_torch.kernels.cohort_gather.kernel import error_word
 from repro_torch.kernels.delta_codec import delta_codec_roundtrip
 from repro_torch.models.mlp_cnn import ClassifierModel
+from repro_torch.telemetry import profile, trace
+from repro_torch.telemetry.trace import named_stage
 from repro_torch.tree import tree_leaves
 
 Params = Any
@@ -158,12 +160,16 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
     def round_step(params, xs_all, ys_all, nv_all, sigma_all, x_val, y_val,
                    sel, epochs_k, idx, noise, walks, fault_codes=None, *,
                    error=None) -> RoundOutput:
-        stacked, n_k_sel = cohort_update(
-            model, ccfg, params, xs_all, ys_all, nv_all, sigma_all, sel,
-            epochs_k, idx, noise, n_steps=n_steps, error=error)
-        if spec.upload_codec != "identity":
-            stacked = delta_codec_roundtrip(stacked, params,
-                                            spec.upload_codec)
+        # the named stages are profiler / NVTX ranges (metadata only), or
+        # graph boundaries of a stage-timed capture (telemetry.trace)
+        with named_stage("train"):
+            stacked, n_k_sel = cohort_update(
+                model, ccfg, params, xs_all, ys_all, nv_all, sigma_all, sel,
+                epochs_k, idx, noise, n_steps=n_steps, error=error)
+            if spec.upload_codec != "identity":
+                with named_stage("codec"):
+                    stacked = delta_codec_roundtrip(stacked, params,
+                                                    spec.upload_codec)
 
         m = sel.shape[0]
         device = n_k_sel.device
@@ -174,9 +180,11 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
             if fault_codes is None:
                 fault_codes = torch.zeros((m,), dtype=torch.int64,
                                           device=device)
-            h = harden_cohort(stacked, params, n_k_sel, fault_codes,
-                              faults=spec.faults, quarantine=spec.quarantine,
-                              z=spec.quarantine_z)
+            with named_stage("quarantine"):
+                h = harden_cohort(stacked, params, n_k_sel, fault_codes,
+                                  faults=spec.faults,
+                                  quarantine=spec.quarantine,
+                                  z=spec.quarantine_z)
             stacked, n_k_sv = h.stacked, h.n_k_sv
         sv = torch.zeros((m,), device=device)
         evals, truncated, sv_s = 0, False, 0.0
@@ -184,20 +192,22 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
             evals = torch.zeros((), dtype=torch.int32, device=device)
             truncated = torch.zeros((), dtype=torch.bool, device=device)
         if spec.needs_sv:
-            sv, stats, sv_s = shapley(stacked, n_k_sv, params, x_val,
-                                      y_val, walks)
-            evals, truncated = stats.utility_evals, stats.truncated_round
-            if hardened:
-                # quarantined rows walked as w_prev at 2^-100: no credit
-                sv = torch.where(h.ok, sv, 0.0)
+            with named_stage("shapley"):
+                sv, stats, sv_s = shapley(stacked, n_k_sv, params, x_val,
+                                          y_val, walks)
+                evals, truncated = stats.utility_evals, stats.truncated_round
+                if hardened:
+                    # quarantined rows walked as w_prev at 2^-100: no credit
+                    sv = torch.where(h.ok, sv, 0.0)
 
-        if hardened:
-            return RoundOutput(
-                masked_average(stacked, h.n_k_agg, h.ok, params), sv, evals,
-                truncated, h.ok, h.quarantined, sv_s)
-        with torch.no_grad():
-            new_params = weighted_average(stacked,
-                                          normalized_weights(n_k_sel))
+        with named_stage("aggregate"):
+            if hardened:
+                return RoundOutput(
+                    masked_average(stacked, h.n_k_agg, h.ok, params), sv,
+                    evals, truncated, h.ok, h.quarantined, sv_s)
+            with torch.no_grad():
+                new_params = weighted_average(stacked,
+                                              normalized_weights(n_k_sel))
         quarantined = (torch.zeros((), dtype=torch.int32, device=device)
                        if capturable else 0)
         return RoundOutput(new_params, sv, evals, truncated,
@@ -289,8 +299,10 @@ class ScanSpec(NamedTuple):
     n_clients / m).  `rounds_per_segment` K > 0 runs the run as segments
     of K rounds whose carry the host reads back between them; 0 is one
     segment of `rounds`.  The eval cadence is the (T,) host table
-    `ScanOperands.eval_table`, not part of the spec.  `live_tap` (the
-    reference's in-scan telemetry stream) comes with the telemetry slice.
+    `ScanOperands.eval_table`, not part of the spec.  `live_tap` plants
+    the telemetry tap in the round: each round's record is copied into a
+    pinned host ring that a host thread reads as the rounds land
+    (`telemetry.trace.attach_live_tap`); it changes no output.
     """
     round: RoundSpec
     selectors: tuple            # tuple[SelectorSpec, ...]
@@ -398,17 +410,18 @@ def _make_scan_body(model: ClassifierModel, ccfg: ClientConfig,
                                     ops.nv_all)
             else:
                 losses = torch.zeros_like(ops.fractions)
-            ctx = DeviceSelectionContext(data_fractions=ops.fractions,
-                                         local_losses=losses, poc_d=d_t)
-            sel, sstate = device_select_any(
-                spec.selectors, ops.strategy_id, sstate, ctx,
-                _complete_draw(draws_needed, m, rd.selection,
-                               ops.fractions))
-            epochs_k = epochs_row.index_select(0, sel)
-            codes_k = fault_row.index_select(0, sel)
-            # active mask at select time: dropout strategies freeze it here
-            active_sel = sstate.active.index_select(0, sel)
-            idx = minibatch_rows(rd.rows, sel, ops.nv_all)
+            with named_stage("select"):
+                ctx = DeviceSelectionContext(data_fractions=ops.fractions,
+                                             local_losses=losses, poc_d=d_t)
+                sel, sstate = device_select_any(
+                    spec.selectors, ops.strategy_id, sstate, ctx,
+                    _complete_draw(draws_needed, m, rd.selection,
+                                   ops.fractions))
+                epochs_k = epochs_row.index_select(0, sel)
+                codes_k = fault_row.index_select(0, sel)
+                # active mask at select time: dropout strategies freeze it
+                active_sel = sstate.active.index_select(0, sel)
+                idx = minibatch_rows(rd.rows, sel, ops.nv_all)
             out = round_step(params, ops.xs_all, ops.ys_all, ops.nv_all,
                              ops.sigma_all, ops.x_val, ops.y_val, sel,
                              epochs_k, idx, rd.noise, rd.walks, codes_k,
@@ -502,6 +515,8 @@ class _Replica:
         self.error = error_word(self.device)
         self.eval_table = None      # (T,) bool device table when gated
         self.carry = None
+        self.tap = (trace.TapRing(self.k, spec.selectors[0].m, self.device)
+                    if spec.live_tap else None)
 
     def _allocate(self, carry: SegmentCarry, draws_seg: RoundDraws) -> None:
         k, dev = self.k, self.device
@@ -533,6 +548,10 @@ class _Replica:
         for name in _OUTPUTS:
             self.outs[name].index_copy_(0, k, ys[name][None].to(
                 self.outs[name].dtype))
+        if self.tap is not None:
+            trace.attach_live_tap(self.tap, k, t, ops.strategy_id,
+                                  ys["selections"], ys["sv"],
+                                  ys["utility_evals"], ys["sv_truncated"])
         _copy_tree(carry, new)
 
     def eval(self) -> None:
@@ -542,7 +561,8 @@ class _Replica:
         carry = self.carry
         t = carry.sel_state.round.reshape(1) - 1
         k = t - self.t0
-        acc, vloss = self.evaluate(carry.params)
+        with named_stage("eval"):
+            acc, vloss = self.evaluate(carry.params)
         acc, vloss = acc.reshape(1), vloss.reshape(1)
         if self.eval_table is not None:
             do = self.eval_table.index_select(0, t)
@@ -568,10 +588,13 @@ class _Replica:
         self.t0.fill_(t0)
         _stage(self.staged, draws_seg, self.device)
 
-    def clear_evals(self) -> None:
-        # after the warm-up's eval: a round without one reads NaN
+    def clear(self) -> None:
+        # after the warm-up's round and eval: a round without an eval reads
+        # NaN, and the tap ring holds no round yet
         self.outs["test_acc"].fill_(float("nan"))
         self.outs["val_loss"].fill_(float("nan"))
+        if self.tap is not None:
+            self.tap.clear()
 
     def output(self, n: int) -> SegmentOutput:
         """The carry and the first n rounds' outputs, as device copies."""
@@ -605,15 +628,22 @@ class SegmentStep:
     replay launches them again uncounted), and `replays` counts each
     graph's replays (or eager runs on the CPU).
 
+    Telemetry options, none of which changes an output bit:
+    `stage_events=True` captures the round as one graph a named stage
+    (`telemetry.trace.StageCapture`) and replays each piece between CUDA
+    timing events, so `stage_seconds()` gives each stage's device time
+    over the replays (on the CPU it is the plain path); `count_flops=True`
+    counts the matrix-product FLOPs of the round and of the eval in the
+    eager run the step makes anyway (the warm-up on a card, the first
+    round and eval on the CPU) into `flops`; with `spec.live_tap` each run
+    has a `TapRing` (`tap_rings`).
+
         step.stage(carries, t0, draws_segs); step.replay(t0, n);
         step.output(n) -> [SegmentOutput, ...]
     """
 
-    def __init__(self, model, ccfg, spec: ScanSpec, ops_list: list):
-        if spec.live_tap:
-            raise NotImplementedError(
-                "live_tap is not ported yet: it comes with the telemetry "
-                "slice of the PyTorch port (see ROADMAP.md)")
+    def __init__(self, model, ccfg, spec: ScanSpec, ops_list: list, *,
+                 stage_events: bool = False, count_flops: bool = False):
         self.runs = [_Replica(model, ccfg, spec, ops) for ops in ops_list]
         self.spec, self.k = spec, self.runs[0].k
         self.device = self.runs[0].device
@@ -626,6 +656,14 @@ class SegmentStep:
         self.graph_launches = {"round": {}, "eval": {}}
         self.replays = {"round": 0, "eval": 0}
         self.capture_time_s = 0.0
+        cuda = self.device.type == "cuda"
+        self.stage_events = stage_events and cuda
+        self._timer = trace.StageTimer() if self.stage_events else None
+        self.flops = {} if count_flops else None
+
+    @property
+    def tap_rings(self) -> list:
+        return [run.tap for run in self.runs if run.tap is not None]
 
     def _round(self) -> None:
         for run in self.runs:
@@ -635,19 +673,29 @@ class SegmentStep:
         for run in self.runs:
             run.eval()
 
+    def _counted(self, name: str, fn) -> None:
+        """Run `fn`, under the FLOP counter when `name` is still to count."""
+        if self.flops is None or name in self.flops:
+            fn()
+            return
+        with profile.FlopCount() as fc:
+            fn()
+        self.flops[name] = float(fc.get_total_flops())
+
     def _capture(self) -> None:
         """Warm both functions up on a side stream, put the carries and
-        error words back, capture each as a CUDA graph.  A capture that
-        raises resets the graphs made so far before the error goes on, so
-        their pools are released with them."""
+        error words back, capture each as a CUDA graph (the round as one
+        graph a stage under `stage_events`).  A capture that raises resets
+        the graphs made so far before the error goes on, so their pools are
+        released with them."""
         t_start = time.perf_counter()
         fns = {"round": self._round, "eval": self._eval}
         saved = [_clone_tree(run.carry) for run in self.runs]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            for fn in fns.values():
-                fn()
+            for name, fn in fns.items():
+                self._counted(name, fn)
         torch.cuda.current_stream(self.device).wait_stream(side)
         for run, carry in zip(self.runs, saved):
             _copy_tree(run.carry, carry)
@@ -656,9 +704,14 @@ class SegmentStep:
         try:
             for name, fn in fns.items():
                 before = dict(kernels.LAUNCHES)
-                graphs[name] = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(graphs[name]):
-                    fn()
+                if name == "round" and self.stage_events:
+                    graphs[name] = trace.StageCapture()
+                    with torch.cuda.stream(side):
+                        graphs[name].run(fn)
+                else:
+                    graphs[name] = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graphs[name]):
+                        fn()
                 launches[name] = {n: kernels.LAUNCHES[n] - before[n]
                                   for n in before}
             torch.cuda.synchronize(self.device)
@@ -668,6 +721,7 @@ class SegmentStep:
             raise
         self.graphs, self.graph_launches = graphs, launches
         self.capture_time_s = time.perf_counter() - t_start
+        trace.add_compile_seconds(self.capture_time_s)
 
     def stage(self, carries: list, t0: int, draws_segs: list) -> None:
         """Each run's carry, t0 and host draws (checked, one leading round
@@ -678,7 +732,7 @@ class SegmentStep:
         if self.device.type == "cuda" and self.graphs is None:
             self._capture()
         for run in self.runs:
-            run.clear_evals()
+            run.clear()
 
     def replay(self, t0: int, n: int) -> None:
         """Run rounds [t0, t0 + n) of the staged segment for every run,
@@ -693,10 +747,20 @@ class SegmentStep:
 
     def _run(self, name: str) -> None:
         self.replays[name] += 1
-        if self.graphs is not None:
+        if self.graphs is None:
+            self._counted(name, self._round if name == "round"
+                          else self._eval)
+        elif self._timer is None:
             self.graphs[name].replay()
+        elif name == "round":
+            self._timer.replay(self.graphs[name].pieces)
         else:
-            (self._round if name == "round" else self._eval)()
+            self._timer.replay([("eval", self.graphs[name])])
+
+    def stage_seconds(self) -> dict:
+        """Each stage's device seconds over the replays since the last call
+        (after the work synchronised); empty without `stage_events`."""
+        return self._timer.totals() if self._timer is not None else {}
 
     def output(self, n: int) -> list:
         """Each run's carry and first n rounds' outputs, device copies."""
@@ -725,7 +789,7 @@ def _sync_debug_error():
 
 
 def make_segment_step(model: ClassifierModel, ccfg: ClientConfig,
-                      spec: ScanSpec, ops) -> SegmentStep:
+                      spec: ScanSpec, ops, **options) -> SegmentStep:
     """The K-round segment step over the operands `ops` (one run's
     `ScanOperands`, or a list of runs' advanced together):
 
@@ -735,9 +799,10 @@ def make_segment_step(model: ClassifierModel, ccfg: ClientConfig,
     draws on the host (k <= K = spec.rounds_per_segment or spec.rounds),
     stacked on a leading round axis, their walks already range-checked.
     Chaining segments from t0 = 0 reproduces `make_run_scan` bit for bit:
-    the same captured round, the same carry, the same draws."""
+    the same captured round, the same carry, the same draws.  `options`
+    are SegmentStep's telemetry keywords."""
     return SegmentStep(model, ccfg, spec,
-                       ops if isinstance(ops, list) else [ops])
+                       ops if isinstance(ops, list) else [ops], **options)
 
 
 def make_run_scan(model: ClassifierModel, ccfg: ClientConfig,

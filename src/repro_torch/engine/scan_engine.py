@@ -30,7 +30,10 @@ device select, and a truncated round computes its walk and zeroes it).
 Faults and the quarantine screen run inside the captured round (the
 cohort's codes gathered from a device copy of the fault table by the
 round counter); the quarantined counts come back with the segment's other
-outputs.  Client sharding, telemetry and the serial Shapley estimator
+outputs.  Telemetry is built from the segments' read-back (the reference's
+stream: `compile` with the round's cost card, per-round `round_metrics` /
+`eval`, `run_end`); the live tap and the stage-timed capture are
+`telemetry.trace`'s.  Client sharding and the serial Shapley estimator
 raise `NotImplementedError`, each naming its slice.
 """
 from __future__ import annotations
@@ -51,6 +54,9 @@ from repro_torch.engine.schedule import (
 from repro_torch.faults.spec import CODE_CRASH, CODE_NONE
 from repro_torch.federated.compression import codec_nbytes
 from repro_torch.kernels.ce_loss.ops import check_labels
+from repro_torch.telemetry.metrics import emit_scan_rounds, run_end_payload
+from repro_torch.telemetry.profile import trace_capture
+from repro_torch.telemetry.trace import CompileTimer
 
 
 def build_epochs_table(cfg, s) -> np.ndarray:
@@ -110,7 +116,8 @@ def scan_operands(cfg, s) -> ScanOperands:
 
 
 def make_scan_spec(cfg, selector_specs: tuple, *,
-                   rounds_per_segment: int = 0) -> ScanSpec:
+                   rounds_per_segment: int = 0,
+                   live_tap: bool = False) -> ScanSpec:
     """ScanSpec for an FLConfig; `selector_specs` may hold several
     strategies (SV is computed if any of them needs it)."""
     needs_sv = any(sp.uses_shapley for sp in selector_specs)
@@ -121,7 +128,8 @@ def make_scan_spec(cfg, selector_specs: tuple, *,
                       faults=cfg.faults, quarantine=cfg.quarantine,
                       quarantine_z=cfg.quarantine_z)
     return ScanSpec(round=rspec, selectors=tuple(selector_specs),
-                    rounds=cfg.rounds, rounds_per_segment=rounds_per_segment)
+                    rounds=cfg.rounds, rounds_per_segment=rounds_per_segment,
+                    live_tap=live_tap)
 
 
 def check_draws(draws_seg, n_clients: int, m: int) -> None:
@@ -203,26 +211,57 @@ def read_back(named: dict) -> dict:
 
 
 def run_federated_scan(cfg, s, t_start: float, *,
-                       rounds_per_segment: int = 0):
+                       rounds_per_segment: int = 0, telemetry=None,
+                       ctimer=None):
     """Run `cfg.rounds` rounds from the RunSetup `s` as segments of
     captured round replays (one segment unless `rounds_per_segment` > 0),
     reading the outputs back once a segment: `grid.segments.run_segments`
-    with one replica."""
+    with one replica.
+
+    `telemetry=None` adds nothing.  With a sink the run's events are built
+    from the read-back after the segments: `compile` (the kernel build and
+    capture seconds `ctimer` saw, and the round's cost card), then per
+    round `round_metrics` / `eval`, then `run_end`; no event comes from
+    inside a segment except the live tap's (`telemetry.live_tap`), and
+    `telemetry.trace_dir` wraps the segments in a profiler window."""
     from repro_torch.grid.segments import ReplicaBatch, run_segments
 
+    uses_shapley = s.sel_spec.uses_shapley
     spec = make_scan_spec(cfg, (s.sel_spec,),
-                          rounds_per_segment=rounds_per_segment)
+                          rounds_per_segment=rounds_per_segment,
+                          live_tap=bool(telemetry is not None
+                                        and telemetry.live_tap))
     ops = scan_operands(cfg, s)
     plan = round_plan(spec.round, cfg.client, spec.selectors, cfg.n_clients,
                       cfg.m, s.params, s.n_valid.cpu().numpy())
     carry = SegmentCarry(s.params, s.sel_state, torch.zeros(
         (), dtype=torch.int64, device=ops.nv_all.device))
-    (out,), rep = run_segments(s.model, cfg.client, spec, ReplicaBatch(
-        cfgs=(cfg,), setups=(s,), ops=(ops,), plans=(plan,),
-        carries=(carry,)))
-    return results_from_scan(
+    if ctimer is None:
+        ctimer = CompileTimer()
+    with ctimer, trace_capture(telemetry, label="run_scan"):
+        (out,), rep = run_segments(s.model, cfg.client, spec, ReplicaBatch(
+            cfgs=(cfg,), setups=(s,), ops=(ops,), plans=(plan,),
+            carries=(carry,)), telemetry=telemetry, segment_events=False)
+    res = results_from_scan(
         cfg, s, out, wall_time_s=time.perf_counter() - t_start,
-        dispatches=sum(rep.replays.values()),
-        uses_shapley=s.sel_spec.uses_shapley,
+        dispatches=sum(rep.replays.values()), uses_shapley=uses_shapley,
         compile_time_s=rep.compile_time_s, round_time_s=rep.round_time_s,
         stage_time_s=rep.stage_time_s, graph_launches=rep.graph_launches)
+    if telemetry is not None:
+        telemetry.emit("compile", seconds=ctimer.seconds, program="run_scan",
+                       cost_card=rep.cost_card)
+        emit_scan_rounds(
+            telemetry, out, uses_shapley=uses_shapley,
+            codec_bytes=codec_nbytes(cfg.upload_codec, s.params),
+            model_bytes=s.model_bytes,
+            emask=eval_mask(cfg.rounds, cfg.eval_every))
+        telemetry.emit("run_end", **run_end_payload(
+            rounds=cfg.rounds, wall_time_s=res.wall_time_s,
+            compile_time_s=res.compile_time_s, final_acc=res.final_acc,
+            utility_evals=res.shapley_evals,
+            upload_bytes=res.upload_bytes, download_bytes=res.download_bytes,
+            sv_rounds=cfg.rounds if uses_shapley else 0,
+            truncated_rounds=(int(out["sv_truncated"].sum())
+                              if uses_shapley else 0),
+            dispatches=res.dispatches))
+    return res

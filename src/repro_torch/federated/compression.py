@@ -161,8 +161,17 @@ def codec_roundtrip(codec: str, w_new: Params, w_ref: Params) -> Params:
     return compress_update(codec, w_new, w_ref)[0]
 
 
+_NBYTES: dict = {}
+
+
 def codec_nbytes(codec: str, tree: Params) -> int:
     """Wire size of one encoded update for a model of `tree`'s shapes (a
-    per-run constant: every codec's size depends on leaf shapes only)."""
-    enc_fn, _ = CODECS[codec]
-    return enc_fn(tree_map(torch.zeros_like, tree)).nbytes
+    per-run constant: every codec's size depends on leaf shapes only, so
+    it is computed once a shape, by encoding zeros, and then looked up:
+    the encoding reads the card back)."""
+    key = (codec, tuple((tuple(x.shape), x.dtype, x.device.type)
+                        for x in tree_leaves(tree)))
+    if key not in _NBYTES:
+        enc_fn, _ = CODECS[codec]
+        _NBYTES[key] = enc_fn(tree_map(torch.zeros_like, tree)).nbytes
+    return _NBYTES[key]

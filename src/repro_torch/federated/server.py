@@ -21,9 +21,11 @@ three engines make the same run.  Faults (`FLConfig.faults`, a
 them or `quarantine=True` every engine hardens its cohort after the codec
 (`repro_torch.faults.harden_cohort`).  `run_federated_replicated` runs
 seeds of one config together (`engine/replicated.py`) or, under the scan
-engine, a strategies x seeds grid (`repro_torch.grid.run_grid`).  Parts of
-the reference that later slices of the port bring raise
-`NotImplementedError` naming that slice.
+engine, a strategies x seeds grid (`repro_torch.grid.run_grid`).  A
+`telemetry=` sink (`repro_torch.telemetry.Telemetry`) streams the
+reference's events: `run_start`, per round `round_metrics` and `eval`,
+`compile` and `run_end`.  Parts of the reference that later slices of the
+port bring raise `NotImplementedError` naming that slice.
 """
 from __future__ import annotations
 
@@ -64,6 +66,10 @@ from repro_torch.federated.partition import (
     power_law_fractions, valid_counts,
 )
 from repro_torch.models.mlp_cnn import ClassifierModel, make_classifier
+from repro_torch.telemetry.events import provenance
+from repro_torch.telemetry.metrics import run_end_payload
+from repro_torch.telemetry.profile import trace_capture
+from repro_torch.telemetry.trace import CompileTimer, stage
 from repro_torch.tree import tree_leaves
 
 Params = Any
@@ -124,7 +130,9 @@ class FLResult(NamedTuple):
     download_bytes: int = 0   # total PS->client traffic (model broadcasts)
     sim_time_s: float = 0.0   # virtual-clock seconds (0 without schedule)
     dispatches: int = 0       # the reference's host-level call count
-    compile_time_s: float = 0.0   # the port compiles nothing per run
+    # one-off seconds: the kernels' nvcc build when this run triggered it
+    # (loop, batched), the graph capture (scan, warm-up included)
+    compile_time_s: float = 0.0
     execute_time_s: float = 0.0
     quarantined_total: int = 0
     # the port's own: per-round wall seconds and the GTG-Shapley part of
@@ -324,16 +332,24 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
     the reference's draws in through it).  Under engine="scan",
     `rounds_per_segment` K > 0 reads the run back every K rounds (the
     segmented run equals the whole run bit for bit); other engines ignore
-    it.
+    it.  `telemetry` (a `repro_torch.telemetry.Telemetry`, default None)
+    streams the run; it changes no output and no dispatch count.
     """
     t_start = time.perf_counter()
+    ctimer = CompileTimer()
+    with ctimer:
+        s = setup_run(cfg, data, model, device=device, draws=draws)
     if telemetry is not None:
-        raise _not_in_slice("telemetry", "the telemetry slice")
-    s = setup_run(cfg, data, model, device=device, draws=draws)
+        telemetry.emit("run_start", run_id=telemetry.run_id, kind="solo",
+                       engine=cfg.engine, selector=cfg.selector,
+                       n_clients=cfg.n_clients, m=cfg.m, rounds=cfg.rounds,
+                       seed=cfg.seed, eval_every=cfg.eval_every,
+                       provenance=provenance())
     if cfg.engine == "scan":
         from repro_torch.engine.scan_engine import run_federated_scan
         return run_federated_scan(cfg, s, t_start,
-                                  rounds_per_segment=rounds_per_segment)
+                                  rounds_per_segment=rounds_per_segment,
+                                  telemetry=telemetry, ctimer=ctimer)
     device = s.n_valid.device
     model, params, draws = s.model, s.params, s.draws
     spec, sstate = s.sel_spec, s.sel_state
@@ -376,133 +392,186 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
     round_times, shapley_times = [], []
     total_evals = upload_bytes = download_bytes = dispatches = 0
     quarantined_total = 0
+    sv_rounds = trunc_rounds = 0   # telemetry-only truncation counters
     vclock = VirtualClock() if s.clock is not None else None
 
-    for t in range(cfg.rounds):
-        synchronize(device)
-        t_round = time.perf_counter()
-        losses = zero_losses
-        if spec.uses_local_losses:
-            losses = local_loss(model, params, s.xs, s.ys, s.n_valid)
-            dispatches += 1
+    # the kernels' build, if this run is the first to launch one, is
+    # charged to compile_time_s by the active timer
+    with ctimer, trace_capture(telemetry, label=f"{cfg.engine}_rounds"):
+        for t in range(cfg.rounds):
+            synchronize(device)
+            t_round = time.perf_counter()
+            with stage("select"):
+                losses = zero_losses
+                if spec.uses_local_losses:
+                    losses = local_loss(model, params, s.xs, s.ys, s.n_valid)
+                    dispatches += 1
 
-        ctx = DeviceSelectionContext(data_fractions=fractions,
-                                     local_losses=losses,
-                                     poc_d=int(d_sched[t]))
-        rd = draws.round(t, plan).to(device)
-        sel_dev, sstate = device_select(spec, sstate, ctx, rd.selection)
-        sel = sel_dev.cpu().numpy().astype(np.int64)
-        selections.append(sel)
-        epochs_k = round_epochs(cfg, s, sel, t)
+                ctx = DeviceSelectionContext(data_fractions=fractions,
+                                             local_losses=losses,
+                                             poc_d=int(d_sched[t]))
+                rd = draws.round(t, plan).to(device)
+                sel_dev, sstate = device_select(spec, sstate, ctx,
+                                                rd.selection)
+                sel = sel_dev.cpu().numpy().astype(np.int64)
+            selections.append(sel)
+            epochs_k = round_epochs(cfg, s, sel, t)
 
-        sel_t = torch.as_tensor(sel, device=device)
-        sv_round = None
-        if engine is not None:
-            # ---- fused round: ONE call for train+codec+SV+average --------
-            out = engine.step(params, sel, epochs_k, t, rd,
-                              fault_codes=(round_codes(sel, t) if hardened
-                                           else None))
-            params = out.params
-            if needs_sv:
-                sv_round = out.sv
-                total_evals += out.utility_evals
-            shapley_times.append(out.shapley_time_s)
-            if hardened:
-                # only survivors are charged: a quarantined upload never
-                # reaches the server (crash) or is dropped on arrival
-                quarantined_total += int(out.quarantined)
-                upload_bytes += codec_bytes * int(out.ok.sum())
-            else:
-                upload_bytes += codec_bytes * len(sel)
-            dispatches += 1
-        else:
-            # ---- ClientUpdate at each selected client --------------------
-            updates, nbytes_list = [], []
-            idx = minibatch_rows(rd.rows, sel_t, s.n_valid)
-            for i, k_id in enumerate(sel):
-                upd = client_update(model, cfg.client, params, s.xs[k_id],
-                                    s.ys[k_id], int(epochs_k[i]),
-                                    float(s.sigma_k_all[k_id]), idx[i],
-                                    [n[i] for n in rd.noise])
-                if cfg.upload_codec != "identity":
-                    upd, nbytes = compress_update(cfg.upload_codec, upd,
-                                                  params)
+            sel_t = torch.as_tensor(sel, device=device)
+            sv_round = None
+            evals_round, trunc_round, q_round = 0, False, 0
+            if engine is not None:
+                # ---- fused round: ONE call for train+codec+SV+average -----
+                out = engine.step(params, sel, epochs_k, t, rd,
+                                  fault_codes=(round_codes(sel, t)
+                                               if hardened else None))
+                params = out.params
+                if needs_sv:
+                    sv_round = out.sv
+                    evals_round = out.utility_evals
+                    trunc_round = out.sv_truncated
+                    total_evals += evals_round
+                shapley_times.append(out.shapley_time_s)
+                if hardened:
+                    # only survivors are charged: a quarantined upload
+                    # never reaches the server (crash) or is dropped
+                    q_round = int(out.quarantined)
+                    quarantined_total += q_round
+                    round_upload = codec_bytes * int(out.ok.sum())
                 else:
-                    nbytes = s.model_bytes
-                nbytes_list.append(nbytes)
-                updates.append(upd)
-            dispatches += len(sel)
-
-            stacked = tree_stack(updates)
-            n_k_sel = s.n_k_all[sel_t]
-
-            # ---- hardening: inject, screen, mask --------------------------
-            h = None
-            n_k_sv = n_k_sel
-            round_upload = int(sum(nbytes_list))
-            if hardened:
-                codes = torch.as_tensor(round_codes(sel, t), device=device)
-                h = harden_cohort(stacked, params, n_k_sel, codes,
-                                  faults=cfg.faults,
-                                  quarantine=cfg.quarantine,
-                                  z=cfg.quarantine_z)
-                stacked, n_k_sv = h.stacked, h.n_k_sv
-                ok = h.ok.cpu().numpy()
-                quarantined_total += int(h.quarantined)
-                round_upload = int(sum(nb for nb, good in zip(nbytes_list, ok)
-                                       if good))
+                    round_upload = codec_bytes * len(sel)
+                upload_bytes += round_upload
                 dispatches += 1
+            else:
+                # ---- ClientUpdate at each selected client -----------------
+                updates, nbytes_list = [], []
+                with stage("train"):
+                    idx = minibatch_rows(rd.rows, sel_t, s.n_valid)
+                    for i, k_id in enumerate(sel):
+                        upd = client_update(
+                            model, cfg.client, params, s.xs[k_id],
+                            s.ys[k_id], int(epochs_k[i]),
+                            float(s.sigma_k_all[k_id]), idx[i],
+                            [n[i] for n in rd.noise])
+                        if cfg.upload_codec != "identity":
+                            with stage("codec"):
+                                upd, nbytes = compress_update(
+                                    cfg.upload_codec, upd, params)
+                        else:
+                            nbytes = s.model_bytes
+                        nbytes_list.append(nbytes)
+                        updates.append(upd)
+                dispatches += len(sel)
 
-            # ---- GTG-Shapley at the PS ------------------------------------
-            # the walks are drawn before the stage's timer, as the batched
-            # engine draws them before its round step
-            if needs_sv:
-                walks = (draws.perm_batches(t, cfg.m)
-                         if cfg.shapley_impl == "serial" else rd.walks)
-                sv_round, stats, sv_s = shapley_stage(
-                    cfg.shapley_impl, stacked, n_k_sv, params, utility_fn,
-                    batched_utility_fn, walks, eps=cfg.shapley_eps,
-                    max_iters=max_iters, sv_chunk=cfg.sv_chunk)
-                shapley_times.append(sv_s)
-                total_evals += stats.utility_evals
+                stacked = tree_stack(updates)
+                n_k_sel = s.n_k_all[sel_t]
+
+                # ---- hardening: inject, screen, mask ----------------------
+                h = None
+                n_k_sv = n_k_sel
+                round_upload = int(sum(nbytes_list))
+                if hardened:
+                    with stage("quarantine"):
+                        codes = torch.as_tensor(round_codes(sel, t),
+                                                device=device)
+                        h = harden_cohort(stacked, params, n_k_sel, codes,
+                                          faults=cfg.faults,
+                                          quarantine=cfg.quarantine,
+                                          z=cfg.quarantine_z)
+                        stacked, n_k_sv = h.stacked, h.n_k_sv
+                        ok = h.ok.cpu().numpy()
+                    q_round = int(h.quarantined)
+                    quarantined_total += q_round
+                    round_upload = int(sum(nb for nb, good
+                                           in zip(nbytes_list, ok) if good))
+                    dispatches += 1
+
+                # ---- GTG-Shapley at the PS --------------------------------
+                # the walks are drawn before the stage's timer, as the
+                # batched engine draws them before its round step
+                if needs_sv:
+                    walks = (draws.perm_batches(t, cfg.m)
+                             if cfg.shapley_impl == "serial" else rd.walks)
+                    with stage("shapley"):
+                        sv_round, stats, sv_s = shapley_stage(
+                            cfg.shapley_impl, stacked, n_k_sv, params,
+                            utility_fn, batched_utility_fn, walks,
+                            eps=cfg.shapley_eps, max_iters=max_iters,
+                            sv_chunk=cfg.sv_chunk)
+                    shapley_times.append(sv_s)
+                    evals_round = stats.utility_evals
+                    trunc_round = stats.truncated_round
+                    total_evals += evals_round
+                    dispatches += 1
+                    if h is not None:
+                        # quarantined rows walked as w_prev at 2^-100: no
+                        # credit
+                        sv_round = torch.where(h.ok, sv_round, 0.0)
+                else:
+                    shapley_times.append(0.0)
+
+                # ---- ModelAverage (Alg. 1 line 9) -------------------------
+                with stage("aggregate"):
+                    if h is not None:
+                        params = masked_average(stacked, h.n_k_agg, h.ok,
+                                                params)
+                    else:
+                        with torch.no_grad():
+                            params = weighted_average(
+                                stacked, normalized_weights(n_k_sel))
                 dispatches += 1
-                if h is not None:
-                    # quarantined rows walked as w_prev at 2^-100: no credit
-                    sv_round = torch.where(h.ok, sv_round, 0.0)
-            else:
-                shapley_times.append(0.0)
+                upload_bytes += round_upload
+            download_bytes += s.model_bytes * len(sel)  # w^t broadcast
+            if vclock is not None:
+                vclock.advance(round_duration_s(s.clock, cfg.schedule, sel,
+                                                epochs_k))
 
-            # ---- ModelAverage (Alg. 1 line 9) ----------------------------
-            if h is not None:
-                params = masked_average(stacked, h.n_k_agg, h.ok, params)
-            else:
-                with torch.no_grad():
-                    params = weighted_average(stacked,
-                                              normalized_weights(n_k_sel))
-            dispatches += 1
-            upload_bytes += round_upload
-        download_bytes += s.model_bytes * len(sel)  # w^t broadcast
-        if vclock is not None:
-            vclock.advance(round_duration_s(s.clock, cfg.schedule, sel,
-                                            epochs_k))
+            sstate = device_update(spec, sstate, sel_t, sv_round)
 
-        sstate = device_update(spec, sstate, sel_t, sv_round)
+            if emask[t]:
+                with stage("eval"), torch.no_grad():
+                    acc = float(model.accuracy(params, s.x_test, s.y_test))
+                    vl = float(-utility_fn(params))
+                test_acc.append((t + 1, acc))
+                val_loss_hist.append((t + 1, vl))
+                dispatches += 2
+            synchronize(device)
+            round_times.append(time.perf_counter() - t_round)
 
-        if emask[t]:
-            with torch.no_grad():
-                acc = float(model.accuracy(params, s.x_test, s.y_test))
-            test_acc.append((t + 1, acc))
-            val_loss_hist.append((t + 1, float(-utility_fn(params))))
-            dispatches += 2
-        synchronize(device)
-        round_times.append(time.perf_counter() - t_round)
+            if telemetry is not None:
+                if needs_sv:
+                    sv_rounds += 1
+                    trunc_rounds += bool(trunc_round)
+                fields = dict(round=t, selections=sel, epochs=epochs_k,
+                              utility_evals=int(evals_round),
+                              sv_truncated=bool(trunc_round),
+                              upload_bytes=round_upload,
+                              download_bytes=s.model_bytes * len(sel))
+                if hardened:
+                    fields["quarantined"] = q_round
+                if sv_round is not None:
+                    fields["sv"] = sv_round.cpu().numpy()
+                telemetry.emit("round_metrics", **fields)
+                if emask[t]:
+                    telemetry.emit("eval", round=t, test_acc=acc, val_loss=vl)
 
     wall = time.perf_counter() - t_start
+    compile_s = ctimer.seconds
+    final_acc = test_acc[-1][1] if test_acc else float("nan")
+    if telemetry is not None:
+        telemetry.emit("compile", seconds=compile_s,
+                       program=f"{cfg.engine}_round_programs")
+        telemetry.emit("run_end", **run_end_payload(
+            rounds=cfg.rounds, wall_time_s=wall, compile_time_s=compile_s,
+            final_acc=final_acc, utility_evals=total_evals,
+            upload_bytes=upload_bytes, download_bytes=download_bytes,
+            sv_rounds=sv_rounds, truncated_rounds=trunc_rounds,
+            dispatches=dispatches))
     return FLResult(
         config=cfg,
         test_acc=test_acc,
         val_loss=val_loss_hist,
-        final_acc=test_acc[-1][1] if test_acc else float("nan"),
+        final_acc=final_acc,
         sv_final=sstate.valuation.sv.cpu().numpy(),
         selection_counts=sstate.valuation.counts.cpu().numpy(),
         selections=selections,
@@ -513,8 +582,8 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
         download_bytes=download_bytes,
         sim_time_s=vclock.now_s if vclock is not None else 0.0,
         dispatches=dispatches,
-        compile_time_s=0.0,
-        execute_time_s=wall,
+        compile_time_s=compile_s,
+        execute_time_s=max(wall - compile_s, 0.0),
         quarantined_total=quarantined_total,
         round_time_s=tuple(round_times),
         shapley_time_s=tuple(shapley_times),
@@ -525,7 +594,7 @@ def run_federated_replicated(cfg: FLConfig, seeds,
                              data: Optional[SynthDataset] = None,
                              model: Optional[ClassifierModel] = None,
                              selectors=None, *, device=None, draws=None,
-                             **grid_kwargs) -> list[FLResult]:
+                             telemetry=None, **grid_kwargs) -> list[FLResult]:
     """Run a replica batch on `device` (default: the CUDA card).
 
     With ``cfg.engine != "scan"`` and no `selectors`, each seed is a solo
@@ -535,19 +604,21 @@ def run_federated_replicated(cfg: FLConfig, seeds,
     captured round graph per capability partition, optionally segmented
     and checkpointed through the keywords; results come back
     selector-major, seed-minor.  `draws` gives one `RunDraws` source per
-    replica (a test hook, as `run_federated`'s)."""
+    replica (a test hook, as `run_federated`'s); `telemetry` streams the
+    grid, or each seed's batched run."""
     from repro_torch.engine.replicated import (
         run_replicated, run_replicated_scan,
     )
     if cfg.engine == "scan" or selectors is not None:
         return run_replicated_scan(cfg, seeds, selectors=selectors,
                                    data=data, model=model, device=device,
-                                   draws=draws, **grid_kwargs)
+                                   draws=draws, telemetry=telemetry,
+                                   **grid_kwargs)
     if grid_kwargs:
         raise ValueError("grid options (rounds_per_segment, "
                          "checkpoint_dir, ...) require engine='scan'")
     return run_replicated(cfg, seeds, data=data, model=model, device=device,
-                          draws=draws)
+                          draws=draws, telemetry=telemetry)
 
 
 def run_centralized(cfg: FLConfig, data: Optional[SynthDataset] = None,

@@ -51,7 +51,9 @@ class PartitionReport(NamedTuple):
     dispatches: int              # segments run by this call (resume: fewer)
     shapley_evals: int           # total utility evals across the partition
     bytes_resident: int          # the replicas' operand + carry bytes
-    flops_per_dispatch: float = float("nan")   # not measured by the port
+    # with compile_stats or a sink: the round's matrix-product FLOPs times
+    # the rounds of a segment, and on a card the memory above the set-up
+    flops_per_dispatch: float = float("nan")
     peak_bytes: Optional[int] = None
     upload_codec: str = "identity"
     # the port's own: graph replays made by this call ({"round": n,
@@ -64,6 +66,7 @@ class PartitionReport(NamedTuple):
     round_time_s: float = float("nan")
     capture_time_s: float = 0.0
     stage_time_s: float = 0.0
+    cost_card: Optional[dict] = None
 
 
 def partition_key(spec: SelectorSpec,

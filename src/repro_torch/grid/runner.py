@@ -8,6 +8,11 @@ operands and drive the segmented replica step (one captured round graph
 for the partition's S replicas) -> rebuild per-cell FLResults with
 `scan_engine.results_from_scan` and re-interleave them into grid order.
 Every cell equals its solo `run_federated(engine="scan")` bit for bit.
+A telemetry sink streams the grid as the reference's does (`run_start`
+kind "grid", the segments' events, per-cell `round_metrics` / `eval` at
+each partition's end, `cell_failed`, `compile` with the heaviest
+partition's cost card, `run_end`); it stays out of `GridSpec`, so the
+checkpoint fingerprint does not see it.
 """
 from __future__ import annotations
 
@@ -24,6 +29,11 @@ from repro_torch.engine.round_engine import SegmentCarry, round_plan
 from repro_torch.engine.scan_engine import (
     make_scan_spec, results_from_scan, scan_operands,
 )
+from repro_torch.engine.schedule import eval_mask
+from repro_torch.federated.compression import codec_nbytes
+from repro_torch.telemetry.events import provenance
+from repro_torch.telemetry.metrics import emit_scan_rounds, run_end_payload
+from repro_torch.telemetry.profile import trace_capture
 from repro_torch.grid.partition import (
     Partition, PartitionReport, interleave, partition_cells,
 )
@@ -85,13 +95,15 @@ def _check_fingerprint(checkpoint_dir: str, spec: GridSpec,
                    "carry_format": CARRY_FORMAT}, f)
 
 
-def _build_batch(part: Partition, cfgs, setups, rounds_per_segment: int):
+def _build_batch(part: Partition, cfgs, setups, rounds_per_segment: int,
+                 live_tap: bool = False):
     """The partition's ScanSpec and its replicas: each its solo run's
     operands and draw plan, with its strategy's index into the
     partition's selector tuple."""
     cfg0 = cfgs[part.cell_indices[0]]
     spec = make_scan_spec(cfg0, part.specs,
-                          rounds_per_segment=rounds_per_segment)
+                          rounds_per_segment=rounds_per_segment,
+                          live_tap=live_tap)
     ops, plans, carries = [], [], []
     for idx, sid in zip(part.cell_indices, part.strategy_ids):
         cfg, s = cfgs[idx], setups[idx]
@@ -144,14 +156,12 @@ def run_grid(spec: GridSpec, *, data=None, model=None,
     * `data` may be one dataset (shared by every cell) or one per cell;
       `draws` one `RunDraws` source per cell (None: each cell's default,
       the solo run's `TorchDraws`).
-    * `shard=True` on one device is the plain path.  Telemetry,
-      `compile_stats` and `clients_shards > 1` come with later slices.
+    * `shard=True` on one device is the plain path; `clients_shards > 1`
+      comes with a later slice.
+    * `telemetry` (default None: nothing added) streams the grid;
+      `compile_stats=True` (or a sink) fills each partition report's cost
+      card, `flops_per_dispatch` and, on a card, `peak_bytes`.
     """
-    if telemetry is not None:
-        raise _not_in_slice("run_grid(telemetry=...)", "the telemetry slice")
-    if compile_stats:
-        raise _not_in_slice("run_grid(compile_stats=True)",
-                            "the telemetry slice")
     t_start = time.perf_counter()
     cfgs = spec.validate()
     segment_plan(spec.base.rounds, rounds_per_segment)  # fail fast
@@ -168,66 +178,137 @@ def run_grid(spec: GridSpec, *, data=None, model=None,
                                  [c.upload_codec for c in cfgs])
     if checkpoint_dir:
         _check_fingerprint(checkpoint_dir, spec, rounds_per_segment, resume)
+    if telemetry is not None:
+        telemetry.emit(
+            "run_start", run_id=telemetry.run_id, kind="grid",
+            cells=len(cfgs), partitions=len(partitions),
+            rounds=spec.base.rounds, rounds_per_segment=rounds_per_segment,
+            checkpoint_dir=checkpoint_dir, provenance=provenance())
 
     per_partition, reports = [], []
     n_segments = segment_plan(spec.base.rounds, rounds_per_segment)[1]
-    for pi, part in enumerate(partitions):
-        t_part = time.perf_counter()
-        key = part.key
-        try:
-            scan_spec, batch = _build_batch(part, cfgs, setups,
-                                            rounds_per_segment)
-            outs, rep = run_segments(
-                model, cfgs[part.cell_indices[0]].client, scan_spec, batch,
-                checkpoint_dir=checkpoint_dir, tag=f"p{pi}-", resume=resume,
-                max_segments=max_segments, retries=retries,
-                retry_backoff_s=retry_backoff_s)
-            if outs is None:
-                return None
-            # the partition's cells ran together: they share its duration
-            wall = time.perf_counter() - t_part
-            results = [results_from_scan(
-                cfgs[idx], setups[idx], out, wall_time_s=wall,
-                dispatches=sum(rep.replays.values()),
-                uses_shapley=key.needs_sv,
-                compile_time_s=rep.compile_time_s,
-                round_time_s=rep.round_time_s,
-                stage_time_s=rep.stage_time_s,
-                graph_launches=rep.graph_launches)
-                for idx, out in zip(part.cell_indices, outs)]
-            per_partition.append(results)
-            reports.append(PartitionReport(
-                label=key.label, cell_indices=part.cell_indices,
-                needs_sv=key.needs_sv,
-                uses_local_losses=key.uses_local_losses,
-                n_strategies=len(part.specs), dispatches=rep.dispatches,
-                shapley_evals=sum(r.shapley_evals for r in results),
-                bytes_resident=rep.bytes_resident,
-                upload_codec=key.upload_codec, replays=rep.replays,
-                graph_launches=rep.graph_launches,
-                round_time_s=(sum(rep.round_time_s) / len(rep.round_time_s)
-                              if rep.round_time_s else float("nan")),
-                capture_time_s=rep.compile_time_s,
-                stage_time_s=rep.stage_time_s))
-        except Exception as e:
-            # cell isolation: a raising partition degrades to per-cell
-            # CellFailure entries; KeyboardInterrupt still aborts
-            if not isolate_cells:
-                raise
-            tb = traceback.format_exc()
-            per_partition.append([CellFailure(
-                cell=idx, selector=cfgs[idx].selector, seed=cfgs[idx].seed,
-                partition=key.label, error=repr(e), traceback=tb)
-                for idx in part.cell_indices])
-            reports.append(PartitionReport(
-                label=key.label, cell_indices=part.cell_indices,
-                needs_sv=key.needs_sv,
-                uses_local_losses=key.uses_local_losses,
-                n_strategies=len(part.specs), dispatches=0,
-                shapley_evals=0, bytes_resident=0,
-                upload_codec=key.upload_codec))
+    live = bool(telemetry is not None and telemetry.live_tap)
+    compile_s, cards = 0.0, []
+    with trace_capture(telemetry, label="grid"):
+        for pi, part in enumerate(partitions):
+            t_part = time.perf_counter()
+            key = part.key
+            try:
+                scan_spec, batch = _build_batch(part, cfgs, setups,
+                                                rounds_per_segment, live)
+                if telemetry is not None:
+                    telemetry.heartbeat(
+                        f"partition {pi + 1}/{len(partitions)} ({key.label}, "
+                        f"{len(part.cell_indices)} cells)", force=True)
+                outs, rep = run_segments(
+                    model, cfgs[part.cell_indices[0]].client, scan_spec,
+                    batch, checkpoint_dir=checkpoint_dir, tag=f"p{pi}-",
+                    resume=resume, max_segments=max_segments,
+                    retries=retries, retry_backoff_s=retry_backoff_s,
+                    compile_stats=compile_stats, telemetry=telemetry)
+                compile_s += rep.compile_time_s
+                cards.append(rep.cost_card)
+                if outs is None:
+                    if telemetry is not None:
+                        telemetry.heartbeat(
+                            f"partition {pi + 1}: stopped at max_segments="
+                            f"{max_segments} ({rep.dispatches} dispatched); "
+                            "checkpoints are the resume point", force=True)
+                    return None
+                # the partition's cells ran together: they share its
+                # duration
+                wall = time.perf_counter() - t_part
+                results = [results_from_scan(
+                    cfgs[idx], setups[idx], out, wall_time_s=wall,
+                    dispatches=sum(rep.replays.values()),
+                    uses_shapley=key.needs_sv,
+                    compile_time_s=rep.compile_time_s,
+                    round_time_s=rep.round_time_s,
+                    stage_time_s=rep.stage_time_s,
+                    graph_launches=rep.graph_launches)
+                    for idx, out in zip(part.cell_indices, outs)]
+                if telemetry is not None:
+                    for idx, out in zip(part.cell_indices, outs):
+                        emit_scan_rounds(
+                            telemetry, out, uses_shapley=key.needs_sv,
+                            codec_bytes=codec_nbytes(cfgs[idx].upload_codec,
+                                                     setups[idx].params),
+                            model_bytes=setups[idx].model_bytes,
+                            emask=eval_mask(spec.base.rounds,
+                                            cfgs[idx].eval_every),
+                            cell=idx)
+                per_partition.append(results)
+                reports.append(PartitionReport(
+                    label=key.label, cell_indices=part.cell_indices,
+                    needs_sv=key.needs_sv,
+                    uses_local_losses=key.uses_local_losses,
+                    n_strategies=len(part.specs), dispatches=rep.dispatches,
+                    shapley_evals=sum(r.shapley_evals for r in results),
+                    bytes_resident=rep.bytes_resident,
+                    flops_per_dispatch=rep.flops_per_dispatch,
+                    peak_bytes=rep.peak_bytes,
+                    upload_codec=key.upload_codec, replays=rep.replays,
+                    graph_launches=rep.graph_launches,
+                    round_time_s=(sum(rep.round_time_s)
+                                  / len(rep.round_time_s)
+                                  if rep.round_time_s else float("nan")),
+                    capture_time_s=rep.compile_time_s,
+                    stage_time_s=rep.stage_time_s,
+                    cost_card=rep.cost_card))
+            except Exception as e:
+                # cell isolation: a raising partition degrades to per-cell
+                # CellFailure entries; KeyboardInterrupt still aborts
+                if not isolate_cells:
+                    raise
+                tb = traceback.format_exc()
+                if telemetry is not None:
+                    for idx in part.cell_indices:
+                        telemetry.emit(
+                            "cell_failed", cell=idx, error=repr(e),
+                            selector=cfgs[idx].selector,
+                            seed=cfgs[idx].seed, partition=key.label)
+                    telemetry.heartbeat(
+                        f"partition {pi + 1}/{len(partitions)} FAILED "
+                        f"({key.label}): {e!r}; "
+                        f"{len(part.cell_indices)} cells degraded",
+                        force=True)
+                per_partition.append([CellFailure(
+                    cell=idx, selector=cfgs[idx].selector,
+                    seed=cfgs[idx].seed, partition=key.label,
+                    error=repr(e), traceback=tb)
+                    for idx in part.cell_indices])
+                reports.append(PartitionReport(
+                    label=key.label, cell_indices=part.cell_indices,
+                    needs_sv=key.needs_sv,
+                    uses_local_losses=key.uses_local_losses,
+                    n_strategies=len(part.specs), dispatches=0,
+                    shapley_evals=0, bytes_resident=0,
+                    upload_codec=key.upload_codec))
+    results = interleave(len(spec.cells), partitions, per_partition)
+    wall = time.perf_counter() - t_start
+    if telemetry is not None:
+        done = [r for r in results if not isinstance(r, CellFailure)]
+        accs = [r.final_acc for r in done if r.final_acc == r.final_acc]
+        fields = {}
+        live_cards = [c for c in cards if c is not None]
+        if live_cards:
+            # the grid's card is the heaviest partition's
+            fields["cost_card"] = max(
+                live_cards, key=lambda c: (c.get("peak_bytes") or 0,
+                                           c.get("flops") or 0))
+            if fields["cost_card"].get("peak_bytes") is not None:
+                fields["peak_bytes"] = fields["cost_card"]["peak_bytes"]
+        telemetry.emit("compile", seconds=compile_s,
+                       program="grid_segments", **fields)
+        telemetry.emit("run_end", **run_end_payload(
+            rounds=spec.base.rounds, wall_time_s=wall,
+            compile_time_s=compile_s,
+            final_acc=sum(accs) / len(accs) if accs else float("nan"),
+            utility_evals=sum(r.shapley_evals for r in done),
+            upload_bytes=sum(r.upload_bytes for r in done),
+            download_bytes=sum(r.download_bytes for r in done),
+            dispatches=sum(r.dispatches for r in reports)))
     return GridResult(
-        spec=spec,
-        results=interleave(len(spec.cells), partitions, per_partition),
-        partitions=reports, rounds_per_segment=rounds_per_segment,
-        n_segments=n_segments, wall_time_s=time.perf_counter() - t_start)
+        spec=spec, results=results, partitions=reports,
+        rounds_per_segment=rounds_per_segment, n_segments=n_segments,
+        wall_time_s=wall)

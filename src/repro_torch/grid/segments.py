@@ -20,6 +20,14 @@ checkpoint directory:
     complete segment bit for bit: the carry is the exact state and the
     draw sources continue where they stopped.
 
+With a telemetry sink `run_segments` emits `segment_start` /
+`segment_end` (with `telemetry.segment_counters`), `segment_retry`,
+`checkpoint_save` / `checkpoint_load` / `checkpoint_corrupt`, a throttled
+heartbeat with an ETA, and the first dispatched segment's `compile` event
+with the step's cost card; with `live_tap` its host thread emits the
+rounds' taps as they land.  All of it reads what the segment reads back
+anyway, so the outputs and the replays stay what they are without it.
+
 Segmenting only changes where the host observes the carry, so a segmented
 run equals the unsegmented one bit for bit.  The reference stacks the
 replicas on a leading axis for its vmap, padded to the partition's largest
@@ -44,6 +52,8 @@ from repro_torch.checkpoint.ckpt import (
 from repro_torch.engine.round_engine import ScanSpec, SegmentStep
 from repro_torch.engine.scan_engine import _READ, check_draws, read_back
 from repro_torch.federated.draws import stack_rounds
+from repro_torch.telemetry import profile, trace
+from repro_torch.telemetry.metrics import segment_counters
 
 
 class ReplicaBatch(NamedTuple):
@@ -66,6 +76,9 @@ class SegmentRunReport(NamedTuple):
     graph_launches: Optional[dict] = None
     round_time_s: tuple = ()     # per round, shared by the replicas
     stage_time_s: float = 0.0
+    cost_card: Optional[dict] = None   # with compile_stats or a sink
+    flops_per_dispatch: float = float("nan")
+    peak_bytes: Optional[int] = None
 
 
 def segment_plan(rounds: int, rounds_per_segment: int) -> tuple[int, int]:
@@ -132,17 +145,20 @@ def _final_state(carry) -> dict:
 
 
 def _replay_segment(step, carries, t0, n, draws_segs, n_clients,
-                    read_carries: bool):
+                    read_carries: bool, poller=None):
     """Stage, replay and read back one segment of n rounds: (outputs, host
     dict, host carries or None, replay seconds, staging seconds).  The
     outputs, the final states, the error words and, with `read_carries`,
-    the carries come back in one device-to-host copy."""
+    the carries come back in one device-to-host copy.  A live-tap
+    `poller` watches the step's tap rings over the replays."""
     cuda = step.device.type == "cuda"
     capture_s = step.capture_time_s
     t_stage = time.perf_counter()
     step.stage(carries, t0, draws_segs)
     stage_s = (time.perf_counter() - t_stage
                - (step.capture_time_s - capture_s))
+    if poller is not None:
+        poller.arm(step.tap_rings, t0, n)
     if cuda:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
@@ -172,13 +188,23 @@ def _replay_segment(step, carries, t0, n, draws_segs, n_clients,
             for i, o in enumerate(outs)]
     replay_s = (start.elapsed_time(end) / 1e3 if cuda
                 else time.perf_counter() - t_replay)
+    trace.record_device_stages(step.stage_seconds())
     return outs, host, host_carries, replay_s, stage_s
+
+
+def _card_key(spec: ScanSpec, ccfg, batch: ReplicaBatch) -> tuple:
+    """What a step's cost card depends on: the spec, the client config and
+    the shapes of the replicas' operands and carries."""
+    return ("segment_step", spec._replace(rounds_per_segment=0), ccfg,
+            profile.shape_signature((batch.ops, batch.carries)))
 
 
 def run_segments(model, ccfg, spec: ScanSpec, batch: ReplicaBatch, *,
                  checkpoint_dir: Optional[str] = None, tag: str = "",
                  resume: bool = True, max_segments: Optional[int] = None,
-                 retries: int = 0, retry_backoff_s: float = 0.05
+                 retries: int = 0, retry_backoff_s: float = 0.05,
+                 compile_stats: bool = False, telemetry=None,
+                 segment_events: bool = True
                  ) -> tuple[Optional[list], SegmentRunReport]:
     """Drive one partition's replicas through all segments of K =
     `spec.rounds_per_segment` rounds (0: one segment of T), the last one
@@ -195,12 +221,31 @@ def run_segments(model, ccfg, spec: ScanSpec, batch: ReplicaBatch, *,
     run falls back to the last intact boundary and recomputes forward,
     overwriting the bad file.  `retries` > 0 retries a raising segment up
     to that many times, `retry_backoff_s` doubling a retry, from the same
-    carries and the same draws."""
+    carries and the same draws.
+
+    `telemetry` (default None: no event, no thread, no extra sync) emits
+    the module's segment, checkpoint and compile events unless
+    `segment_events=False` (the solo scan's stream is the reference's: its
+    engine emits the run's events itself); its `live_tap` runs the tap's
+    host thread over the replays and its `trace_dir` has the step time
+    each stage of its replays.  `compile_stats` (or a sink) fills the
+    report's cost card: the FLOPs of the round counted in the eager run
+    the step makes anyway, the launches its graph holds and, on a card,
+    the peak memory above the set-up."""
     rounds = spec.rounds
     k = spec.rounds_per_segment or rounds
     n_segments = -(-rounds // k)
-    step = SegmentStep(model, ccfg, spec._replace(rounds_per_segment=k),
-                       list(batch.ops))
+    tel = telemetry if segment_events else None
+    card_key = _card_key(spec, ccfg, batch)
+    card = profile.lookup_card(card_key)
+    want_card = compile_stats or telemetry is not None
+    if want_card and card is None:
+        profile.prepare_counting()
+    step = SegmentStep(
+        model, ccfg, spec._replace(rounds_per_segment=k), list(batch.ops),
+        stage_events=bool(telemetry is not None
+                          and getattr(telemetry, "trace_dir", None)),
+        count_flops=want_card and card is None)
     draws = [s.draws for s in batch.setups]
     n_rep, m, n_clients = len(batch.ops), spec.selectors[0].m, \
         spec.selectors[0].n_clients
@@ -221,11 +266,14 @@ def run_segments(model, ccfg, spec: ScanSpec, batch: ReplicaBatch, *,
             like = {"replicas": [{"carry": c, "out": _out_like(m, n)}
                                  for c in carries],
                     "round_time_s": np.zeros((n,))}
+            path = _seg_path(checkpoint_dir, tag, seg)
             try:
-                snap = load_carry(_seg_path(checkpoint_dir, tag, seg), like,
-                                  draws)
-            except CheckpointCorruptError:
+                snap = load_carry(path, like, draws, telemetry=tel)
+            except CheckpointCorruptError as e:
                 # recompute from here on, from the last intact boundary
+                if tel is not None:
+                    tel.emit("checkpoint_corrupt", path=path, segment=seg,
+                             tag=tag, error=str(e))
                 start = seg
                 break
             carries = [r["carry"] for r in snap["replicas"]]
@@ -235,55 +283,109 @@ def run_segments(model, ccfg, spec: ScanSpec, batch: ReplicaBatch, *,
             round_times += list(snap["round_time_s"])
 
     stage_s, dispatched = 0.0, 0
+    ctimer = trace.CompileTimer()
+    peak_bytes, seg_seconds = None, []
+    cuda = step.device.type == "cuda"
+    if want_card and cuda:
+        # no synchronise: the sink must add no host sync to the run
+        mem_base = torch.cuda.memory_allocated(step.device)
+        torch.cuda.reset_peak_memory_stats(step.device)
 
     def report():
+        flops = (card or {}).get("flops")
         return SegmentRunReport(
             n_segments, dispatched, start, batch_bytes(batch),
             compile_time_s=step.capture_time_s,
             replays=dict(step.replays),
             graph_launches=(dict(step.graph_launches)
                             if step.graphs is not None else None),
-            round_time_s=tuple(round_times), stage_time_s=stage_s)
+            round_time_s=tuple(round_times), stage_time_s=stage_s,
+            cost_card=card,
+            flops_per_dispatch=(flops * k if flops is not None
+                                else float("nan")),
+            peak_bytes=(card or {}).get("peak_bytes"))
 
-    for seg in range(start, n_segments):
-        if max_segments is not None and dispatched >= max_segments:
-            return None, report()
-        t0, n = seg * k, seg_rounds(seg)
-        t_draw = time.perf_counter()
-        draws_segs = []
-        for s, plan in zip(batch.setups, batch.plans):
-            d = stack_rounds([s.draws.round(t, plan)
-                              for t in range(t0, t0 + n)])
-            check_draws(d, n_clients, m)
-            draws_segs.append(d)
-        stage_s += time.perf_counter() - t_draw
-        attempt = 0
-        while True:
-            try:
-                outs, host, host_carries, replay_s, seg_stage_s = \
-                    _replay_segment(step, carries, t0, n, draws_segs,
-                                    n_clients, bool(checkpoint_dir))
-                break
-            except Exception:
-                # KeyboardInterrupt is a BaseException: never retried
-                if attempt >= retries:
-                    raise
-                attempt += 1
-                time.sleep(retry_backoff_s * (2 ** (attempt - 1)))
-        stage_s += seg_stage_s
-        carries = [o.carry for o in outs]
-        seg_out = [{name: host[f"{i}/{name}"] for name in _READ}
-                   for i in range(n_rep)]
-        for part, out in zip(parts, seg_out):
-            for name in _READ:
-                part[name].append(out[name])
-        round_times += [replay_s / n] * n
-        if checkpoint_dir:
-            save_carry(_seg_path(checkpoint_dir, tag, seg), {
-                "replicas": [{"carry": c, "out": o}
-                             for c, o in zip(host_carries, seg_out)],
-                "round_time_s": np.full((n,), replay_s / n)}, draws)
-        dispatched += 1
+    live = spec.live_tap and telemetry is not None
+    with trace.live_sink(telemetry if live else None) as poller:
+        for seg in range(start, n_segments):
+            if max_segments is not None and dispatched >= max_segments:
+                return None, report()
+            t0, n = seg * k, seg_rounds(seg)
+            t_seg = time.perf_counter()
+            if tel is not None:
+                tel.emit("segment_start", segment=seg, t0=t0, rounds=n,
+                         tag=tag, replicas=n_rep)
+            t_draw = time.perf_counter()
+            draws_segs = []
+            for s, plan in zip(batch.setups, batch.plans):
+                d = stack_rounds([s.draws.round(t, plan)
+                                  for t in range(t0, t0 + n)])
+                check_draws(d, n_clients, m)
+                draws_segs.append(d)
+            stage_s += time.perf_counter() - t_draw
+            attempt = 0
+            while True:
+                try:
+                    with ctimer:
+                        outs, host, host_carries, replay_s, seg_stage_s = \
+                            _replay_segment(step, carries, t0, n, draws_segs,
+                                            n_clients, bool(checkpoint_dir),
+                                            poller)
+                    break
+                except Exception:
+                    # KeyboardInterrupt is a BaseException: never retried
+                    if attempt >= retries:
+                        raise
+                    attempt += 1
+                    if tel is not None:
+                        tel.emit("segment_retry", segment=seg,
+                                 attempt=attempt, tag=tag)
+                    time.sleep(retry_backoff_s * (2 ** (attempt - 1)))
+            stage_s += seg_stage_s
+            carries = [o.carry for o in outs]
+            seg_out = [{name: host[f"{i}/{name}"] for name in _READ}
+                       for i in range(n_rep)]
+            for part, out in zip(parts, seg_out):
+                for name in _READ:
+                    part[name].append(out[name])
+            round_times += [replay_s / n] * n
+            if want_card and dispatched == 0:
+                if cuda:
+                    peak_bytes = (torch.cuda.max_memory_allocated(step.device)
+                                  - mem_base)
+                card = card if card is not None else profile.cached_card(
+                    card_key, lambda: profile.card(
+                        step.flops.get("round"),
+                        kernel_launches=(dict(step.graph_launches["round"])
+                                         if step.graphs is not None
+                                         else None),
+                        peak_bytes=peak_bytes) | {
+                            "eval_flops": step.flops.get("eval")})
+                if tel is not None:
+                    tel.emit("compile", seconds=ctimer.seconds,
+                             program=f"segment_step:{tag or 'solo'}",
+                             cost_card=card)
+            dispatched += 1
+            if tel is not None:
+                secs = time.perf_counter() - t_seg
+                seg_seconds.append(secs)
+                tel.emit("segment_end", segment=seg, tag=tag,
+                         **segment_counters(seg_out, secs))
+                eta_s = (sum(seg_seconds) / len(seg_seconds)
+                         * (n_segments - seg - 1))
+                peak_txt = ("" if peak_bytes is None
+                            else f" peak {peak_bytes / 1e6:.0f}MB")
+                tel.heartbeat(f"{tag or 'seg'} {seg + 1}/{n_segments} "
+                              f"({n} rounds x {n_rep} replicas, "
+                              f"{secs:.2f}s) eta {eta_s:.0f}s{peak_txt}")
+            if checkpoint_dir:
+                save_carry(_seg_path(checkpoint_dir, tag, seg), {
+                    "replicas": [{"carry": c, "out": o}
+                                 for c, o in zip(host_carries, seg_out)],
+                    "round_time_s": np.full((n,), replay_s / n)}, draws,
+                    telemetry=tel)
+            if poller is not None:
+                poller.finish()
 
     results = []
     for i, (part, carry) in enumerate(zip(parts, carries)):

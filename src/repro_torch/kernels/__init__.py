@@ -164,11 +164,15 @@ _lib_lock = threading.Lock()
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use (the build's seconds
+    go to every active `telemetry.CompileTimer`)."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build().path))
+            from repro_torch.telemetry.trace import add_compile_seconds
+            b = build()
+            add_compile_seconds(b.seconds)
+            lib = ctypes.CDLL(str(b.path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes

@@ -1459,3 +1459,107 @@ def test_grid_capture_that_raises_degrades_to_cell_failures(cuda,
     assert not again.failures
     _assert_runs_bitwise(again.results[0], run_federated(
         spec.cells[0].config(spec.base), device=cuda))
+
+
+# ------------------------------------------------------------- telemetry ---
+def _telemetry_run(cuda, tmp_path, mode, **over):
+    """One scan run of the small config under a telemetry mode: "off",
+    "host" (an in-memory sink), "live" (the live tap) or "trace" (a
+    capture window: the round captured as one graph a stage)."""
+    from repro_torch.federated.server import run_federated
+    from repro_torch.telemetry import Telemetry
+    cfg = _scan_cfg(engine="scan", upload_codec="quant8_topk", **over)
+    kw = {"live": {"live_tap": True},
+          "trace": {"trace_dir": str(tmp_path / "trace")}}.get(mode, {})
+    tel = None if mode == "off" else Telemetry(**kw)
+    return run_federated(cfg, device=cuda, telemetry=tel), tel
+
+
+def _syncs(fn):
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+@pytest.mark.parametrize("mode", ["host", "live", "trace"])
+def test_scan_telemetry_on_the_card_is_bitwise_the_run_without(cuda, tmp_path,
+                                                               mode):
+    """Off, host sink, live tap and the stage-timed capture make the same
+    run on the card bit for bit; every one replays under
+    set_sync_debug_mode("error") (the engine turns it on around the
+    replays, so a sync in a replay raises)."""
+    from repro_torch.telemetry import validate_events
+    from repro_torch.tree import tree_leaves
+    off, _ = _telemetry_run(cuda, tmp_path, "off")
+    on, tel = _telemetry_run(cuda, tmp_path, mode)
+    for a, b in zip(on.selections, off.selections):
+        np.testing.assert_array_equal(a, b)
+    assert on.test_acc == off.test_acc and on.val_loss == off.val_loss
+    np.testing.assert_array_equal(on.sv_final, off.sv_final)
+    assert on.upload_bytes == off.upload_bytes
+    assert on.dispatches == off.dispatches
+    for a, b in zip(tree_leaves(on.params), tree_leaves(off.params)):
+        assert torch.equal(a, b)
+    validate_events(tel.events)
+    kinds = [e["event"] for e in tel.events]
+    assert kinds.count("round_metrics") == len(on.selections)
+    if mode == "live":
+        taps = [e for e in tel.events if e["event"] == "round_tap"]
+        assert sorted(e["round"] for e in taps) == list(range(4))
+        assert [e["selections"] for e in sorted(taps, key=lambda e:
+                                                e["round"])] == \
+            [s.tolist() for s in off.selections]
+    if mode == "trace":
+        (prof,) = [e for e in tel.events if e["event"] == "profile"]
+        assert prof["source"] == "graph_events"
+        assert {"select", "train", "codec", "shapley", "aggregate",
+                "eval"} <= set(prof["stage_wall_s"])
+
+
+def test_host_sink_adds_no_host_sync_to_a_scan_run(cuda, tmp_path):
+    """The sink reads what the segment reads back anyway: a scan run with
+    it makes as many synchronizing calls as one without it."""
+    _telemetry_run(cuda, tmp_path, "off")          # build, warm caches
+    _, off = _syncs(lambda: _telemetry_run(cuda, tmp_path, "off"))
+    _, host = _syncs(lambda: _telemetry_run(cuda, tmp_path, "host"))
+    assert host == off
+
+
+def test_tap_ring_is_pinned_and_fed_by_the_graph(cuda):
+    from repro_torch.engine import (
+        SegmentCarry, make_scan_spec, make_segment_step, scan_operands,
+    )
+    from repro_torch.engine.round_engine import round_plan
+    from repro_torch.federated.draws import stack_rounds
+    from repro_torch.federated.server import setup_run
+    cfg = _scan_cfg(engine="scan")
+    s = setup_run(cfg, device=cuda)
+    spec = make_scan_spec(cfg, (s.sel_spec,), live_tap=True)
+    plan = round_plan(spec.round, cfg.client, (s.sel_spec,), cfg.n_clients,
+                      cfg.m, s.params, s.n_valid.cpu().numpy())
+    step = make_segment_step(s.model, cfg.client, spec, scan_operands(cfg, s))
+    (ring,) = step.tap_rings
+    assert ring.host_rec.is_pinned() and ring.host_seq.is_pinned()
+    step([SegmentCarry(s.params, s.sel_state,
+                       torch.zeros((), dtype=torch.int64, device=cuda))], 0,
+         [stack_rounds([s.draws.round(t, plan) for t in range(cfg.rounds)])])
+    torch.cuda.synchronize()
+    assert step.graphs is not None
+    assert ring.seq_np.tolist() == list(range(1, cfg.rounds + 1))
+    assert [ring.record(t)["round"] for t in range(cfg.rounds)] == \
+        list(range(cfg.rounds))
+
+
+def test_stage_events_sum_within_the_replays_time(cuda, tmp_path):
+    res, tel = _telemetry_run(cuda, tmp_path, "trace", rounds=6)
+    (prof,) = [e for e in tel.events if e["event"] == "profile"]
+    total = sum(prof["stage_wall_s"].values())
+    replays = sum(res.round_time_s)
+    assert 0.0 < total <= replays * 1.01

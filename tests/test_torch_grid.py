@@ -459,8 +459,6 @@ def test_replicated_scan_branch_is_run_grid():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"telemetry": object()}, "telemetry slice"),
-    ({"compile_stats": True}, "telemetry slice"),
     ({"spec": GridSpec.product(_base(clients_shards=2), seeds=(0,))},
      "client-sharding slice")])
 def test_later_slices_raise_not_implemented(kw, match):

@@ -364,30 +364,57 @@ def _raise(*args, **kwargs):
     {"selector": "greedyfed_dropout", "rounds": 5, "shapley_impl": "batched"},
     {"selector": "ucb", "straggler_frac": 0.5},
     {"upload_codec": "quant8_topk", "quarantine": True,
-     "faults": FaultSpec(rate=0.4, kinds=("nan", "sign_flip", "crash"))}])
-def test_scan_body_reads_nothing_back(over, monkeypatch):
+     "faults": FaultSpec(rate=0.4, kinds=("nan", "sign_flip", "crash"))},
+    {"upload_codec": "quant8_topk", "telemetry": "live_tap"},
+    {"upload_codec": "quant8_topk", "telemetry": "trace_dir"}])
+def test_scan_body_reads_nothing_back(over, monkeypatch, tmp_path):
     """The replays (round bodies and evals) run with Tensor.item, .tolist,
     .cpu, .numpy, float(), int() and bool() of a tensor all raising, and
-    still make the batched engine's run."""
+    still make the batched engine's run.  With the live tap the tap's host
+    thread polls the rings meanwhile; with a capture window the replays
+    run under the profiler with the stages' ranges (and, on a card, one
+    graph a stage)."""
+    from repro_torch.telemetry import Telemetry
+    from repro_torch.telemetry.profile import trace_capture
+    from repro_torch.telemetry.trace import live_sink
+
+    over = dict(over)
+    mode = over.pop("telemetry", None)
     cfg = _cfg(engine="scan", **over)
     model = make_mlp(784, (16,), 10)
     s = setup_run(cfg, model=model, device="cpu")
     ops = scan_operands(cfg, s)
-    spec = make_scan_spec(cfg, (s.sel_spec,))
+    spec = make_scan_spec(cfg, (s.sel_spec,), live_tap=mode == "live_tap")
     plan = round_plan(spec.round, cfg.client, (s.sel_spec,),
                       cfg.n_clients, cfg.m, s.params, s.n_valid.numpy())
-    step = make_segment_step(model, cfg.client, spec, ops)
+    step = make_segment_step(model, cfg.client, spec, ops,
+                             stage_events=mode == "trace_dir")
     step.stage([SegmentCarry(s.params, s.sel_state,
                              torch.zeros((), dtype=torch.int64))], 0,
                [stack_rounds([s.draws.round(t, plan)
                               for t in range(cfg.rounds)])])
-    with monkeypatch.context() as mp:
+    tel = Telemetry(trace_dir=str(tmp_path)) if mode else None
+    with monkeypatch.context() as mp, \
+            live_sink(tel if mode == "live_tap" else None) as poller, \
+            trace_capture(tel if mode == "trace_dir" else None):
         for name in ("item", "tolist", "cpu", "numpy", "__float__",
                      "__int__", "__bool__"):
             mp.setattr(torch.Tensor, name, _raise)
         with pytest.raises(AssertionError, match="read a tensor back"):
             bool(torch.ones(()))
+        if poller is not None:
+            poller.arm(step.tap_rings, 0, cfg.rounds)
         step.replay(0, cfg.rounds)
+        if poller is not None:
+            poller.finish()
+    if mode == "live_tap":
+        taps = [e for e in tel.events if e["event"] == "round_tap"]
+        assert [e["round"] for e in taps] == list(range(cfg.rounds))
+    if mode == "trace_dir":
+        (prof,) = [e for e in tel.events if e["event"] == "profile"]
+        assert prof["source"] == "trace"
+        assert {"select", "train", "codec", "shapley", "aggregate",
+                "eval"} <= set(prof["stage_wall_s"])
     (out,) = step.output(cfg.rounds)
     want = run_federated(dataclasses.replace(cfg, engine="batched"),
                          model=model, device="cpu")
@@ -406,10 +433,12 @@ def test_scan_spec_and_later_slices():
     assert spec.round.shapley_max_iters == 6 and spec.rounds_per_segment == 0
     cfg = _cfg(engine="scan")
     s = setup_run(cfg, model=make_mlp(784, (16,), 10), device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        make_segment_step(s.model, cfg.client,
-                          make_scan_spec(cfg, (s.sel_spec,))._replace(
-                              live_tap=True), scan_operands(cfg, s))
+    # the live tap runs since the telemetry slice: each run gets a ring
+    step = make_segment_step(s.model, cfg.client,
+                             make_scan_spec(cfg, (s.sel_spec,),
+                                            live_tap=True),
+                             scan_operands(cfg, s))
+    assert len(step.tap_rings) == 1
     for over in ({"shapley_impl": "serial"}, {"clients_shards": 2}):
         with pytest.raises(NotImplementedError, match="slice"):
             run_federated(_cfg(engine="scan", **over), device="cpu")

@@ -232,8 +232,6 @@ def test_unknown_options_and_other_entry_points_raise():
         run_federated(FLConfig(engine="warp"), device="cpu")
     with pytest.raises(ValueError):
         run_federated(FLConfig(shapley_impl="magic"), device="cpu")
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        run_federated(FLConfig(**SLICE), device="cpu", telemetry=object())
     # the replicated engines run since the grid slice; grid options need
     # the scan engine
     with pytest.raises(ValueError, match="engine='scan'"):
