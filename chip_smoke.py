@@ -117,7 +117,26 @@ exits non-zero without a result line:
    emit at least half of its taps before its `segment_end`.  Printed and
    held to no bound: the replay time a round off, with the sink and with
    the tap, two turns in one call; the `profile` event's stage seconds
-   and source; the round's cost card and the compile seconds.
+   and source; the round's cost card and the compile seconds;
+15. LM training at full width and depth: TinyLlama-1.1B (22 layers,
+   d_model 2048, 32 / 4 heads of 64, d_ff 5632, vocab 32000, bf16
+   activations, f32 params, AdamW, remat) through `repro_torch.launch.
+   train`'s LM-mode functions from a seeded init, 3 steps on one fixed
+   B = 4 x S = 2048 batch: the loss finite and strictly falling,
+   flash_attention launched 44 times a step (22 forward, 22 recomputed by
+   remat) and flash_attention_bwd 22, a second run from the same seed
+   bitwise equal; printed and held to no bound: ms a step, tokens/s, peak
+   memory and the step's flops over 989 TFLOP/s;
+16. training parity: the same widths cut to 2 layers, f32, B = 1, S = 2048
+   (the flash branch): loss and gradients on the card against the port's
+   CPU path with the same weights (loss at rtol 1e-4, each gradient leaf
+   at 5e-5 x its max |grad|, a limit that the same step with TF32 matrix
+   products must exceed, and does: both readings are printed);
+17. GreedyFed on an LM: `examples/federated_lm_torch.py`'s round functions
+   at --d-model 512 --layers 8 --seq 2048 --batch 2 --local-steps 2
+   --clients 6 --select 3 --rounds 2 (hd 128, f32: the flash branch's f32
+   route forward and backward): valid selections, finite SVs, both flash
+   entries launched, the round times printed.
 
 Phase 3 also holds flash_attention against its plain version at one
 layer's full prefill shape (B = 4, Hq = 32, Kh = 8, S = T = 8192, hd =
@@ -132,7 +151,23 @@ product as three TF32 products of split operands (hi hi + hi lo + lo hi);
 its bound counts those three at the TF32 peak, and the f32 FMA bound of the
 CUDA cores is printed beside it.
 
-Each path of phases 6-11, 13 and 14 runs with the launch counters zeroed
+Phase 3 also holds flash_attention_bwd (CUDA cores, f32 sums, no
+atomics) against `attention_bwd_ref` at the full TinyLlama layer (B = 4,
+S = T = 2048, Hq = 32, Kh = 4, hd = 64, causal) and the Danube layer
+(B = 1, Hq = 32, Kh = 8, hd = 120, window 4096, S = 8192), bf16 and f32,
+and at ragged S, hd 128, G = 1, non-causal and a q_pos offset: dq / dk /
+dv element by element within rtol |grad| + 2e-5 max |grad|, rtol 0 for
+f32 and 2^-7 for bf16 (against the f32 plain version of the same bf16
+inputs: the kernel rounds each f32 result once to bf16); two launches
+bitwise equal; the forward's output with its lse output bitwise the
+output without, the lse the plain log-sum-exp at atol 1e-4.  It times the
+kernel, its plain version and the backward of
+`scaled_dot_product_attention` at the TinyLlama layer beside the bound
+(2.5 x the forward's 4 hd flops a pair, at 989 TFLOP/s for bf16; for f32
+as three split-TF32 products at 495 TFLOP/s, as the forward's f32 route
+is bounded, with the f32 FMA bound of the CUDA cores printed beside it).
+
+Each path of phases 6-11, 13-15 and 17 runs with the launch counters zeroed
 just before it and read just after; every kernel must launch on its path.  A captured
 graph's launches are counted when it is captured and not when it is
 replayed, so the scan path counts its warm-up round's launches plus each
@@ -143,11 +178,13 @@ is `{"ok": true, "device": {...}}`.
 from __future__ import annotations
 
 import json
+import math
 import re
 import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -1061,7 +1098,8 @@ def phase_main_path(torch, device):
     res, launches, valued = drive(torch, device, cfg, "main")
     expect_launches("loop main path", launches, {
         "prefix_avg": valued, "ce_loss": valued, "cohort_gather": 0,
-        "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0})
+        "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0})
     require(res.final_acc > 0.2, f"final accuracy {res.final_acc} <= 0.2")
     return launches
 
@@ -1087,7 +1125,8 @@ def phase_batched_path(torch, device):
     expect_launches("batched path", launches, {
         "prefix_avg": valued, "ce_loss": valued,
         "cohort_gather": cfg.rounds, "delta_codec": cfg.rounds,
-        "weighted_avg": 0, "flash_attention": 0})
+        "weighted_avg": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0})
     same = all((a == b).all() for a, b in zip(res.selections,
                                               loop.selections))
     p_err = _max_err(res.params, loop.params)
@@ -1216,7 +1255,8 @@ def phase_scan_path(torch, device):
     expect_launches("scan path", launches, {
         "prefix_avg": cfg.rounds + 1, "ce_loss": cfg.rounds + 1,
         "cohort_gather": cfg.rounds + 1, "delta_codec": cfg.rounds + 1,
-        "weighted_avg": 0, "flash_attention": 0})
+        "weighted_avg": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0})
     return launches
 
 
@@ -1230,7 +1270,8 @@ def phase_dense_oracle(torch, device):
     dense, launches, valued = drive(torch, device, cfg, "dense")
     expect_launches("dense-oracle path", launches, {
         "prefix_avg": 0, "ce_loss": valued, "cohort_gather": cfg.rounds,
-        "delta_codec": 0, "weighted_avg": valued, "flash_attention": 0})
+        "delta_codec": 0, "weighted_avg": valued, "flash_attention": 0,
+        "flash_attention_bwd": 0})
     stream, _, _ = drive(torch, device, FLConfig(rounds=4, engine="batched"),
                          "streaming")
     same = all((a == b).all() for a, b in zip(dense.selections,
@@ -1290,20 +1331,23 @@ def phase_faults(torch, device):
         cfg, engine="loop"), "faults-loop")
     expect_launches("faults loop", launches, {
         "prefix_avg": valued, "ce_loss": valued, "cohort_gather": 0,
-        "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0})
+        "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0})
     path.append(launches)
     batched, launches, valued = drive(torch, device, dataclasses.replace(
         cfg, engine="batched"), "faults-batched")
     expect_launches("faults batched", launches, {
         "prefix_avg": valued, "ce_loss": valued,
         "cohort_gather": cfg.rounds, "delta_codec": cfg.rounds,
-        "weighted_avg": 0, "flash_attention": 0})
+        "weighted_avg": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0})
     path.append(launches)
     scan, launches = _scan_run(torch, device, cfg)
     expect_launches("faults scan", launches, {
         "prefix_avg": cfg.rounds + 1, "ce_loss": cfg.rounds + 1,
         "cohort_gather": cfg.rounds + 1, "delta_codec": cfg.rounds + 1,
-        "weighted_avg": 0, "flash_attention": 0})
+        "weighted_avg": 0, "flash_attention": 0,
+        "flash_attention_bwd": 0})
     path.append(launches)
 
     runs = {"loop": loop, "batched": batched, "scan": scan}
@@ -1371,7 +1415,8 @@ def phase_faults(torch, device):
     expect_launches("faults dense oracle", launches, {
         "prefix_avg": 0, "ce_loss": valued,
         "cohort_gather": dense_cfg.rounds, "delta_codec": 0,
-        "weighted_avg": valued, "flash_attention": 0})
+        "weighted_avg": valued, "flash_attention": 0,
+        "flash_attention_bwd": 0})
     path.append(launches)
     cpu = run_federated(dense_cfg, device="cpu")
     same = all((a == b).all() for a, b in zip(dense.selections,
@@ -1495,7 +1540,8 @@ def phase_grid(torch, device):
                 "prefix_avg": n if p.needs_sv else 0,
                 "ce_loss": n if p.needs_sv else 0,
                 "delta_codec": n if p.upload_codec != "identity" else 0,
-                "weighted_avg": 0, "flash_attention": 0}
+                "weighted_avg": 0, "flash_attention": 0,
+                "flash_attention_bwd": 0}
         require(p.graph_launches["round"] == want and p.replays["round"]
                 == base.rounds, f"grid: {p.label} is not one round graph "
                 f"of {n} replicas replayed once a round")
@@ -1919,6 +1965,266 @@ def check_flash_attention(torch, device):
     return entry
 
 
+def _bwd_plain_by_heads(torch, q, k, v, o, do, lse, window, causal=True,
+                        q_pos=None):
+    """`attention_bwd_ref` over one KV head's group of query heads at a
+    time, in f32 on the card (dense scores of all heads at S = 8192 would
+    take tens of GB); yields (b, kv head, query heads h0:h1, (dq, dk, dv))
+    with dq (G, S, hd) and dk / dv (1, T, hd)."""
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    b_n, _, hq, _ = q.shape
+    kh = k.shape[2]
+    g = hq // kh
+    f = lambda x: x.float()
+    for b in range(b_n):
+        for j in range(kh):
+            h0, h1 = j * g, (j + 1) * g
+            yield b, j, h0, h1, attention_bwd_ref(
+                f(q[b, :, h0:h1]).transpose(0, 1),
+                f(k[b, :, j:j + 1]).transpose(0, 1),
+                f(v[b, :, j:j + 1]).transpose(0, 1),
+                f(o[b, :, h0:h1]).transpose(0, 1),
+                f(do[b, :, h0:h1]).transpose(0, 1), lse[b, h0:h1],
+                causal=causal, window=window, q_pos=q_pos, group=g)
+
+
+class BwdError:
+    """The backward's error against its plain version, element by element:
+    |got - want| <= rtol |want| + 2e-5 max |want|, with max |want| taken
+    over the slice compared (one KV head's group).  f32: rtol 0, the
+    forward's 2e-5 of the largest gradient.  bf16, against the f32 plain
+    version of the same bf16 inputs, o and lse: the kernel computes in f32
+    and rounds each output once to bf16 (at most 2^-8 of the value), so
+    rtol 2^-7 on top of the same f32 term.  `share` is the worst
+    |got - want| over its limit (1 is at the limit); `scale` and `rms` are
+    each tensor's largest and rms gradient, printed beside the errors."""
+
+    def __init__(self, dtype):
+        self.rtol = 0.0 if dtype == "float32" else 2.0 ** -7
+        self.atol = 2e-5
+        names = ("dq", "dk", "dv")
+        self.err, self.share, self.scale = ({n: 0.0 for n in names}
+                                            for _ in range(3))
+        self._sq = {n: [0.0, 0] for n in names}
+
+    def add(self, got, want):
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            diff, aw = (g.float() - w).abs(), w.abs()
+            top = float(aw.max())
+            limit = self.rtol * aw + self.atol * top
+            self.err[name] = max(self.err[name], float(diff.max()))
+            self.share[name] = max(self.share[name], float(
+                (diff / limit.clamp_min(1e-30)).max()))
+            self.scale[name] = max(self.scale[name], top)
+            self._sq[name][0] += float(w.double().square().sum())
+            self._sq[name][1] += w.numel()
+
+    def rms(self, name) -> float:
+        total, n = self._sq[name]
+        return (total / n) ** 0.5
+
+    def worst(self) -> float:
+        return max(self.share.values())
+
+    def check(self, what):
+        rule = (f"|err| <= {self.rtol:g} |grad| + {self.atol:g} max |grad|")
+        require(self.worst() <= 1.0,
+                f"flash_attention_bwd {what}: {rule} fails, worst share of "
+                f"the limit {self.share}; errors {self.err}, max |grad| "
+                f"{self.scale}")
+        return (f"worst err over its limit {self.worst():.3f} ({rule}; "
+                + ", ".join(f"{n} err {self.err[n]:.2e}, share "
+                            f"{self.share[n]:.3f}, max |grad| "
+                            f"{self.scale[n]:.2e}, rms {self.rms(n):.2e}"
+                            for n in self.err) + ")")
+
+
+def _sdpa_bwd_ms(torch, q, k, v, do, window):
+    """The backward of `scaled_dot_product_attention` on the same inputs
+    (KV repeated per group beforehand; causal, or the banded mask), timed
+    alone after one forward: a yardstick the port never calls."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    g = q.shape[2] // k.shape[2]
+    qh = q.transpose(1, 2).detach().requires_grad_()
+    kh = k.transpose(1, 2).repeat_interleave(g, 1).detach().requires_grad_()
+    vh = v.transpose(1, 2).repeat_interleave(g, 1).detach().requires_grad_()
+    doh = do.transpose(1, 2)
+    kw = {"is_causal": True}
+    if window > 0:
+        s_len = q.shape[1]
+        qp = torch.arange(s_len, device=q.device)[:, None]
+        kp = torch.arange(s_len, device=q.device)[None, :]
+        kw = {"attn_mask": (kp <= qp) & (kp > qp - window)}
+    errors = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        try:
+            # a backend that refuses the inputs warns before it raises
+            with sdpa_kernel([backend]), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                out = F.scaled_dot_product_attention(qh, kh, vh, **kw)
+                ms = time_ms(lambda _: torch.autograd.grad(
+                    out, (qh, kh, vh), doh, retain_graph=True), iters=5,
+                    warmup=1)
+            return ms, backend.name
+        except RuntimeError as e:
+            errors.append(f"{backend.name}: {str(e).splitlines()[0]}")
+    log(f"[flash_attention_bwd] no SDPA backend took it: {errors}")
+    return None, None
+
+
+def check_flash_attention_bwd(torch, device):
+    """The backward kernel against `attention_bwd_ref` on the card: the
+    full TinyLlama layer (B = 4, S = T = 2048, Hq = 32, Kh = 4, hd = 64,
+    causal) and the Danube layer (B = 1, Hq = 32, Kh = 8, hd = 120, window
+    4096, S = 8192) in bf16 and f32; ragged S, hd 128, G = 1, non-causal
+    and a q_pos offset.  Two launches bitwise equal; the forward's output
+    with lse bitwise the output without, its lse the plain log-sum-exp.
+    Times kernel, plain version and SDPA's backward at the TinyLlama layer,
+    whose bf16 call is the JSON entry's (the phase-15 path's call)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda,
+    )
+
+    saved = dict(kernels.LAUNCHES)
+    gen = torch.Generator(device=device).manual_seed(24)
+    entry, f32_route = None, None
+    layers = (("TinyLlama", 4, 2048, 32, 4, 64, 0),
+              ("Danube", 1, 8192, 32, 8, 120, 4096))
+    for label, b, s_len, hq, kh, hd, window in layers:
+        base = [torch.randn(shape, generator=gen, device=device)
+                for shape in ((b, s_len, hq, hd), (b, s_len, kh, hd),
+                              (b, s_len, kh, hd), (b, s_len, hq, hd))]
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            q, k, v, do = (x.to(dtype) for x in base)
+            plain_o = flash_attention_cuda(q, k, v, window=window)
+            o, lse = flash_attention_cuda(q, k, v, window=window,
+                                          with_lse=True)
+            require(torch.equal(o, plain_o), f"flash_attention {label} "
+                    f"{dname}: the output with lse differs from without")
+            del plain_o
+            got = flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                           window=window)
+            again = flash_attention_bwd_cuda(q, k, v, o, do, lse,
+                                             window=window)
+            require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"flash_attention_bwd {label} {dname}: two launches "
+                    f"differ")
+            del again
+            err, lse_err = BwdError(dname), 0.0
+            g = hq // kh
+            for bb, j, h0, h1, want in _bwd_plain_by_heads(
+                    torch, q, k, v, o, do, lse, window):
+                err.add((got[0][bb, :, h0:h1].transpose(0, 1),
+                         got[1][bb, :, j:j + 1].transpose(0, 1),
+                         got[2][bb, :, j:j + 1].transpose(0, 1)), want)
+                _, want_lse = attention_ref(
+                    q[bb, :, h0:h1].transpose(0, 1),
+                    k[bb, :, j:j + 1].transpose(0, 1).expand(g, -1, -1),
+                    v[bb, :, j:j + 1].transpose(0, 1).expand(g, -1, -1),
+                    window=window, with_lse=True)
+                lse_err = max(lse_err, float(
+                    (lse[bb, h0:h1] - want_lse).abs().max()))
+            verdict = err.check(f"{label} {dname}")
+            require(lse_err <= 1e-4, f"flash_attention {label} {dname}: "
+                    f"lse max err {lse_err} > 1e-4")
+            ms = time_ms(lambda _: flash_attention_bwd_cuda(
+                q, k, v, o, do, lse, window=window), iters=3, warmup=1)
+            pairs = band_pairs(s_len, s_len, window) * b * hq
+            n_bytes = (sum(x.numel() * x.element_size()
+                           for x in (q, k, v, o, do, *got))
+                       + lse.numel() * 4)
+            flops = 2.5 * 4 * hd * pairs
+            if dtype == torch.bfloat16:
+                b_ms, b_by = bound_ms(n_bytes, flops, BF16_PEAK_FLOPS)
+                b_name = f"at {BF16_PEAK_FLOPS / 1e12:g} TFLOP/s"
+            else:
+                # f32-accurate products as phase 3's forward bounds them:
+                # split TF32, three TF32 products a product
+                b_ms, b_by = bound_ms(n_bytes, 3 * flops, TF32_PEAK_FLOPS)
+                fma_ms, fma_by = bound_ms(n_bytes, flops)
+                b_name = (f"x 3 split-TF32 products at "
+                          f"{TF32_PEAK_FLOPS / 1e12:g} TFLOP/s; as f32 FMA "
+                          f"on the CUDA cores {fma_ms:.4f} ms, {fma_by}")
+            line = (f"[flash_attention_bwd] {label} B={b} Hq={hq} Kh={kh} "
+                    f"S=T={s_len} hd={hd} window={window} {dname}: "
+                    f"{verdict}; lse max err {lse_err:.2e} (atol 1e-4), "
+                    f"the output with lse bitwise the output without, two "
+                    f"launches bitwise equal; kernel {ms:.4f} ms "
+                    f"({14 * hd * pairs / ms / 1e9:.2f} TFLOP/s of the 14 hd "
+                    f"flops a pair it does, {pairs} unmasked pairs), bound "
+                    f"{b_ms:.4f} ms ({b_by}; 2.5 x the forward's "
+                    f"{4 * hd * pairs:.4g} flops = {flops:.4g} "
+                    f"{b_name})")
+            if label == "TinyLlama":
+                plain_ms = time_ms(lambda _: [w for *_, w in
+                                              _bwd_plain_by_heads(
+                    torch, q, k, v, o, do, lse, window)], iters=1, warmup=0)
+                lib_ms, backend = _sdpa_bwd_ms(torch, q, k, v, do, window)
+                line += f", plain {plain_ms:.4f} ms"
+                if lib_ms is not None:
+                    line += (f", SDPA backward ({backend}) {lib_ms:.4f} ms "
+                             f"(kernel / SDPA {ms / lib_ms:.3f})")
+                rec = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "max_abs_err": max(err.err.values()),
+                       "err_share_of_limit": err.worst(),
+                       "library_ms": lib_ms,
+                       "library": "scaled_dot_product_attention backward "
+                                  f"({backend})"}
+                if dtype == torch.bfloat16:
+                    entry = {"name": "flash_attention_bwd", "route": "cuda",
+                             "source": "src/repro_torch/kernels/csrc/"
+                                       "flash_attention_bwd.cu",
+                             "replaces": "src/repro/models/lm/attention.py"
+                                         ":56 (autodiff of the flash scan; "
+                                         "no Pallas kernel)", **rec}
+                else:
+                    f32_route = dict(rec, bound="split TF32: 3 x 2.5 x 4 hd "
+                                                "flops a pair at 495 TFLOP/s",
+                                     f32_fma_bound_ms=fma_ms)
+            log(line)
+            del q, k, v, do, o, lse, got
+            torch.cuda.empty_cache()
+        del base
+    # edges: ragged S, hd 128, G = 1, non-causal, a q_pos offset
+    for bb, s_e, t_e, hq_e, kh_e, hd_e, causal, win, off in (
+            (2, 1000, 1000, 8, 2, 128, True, 0, 0),
+            (1, 777, 777, 6, 6, 120, True, 100, 0),
+            (2, 500, 500, 8, 2, 64, False, 0, 0),
+            (1, 300, 1300, 8, 4, 64, True, 512, 1000)):
+        pos = torch.arange(off, off + s_e, device=device)
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype)[6:]
+            q, k, v = (torch.randn(shape, generator=gen, device=device
+                                   ).to(dtype)
+                       for shape in ((bb, s_e, hq_e, hd_e),
+                                     (bb, t_e, kh_e, hd_e),
+                                     (bb, t_e, kh_e, hd_e)))
+            do = torch.randn(q.shape, generator=gen, device=device).to(dtype)
+            o, lse = flash_attention_cuda(q, k, v, pos, causal=causal,
+                                          window=win, with_lse=True)
+            got = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos,
+                                           causal=causal, window=win)
+            err = BwdError(dname)
+            for b_, j, h0, h1, want in _bwd_plain_by_heads(
+                    torch, q, k, v, o, do, lse, win, causal, pos):
+                err.add((got[0][b_, :, h0:h1].transpose(0, 1),
+                         got[1][b_, :, j:j + 1].transpose(0, 1),
+                         got[2][b_, :, j:j + 1].transpose(0, 1)), want)
+            what = (f"edge B={bb} S={s_e} T={t_e} Hq={hq_e} Kh={kh_e} "
+                    f"hd={hd_e} causal={causal} window={win} q_pos from "
+                    f"{off} {dname}")
+            log(f"[flash_attention_bwd] {what}: {err.check(what)}")
+    kernels.LAUNCHES.update(saved)          # checks do not count
+    entry["f32_route"] = f32_route
+    return entry
+
+
 def phase_serve(torch, device):
     """`serve_requests` on full-width, full-depth H2O-Danube-3-4B: B = 4
     prompts of 8192 tokens, 32 greedy steps, exact Shapley over the 4
@@ -2059,6 +2365,205 @@ def phase_serve_parity(torch, device):
     torch.cuda.empty_cache()
 
 
+def _train_run(torch, device, cfg, batch, steps, seed=0):
+    """`steps` train steps of `launch/train.py`'s LM mode from `seed` on one
+    fixed batch; returns (losses, params on the CPU, launches a step, ms a
+    step)."""
+    from repro_torch import kernels
+    from repro_torch.launch.train import build_lm
+    from repro_torch.tree import tree_leaves
+    params, opt, step, _ = build_lm(cfg, seed, device)
+    losses, per_step, times = [], [], []
+    for _ in range(steps):
+        kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(dict(kernels.LAUNCHES))
+    cpu = [t.cpu() for t in tree_leaves(params)]
+    del params, opt
+    torch.cuda.empty_cache()
+    return losses, cpu, per_step, times
+
+
+def phase_train(torch, device):
+    """LM training at full width and depth: TinyLlama-1.1B (22 layers,
+    d_model 2048, 32 / 4 heads of 64, d_ff 5632, vocab 32000, bf16
+    activations, f32 params, AdamW, remat) through `launch/train.py`'s LM
+    mode from a seeded init, 3 steps on one fixed B = 4 x S = 2048 batch:
+    finite, strictly falling loss; 44 flash_attention launches a step (the
+    forward, then remat's recompute) and 22 flash_attention_bwd; a second
+    run from the same seed bitwise equal.  Returns the first run's
+    launches (its three steps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.lm.config import param_count
+
+    cfg = get_config("tinyllama_1_1b")
+    b, s_len, steps = 4, 2048, 3
+    batch = synth_batch(cfg, torch.Generator(device=device).manual_seed(7),
+                        b, s_len)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, params, per_step, times = _train_run(torch, device, cfg, batch,
+                                                 steps)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    launches = {k: sum(d[k] for d in per_step) for k in per_step[0]}
+    tokens = b * s_len
+    # matmul flops: forward 2, backward 4 and remat's recompute 2 a param a
+    # token for the layers, 6 for the head; attention 4 hd a pair forward
+    # (twice: remat) and 2.5 x that backward
+    p_layers = param_count(cfg) - 2 * cfg.vocab * cfg.d_model - cfg.d_model
+    pairs = band_pairs(s_len, s_len, cfg.window) * b * cfg.n_heads
+    flops = (tokens * (8 * p_layers + 6 * cfg.vocab * cfg.d_model)
+             + cfg.n_layers * 4 * cfg.hd * pairs * (2 + 2.5))
+    ms = sorted(times)[len(times) // 2]
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, {param_count(cfg)} params ({cfg.param_dtype} "
+        f"params, {cfg.dtype} activations, {cfg.optimizer}, remat "
+        f"{cfg.remat}), B={b} S={s_len}: losses {losses}; ms a step "
+        f"{[round(t, 3) for t in times]} (median {ms:.3f}, "
+        f"{tokens / ms * 1e3:.1f} tokens/s); peak memory {peak_gb:.3f} GB; "
+        f"step flops {flops:.4g}, {flops / BF16_PEAK_FLOPS * 1e3:.3f} ms at "
+        f"989 TFLOP/s ({flops / BF16_PEAK_FLOPS * 1e3 / ms * 100:.2f} % of "
+        f"the median step); launches a step {per_step}")
+    require(all(math.isfinite(x) for x in losses)
+            and all(a > b_ for a, b_ in zip(losses, losses[1:])),
+            f"train: the loss must be finite and strictly falling: {losses}")
+    for i, d in enumerate(per_step):
+        require(d["flash_attention"] == 2 * cfg.n_layers
+                and d["flash_attention_bwd"] == cfg.n_layers,
+                f"train: step {i} launched flash_attention "
+                f"{d['flash_attention']} times (expected {2 * cfg.n_layers}) "
+                f"and flash_attention_bwd {d['flash_attention_bwd']} "
+                f"(expected {cfg.n_layers})")
+    again, params2, _, _ = _train_run(torch, device, cfg, batch, steps)
+    same = again == losses and all(torch.equal(x, y)
+                                   for x, y in zip(params, params2))
+    log(f"[train] a second run from the same seed: losses {again}, params "
+        f"bitwise equal: {same}")
+    require(same, "train: a second run from the same seed differs")
+    return launches
+
+
+TRAIN_GRAD_RTOL = 5e-5  # phase 16: worst leaf's max err over its max |grad|
+
+
+def phase_train_parity(torch, device):
+    """TinyLlama's widths cut to 2 layers, f32 activations, B = 1, S =
+    2048 (the flash branch): one step's loss and gradients on the card
+    against the port's CPU path with the same weights.  The gradient limit
+    sits between the f32 step's error and the error of the same step with
+    TF32 matrix products, which is read too and must exceed it."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.models.lm import model as M
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config("tinyllama_1_1b"), n_layers=2,
+                              dtype="float32")
+    saved = dict(kernels.LAUNCHES)
+    params = M.init_params(cfg, torch.Generator(device=device).manual_seed(3),
+                           device=device)
+    cpu_params = params_from_numpy(params_to_numpy(params))
+    tokens = torch.randint(0, cfg.vocab, (1, 2048),
+                           generator=torch.Generator().manual_seed(4))
+    out = {}
+    for name, dev, p, tf32 in (("cpu", "cpu", cpu_params, False),
+                               ("card", device, params, False),
+                               ("card, TF32", device, params, True)):
+        t0 = time.perf_counter()
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            loss, grads = M.loss_and_grads(cfg, p,
+                                           {"tokens": tokens.to(dev)})
+            require(torch.backends.cuda.matmul.allow_tf32 == tf32,
+                    "train parity: the step reset the TF32 setting")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        out[name] = (float(loss), [g.cpu() for g in tree_leaves(grads)])
+        log(f"[train-parity] {name}: loss and gradients in "
+            f"{time.perf_counter() - t0:.2f} s")
+    lc, gc = out["cpu"]
+
+    def errors(name):
+        lg, gg = out[name]
+        rel = max(float((a - b).abs().max())
+                  / max(float(b.abs().max()), 1e-30) for a, b in zip(gg, gc))
+        return abs(lg - lc) / abs(lc), rel
+
+    loss_rel, rel = errors("card")
+    tf32_loss_rel, tf32_rel = errors("card, TF32")
+    log(f"[train-parity] full width, 2 layers (cut from 22 so the CPU step "
+        f"is short), f32, B=1, S=2048: loss card {out['card'][0]} cpu {lc} "
+        f"(relative err {loss_rel:.2e}, rtol 1e-4); gradients: worst leaf "
+        f"max err / max |grad| {rel:.2e} (limit {TRAIN_GRAD_RTOL:g}); the "
+        f"same step with TF32 matrix products reads {tf32_rel:.2e} (loss "
+        f"{tf32_loss_rel:.2e}), {tf32_rel / TRAIN_GRAD_RTOL:.1f}x the limit")
+    require(loss_rel <= 1e-4 and rel <= TRAIN_GRAD_RTOL,
+            "train parity: the card's step disagrees with the CPU's")
+    require(tf32_rel > TRAIN_GRAD_RTOL, "train parity: the gradient limit "
+            "does not tell TF32 products from f32")
+    kernels.LAUNCHES.update(saved)          # comparisons do not count
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_federated_lm(torch, device):
+    """GreedyFed on an LM: `examples/federated_lm_torch.py`'s round
+    functions at --d-model 512 --layers 8 --seq 2048 --batch 2
+    --local-steps 2 --clients 6 --select 3 --rounds 2 (hd 128, f32: the
+    flash branch's f32 route forward and backward)."""
+    import importlib.util
+    from repro_torch import kernels
+
+    spec = importlib.util.spec_from_file_location(
+        "federated_lm_torch", ROOT / "examples" / "federated_lm_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    args = ex.parse_args(["--d-model", "512", "--layers", "8", "--seq",
+                          "2048", "--batch", "2", "--local-steps", "2",
+                          "--clients", "6", "--select", "3", "--rounds",
+                          "2"])
+    run = ex.setup(args, device)
+    kernels.reset_launches()
+    times = []
+    for t in range(args.rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sel, sv = ex.run_round(run, t)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        sv_list = None if sv is None else sv.cpu().tolist()
+        log(f"[federated-lm] round {t}: selected {sel}, SVs {sv_list}, "
+            f"{times[-1]:.3f} s")
+        require(len(sel) == args.select and len(set(sel)) == args.select
+                and all(0 <= c < args.clients for c in sel),
+                f"federated LM: bad selection {sel}")
+        require(sv is not None and all(math.isfinite(x) for x in sv_list),
+                f"federated LM: SVs must be finite: {sv_list}")
+    launches = dict(kernels.LAUNCHES)
+    with torch.no_grad():
+        vl = float(-ex.utility(run, run["params"]))
+    log(f"[federated-lm] {run['cfg'].name} d_model {run['cfg'].d_model}, "
+        f"{run['cfg'].n_layers} layers, hd {run['cfg'].hd}, "
+        f"{run['cfg'].dtype}: round times {[round(x, 3) for x in times]} s, "
+        f"validation loss after {args.rounds} rounds {vl:.4f}; launches "
+        f"{launches}")
+    require(math.isfinite(vl), "federated LM: validation loss not finite")
+    require(launches["flash_attention"] > 0
+            and launches["flash_attention_bwd"] > 0,
+            "federated LM: both flash entries must launch")
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2073,7 +2578,8 @@ def main() -> int:
                check_cohort_gather(torch, device),
                check_delta_codec(torch, device),
                check_weighted_avg(torch, device),
-               check_flash_attention(torch, device)]
+               check_flash_attention(torch, device),
+               check_flash_attention_bwd(torch, device)]
     phase_full_width_shapley(torch, device)
     phase_reference_run(torch, device)
     paths = {"loop": phase_main_path(torch, device),
@@ -2085,6 +2591,9 @@ def main() -> int:
     phase_serve_parity(torch, device)
     paths["grid"], grid = phase_grid(torch, device)
     paths["telemetry"] = phase_telemetry(torch, device, grid)
+    paths["train"] = phase_train(torch, device)
+    phase_train_parity(torch, device)
+    paths["federated_lm"] = phase_federated_lm(torch, device)
     for e in entries:
         by_path = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())

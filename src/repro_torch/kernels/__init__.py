@@ -39,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES = {"prefix_avg": 0, "ce_loss": 0, "cohort_gather": 0,
-            "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0}
+            "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -155,8 +156,15 @@ _SIGNATURES = {
     # (leaf table, leaves, weights, R, M, rows, blocks, device, stream)
     "weighted_avg_f32": [_PTR, _I64, _PTR] + [_I64] * 5 + [_PTR],
     "weighted_avg_bf16": [_PTR, _I64, _PTR] + [_I64] * 5 + [_PTR],
-    "flash_attention_f32": [_PTR] * 5 + [_I64] * 20 + [_F32, _I64, _PTR],
-    "flash_attention_bf16": [_PTR] * 5 + [_I64] * 20 + [_F32, _I64, _PTR],
+    # (q, k, v, o, lse or null, q_pos, sizes, strides, causal, window,
+    # scale, device, stream)
+    "flash_attention_f32": [_PTR] * 6 + [_I64] * 20 + [_F32, _I64, _PTR],
+    "flash_attention_bf16": [_PTR] * 6 + [_I64] * 20 + [_F32, _I64, _PTR],
+    # (q, k, v, o, dO, lse, q_pos, dq, dk, dv, delta, bounds, B, S, T, Hq,
+    # Kh, hd, causal, window, scale, device, stream)
+    "flash_attention_bwd_f32": [_PTR] * 12 + [_I64] * 8 + [_F32, _I64, _PTR],
+    "flash_attention_bwd_bf16": [_PTR] * 12 + [_I64] * 8 + [_F32, _I64,
+                                                            _PTR],
 }
 
 _lib = None

@@ -150,3 +150,22 @@ __device__ __forceinline__ const WordLeaf& word_leaf(const WordTable& t,
   while (i + 1 < t.n && b >= t.leaf[i + 1].blk0) ++i;
   return t.leaf[i];
 }
+
+// Attention's key band (flash_attention.cu and its backward): the keys
+// [lo, hi] that query positions [pmin, pmax] may see under the causal mask
+// and a window; lo > hi when there is none (also when the rows hold no
+// query).
+__device__ __forceinline__ void key_band(int64_t pmin, int64_t pmax,
+                                         int64_t t_len, int causal,
+                                         int64_t window, int64_t& lo,
+                                         int64_t& hi) {
+  lo = 0;
+  hi = t_len - 1;
+  if (pmin > pmax) {
+    lo = 1;
+    hi = 0;
+    return;
+  }
+  if (causal && pmax < hi) hi = pmax;
+  if (window > 0 && pmin - window + 1 > lo) lo = pmin - window + 1;
+}

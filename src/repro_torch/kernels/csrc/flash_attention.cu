@@ -6,6 +6,11 @@
 // the LM's prefill path the pure-JAX online-softmax scan `flash_attention`
 // in src/repro/models/lm/attention.py.
 //
+// With a non-null `lse` both routes also write each row's log-sum-exp of
+// the scaled scores, (B, Hq, S) f32, which the backward pass
+// (flash_attention_bwd.cu) reads; the output is the same bit for bit
+// with or without it.
+//
 // Computes, for every batch b, query head h and query row i:
 //   s_j = (q_i . k_j) * scale                      (float32; scale = hd^-0.5)
 //   s_j = NEG_INF (the finite -1e30) where key j is masked:
@@ -379,23 +384,6 @@ __device__ __forceinline__ void wgmma_pv(float (&acc)[HD_PAD / 2],
   }
 }
 
-// The band of keys [lo, hi] that query positions [pmin, pmax] may see;
-// lo > hi when there is none (also when the rows hold no query).
-__device__ __forceinline__ void key_band(int64_t pmin, int64_t pmax,
-                                         int64_t t_len, int causal,
-                                         int64_t window, int64_t& lo,
-                                         int64_t& hi) {
-  lo = 0;
-  hi = t_len - 1;
-  if (pmin > pmax) {
-    lo = 1;
-    hi = 0;
-    return;
-  }
-  if (causal && pmax < hi) hi = pmax;
-  if (window > 0 && pmin - window + 1 > lo) lo = pmin - window + 1;
-}
-
 // true when no key of tile [kt, kt + KEYS) is masked for a row at `pos`
 template <int KEYS>
 __device__ __forceinline__ bool tile_open(int64_t kt, int64_t pos,
@@ -410,12 +398,28 @@ __device__ __forceinline__ int clamp_rel(int64_t x) {
   return (int)(x < -kFar ? -kFar : x > kFar ? kFar : x);
 }
 
+// The forward's optional second output, the per-row log-sum-exp of the
+// scaled scores in natural units, L = m ln 2 + log(max(l, 1e-30)) (m is
+// the row max in base-2 units), for the backward pass.  lse is (B, Hq, S)
+// f32; a quad's lane 0 writes its rows `row` and `row` + 8.  It reads what
+// the output already computed and changes nothing of it.
+__device__ __forceinline__ void store_lse(float* lse, int b, int h,
+                                          int64_t s_len, int64_t row,
+                                          int quad, float m_a, float m_b,
+                                          float den_a, float den_b) {
+  constexpr float kLn2 = 0.6931471805599453f;
+  if (quad != 0) return;
+  float* lb = lse + ((int64_t)b * gridDim.y + h) * s_len;
+  if (row < s_len) lb[row] = fmaf(m_a, kLn2, logf(den_a));
+  if (row + 8 < s_len) lb[row + 8] = fmaf(m_b, kLn2, logf(den_b));
+}
+
 template <int HD_PAD>
 __global__ void __launch_bounds__(kTcThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                 const __grid_constant__ CUtensorMap k_map,
                 const __grid_constant__ CUtensorMap v_map,
-                __nv_bfloat16* __restrict__ o,
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 const int32_t* __restrict__ q_pos, int64_t s_len,
                 int64_t t_len, int64_t group, int64_t hd, Strides os,
                 int causal, int64_t window, float scale) {
@@ -666,6 +670,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  if (lse != nullptr) store_lse(lse, b, h, s_len, q0 + r_a, quad, m_a, m_b,
+                                den_a, den_b);
   const bool pairs = ((hd | os.s | os.h | os.b) & 1) == 0;
   __nv_bfloat16* ob = o + b * os.b + h * os.h;
 #pragma unroll
@@ -869,9 +875,10 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 flash_f32_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
                     const __grid_constant__ CUtensorMap v_map,
-                    float* __restrict__ o, const int32_t* __restrict__ q_pos,
-                    int64_t s_len, int64_t t_len, int64_t group, int64_t hd,
-                    Strides os, int causal, int64_t window, float scale) {
+                    float* __restrict__ o, float* __restrict__ lse,
+                    const int32_t* __restrict__ q_pos, int64_t s_len,
+                    int64_t t_len, int64_t group, int64_t hd, Strides os,
+                    int causal, int64_t window, float scale) {
   using L = F32Layout<HD_PAD>;
   constexpr int kChunks = L::kChunks;
   constexpr int kKS = HD_PAD / 8;            // k8 steps of Q K^T
@@ -1194,6 +1201,8 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap q_map,
     l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
   }
   const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  if (lse != nullptr) store_lse(lse, b, h, s_len, q0 + r_a, quad, m_a, m_b,
+                                den_a, den_b);
   const bool pairs = ((os.s | os.h | os.b) & 1) == 0;
   float* ob = o + b * os.b + h * os.h;
 #pragma unroll
@@ -1278,10 +1287,10 @@ int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
 
 template <int HD_PAD>
 int launch_tc_hd(cudaStream_t stream, const void* q, const void* k,
-                 const void* v, void* o, const void* q_pos, int64_t b,
-                 int64_t s_len, int64_t t_len, int64_t hq, int64_t kh,
-                 int64_t hd, Strides qs, Strides ks, Strides vs, Strides os,
-                 int causal, int64_t window, float scale) {
+                 const void* v, void* o, void* lse, const void* q_pos,
+                 int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
+                 int64_t kh, int64_t hd, Strides qs, Strides ks, Strides vs,
+                 Strides os, int causal, int64_t window, float scale) {
   CUtensorMap q_map, k_map, v_map;
   int rc = make_map(&q_map, q, kBf16, 2, hd, s_len, hq, b, qs,
                     kTcRows);
@@ -1298,17 +1307,18 @@ int launch_tc_hd(cudaStream_t stream, const void* q, const void* k,
   const dim3 grid((unsigned)((s_len + kTcRows - 1) / kTcRows), (unsigned)hq,
                   (unsigned)b);
   flash_tc_kernel<HD_PAD><<<grid, kTcThreads, bytes, stream>>>(
-      q_map, k_map, v_map, (__nv_bfloat16*)o, (const int32_t*)q_pos, s_len,
-      t_len, hq / kh, hd, os, causal, window, scale);
+      q_map, k_map, v_map, (__nv_bfloat16*)o, (float*)lse,
+      (const int32_t*)q_pos, s_len, t_len, hq / kh, hd, os, causal, window,
+      scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD_PAD>
 int launch_f32_hd(cudaStream_t stream, const void* q, const void* k,
-                  const void* v, void* o, const void* q_pos, int64_t b,
-                  int64_t s_len, int64_t t_len, int64_t hq, int64_t kh,
-                  int64_t hd, Strides qs, Strides ks, Strides vs, Strides os,
-                  int causal, int64_t window, float scale) {
+                  const void* v, void* o, void* lse, const void* q_pos,
+                  int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
+                  int64_t kh, int64_t hd, Strides qs, Strides ks, Strides vs,
+                  Strides os, int causal, int64_t window, float scale) {
   CUtensorMap q_map, k_map, v_map;
   int rc = make_map(&q_map, q, kF32, 4, hd, s_len, hq, b, qs, kF32Rows);
   if (rc == 0) rc = make_map(&k_map, k, kF32, 4, hd, t_len, kh, b, ks,
@@ -1324,8 +1334,8 @@ int launch_f32_hd(cudaStream_t stream, const void* q, const void* k,
   const dim3 grid((unsigned)((s_len + kF32Rows - 1) / kF32Rows), (unsigned)hq,
                   (unsigned)b);
   flash_f32_tc_kernel<HD_PAD><<<grid, kF32Threads, bytes, stream>>>(
-      q_map, k_map, v_map, (float*)o, (const int32_t*)q_pos, s_len, t_len,
-      hq / kh, hd, os, causal, window, scale);
+      q_map, k_map, v_map, (float*)o, (float*)lse, (const int32_t*)q_pos,
+      s_len, t_len, hq / kh, hd, os, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1342,12 +1352,12 @@ int check_shape(int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
 }  // namespace
 
 extern "C" int flash_attention_f32(
-    const void* q, const void* k, const void* v, void* o, const void* q_pos,
-    int64_t b, int64_t s_len, int64_t t_len, int64_t hq, int64_t kh,
-    int64_t hd, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-    int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh,
-    int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t causal, int64_t window,
-    float scale, int64_t device, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_pos, int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
+    int64_t kh, int64_t hd, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
+    int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t causal,
+    int64_t window, float scale, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   const int bad = check_shape(b, s_len, t_len, hq, kh, hd);
@@ -1356,22 +1366,22 @@ extern "C" int flash_attention_f32(
       vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh};
   const int c = causal ? 1 : 0;
   if (hd <= 64) {
-    return launch_f32_hd<64>((cudaStream_t)stream, q, k, v, o, q_pos, b,
+    return launch_f32_hd<64>((cudaStream_t)stream, q, k, v, o, lse, q_pos, b,
                              s_len, t_len, hq, kh, hd, qs, ks, vs, os, c,
                              window, scale);
   }
-  return launch_f32_hd<128>((cudaStream_t)stream, q, k, v, o, q_pos, b,
+  return launch_f32_hd<128>((cudaStream_t)stream, q, k, v, o, lse, q_pos, b,
                             s_len, t_len, hq, kh, hd, qs, ks, vs, os, c,
                             window, scale);
 }
 
 extern "C" int flash_attention_bf16(
-    const void* q, const void* k, const void* v, void* o, const void* q_pos,
-    int64_t b, int64_t s_len, int64_t t_len, int64_t hq, int64_t kh,
-    int64_t hd, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb,
-    int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st, int64_t v_sh,
-    int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t causal, int64_t window,
-    float scale, int64_t device, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_pos, int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
+    int64_t kh, int64_t hd, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    int64_t k_sb, int64_t k_st, int64_t k_sh, int64_t v_sb, int64_t v_st,
+    int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t causal,
+    int64_t window, float scale, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
   const int bad = check_shape(b, s_len, t_len, hq, kh, hd);
@@ -1380,11 +1390,11 @@ extern "C" int flash_attention_bf16(
       vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh};
   const int c = causal ? 1 : 0;
   if (hd <= 64) {
-    return launch_tc_hd<64>((cudaStream_t)stream, q, k, v, o, q_pos, b, s_len,
-                            t_len, hq, kh, hd, qs, ks, vs, os, c, window,
-                            scale);
+    return launch_tc_hd<64>((cudaStream_t)stream, q, k, v, o, lse, q_pos, b,
+                            s_len, t_len, hq, kh, hd, qs, ks, vs, os, c,
+                            window, scale);
   }
-  return launch_tc_hd<128>((cudaStream_t)stream, q, k, v, o, q_pos, b, s_len,
-                           t_len, hq, kh, hd, qs, ks, vs, os, c, window,
-                           scale);
+  return launch_tc_hd<128>((cudaStream_t)stream, q, k, v, o, lse, q_pos, b,
+                           s_len, t_len, hq, kh, hd, qs, ks, vs, os, c,
+                           window, scale);
 }

@@ -1,6 +1,6 @@
-"""Launcher of the hand-written CUDA flash_attention kernel
+"""Launchers of the hand-written CUDA flash_attention kernels, forward
 (`kernels/csrc/flash_attention.cu`; counterpart of
-`repro/kernels/flash_attention/kernel.py`).
+`repro/kernels/flash_attention/kernel.py`) and backward.
 
 q (B, S, Hq, hd), k/v (B, T, Kh, hd) of one dtype (float32 or bfloat16),
 read through their strides (the last axis must be contiguous), and query
@@ -22,6 +22,14 @@ part and its remainder (hi * hi + hi * lo + lo * hi), which holds 2e-5
 against the float32 plain version; `ref.py::attention_split_tf32` is that
 arithmetic on the CPU.  It does not depend on
 `torch.backends.cuda.matmul.allow_tf32`.
+
+With `with_lse` the forward also returns each row's log-sum-exp, which
+`flash_attention_bwd_cuda` (`csrc/flash_attention_bwd.cu`) reads to
+recompute the softmax: dq, dk and dv in three kernels (D = rowsum(dO o),
+then dK / dV a key tile a block, then dQ a query tile a block), f32 FMA
+on the CUDA cores for both dtypes, no atomics, so two launches on the
+same inputs are bitwise equal; `ref.py::attention_bwd_ref` is its plain
+version.
 """
 from __future__ import annotations
 
@@ -35,6 +43,8 @@ from repro_torch.kernels import LAUNCHES, check_launch, library, stream_ptr
 
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
+_BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
+              torch.bfloat16: "flash_attention_bwd_bf16"}
 MAX_HEAD_DIM = 128
 TMA_ALIGN = 16         # bytes: base address and every stepped stride
 
@@ -62,11 +72,9 @@ def tma_copy(t: torch.Tensor) -> torch.Tensor:
     return view
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         q_pos: Optional[torch.Tensor] = None, *,
-                         causal: bool = True,
-                         window: int = 0) -> torch.Tensor:
-    """Launch the kernel once on PyTorch's current stream."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The checks both directions make of q (B, S, Hq, hd) and k / v
+    (B, T, Kh, hd)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes q (B, S, Hq, hd) and k/v "
                          "(B, T, Kh, hd)")
@@ -95,25 +103,95 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
+
+
+def _positions(q_pos: Optional[torch.Tensor], q: torch.Tensor
+               ) -> torch.Tensor:
+    s_len = q.shape[1]
     if q_pos is None:
         q_pos = torch.arange(s_len, dtype=torch.int32, device=q.device)
     elif q_pos.shape != (s_len,):
         raise ValueError(f"q_pos must be ({s_len},), got {tuple(q_pos.shape)}")
-    q_pos = q_pos.to(device=q.device, dtype=torch.int32).contiguous()
+    return q_pos.to(device=q.device, dtype=torch.int32).contiguous()
+
+
+def _scale(hd: int) -> ctypes.c_float:
+    return ctypes.c_float(np.float32(hd ** -0.5))   # JAX's weak-typed f32
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_pos: Optional[torch.Tensor] = None, *,
+                         causal: bool = True, window: int = 0,
+                         with_lse: bool = False):
+    """Launch the kernel once on PyTorch's current stream.  Returns o, or
+    (o, lse) with `with_lse`: lse (B, Hq, S) f32 is each row's
+    log-sum-exp of the scaled scores, which the backward reads; o is the
+    same bit for bit either way."""
+    _check(q, k, v)
+    b, s_len, hq, hd = q.shape
+    t_len, kh = k.shape[1], k.shape[2]
+    q_pos = _positions(q_pos, q)
     out = torch.empty((b, s_len, hq, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, hq, s_len), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     if hq > 65535 or b > 65535:
         raise ValueError(f"flash_attention takes at most 65535 heads and "
                          f"batch rows, got Hq={hq}, B={b}")
     q, k, v = (t if tma_ready(t) else tma_copy(t) for t in (q, k, v))
-    scale = ctypes.c_float(np.float32(hd ** -0.5))   # JAX's weak-typed f32
     rc = getattr(library(), _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         q_pos.data_ptr(), b, s_len, t_len, hq, kh, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *out.stride()[:3], int(causal), int(window), scale,
+        *out.stride()[:3], int(causal), int(window), _scale(hd),
         q.device.index, stream_ptr(q))
     check_launch(rc, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor,
+                             q_pos: Optional[torch.Tensor] = None, *,
+                             causal: bool = True, window: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The backward kernel (`csrc/flash_attention_bwd.cu`: three kernels,
+    one C entry) on PyTorch's current stream: (dq, dk, dv) in q's dtype
+    from the forward's inputs, its output o, the upstream gradient do
+    (both (B, S, Hq, hd)) and its lse (B, Hq, S) f32.  Every tensor is
+    read contiguous (the model's already are; others are copied here).
+    CUDA cores, f32 accumulation, no atomics: bitwise repeatable."""
+    _check(q, k, v)
+    b, s_len, hq, hd = q.shape
+    t_len, kh = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be {q.dtype} {tuple(q.shape)}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, not on {q.device}")
+    if (tuple(lse.shape) != (b, hq, s_len) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be float32 ({b}, {hq}, {s_len}) on "
+                         f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
+    q_pos = _positions(q_pos, q)
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, hq, s_len), dtype=torch.float32, device=q.device)
+    bounds = torch.empty((2 * -(-s_len // 64),), dtype=torch.int32,
+                         device=q.device)
+    rc = getattr(library(), _BWD_ENTRY[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), q_pos.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), bounds.data_ptr(),
+        b, s_len, t_len, hq, kh, hd, int(causal), int(window), _scale(hd),
+        q.device.index, stream_ptr(q))
+    check_launch(rc, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

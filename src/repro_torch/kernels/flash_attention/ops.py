@@ -11,6 +11,13 @@ version, `attention_ref`, with KV repeated per group as the reference does.
 On the card both dtypes run on the tensor cores: bf16 with the softmax
 probabilities rounded to bf16 before they multiply V, float32 as split-TF32
 products with float32 probabilities (see `kernel.py`).
+
+Training: when grad is enabled and q, k or v requires it,
+`flash_attention_gqa` runs `FlashAttentionFn`, whose forward also keeps
+each row's log-sum-exp and whose backward recomputes P from it: on a CUDA
+tensor the forward kernel (with its lse output) and the backward kernel
+(`flash_attention_bwd_cuda`), on a CPU tensor `attention_ref` and
+`attention_bwd_ref`.  Otherwise the forward call above runs unchanged.
 """
 from __future__ import annotations
 
@@ -19,8 +26,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import use_kernel
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.kernel import (
+    flash_attention_bwd_cuda, flash_attention_cuda,
+)
+from repro_torch.kernels.flash_attention.ref import (
+    attention_bwd_ref, attention_ref,
+)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -33,26 +44,83 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return attention_ref(q, k, v, causal=causal, window=window)
 
 
+def _heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, hd) -> (B*H, L, hd)."""
+    return x.transpose(1, 2).flatten(0, 1)
+
+
+def _unheads(x: torch.Tensor, b: int) -> torch.Tensor:
+    """(B*H, L, hd) -> (B, L, H, hd)."""
+    return x.unflatten(0, (b, -1)).transpose(1, 2)
+
+
+def _forward_ref(q, k, v, q_pos, causal, window, with_lse=False):
+    """The plain forward on (B, S, Hq, hd) / (B, T, Kh, hd), KV repeated
+    per group as the reference does; (o, lse (B, Hq, S)) with `with_lse`."""
+    g = q.shape[2] // k.shape[2]
+    out = attention_ref(_heads(q), torch.repeat_interleave(_heads(k), g, 0),
+                        torch.repeat_interleave(_heads(v), g, 0),
+                        causal=causal, window=window, q_pos=q_pos,
+                        with_lse=with_lse)
+    if not with_lse:
+        return _unheads(out, q.shape[0])
+    o, lse = out
+    return _unheads(o, q.shape[0]), lse.unflatten(0, (q.shape[0], -1))
+
+
+def attention_bwd_gqa_ref(q, k, v, o, do, lse, *, q_pos=None, causal=True,
+                          window=0):
+    """`attention_bwd_ref` on the model's layout: q, o, do (B, S, Hq, hd),
+    k, v (B, T, Kh, hd), lse (B, Hq, S) -> (dq, dk, dv) in that layout."""
+    b = q.shape[0]
+    dq, dk, dv = attention_bwd_ref(
+        _heads(q), _heads(k), _heads(v), _heads(o), _heads(do),
+        lse.flatten(0, 1), causal=causal, window=window, q_pos=q_pos,
+        group=q.shape[2] // k.shape[2])
+    return _unheads(dq, b), _unheads(dk, b), _unheads(dv, b)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable flash attention on (B, S, Hq, hd) / (B, T, Kh, hd).
+    The forward saves q, k, v, o and the per-row lse; the backward
+    recomputes P = exp(scale QK^T - lse) from them (no (S, T) tensor is
+    kept).  Routes by device like every wrapper: CUDA tensors to the two
+    kernels, CPU tensors to the plain versions; there is no fallback."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, causal, window):
+        if use_kernel(q):
+            o, lse = flash_attention_cuda(q, k, v, q_pos, causal=causal,
+                                          window=window, with_lse=True)
+        else:
+            o, lse = _forward_ref(q, k, v, q_pos, causal, window,
+                                  with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.q_pos, ctx.causal, ctx.window = q_pos, causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        fn = (flash_attention_bwd_cuda if use_kernel(q)
+              else attention_bwd_gqa_ref)
+        dq, dk, dv = fn(q, k, v, o, do, lse, q_pos=ctx.q_pos,
+                        causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, q_pos: Optional[torch.Tensor] = None,
                         causal: bool = True, window: int = 0
                         ) -> torch.Tensor:
     """q (B, S, Hq, hd); k/v (B, T, Kh, hd) -> (B, S, Hq, hd).  Query
     positions `q_pos` (S,) default to 0 .. S-1; key positions are
-    0 .. T-1."""
+    0 .. T-1.  Differentiable (through `FlashAttentionFn`) when grad is
+    enabled and an input requires it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, q_pos, causal, window)
     if use_kernel(q):
         return flash_attention_cuda(q, k, v, q_pos, causal=causal,
                                     window=window)
-    b, s_len, hq, hd = q.shape
-    t_len, kh = k.shape[1], k.shape[2]
-    g = hq // kh
-    # (B, S, Kh, G, hd) -> (B*Kh*G, S, hd); KV repeated per group
-    qf = q.reshape(b, s_len, kh, g, hd).permute(0, 2, 3, 1, 4)
-    qf = qf.reshape(b * kh * g, s_len, hd)
-    kf = torch.repeat_interleave(k.transpose(1, 2), g, dim=1).reshape(
-        b * kh * g, t_len, hd)
-    vf = torch.repeat_interleave(v.transpose(1, 2), g, dim=1).reshape(
-        b * kh * g, t_len, hd)
-    of = attention_ref(qf, kf, vf, causal=causal, window=window, q_pos=q_pos)
-    o = of.reshape(b, kh, g, s_len, hd).permute(0, 3, 1, 2, 4)
-    return o.reshape(b, s_len, hq, hd)
+    return _forward_ref(q, k, v, q_pos, causal, window)

@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the flash_attention kernel (counterpart of
-`repro/kernels/flash_attention/ref.py`): dense scores plus a mask."""
+"""Plain PyTorch versions of the flash_attention kernels (counterpart of
+`repro/kernels/flash_attention/ref.py`): dense scores plus a mask, for the
+forward, and the backward step by step."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,32 +10,87 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True, window: int = 0,
-                  q_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q (BH, S, hd); k/v (BH, T, hd) -> (BH, S, hd) in q's dtype.
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """float32 for float32 / bf16 inputs (bf16 widened first); float64
+    stays float64 (gradcheck)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
 
-    Scores in float32 (bf16 inputs widened first), masked entries set to
-    the finite NEG_INF, softmax over T.  Key positions are 0 .. T-1; query
-    positions are `q_pos` (S,), by default 0 .. S-1 as in the reference.
-    """
-    s_len, t_len = q.shape[1], k.shape[1]
-    hd = q.shape[-1]
-    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
-                     k.to(torch.float32)) * hd ** -0.5
+
+def _mask(s_len: int, t_len: int, q_pos: Optional[torch.Tensor], causal,
+          window, device) -> torch.Tensor:
+    """(S, T) True = attend; key positions 0 .. T-1, query positions
+    `q_pos` (default 0 .. S-1)."""
     if q_pos is None:
-        q_pos = torch.arange(s_len, device=q.device)
-    q_pos = q_pos.to(q.device)[:, None]
-    k_pos = torch.arange(t_len, device=q.device)[None, :]
-    mask = torch.ones((s_len, t_len), dtype=torch.bool, device=q.device)
+        q_pos = torch.arange(s_len, device=device)
+    q_pos = q_pos.to(device)[:, None]
+    k_pos = torch.arange(t_len, device=device)[None, :]
+    mask = torch.ones((s_len, t_len), dtype=torch.bool, device=device)
     if causal:
         mask &= k_pos <= q_pos
     if window > 0:
         mask &= k_pos > q_pos - window
+    return mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  q_pos: Optional[torch.Tensor] = None,
+                  with_lse: bool = False):
+    """q (BH, S, hd); k/v (BH, T, hd) -> (BH, S, hd) in q's dtype.
+
+    Scores in float32 (bf16 inputs widened first; float64 kept), masked
+    entries set to the finite NEG_INF, softmax over T.  Key positions are
+    0 .. T-1; query positions are `q_pos` (S,), by default 0 .. S-1 as in
+    the reference.  With `with_lse` also returns each row's log-sum-exp
+    of the masked scaled scores, (BH, S), the forward kernel's second
+    output.
+    """
+    ct = _compute_dtype(q)
+    s_len, t_len = q.shape[1], k.shape[1]
+    hd = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.to(ct), k.to(ct)) * hd ** -0.5
+    mask = _mask(s_len, t_len, q_pos, causal, window, q.device)
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bqk,bkd->bqd", p,
-                        v.to(torch.float32)).to(q.dtype)
+    o = torch.einsum("bqk,bkd->bqd", p, v.to(ct)).to(q.dtype)
+    return (o, torch.logsumexp(s, dim=-1)) if with_lse else o
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                      *, causal: bool = True, window: int = 0,
+                      q_pos: Optional[torch.Tensor] = None, group: int = 1
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's formulas step by step: q, o, do (BH, S, hd),
+    k, v (BH / group, T, hd) (row n of q reads row n // group of k and v),
+    lse (BH, S) -> (dq, dk, dv) in the inputs' dtypes.
+
+    In float32 (float64 kept), with the forward's mask:
+      P = exp(scale QK^T - L) (NEG_INF where masked, so 0 there),
+      dV = P^T dO,  D = rowsum(dO o),  dS = P (dO V^T - D) (0 where
+      masked, as autograd of `attention_ref`'s where gives),
+      dQ = scale dS K,  dK = scale dS^T Q,
+    dK and dV summed over each group's rows before the cast.
+    """
+    ct = _compute_dtype(q)
+    s_len, t_len, hd = q.shape[1], k.shape[1], q.shape[-1]
+    scale = hd ** -0.5
+    qf, of, dof = q.to(ct), o.to(ct), do.to(ct)
+    kf = torch.repeat_interleave(k.to(ct), group, dim=0)
+    vf = torch.repeat_interleave(v.to(ct), group, dim=0)
+    mask = _mask(s_len, t_len, q_pos, causal, window, q.device)[None]
+    s = torch.where(mask, torch.einsum("bqd,bkd->bqk", qf, kf) * scale,
+                    NEG_INF)
+    p = torch.exp(s - lse.to(ct)[..., None])
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vf)
+    dl = torch.sum(dof * of, dim=-1, keepdim=True)
+    ds = torch.where(mask, p * (dp - dl), 0.0)
+    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dk = dk.unflatten(0, (-1, group)).sum(1)
+    dv = dv.unflatten(0, (-1, group)).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _tf32_hi(x: torch.Tensor) -> torch.Tensor:
@@ -77,15 +133,7 @@ def attention_split_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hd = q.shape[-1]
     s = _split_matmul(q, k.transpose(1, 2)) * torch.tensor(
         hd ** -0.5, dtype=torch.float32)
-    if q_pos is None:
-        q_pos = torch.arange(s_len)
-    q_pos = q_pos[:, None]
-    k_pos = torch.arange(t_len)[None, :]
-    mask = torch.ones((s_len, t_len), dtype=torch.bool)
-    if causal:
-        mask &= k_pos <= q_pos
-    if window > 0:
-        mask &= k_pos > q_pos - window
+    mask = _mask(s_len, t_len, q_pos, causal, window, q.device)
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l = p.sum(-1, keepdim=True)

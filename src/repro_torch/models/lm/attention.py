@@ -6,17 +6,21 @@ with Hq = Kh * G (GQA group G); k/v (B, T, Kh, hd).  q is regrouped to
 
 The flash branch routes by device.  A CUDA tensor goes to the hand-written
 `flash_attention` kernel (`kernels/flash_attention`), which skips the key
-tiles outside each query tile's causal / sliding-window band.  A CPU tensor
-goes to a plain online softmax over `kv_chunk` blocks, the direct
-counterpart of the reference's `lax.scan`, which skips fully masked blocks
-as the reference's `lax.cond` does.  (The reference's model never reaches
-its Pallas kernel; the port sends this branch to its kernel on purpose.)
+tiles outside each query tile's causal / sliding-window band; under grad
+it runs through `FlashAttentionFn`, whose backward is the hand-written
+`flash_attention_bwd` kernel.  A CPU tensor goes to a plain online
+softmax over `kv_chunk` blocks, the direct counterpart of the reference's
+`lax.scan`, which skips fully masked blocks as the reference's `lax.cond`
+does, and which autograd differentiates as JAX differentiates the scan.
+(The reference's model never reaches its Pallas kernel; the port sends
+this branch to its kernels on purpose.)
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import use_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention_gqa
@@ -55,8 +59,23 @@ def dense_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=0,
     return o.reshape(b, s_len, hq, hd).to(q.dtype)
 
 
-def _chunked_flash(q, k, v, *, q_pos, causal, window, kv_chunk):
-    """The plain online softmax over KV blocks (CPU route)."""
+def _flash_block(qg, kb, vb, mask, acc, m, l, scale):
+    """One KV block's online-softmax update of (acc, m, l)."""
+    s = torch.einsum("bskgd,btkd->bkgst", qg, kb) * scale
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l_new = l * corr + torch.sum(p, dim=-1)
+    acc_new = acc * corr[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, vb)
+    return acc_new, m_new, l_new
+
+
+def _chunked_flash(q, k, v, *, q_pos, causal, window, kv_chunk, remat=False):
+    """The plain online softmax over KV blocks (CPU route).  `remat`
+    checkpoints each block's update, as the reference's `jax.checkpoint
+    (body)` does: the backward recomputes it instead of keeping each
+    block's (S, kv_chunk) probabilities."""
     b, s_len, hq, hd = q.shape
     t_len, kh = k.shape[1], k.shape[2]
     g = hq // kh
@@ -74,14 +93,11 @@ def _chunked_flash(q, k, v, *, q_pos, causal, window, kv_chunk):
             continue        # causal blocks in the future, SWA blocks behind
         kb = k[:, start:start + kv_chunk].to(torch.float32)
         vb = v[:, start:start + kv_chunk].to(torch.float32)
-        s = torch.einsum("bskgd,btkd->bkgst", qg, kb) * scale
-        s = torch.where(mask[None, None, None], s, NEG_INF)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + torch.sum(p, dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, vb)
-        m = m_new
+        args = (qg, kb, vb, mask, acc, m, l, scale)
+        if remat and torch.is_grad_enabled():
+            acc, m, l = checkpoint(_flash_block, *args, use_reentrant=False)
+        else:
+            acc, m, l = _flash_block(*args)
     o = acc / torch.clamp_min(l, 1e-30)[..., None]
     # (B,Kh,G,S,hd) -> (B,S,Hq,hd)
     o = torch.movedim(o, 3, 1).reshape(b, s_len, hq, hd)
@@ -94,18 +110,17 @@ def flash_attention(q, k, v, *, q_pos, causal=True, window=0, kv_chunk=512,
 
     Assumes T % kv_chunk == 0, as the reference does: keys past the last
     whole block are dropped on both routes, as the reference's scan drops
-    them.  On a CUDA tensor the kernel runs (its own 64-key tiles); on a
-    CPU tensor the plain blocked loop.  `remat` is a training knob of the
-    reference (checkpoint each block for the backward pass): it is
-    accepted and has no effect here, since the port only serves.
+    them.  On a CUDA tensor the kernels run (their own 64-key tiles; the
+    backward recomputes P from the forward's log-sum-exp, so `remat`, the
+    reference's per-block checkpoint, changes nothing there); on a CPU
+    tensor the plain blocked loop, with `remat` checkpointing each block.
     """
-    del remat
     if use_kernel(q):
         t_len = k.shape[1] - k.shape[1] % kv_chunk
         return flash_attention_gqa(q, k[:, :t_len], v[:, :t_len],
                                    q_pos=q_pos, causal=causal, window=window)
     return _chunked_flash(q, k, v, q_pos=q_pos, causal=causal, window=window,
-                          kv_chunk=kv_chunk)
+                          kv_chunk=kv_chunk, remat=remat)
 
 
 def attention(q, k, v, *, q_pos, kv_pos: Optional[torch.Tensor] = None,

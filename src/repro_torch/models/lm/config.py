@@ -5,8 +5,9 @@ port needs nothing of the reference.  One frozen dataclass describes dense
 / MoE / SSM / hybrid / VLM / audio backbones; family-specific fields are
 zero/empty when unused.  Configs for the ten assigned architectures live
 in `repro_torch.configs.<id>` and cite their source papers.  The mesh and
-`scan_layers` / `remat` fields are kept so configs compare equal field by
-field with the reference's; the port's model does not read them.
+`scan_layers` fields are kept so configs compare equal field by field with
+the reference's; the port's model does not read them (`remat` and
+`attn_remat` it does, in training).
 """
 from __future__ import annotations
 

@@ -1,4 +1,5 @@
-"""Dense decoder-only LM: init, forward, prefill and ring-cache decode.
+"""Dense decoder-only LM: init, forward, loss, train step, prefill and
+ring-cache decode.
 
 Counterpart of `repro/models/lm/model.py` for the dense family (llama /
 mistral-style: H2O-Danube-3, TinyLlama, ChatGLM3, Mistral-NeMo).  Params
@@ -9,9 +10,22 @@ the layer loop is a Python loop over views of that axis.
 Public API:
     init_params(cfg, gen, device=None)        -> params
     forward(cfg, params, batch)               -> (logits (B, S, V) f32, aux)
+    loss_fn(cfg, params, batch)               -> scalar
+    loss_and_grads(cfg, params, batch)        -> (loss, grads)
+    make_train_step(cfg)                      -> (opt_init, train_step)
+    train_step(cfg, params, opt_state, batch) -> (params', opt', {"loss"})
     init_cache(cfg, batch, seq_len, device)   -> cache
     prefill_step(cfg, params, batch, cache_len=None) -> (cache, last_logits)
     decode_step(cfg, params, cache, batch)    -> (cache, logits (B, V))
+
+Training is functional like the reference's: `train_step` takes the
+gradients of `loss_fn` with `torch.autograd.grad` over the param leaves
+(stacked layer leaves included) and returns new params and optimizer
+state.  `cfg.remat` checkpoints each decoder layer (the reference's
+`jax.checkpoint` of the layer body), and on the card the flash branch runs
+the `flash_attention` forward and backward kernels.  `forward` builds an
+autograd graph only when grad is enabled and a param requires it;
+`prefill_step` and `decode_step` always serve under `no_grad`.
 
 Decode caches: k/v are (L, B, C, Kh, hd) ring buffers (C = window for SWA
 archs, O(window) memory) and `pos` is the next position, a Python int (so
@@ -19,23 +33,25 @@ decode needs no host sync).  `decode_step` writes the new token's k/v into
 the cache's tensors in place, where the reference returns new arrays: the
 cache passed in is consumed.
 
-MoE, SSM, hybrid, encoder-decoder and frontend families, `loss_fn` and the
-train step are the next LM slice's work; `NotImplementedError` says so.
+MoE, SSM, hybrid, encoder-decoder and frontend families raise
+`NotImplementedError` (ROADMAP queue 1, item 7b).
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.lm.attention import attention, dense_attention
 from repro_torch.models.lm.config import ArchConfig
 from repro_torch.models.lm.layers import (
-    apply_norm, apply_rope, dense_init, embed_apply, embed_init, ffn_apply,
-    ffn_init, head_apply, head_init, norm_init,
+    apply_norm, apply_rope, cross_entropy_tokens, dense_init, embed_apply,
+    embed_init, ffn_apply, ffn_init, head_apply, head_init, norm_init,
 )
-from repro_torch.tree import tree_map
+from repro_torch.optim import make_optimizer
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Any
 
@@ -57,8 +73,8 @@ def check_served(cfg: ArchConfig) -> None:
     if other:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(other)} is not ported yet; the port "
-            f"serves dense decoder-only LMs (the other families come with "
-            f"the LM-training slice, ROADMAP queue 1)")
+            f"serves and trains dense decoder-only LMs (the other families "
+            f"are ROADMAP queue 1, item 7b)")
 
 
 # ======================================================== attention =========
@@ -163,9 +179,13 @@ def decoder_layer(p, cfg: ArchConfig, x):
     return x + _ffn_sublayer(p, cfg, x)
 
 
-def _layer(params: Params, i: int) -> Params:
-    """Layer i's params: views into the stacked leaves."""
-    return tree_map(lambda t: t[i], params["layers"])
+def _layers(params: Params) -> list:
+    """Every layer's params as views of the stacked leaves, by one unbind a
+    leaf: its backward stacks the layers' gradients in one copy, where a
+    select a layer would add an (L, ...) buffer of zeros a layer."""
+    cols = tree_map(lambda t: t.unbind(0), params["layers"])
+    n = tree_leaves(params["layers"])[0].shape[0]
+    return [tree_map(lambda c: c[i], cols) for i in range(n)]
 
 
 # ===================================================== init / forward =======
@@ -193,15 +213,64 @@ def init_params(cfg: ArchConfig, gen: torch.Generator,
 
 def forward(cfg: ArchConfig, params: Params,
             batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward. Returns (logits (B,S,V) f32, aux loss 0)."""
+    """Full-sequence forward. Returns (logits (B,S,V) f32, aux loss 0).
+    Under grad, `cfg.remat` recomputes each layer in the backward pass."""
     check_served(cfg)
-    with torch.no_grad():
-        x = embed_apply(params["embed"], batch["tokens"], _dtype(cfg))
-        for i in range(cfg.n_layers):
-            x = decoder_layer(_layer(params, i), cfg, x)
-        x = apply_norm(cfg.norm_kind, params["final_norm"], x)
-        logits = head_apply(params["head"], x)
+    x = embed_apply(params["embed"], batch["tokens"], _dtype(cfg))
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in _layers(params):
+        if remat:
+            # the layer draws nothing, so no RNG state needs keeping
+            x = checkpoint(decoder_layer, lp, cfg, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = decoder_layer(lp, cfg, x)
+    x = apply_norm(cfg.norm_kind, params["final_norm"], x)
+    logits = head_apply(params["head"], x)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
+    """Mean next-token cross entropy over every position.  The reference's
+    vision mask and MoE aux term belong to families that `check_served`
+    refuses (ROADMAP queue 1, item 7b) and come with them."""
+    logits, _ = forward(cfg, params, batch)
+    labels = batch["tokens"][:, 1:]
+    mask = torch.ones(labels.shape, dtype=torch.bool, device=labels.device)
+    return cross_entropy_tokens(logits[:, :-1], labels, mask)
+
+
+def loss_and_grads(cfg: ArchConfig, params: Params,
+                   batch: dict) -> tuple[torch.Tensor, Params]:
+    """`loss_fn` and its gradient tree (the reference's
+    `jax.value_and_grad`), by `torch.autograd.grad` over the param leaves;
+    `params` themselves are not touched."""
+    leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(cfg, tree_unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, list(grads))
+
+
+def make_train_step(cfg: ArchConfig):
+    """(opt_init, train_step) with the reference's optimizer settings:
+    SGD at lr 0.01, momentum 0.5, or AdamW at lr 3e-4."""
+    opt_init, opt_step = make_optimizer(
+        cfg.optimizer, lr=0.01 if cfg.optimizer == "sgd" else 3e-4,
+        momentum=0.5)
+
+    def train_step(params, opt_state, batch):
+        loss, grads = loss_and_grads(cfg, params, batch)
+        with torch.no_grad():
+            new_params, new_opt = opt_step(grads, opt_state, params)
+        return new_params, new_opt, {"loss": loss}
+
+    return opt_init, train_step
+
+
+def train_step(cfg: ArchConfig, params, opt_state, batch):
+    _, step = make_train_step(cfg)
+    return step(params, opt_state, batch)
 
 
 # ========================================================= serving ==========
@@ -231,8 +300,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: dict,
     with torch.no_grad():
         h = embed_apply(params["embed"], batch["token"][:, None],
                         _dtype(cfg))                                # (B,1,D)
-        for i in range(cfg.n_layers):
-            lp = _layer(params, i)
+        for i, lp in enumerate(_layers(params)):
             y = apply_norm(cfg.norm_kind, lp["norm1"], h)
             h = h + attn_apply_decode(lp["attn"], cfg, y,
                                       {"k": cache["k"][i],
@@ -260,8 +328,7 @@ def prefill_step(cfg: ArchConfig, params: Params, batch: dict,
     c = cache["k"].shape[2]
     with torch.no_grad():
         h = embed_apply(params["embed"], tokens, _dtype(cfg))
-        for i in range(cfg.n_layers):
-            lp = _layer(params, i)
+        for i, lp in enumerate(_layers(params)):
             y = apply_norm(cfg.norm_kind, lp["norm1"], h)
             a, (k, v) = attn_apply_seq(lp["attn"], cfg, y, return_kv=True)
             if s_len >= c:

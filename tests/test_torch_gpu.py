@@ -842,11 +842,13 @@ def test_batched_path_runs_through_all_five_kernels(cuda):
     # weighted_avg a valued dense round (six leaves)
     assert streaming == {"prefix_avg": valued[0], "ce_loss": valued[0],
                          "cohort_gather": 3, "delta_codec": 3,
-                         "weighted_avg": 0, "flash_attention": 0}
+                         "weighted_avg": 0, "flash_attention": 0,
+                         "flash_attention_bwd": 0}
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": valued[1],
                                 "cohort_gather": 3, "delta_codec": 0,
                                 "weighted_avg": valued[1],
-                                "flash_attention": 0}
+                                "flash_attention": 0,
+                                "flash_attention_bwd": 0}
 
 
 # ------------------------------------------------------ flash_attention ---
@@ -1104,6 +1106,167 @@ def test_model_flash_branch_runs_the_kernel(cuda, s):
     torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
 
 
+# ------------------------------------------------ flash_attention_bwd ---
+def _bwd_case(seed, b, s, t, hq, kh, hd, dtype, device, pos=None,
+              causal=True, window=0):
+    """Inputs, the forward kernel's o and lse, and an upstream gradient."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda,
+    )
+    q, k, v = _attn_inputs(seed, b, s, t, hq, kh, hd, dtype, device)
+    o, lse = flash_attention_cuda(q, k, v, pos, causal=causal,
+                                  window=window, with_lse=True)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(
+        seed + 1)).to(device, dtype)
+    return q, k, v, o, do, lse
+
+
+def assert_bwd_close(got, want, dtype, vanish=()):
+    """The backward's tolerance, element by element: |got - want| <= rtol
+    |want| + 2e-5 max |want|, a tensor at a time.  f32: rtol 0, the
+    forward's 2e-5 of the largest gradient.  bf16, against the f32 plain
+    version of the same bf16 inputs: the kernel computes in f32 and rounds
+    each output once to bf16 (at most 2^-8 of the value), so rtol 2^-7.
+    A tensor named in `vanish` is zero in exact arithmetic and both sides
+    hold only rounding noise: it is held at 2e-5 of max |dv| instead."""
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    dv_top = float(want[2].float().abs().max())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.cpu().float(), w.float()
+        top = dv_top if name in vanish else float(w.abs().max())
+        limit = rtol * w.abs() + 2e-5 * top
+        bad = (g - w).abs() > limit
+        assert not bool(bad.any()), (name, int(bad.sum()),
+                                     float((g - w).abs().max()), top)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,hq,kh,hd,causal,win,off", [
+    (2, 256, 256, 8, 2, 64, True, 0, 0), (1, 300, 300, 8, 2, 120, True, 96,
+                                           0),
+    (2, 200, 200, 4, 4, 128, False, 0, 0), (1, 130, 130, 4, 1, 32, True, 0,
+                                            0),
+    (1, 100, 400, 8, 2, 120, True, 256, 300),
+    (1, 77, 333, 4, 2, 64, False, 50, 200), (2, 129, 129, 6, 3, 72, True, 1,
+                                             0)])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, s, t, hq,
+                                                  kh, hd, causal, win, off):
+    """dq / dk / dv against `attention_bwd_gqa_ref` on the same inputs, o
+    and lse: GQA G = 1..4, hd 32..128, ragged S and T, windows, a q_pos
+    offset and non-causal; two launches bitwise equal."""
+    from repro_torch.kernels.flash_attention import attention_bwd_gqa_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda,
+    )
+    pos = torch.arange(off, off + s, device=cuda)
+    q, k, v, o, do, lse = _bwd_case(s + t + hd, b, s, t, hq, kh, hd, dtype,
+                                    cuda, pos, causal, win)
+    before = kernels.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, causal=causal,
+                                   window=win)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos,
+                                     causal=causal, window=win)
+    assert kernels.LAUNCHES["flash_attention_bwd"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert [x.dtype for x in got] == [dtype] * 3
+    want = attention_bwd_gqa_ref(
+        *(x.cpu().float() for x in (q, k, v, o, do)), lse.cpu(),
+        q_pos=pos.cpu(), causal=causal, window=win)
+    # window 1: each query sees only its own key, so dS = P (dO.v - dO.o)
+    # is 0 and dq, dk with it
+    assert_bwd_close(got, want, dtype, ("dq", "dk") if win == 1 else ())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_lse_is_bitwise_neutral_and_the_plain_lse(cuda,
+                                                                 dtype):
+    """The forward's output with its lse is bitwise the output without it,
+    and the lse is the plain log-sum-exp (f32 at 1e-4 on values ~ 5)."""
+    from repro_torch.kernels.flash_attention import attention_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda,
+    )
+    q, k, v = _attn_inputs(21, 2, 333, 333, 8, 2, 120, dtype, cuda)
+    for win in (0, 100):
+        plain = flash_attention_cuda(q, k, v, window=win)
+        o, lse = flash_attention_cuda(q, k, v, window=win, with_lse=True)
+        assert torch.equal(o, plain)
+        g = q.shape[2] // k.shape[2]
+        _, want = attention_ref(
+            q.cpu().float().transpose(1, 2).flatten(0, 1),
+            k.cpu().float().transpose(1, 2).flatten(0, 1).repeat_interleave(
+                g, 0),
+            v.cpu().float().transpose(1, 2).flatten(0, 1).repeat_interleave(
+                g, 0), window=win, with_lse=True)
+        torch.testing.assert_close(lse.cpu().flatten(0, 1), want, atol=1e-4,
+                                   rtol=0)
+
+
+def test_flash_attention_fn_on_the_card_matches_the_cpu(cuda):
+    """Autograd through `flash_attention_gqa` on the card (the forward
+    with lse, then the backward kernel) against the CPU route's."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    q, k, v = _attn_inputs(31, 2, 200, 200, 8, 2, 64, torch.float32, "cpu")
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(32))
+    grads = []
+    for dev in ("cpu", cuda):
+        xs = [x.to(dev).requires_grad_() for x in (q, k, v)]
+        out = flash_attention_gqa(*xs, window=64)
+        grads.append(torch.autograd.grad(out, xs, g.to(dev)))
+    assert_bwd_close(grads[1], grads[0], torch.float32)
+
+
+def _train_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config("tinyllama_1_1b").reduced(n_layers=2)
+    return dataclasses.replace(cfg, attn_impl="flash", attn_chunk=32,
+                               remat=True)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two AdamW train steps of a reduced TinyLlama (flash branch at S =
+    128, per-layer remat) on the card with the CPU run's weights: losses
+    at 1e-4 relative, AdamW's moments at 5e-5 of a leaf's max, params at
+    1e-5 but where a gradient is ~0 (below);
+    flash_attention launches twice a layer a step (the forward, and
+    remat's recompute), the backward once."""
+    from repro_torch.interop import params_from_numpy, params_to_numpy
+    from repro_torch.models.lm import model as M
+    from repro_torch.tree import tree_leaves
+    cfg = _train_cfg()
+    cpu_params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                               device="cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 128),
+                           generator=torch.Generator().manual_seed(1))
+    opt_init, step = M.make_train_step(cfg)
+    runs = []
+    for dev in ("cpu", cuda):
+        p = params_from_numpy(params_to_numpy(cpu_params), device=dev)
+        opt, losses = opt_init(p), []
+        kernels.reset_launches()
+        for _ in range(2):
+            p, opt, m = step(p, opt, {"tokens": tokens.to(dev)})
+            losses.append(float(m["loss"]))
+        runs.append((p, opt, losses, dict(kernels.LAUNCHES)))
+    (pc, oc, lc, nc), (pg, og, lg, ng) = runs
+    assert nc["flash_attention"] == 0 and nc["flash_attention_bwd"] == 0
+    assert ng["flash_attention"] == 2 * 2 * cfg.n_layers
+    assert ng["flash_attention_bwd"] == 2 * cfg.n_layers
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    # the gradients, through AdamW's moments, agree everywhere
+    for a, b in zip(tree_leaves(og.mu) + tree_leaves(og.nu),
+                    tree_leaves(oc.mu) + tree_leaves(oc.nu)):
+        assert float((a.cpu() - b).abs().max()) <= 5e-5 * float(
+            b.abs().max())
+    # AdamW's m / sqrt(v) turns a last-bit difference of a gradient that
+    # is ~0 into up to a step of the other sign: all but 1e-3 of each leaf
+    # at 1e-5
+    for a, b in zip(tree_leaves(pg), tree_leaves(pc)):
+        err = (a.cpu() - b).abs()
+        assert float((err > 1e-5).float().mean()) <= 1e-3
+
+
 def _served_cfg():
     import dataclasses
     from repro_torch.configs import get_config
@@ -1228,7 +1391,7 @@ def test_scan_graph_holds_the_kernels_and_no_sync(cuda, impl):
     assert res.graph_launches["round"] == {
         "prefix_avg": 0 if dense else 1, "ce_loss": 1, "cohort_gather": 1,
         "delta_codec": 1, "weighted_avg": 1 if dense else 0,
-        "flash_attention": 0}
+        "flash_attention": 0, "flash_attention_bwd": 0}
     assert not any(res.graph_launches["eval"].values())
     assert np.isfinite(res.final_acc) and res.params["layer0"]["w"].is_cuda
     torch.cuda.set_sync_debug_mode("error")
@@ -1389,7 +1552,8 @@ def test_grid_on_the_card_is_bitwise_the_solo_runs(cuda):
             "prefix_avg": s * p.needs_sv, "ce_loss": s * p.needs_sv,
             "cohort_gather": s,
             "delta_codec": s * (p.upload_codec != "identity"),
-            "weighted_avg": 0, "flash_attention": 0}
+            "weighted_avg": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0}
         assert not any(p.graph_launches["eval"].values())
 
 

@@ -191,7 +191,8 @@ def test_default_draws_reproduce_and_cpu_never_counts_launches():
     b = run_federated(cfg, model=model, device="cpu")
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": 0,
                                 "cohort_gather": 0, "delta_codec": 0,
-                                "weighted_avg": 0, "flash_attention": 0}
+                                "weighted_avg": 0, "flash_attention": 0,
+                                "flash_attention_bwd": 0}
     for x, y in zip(a.selections, b.selections):
         np.testing.assert_array_equal(x, y)
     np.testing.assert_array_equal(a.sv_final, b.sv_final)
