@@ -33,16 +33,26 @@ Every version gets the same inputs, made from fixed seeds:
 - flash_attention: one H2O-Danube-3-4B prefill layer (B = 4, S = T =
   8192, Hq = 32, Kh = 8, hd = 120, window 4096) through
   `flash_attention_gqa`, in bf16 (the serving route, as a control, timed
-  first) and in float32 (the f32 route).
+  first) and in float32 (the f32 route);
+- flash_attention_bwd: the backward kernel through
+  `flash_attention_bwd_cuda` (on the forward's o and lse) at one
+  TinyLlama-1.1B training layer (B = 4, S = T = 2048, Hq = 32, Kh = 4, hd
+  = 64, causal) and one H2O-Danube-3-4B layer (B = 1, S = T = 8192, Hq =
+  32, Kh = 8, hd = 120, window 4096), in bf16 and in float32.
 
 Each time is a CUDA-event mean over back-to-back calls (`chip_smoke.
 time_ms`), taken `--repeats` times; the launches per call are counted.
-Prints one line per measurement and, last, one JSON object.  Exits
-non-zero without a card.
+Besides, the forward's outputs (o, and lse where the version has it) at
+`chip_smoke.py` phase 3's shapes (the Danube prefill layer at windows
+4096 and 0, and its four edge shapes, both dtypes, from fixed seeds) are
+reduced to one sha256 digest each, so that two versions' outputs can be
+compared bit for bit.  Prints one line per measurement and, last, one
+JSON object.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -73,6 +83,7 @@ def main() -> int:
     from repro_torch.kernels.cohort_gather import kernel as gather_kernel
     from repro_torch.kernels.delta_codec import delta_codec_roundtrip
     from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.prefix_avg import prefix_avg
     from repro_torch.kernels.weighted_avg import weighted_avg
 
@@ -117,8 +128,27 @@ def main() -> int:
         *qkv_bf16, window=4096), 20)
     calls["flash_attention f32"] = (lambda _: flash_attention_gqa(
         *qkv, window=4096), 3)
+    digests = forward_digests(torch, flash_kernel, device)
+    bwd = getattr(flash_kernel, "flash_attention_bwd_cuda", None)
+    if bwd is not None:            # versions that have the backward
+        for label, shape_q, shape_kv, window in (
+                ("TinyLlama", (4, 2048, 32, 64), (4, 2048, 4, 64), 0),
+                ("Danube", (1, 8192, 32, 120), (1, 8192, 8, 120), 4096)):
+            base = [torch.randn(shape, generator=agen, device=device)
+                    for shape in (shape_q, shape_kv, shape_kv, shape_q)]
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, do = (x.to(dtype) for x in base)
+                o, lse = flash_kernel.flash_attention_cuda(
+                    q, k, v, window=window, with_lse=True)
+                calls[f"flash_attention_bwd {label} {str(dtype)[6:]}"] = (
+                    lambda _, a=(q, k, v, o, do, lse), w=window: bwd(
+                        *a, window=w), 10 if dtype == torch.bfloat16 else 2)
 
-    out = {"label": args.label, "device": torch.cuda.get_device_name(0)}
+    out = {"label": args.label, "device": torch.cuda.get_device_name(0),
+           "forward_sha256": digests}
+    for name, d in digests.items():
+        print(f"[compare] {args.label}: forward output {name}: sha256 {d}",
+              flush=True)
     for name, (fn, iters) in calls.items():
         kernels.reset_launches()
         fn(0)
@@ -131,6 +161,42 @@ def main() -> int:
               f"launches a call", flush=True)
     print(json.dumps(out))
     return 0
+
+
+def forward_digests(torch, flash_kernel, device) -> dict:
+    """sha256 of the forward kernel's o (and lse, where the version has the
+    output) at phase 3's shapes, from fixed seeds: the Danube prefill
+    layer at windows 4096 and 0 and the four edges, bf16 and f32."""
+    import inspect
+    has_lse = "with_lse" in inspect.signature(
+        flash_kernel.flash_attention_cuda).parameters
+    gen = torch.Generator(device=device).manual_seed(14)
+    cases = [((4, 8192, 32, 8, 120), 4096), ((4, 8192, 32, 8, 120), 0),
+             ((2, 1000, 8, 2, 64), 256), ((1, 1000, 8, 2, 128), 0),
+             ((2, 777, 6, 6, 120), 100), ((1, 333, 4, 4, 128), 4096)]
+    out = {}
+    for (b, s_len, hq, kh, hd), window in cases:
+        base = [torch.randn(shape, generator=gen, device=device)
+                for shape in ((b, s_len, hq, hd), (b, s_len, kh, hd),
+                              (b, s_len, kh, hd))]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dtype) for x in base)
+            h = hashlib.sha256()
+            res = flash_kernel.flash_attention_cuda(q, k, v, window=window)
+            h.update(res.view(torch.uint8).cpu().numpy().tobytes())
+            name = f"B={b} S={s_len} Hq={hq} Kh={kh} hd={hd} " \
+                   f"window={window} {str(dtype)[6:]}"
+            out[name] = h.hexdigest()
+            if has_lse:
+                o, lse = flash_kernel.flash_attention_cuda(
+                    q, k, v, window=window, with_lse=True)
+                h2 = hashlib.sha256(o.view(torch.uint8).cpu().numpy()
+                                    .tobytes())
+                h2.update(lse.view(torch.uint8).cpu().numpy().tobytes())
+                out[name + " with lse"] = h2.hexdigest()
+        del base
+        torch.cuda.empty_cache()
+    return out
 
 
 if __name__ == "__main__":

@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 scripts/torch_train_profile.py [--steps 3] [--out FILE]
+                                           [--src DIR] [--label NAME]
 
 Trains full-width TinyLlama-1.1B (bf16 activations, f32 params, AdamW,
 per-layer remat, random weights from a seed) on one fixed B = 4 x S =
@@ -17,7 +18,9 @@ per-layer remat, random weights from a seed) on one fixed B = 4 x S =
    most device time grouped by name, and their sums by kind (the flash
    forward and backward kernels, matrix products, the rest).
 
-Exits non-zero without a card.
+`--src` runs the port under another directory (a `git archive` of another
+version's `src`), so that two versions can be profiled in turns in one
+call.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
@@ -30,8 +33,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 
 # kernel-name patterns of each kind, tried in this order
-KINDS = (("flash_attention_bwd", ("bwd_delta_kernel", "bwd_dkdv_kernel",
-                                  "bwd_dq_kernel")),
+KINDS = (("flash_attention_bwd", ("bwd_delta_kernel", "bwd_rows_kernel",
+                                  "bwd_dkdv", "bwd_dq")),
          ("flash_attention", ("flash_tc_kernel", "flash_f32_tc_kernel")),
          ("matmul", ("gemm", "xmma", "cutlass", "nvjet")))
 
@@ -47,6 +50,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--out", default=None, help="write the results as JSON")
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="this checkout")
     args = ap.parse_args()
     import subprocess
     import torch
@@ -54,7 +59,7 @@ def main() -> int:
         print("torch_train_profile: no CUDA device is available",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,7 +69,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    print(f"[env] torch {torch.__version__}; {smi}")
+    print(f"[env] {args.label}: torch {torch.__version__}; {smi}")
     cfg = get_config("tinyllama_1_1b")
     b, s_len = 4, 2048
     params, opt, step, gen = build_lm(cfg, 0, "cuda")
@@ -85,7 +90,7 @@ def main() -> int:
         one_step()
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    print(f"[train] {cfg.name}, B={b}, S={s_len}: ms a step "
+    print(f"[train] {args.label}: {cfg.name}, B={b}, S={s_len}: ms a step "
           f"{[round(t, 3) for t in times]} (no profiler)")
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -106,10 +111,10 @@ def main() -> int:
         ms, n = by_kind.get(k, (0.0, 0))
         by_kind[k] = (ms + e.self_device_time_total / 1e3, n + e.count)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
-    print(f"[profile] one step: wall {wall_ms:.2f} ms (profiled), device "
+    print(f"[profile] {args.label}: one step: wall {wall_ms:.2f} ms (profiled), device "
           f"{dev_ms:.2f} ms -> busy {100 * dev_ms / wall_ms:.1f}%")
     for k, (ms, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
-        print(f"[profile] by kind: {k:20s} {ms:10.3f} ms "
+        print(f"[profile] {args.label}: by kind: {k:20s} {ms:10.3f} ms "
               f"({100 * ms / dev_ms:5.1f}% of device time), {n} launches")
     for e in top:
         print(f"[profile]   {e.self_device_time_total / 1e3:10.3f} ms  "
@@ -117,7 +122,7 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps({
-            "device": smi, "arch": cfg.name, "batch": b, "seq": s_len,
+            "label": args.label, "device": smi, "arch": cfg.name, "batch": b, "seq": s_len,
             "step_ms": times, "profiled_wall_ms": wall_ms,
             "device_ms": dev_ms,
             "by_kind": {k: {"ms": ms, "launches": n}

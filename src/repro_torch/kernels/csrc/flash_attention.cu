@@ -149,16 +149,12 @@
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 
-struct Strides {
-  int64_t b, s, h;
-};
-
-constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 
 // ----------------------------------------------------------- bf16 route --
@@ -168,8 +164,6 @@ constexpr int kTcKeys = 128;            // keys per tile
 constexpr int kTcStages = 2;            // K/V tiles in flight
 constexpr int kTcConsumerWarps = 8;     // two warpgroups of 64 rows
 constexpr int kTcThreads = 32 * (kTcConsumerWarps + 1);   // + the producer
-constexpr int kSwizzleRow = 128;        // bytes: 64 bf16 columns, one chunk
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD_PAD>
 struct TcLayout {
@@ -184,219 +178,6 @@ struct TcLayout {
   // Q, the K and V rings, 1 + 2 * stages mbarriers, slack to align to 1 KB
   static constexpr size_t kBytes = kOffBar + 8 * (1 + 2 * kTcStages) + 1024;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 state;\n"
-               "mbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
-               :: "r"(bar) : "memory");
-}
-
-// Wait for the completion of the barrier's phase of this parity.  A wait
-// lasts microseconds; one that outlasts 2^25 tries is a fault of the
-// pipeline, and it traps (the launch fails) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  for (uint32_t tries = 0;; ++tries) {
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (tries == (1u << 25)) __trap();
-  }
-}
-
-// TMA: the box at (c0, c1, c2, c3) of a 4-D tensor map into shared memory,
-// its bytes counted on `bar`
-__device__ __forceinline__ void tma_load_4d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
-         "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 128B
-__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo) {
-  return (uint64_t)((addr & 0x3ffff) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3fff) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3fff) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keep the compiler from moving register reads or writes across the
-// asynchronous wgmma that owns these registers
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (64 x 128, f32) += A (64 x 16, K-major) * B (128 x 16, K-major), both
-// from shared memory through their descriptors; scale_d = 0 ignores D's
-// input
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// D (64 x 64, f32) += A (64 x 16, bf16 in registers) * B (16 x 64, MN-major
-// in shared memory through its descriptor)
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// D (64 x 128, f32) += A (64 x 16, bf16 in registers) * B (16 x 128, MN-major
-// in shared memory through its descriptor)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d));
-}
-
-// O (64 x HD_PAD) += P (64 x 16) V (16 x HD_PAD) for one 16-key step
-template <int HD_PAD>
-__device__ __forceinline__ void wgmma_pv(float (&acc)[HD_PAD / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (HD_PAD == 128) {
-    wgmma_rs_n128(acc, a, db, 1);
-  } else {
-    wgmma_rs_n64(acc, a, db, 1);
-  }
-}
-
-// true when no key of tile [kt, kt + KEYS) is masked for a row at `pos`
-template <int KEYS>
-__device__ __forceinline__ bool tile_open(int64_t kt, int64_t pos,
-                                          int64_t t_len, int causal,
-                                          int64_t window) {
-  return kt + KEYS <= t_len && (!causal || kt + KEYS - 1 <= pos) &&
-         (window <= 0 || kt > pos - window);
-}
-
-__device__ __forceinline__ int clamp_rel(int64_t x) {
-  constexpr int64_t kFar = int64_t(1) << 30;
-  return (int)(x < -kFar ? -kFar : x > kFar ? kFar : x);
-}
 
 // The forward's optional second output, the per-row log-sum-exp of the
 // scaled scores in natural units, L = m ln 2 + log(max(l, 1e-30)) (m is
@@ -1225,64 +1006,6 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap q_map,
       }
     }
   }
-}
-
-// cuTensorMapEncodeTiled from libcuda, looked up through the CUDA runtime
-// (the library links only the runtime)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault, &found) ==
-            cudaSuccess &&
-        found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// A 4-D map (hd, seq, heads, batch) of a bf16 or f32 tensor read through
-// its strides, boxes of one 128-byte row (64 bf16 or 32 f32 columns) x
-// `rows` rows of one head, 128-byte swizzle.  head_dim is a dimension of
-// its own, of size hd, so the columns of a box past hd are out of bounds
-// and arrive as zeros.  TMA needs a 16-byte aligned base and strides that
-// are multiples of 16 bytes; the wrapper copies a tensor that does not
-// qualify.  A dimension of size 1 is never stepped, so its stride is
-// replaced by a valid one.
-int make_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
-             int64_t elem, int64_t hd, int64_t seq, int64_t heads,
-             int64_t batch, Strides st, uint32_t rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
-  if ((uintptr_t)base & 15) return (int)cudaErrorMisalignedAddress;
-  const int64_t size[3] = {seq, heads, batch};
-  const int64_t stride[3] = {st.s, st.h, st.b};
-  const int64_t spare = ((hd * elem + 15) / 16) * 16 * seq * heads;
-  cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)seq, (cuuint64_t)heads,
-                        (cuuint64_t)batch};
-  cuuint64_t strides[3];
-  for (int i = 0; i < 3; ++i) {
-    const int64_t bytes = size[i] == 1 ? spare : stride[i] * elem;
-    if (bytes <= 0 || bytes % 16) return (int)cudaErrorInvalidValue;
-    strides[i] = (cuuint64_t)bytes;
-  }
-  const cuuint32_t box[4] = {(cuuint32_t)(kSwizzleRow / elem), rows, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult r = encode(
-      map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int HD_PAD>

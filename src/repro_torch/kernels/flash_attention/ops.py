@@ -69,11 +69,14 @@ def _forward_ref(q, k, v, q_pos, causal, window, with_lse=False):
 
 
 def attention_bwd_gqa_ref(q, k, v, o, do, lse, *, q_pos=None, causal=True,
-                          window=0):
+                          window=0, plain=attention_bwd_ref):
     """`attention_bwd_ref` on the model's layout: q, o, do (B, S, Hq, hd),
-    k, v (B, T, Kh, hd), lse (B, Hq, S) -> (dq, dk, dv) in that layout."""
+    k, v (B, T, Kh, hd), lse (B, Hq, S) -> (dq, dk, dv) in that layout;
+    `plain` takes another function of its arguments instead
+    (`attention_bwd_bf16_ref`, the bf16 kernel's arithmetic, or
+    `attention_bwd_bf16_slack`)."""
     b = q.shape[0]
-    dq, dk, dv = attention_bwd_ref(
+    dq, dk, dv = plain(
         _heads(q), _heads(k), _heads(v), _heads(o), _heads(do),
         lse.flatten(0, 1), causal=causal, window=window, q_pos=q_pos,
         group=q.shape[2] // k.shape[2])

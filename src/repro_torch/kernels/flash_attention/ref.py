@@ -72,6 +72,13 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       dQ = scale dS K,  dK = scale dS^T Q,
     dK and dV summed over each group's rows before the cast.
     """
+    return _attention_bwd(q, k, v, o, do, lse, causal, window, q_pos, group,
+                          lambda x: x)
+
+
+def _bwd_terms(q, k, v, o, do, lse, causal, window, q_pos, group):
+    """The backward's operands in the compute dtype, KV repeated per group
+    (qf, kf, vf, of, dof), the scale, the mask (1, S, T), P, dP and D."""
     ct = _compute_dtype(q)
     s_len, t_len, hd = q.shape[1], k.shape[1], q.shape[-1]
     scale = hd ** -0.5
@@ -82,12 +89,20 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, torch.einsum("bqd,bkd->bqk", qf, kf) * scale,
                     NEG_INF)
     p = torch.exp(s - lse.to(ct)[..., None])
-    dv = torch.einsum("bqk,bqd->bkd", p, dof)
     dp = torch.einsum("bqd,bkd->bqk", dof, vf)
     dl = torch.sum(dof * of, dim=-1, keepdim=True)
+    return qf, kf, vf, of, dof, scale, mask, p, dp, dl
+
+
+def _attention_bwd(q, k, v, o, do, lse, causal, window, q_pos, group, rnd):
+    """`attention_bwd_ref`'s formulas with `rnd` applied to P and dS where
+    the products read them."""
+    qf, kf, vf, of, dof, scale, mask, p, dp, dl = _bwd_terms(
+        q, k, v, o, do, lse, causal, window, q_pos, group)
+    dv = torch.einsum("bqk,bqd->bkd", rnd(p), dof)
     ds = torch.where(mask, p * (dp - dl), 0.0)
-    dq = torch.einsum("bqk,bkd->bqd", ds, kf) * scale
-    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dq = torch.einsum("bqk,bkd->bqd", rnd(ds), kf) * scale
+    dk = torch.einsum("bqk,bqd->bkd", rnd(ds), qf) * scale
     dk = dk.unflatten(0, (-1, group)).sum(1)
     dv = dv.unflatten(0, (-1, group)).sum(1)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
@@ -138,3 +153,81 @@ def attention_split_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l = p.sum(-1, keepdim=True)
     return _split_matmul(p, v) / l.clamp_min(1e-30)
+
+
+def _round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest, ties to even) and kept in x's dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def attention_bwd_bf16_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, o: torch.Tensor,
+                           do: torch.Tensor, lse: torch.Tensor, *,
+                           causal: bool = True, window: int = 0,
+                           q_pos: Optional[torch.Tensor] = None,
+                           group: int = 1
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """The bf16 CUDA route's backward arithmetic on the CPU, for the tests:
+    `attention_bwd_ref` (same arguments and layout) with P and dS rounded
+    to bf16 before the products that read them, dV = bf16(P)^T dO, dQ =
+    scale bf16(dS) K and dK = scale bf16(dS)^T Q, and every sum in float32
+    (dS itself from the unrounded P).  The kernel's sums run in another
+    order, partly inside the tensor core, so where P or dS lies at a bf16
+    tie the two may round it apart (`attention_bwd_bf16_slack`)."""
+    return _attention_bwd(q, k, v, o, do, lse, causal, window, q_pos, group,
+                          _round_bf16)
+
+
+# How far the kernel's float32 sums of bf16 products (S, dP, D) and the
+# plain version's may lie apart, relative to the sum of the terms'
+# magnitudes: 16 units of float32 rounding (2^-24).  The tensor core
+# truncates once per k16 step (hd / 16 <= 8 steps, at most a unit each);
+# a float32 sum in another order differs by ~sqrt(hd) units.  On the CPU,
+# float32 against float64 of the same arithmetic needs 2^-22 at S = 2048.
+SUM_EPS = 2.0 ** -20
+
+
+def _flip(x: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+    """How far bf16 rounding can move x's rounded value when x itself is
+    known only to within dx: |bf16(x + dx) - bf16(x - dx)|, one bf16 unit
+    where a tie lies within dx of x, else 0."""
+    return (_round_bf16(x + dx) - _round_bf16(x - dx)).abs()
+
+
+def attention_bwd_bf16_slack(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             q_pos: Optional[torch.Tensor] = None,
+                             group: int = 1
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """For each element of `attention_bwd_bf16_ref`'s (dq, dk, dv), the
+    most it can move when P or dS rounds to the other bf16 neighbour: the
+    kernel and the plain version compute P and dS in float32 sums of other
+    orders, so where one lies within their difference of a bf16 tie, the
+    two round it apart by one bf16 unit, which moves each gradient term it
+    feeds by that unit times the other factor.  The difference is bounded
+    by SUM_EPS times the sums' absolute terms: dP and D by SUM_EPS
+    sum |dO v| and sum |dO o|, P by P SUM_EPS (scale sum |q k| + |L| + 1)
+    (the exponent's argument and exp itself), and dS = P (dP - D) by
+    P (d dP + d D) + |dP - D| d P.  Then slack_dv = sum_i flip(P) |dO|,
+    slack_dq = scale sum_j flip(dS) |k|, slack_dk = scale sum_i flip(dS)
+    |q|.  Zero for all but the few elements fed by a term at a tie."""
+    qf, kf, vf, of, dof, scale, mask, p, dp, dl = _bwd_terms(
+        q, k, v, o, do, lse, causal, window, q_pos, group)
+    lf = lse.to(p.dtype)[..., None]
+    e = SUM_EPS
+    p_err = p * e * (torch.einsum("bqd,bkd->bqk", qf.abs(), kf.abs())
+                     * scale + lf.abs() + 1)
+    dpl_err = e * (torch.einsum("bqd,bkd->bqk", dof.abs(), vf.abs())
+                   + torch.sum((dof * of).abs(), dim=-1, keepdim=True))
+    ds_err = p * dpl_err + (dp - dl).abs() * p_err
+    fp = torch.where(mask, _flip(p, p_err), 0.0)
+    fs = torch.where(mask, _flip(p * (dp - dl), ds_err), 0.0)
+    sv = torch.einsum("bqk,bqd->bkd", fp, dof.abs())
+    sq = torch.einsum("bqk,bkd->bqd", fs, kf.abs()) * scale
+    sk = torch.einsum("bqk,bqd->bkd", fs, qf.abs()) * scale
+    return (sq, sk.unflatten(0, (-1, group)).sum(1),
+            sv.unflatten(0, (-1, group)).sum(1))

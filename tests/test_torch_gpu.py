@@ -1121,23 +1121,91 @@ def _bwd_case(seed, b, s, t, hq, kh, hd, dtype, device, pos=None,
     return q, k, v, o, do, lse
 
 
-def assert_bwd_close(got, want, dtype, vanish=()):
+def assert_bwd_close(got, want, dtype, vanish=(), slack=None):
     """The backward's tolerance, element by element: |got - want| <= rtol
     |want| + 2e-5 max |want|, a tensor at a time.  f32: rtol 0, the
-    forward's 2e-5 of the largest gradient.  bf16, against the f32 plain
-    version of the same bf16 inputs: the kernel computes in f32 and rounds
-    each output once to bf16 (at most 2^-8 of the value), so rtol 2^-7.
-    A tensor named in `vanish` is zero in exact arithmetic and both sides
-    hold only rounding noise: it is held at 2e-5 of max |dv| instead."""
+    forward's 2e-5 of the largest gradient.  bf16, against the plain
+    version of its arithmetic (`attention_bwd_bf16_ref`, in f32, of the
+    same bf16 inputs): the kernel rounds each output once to bf16 (at most
+    2^-8 of the value), so rtol 2^-7; and where its f32 P or dS and the
+    plain version's lie on either side of a bf16 tie, the two round them
+    apart, which `slack` (`attention_bwd_bf16_slack`, per element) adds to
+    the limit.  A tensor named in `vanish` is zero in exact arithmetic and
+    both sides hold only rounding noise: it is held at 2e-5 of max |dv|
+    instead."""
     rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
     dv_top = float(want[2].float().abs().max())
-    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+    for i, (name, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
         g, w = g.cpu().float(), w.float()
         top = dv_top if name in vanish else float(w.abs().max())
         limit = rtol * w.abs() + 2e-5 * top
+        if slack is not None:
+            limit = limit + slack[i].float()
         bad = (g - w).abs() > limit
         assert not bool(bad.any()), (name, int(bad.sum()),
                                      float((g - w).abs().max()), top)
+
+
+def assert_bwd_departure(got, want, vanish=()):
+    """The bf16 kernel against the exact float32 plain version: P and dS
+    are rounded to bf16 before the products that read them, a relative
+    error of at most 2^-9 in each term of a sum, so a gradient departs by
+    at most 2^-9 of its terms' absolute sum; with random-sign terms that is
+    ~1.7e-3 of the gradient's size (the bf16-rounding plain version
+    against the exact one on the CPU: 1.60-1.67e-3 in the mean, at most
+    2.2e-3 of max |grad|, at S = 300 and 2048).  Held at twice that, 2^-8:
+    per element |err| <= 2^-7 |want| (the output's own bf16 rounding) +
+    2^-8 max |want|, and mean |err| <= 2^-8 mean |want|.  A tensor named
+    in `vanish` is rounding noise on both sides (see `assert_bwd_close`):
+    held at 2^-8 of max |dv|, with no mean rule."""
+    dv_top = float(want[2].float().abs().max())
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.cpu().float(), w.float()
+        err = (g - w).abs()
+        top = dv_top if name in vanish else float(w.abs().max())
+        bad = err > 2.0 ** -7 * w.abs() + 2.0 ** -8 * top
+        assert not bool(bad.any()), (name, int(bad.sum()),
+                                     float(err.max()), top)
+        if name not in vanish:
+            assert float(err.mean()) <= 2.0 ** -8 * float(w.abs().mean()), (
+                name, float(err.mean()), float(w.abs().mean()))
+
+
+def _check_bwd(cuda, dtype, q, k, v, o, do, lse, pos, causal, win):
+    """Two launches bitwise equal and counted; f32 against the plain
+    version at `assert_bwd_close`; bf16 against the bf16-rounding plain
+    version at `assert_bwd_close` with its flip slack, and against the
+    exact one at `assert_bwd_departure`."""
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_bf16_ref, attention_bwd_bf16_slack,
+        attention_bwd_gqa_ref,
+    )
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda,
+    )
+    before = kernels.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, causal=causal,
+                                   window=win)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos,
+                                     causal=causal, window=win)
+    assert kernels.LAUNCHES["flash_attention_bwd"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert [x.dtype for x in got] == [dtype] * 3
+    assert [x.shape for x in got] == [q.shape, k.shape, v.shape]
+    args = (*(x.cpu().float() for x in (q, k, v, o, do)), lse.cpu())
+    kw = {"q_pos": pos.cpu(), "causal": causal, "window": win}
+    exact = attention_bwd_gqa_ref(*args, **kw)
+    # window 1, or a single key: each query sees only one key, so dS =
+    # P (dO.v - dO.o) is 0 and dq, dk with it
+    vanish = ("dq", "dk") if win == 1 or k.shape[1] == 1 else ()
+    if dtype == torch.float32:
+        assert_bwd_close(got, exact, dtype, vanish)
+        return
+    assert_bwd_close(
+        got, attention_bwd_gqa_ref(*args, **kw, plain=attention_bwd_bf16_ref),
+        dtype, vanish,
+        attention_bwd_gqa_ref(*args, **kw, plain=attention_bwd_bf16_slack))
+    assert_bwd_departure(got, exact, vanish)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1152,29 +1220,54 @@ def assert_bwd_close(got, want, dtype, vanish=()):
 def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, s, t, hq,
                                                   kh, hd, causal, win, off):
     """dq / dk / dv against `attention_bwd_gqa_ref` on the same inputs, o
-    and lse: GQA G = 1..4, hd 32..128, ragged S and T, windows, a q_pos
-    offset and non-causal; two launches bitwise equal."""
-    from repro_torch.kernels.flash_attention import attention_bwd_gqa_ref
-    from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda,
-    )
+    and lse (bf16: also against its bf16-rounding arithmetic): GQA G =
+    1..4, hd 32..128, ragged S and T, windows, a q_pos offset and
+    non-causal; two launches bitwise equal."""
     pos = torch.arange(off, off + s, device=cuda)
     q, k, v, o, do, lse = _bwd_case(s + t + hd, b, s, t, hq, kh, hd, dtype,
                                     cuda, pos, causal, win)
-    before = kernels.LAUNCHES["flash_attention_bwd"]
-    got = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, causal=causal,
-                                   window=win)
-    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos,
-                                     causal=causal, window=win)
-    assert kernels.LAUNCHES["flash_attention_bwd"] == before + 2
-    assert all(torch.equal(x, y) for x, y in zip(got, again))
-    assert [x.dtype for x in got] == [dtype] * 3
-    want = attention_bwd_gqa_ref(
-        *(x.cpu().float() for x in (q, k, v, o, do)), lse.cpu(),
-        q_pos=pos.cpu(), causal=causal, window=win)
-    # window 1: each query sees only its own key, so dS = P (dO.v - dO.o)
-    # is 0 and dq, dk with it
-    assert_bwd_close(got, want, dtype, ("dq", "dk") if win == 1 else ())
+    _check_bwd(cuda, dtype, q, k, v, o, do, lse, pos, causal, win)
+
+
+def _padded_view(x):
+    """x as a view of a wider tensor whose rows are 3 elements longer, so
+    that its strides are not multiples of 16 bytes: TMA cannot read it."""
+    wide = torch.zeros((*x.shape[:3], x.shape[3] + 3), dtype=x.dtype,
+                       device=x.device)
+    wide[..., :x.shape[3]] = x
+    return wide[..., :x.shape[3]]
+
+
+@pytest.mark.parametrize("b,s,t,hq,kh,hd,causal,win,off,view", [
+    (1, 256, 256, 16, 2, 64, True, 0, 0, False),       # G = 8
+    (2, 200, 200, 8, 1, 128, True, 0, 0, False),       # G = 8, hd 128
+    (1, 190, 190, 4, 2, 32, True, 0, 0, False),        # hd 32
+    (1, 150, 150, 4, 2, 72, True, 40, 0, False),       # hd 72, a window
+    (1, 333, 333, 8, 8, 120, True, 100, 0, False),     # hd 120, G = 1
+    (1, 1, 1, 4, 2, 64, True, 0, 0, False),            # S = T = 1
+    (1, 1, 700, 8, 2, 64, True, 0, 699, False),        # S = 1, T >> S
+    (2, 70, 1000, 8, 2, 128, True, 0, 930, False),     # T >> S, q_pos
+    (1, 97, 97, 4, 1, 64, True, 1, 0, False),          # window 1
+    (1, 130, 260, 4, 2, 64, False, 0, 0, False),       # non-causal
+    (1, 120, 120, 8, 2, 64, False, 30, 0, False),      # non-causal window
+    (1, 129, 129, 6, 3, 72, True, 0, 0, True),         # views to copy
+    (2, 100, 100, 4, 2, 60, True, 0, 0, False)])       # hd 60: copied
+def test_flash_attention_bwd_tensor_core_route(cuda, b, s, t, hq, kh, hd,
+                                               causal, win, off, view):
+    """The bf16 route's tensor-core kernels at G = 8, hd 32 / 60 / 64 / 72
+    / 120 / 128, S and T off the 64- and 128-row tiles, S = 1, T much
+    longer than S, window 1, a q_pos offset, non-causal, and views that
+    TMA cannot read (copied by the wrapper): both rules, two launches
+    bitwise equal."""
+    from repro_torch.kernels.flash_attention.kernel import tma_ready
+    dtype = torch.bfloat16
+    pos = torch.arange(off, off + s, device=cuda)
+    q, k, v, o, do, lse = _bwd_case(7 * s + t + hd, b, s, t, hq, kh, hd,
+                                    dtype, cuda, pos, causal, win)
+    if view:
+        q, k, v, o, do = (_padded_view(x) for x in (q, k, v, o, do))
+        assert not any(tma_ready(x) for x in (q, k, v, o, do))
+    _check_bwd(cuda, dtype, q, k, v, o, do, lse, pos, causal, win)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -35,8 +35,8 @@ from repro.optim import make_optimizer as jax_make_optimizer
 from repro_torch import kernels
 from repro_torch.interop import params_from_numpy, params_to_numpy
 from repro_torch.kernels.flash_attention import (
-    FlashAttentionFn, attention_bwd_gqa_ref, attention_ref,
-    flash_attention_gqa,
+    FlashAttentionFn, attention_bwd_bf16_ref, attention_bwd_bf16_slack,
+    attention_bwd_gqa_ref, attention_ref, flash_attention_gqa,
 )
 from repro_torch.launch import train as launch_train
 from repro_torch.models.lm import attention as tattn
@@ -188,6 +188,92 @@ def test_attention_bwd_ref_matches_autograd_and_jax(b, s, t, hq, kh, hd,
         want = jax.jit(jax.grad(kloss, argnums=(0, 1, 2)))(
             *map(jnp.asarray, (q, k, v)))
         _assert_grads_close(got, want, 2e-5)
+
+
+def _bf16_valued(x):
+    """x rounded to bf16 and kept as float32: the bf16 route's inputs."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _plain_o_lse(q, k, v, pos, causal, win):
+    """The plain forward's o (B, S, Hq, hd) and lse (B, Hq, S)."""
+    b, hq, g = q.shape[0], q.shape[2], q.shape[2] // k.shape[2]
+    heads = lambda x: _t(x).transpose(1, 2).flatten(0, 1)
+    o, lse = attention_ref(
+        heads(q), heads(k).repeat_interleave(g, 0),
+        heads(v).repeat_interleave(g, 0), causal=causal, window=win,
+        q_pos=_t(pos), with_lse=True)
+    return o.unflatten(0, (b, hq)).transpose(1, 2), lse.unflatten(0, (b, hq))
+
+
+BF16_CASES = BWD_CASES + [  # and at widths where sums are long
+    (1, 256, 256, 8, 1, 64, True, 0, 0), (1, 200, 260, 4, 2, 120, True, 64,
+                                          60)]
+
+
+@pytest.mark.parametrize("b,s,t,hq,kh,hd,causal,win,off", BF16_CASES)
+def test_bf16_backward_arithmetic_departs_within_its_bound(b, s, t, hq, kh,
+                                                           hd, causal, win,
+                                                           off):
+    """`attention_bwd_bf16_ref` (the bf16 kernel's arithmetic: P and dS
+    rounded to bf16 before the products that read them, float32 sums) on
+    bf16-valued inputs against `jax.grad` of the reference's
+    `dense_attention` on the same values in float32: within the departure
+    bound the bf16 kernel is held to on the card, per element |err| <=
+    2^-7 |grad| + 2^-8 max |grad| and mean |err| <= 2^-8 mean |grad|
+    (rounding P and dS moves each term of a sum by at most 2^-9)."""
+    q, k, v, do = map(_bf16_valued, _qkv(s + t + hd + win, b, s, t, hq, kh,
+                                         hd))
+    pos = np.arange(off, off + s)
+    o, lse = _plain_o_lse(q, k, v, pos, causal, win)
+    got = attention_bwd_gqa_ref(*(_t(x) for x in (q, k, v)), o, _t(do), lse,
+                                q_pos=_t(pos), causal=causal, window=win,
+                                plain=attention_bwd_bf16_ref)
+
+    def jloss(q_, k_, v_):
+        out = jattn.dense_attention(q_, k_, v_, q_pos=jnp.asarray(pos),
+                                    kv_pos=jnp.arange(t), causal=causal,
+                                    window=win)
+        return jnp.sum(out * jnp.asarray(do))
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
+        *map(jnp.asarray, (q, k, v)))
+    for g, w in zip(got, want):
+        g, w = _f32(g), _f32(w)
+        err, aw = np.abs(g - w), np.abs(w)
+        assert (err <= 2.0 ** -7 * aw + 2.0 ** -8 * aw.max()).all(), (
+            float(err.max()), float(aw.max()))
+        assert err.mean() <= 2.0 ** -8 * aw.mean(), (float(err.mean()),
+                                                     float(aw.mean()))
+
+
+@pytest.mark.parametrize("b,s,t,hq,kh,hd,causal,win,off", [
+    (1, 512, 512, 8, 2, 64, True, 0, 0), (1, 300, 400, 4, 1, 120, True, 96,
+                                          100),
+    (2, 129, 129, 4, 2, 32, False, 0, 0)])
+def test_bf16_slack_covers_sums_in_another_order(b, s, t, hq, kh, hd,
+                                                 causal, win, off):
+    """The bf16 arithmetic taken in float64 (other sums, so P and dS meet
+    their bf16 ties elsewhere) against float32 stays within 2e-5 of max
+    |grad| plus `attention_bwd_bf16_slack` per element: the allowance the
+    card's bf16 kernel gets for the same rounding flips against this plain
+    version; at these widths flips occur, so without it the rule fails."""
+    q, k, v, do = map(_bf16_valued, _qkv(s + t + hd, b, s, t, hq, kh, hd))
+    pos = np.arange(off, off + s)
+    o, lse = _plain_o_lse(q, k, v, pos, causal, win)
+    o = o.to(torch.bfloat16).float()
+    kw = {"q_pos": _t(pos), "causal": causal, "window": win}
+    args32 = (*(_t(x) for x in (q, k, v)), o, _t(do), lse)
+    r32 = attention_bwd_gqa_ref(*args32, **kw, plain=attention_bwd_bf16_ref)
+    r64 = attention_bwd_gqa_ref(*(x.double() for x in args32), **kw,
+                                plain=attention_bwd_bf16_ref)
+    slack = attention_bwd_gqa_ref(*args32, **kw,
+                                  plain=attention_bwd_bf16_slack)
+    flips = 0
+    for a, w, sl in zip(r32, r64, slack):
+        err, top = (a.double() - w).abs(), float(w.abs().max())
+        assert bool((err <= 2e-5 * top + sl.double()).all())
+        flips += int((err > 2e-5 * top).sum())
+    assert flips > 0
 
 
 @pytest.mark.parametrize("causal,win,off", [(True, 0, 0), (True, 5, 3),
