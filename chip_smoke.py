@@ -151,9 +151,9 @@ product as three TF32 products of split operands (hi hi + hi lo + lo hi);
 its bound counts those three at the TF32 peak, and the f32 FMA bound of the
 CUDA cores is printed beside it.
 
-Phase 3 also holds flash_attention_bwd (no atomics; bf16 on wgmma
-tensor cores fed by TMA, with P and dS rounded to bf16 before the
-products that read them; f32 on the CUDA cores) against its plain
+Phase 3 also holds flash_attention_bwd (no atomics; both routes on wgmma
+tensor cores fed by TMA: bf16 with P and dS rounded to bf16 before the
+products that read them, f32 as split-TF32 products) against its plain
 versions at the full TinyLlama layer (B = 4, S = T = 2048, Hq = 32, Kh =
 4, hd = 64, causal) and the Danube layer (B = 1, Hq = 32, Kh = 8, hd =
 120, window 4096, S = 8192), bf16 and f32, and at ragged S, hd 128, G =
@@ -166,10 +166,11 @@ tie in the two versions), and against the exact `attention_bwd_ref`
 within the departure bound 2^-7 |grad| + 2^-8 max |grad| and mean |err|
 <= 2^-8 mean |grad|.  Two launches bitwise equal; the forward's output
 with its lse output bitwise the output without, the lse the plain
-log-sum-exp at atol 1e-4; the bf16 route's two product kernels hold
-wgmma (HGMMA) instructions in the built library's SASS (cuobjdump).  It
-times the kernel, its plain version and the backward of
-`scaled_dot_product_attention` at the TinyLlama layer beside the bound
+log-sum-exp at atol 1e-4; each route's two product kernels hold wgmma
+(HGMMA) instructions at both head-dim paddings in the built library's
+SASS (cuobjdump).  It times the kernel, its plain version and the
+backward of `scaled_dot_product_attention` at the TinyLlama layer (the
+f32 route's SDPA at the Danube layer too) beside the bound
 (2.5 x the forward's 4 hd flops a pair, at 989 TFLOP/s for bf16; for f32
 as three split-TF32 products at 495 TFLOP/s, as the forward's f32 route
 is bounded, with the f32 FMA bound of the CUDA cores printed beside it),
@@ -2191,10 +2192,12 @@ def check_flash_attention_bwd(torch, device):
         flash_attention_bwd_cuda, flash_attention_cuda,
     )
 
-    # the bf16 route runs only tensor-core kernels: each of its two product
-    # kernels holds wgmma instructions at both head-dim paddings
+    # both routes run only tensor-core kernels: each of their two product
+    # kernels (bf16; split-TF32 f32) holds wgmma instructions at both
+    # head-dim paddings
     counts = hgmma_counts(kernels.build().path)
-    for name in ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel"):
+    for name in ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel",
+                 "bwd_dkdv_f32_kernel", "bwd_dq_f32_kernel"):
         found = {f: n for f, n in counts.items() if name in f}
         require(len(found) == 2 and min(found.values()) > 0,
                 f"flash_attention_bwd: {name} has no wgmma: {found}")
@@ -2262,6 +2265,9 @@ def check_flash_attention_bwd(torch, device):
                 b_name = (f"x 3 split-TF32 products at "
                           f"{TF32_PEAK_FLOPS / 1e12:g} TFLOP/s; as f32 FMA "
                           f"on the CUDA cores {fma_ms:.4f} ms, {fma_by}")
+            tc_rate = ("" if dtype == torch.bfloat16 else
+                       f", {3 * 14 * hd * pairs / ms / 1e9:.2f} TFLOP/s of "
+                       f"TF32 in its 3 split products")
             line = (f"[flash_attention_bwd] {label} B={b} Hq={hq} Kh={kh} "
                     f"S=T={s_len} hd={hd} window={window} {dname}: "
                     f"{verdict}; lse max err {lse_err:.2e} (atol 1e-4), "
@@ -2269,10 +2275,20 @@ def check_flash_attention_bwd(torch, device):
                     f"launches bitwise equal; kernel {ms:.4f} ms "
                     f"({14 * hd * pairs / ms / 1e9:.2f} TFLOP/s of the 14 hd "
                     f"flops a pair it does, {10 * hd * pairs / ms / 1e9:.2f} "
-                    f"of the bound's 10 hd; {pairs} unmasked pairs), bound "
-                    f"{b_ms:.4f} ms ({b_by}; 2.5 x the forward's "
-                    f"{4 * hd * pairs:.4g} flops = {flops:.4g} "
-                    f"{b_name})")
+                    f"of the bound's 10 hd{tc_rate}; {pairs} unmasked "
+                    f"pairs), bound {b_ms:.4f} ms ({b_by}; 2.5 x the "
+                    f"forward's {4 * hd * pairs:.4g} flops = {flops:.4g} "
+                    f"{b_name}), kernel / bound {ms / b_ms:.2f}")
+            if label != "TinyLlama" and dtype == torch.float32:
+                # the f32 route's yardstick at the Danube layer too
+                lib_ms, backend = _sdpa_bwd_ms(torch, q, k, v, do, window)
+                if lib_ms is not None:
+                    line += (f", SDPA backward ({backend}) {lib_ms:.4f} ms "
+                             f"(kernel / SDPA {ms / lib_ms:.3f})")
+                f32_route["danube"] = {"ms": ms, "bound_ms": b_ms,
+                                       "library_ms": lib_ms,
+                                       "max_abs_err": max(err.err.values()),
+                                       "err_share_of_limit": err.worst()}
             if label == "TinyLlama":
                 # the plain version of the kernel's own arithmetic
                 fn = (attention_bwd_bf16_ref if dtype == torch.bfloat16
@@ -2629,11 +2645,12 @@ def phase_train_parity(torch, device):
     torch.cuda.empty_cache()
 
 
-def phase_federated_lm(torch, device):
+def phase_federated_lm(torch, device, times=None):
     """GreedyFed on an LM: `examples/federated_lm_torch.py`'s round
     functions at --d-model 512 --layers 8 --seq 2048 --batch 2
     --local-steps 2 --clients 6 --select 3 --rounds 2 (hd 128, f32: the
-    flash branch's f32 route forward and backward)."""
+    flash branch's f32 route forward and backward).  The rounds' seconds
+    go into `times` where a list is given."""
     import importlib.util
     from repro_torch import kernels
 
@@ -2647,7 +2664,7 @@ def phase_federated_lm(torch, device):
                           "2"])
     run = ex.setup(args, device)
     kernels.reset_launches()
-    times = []
+    times = [] if times is None else times
     for t in range(args.rounds):
         torch.cuda.synchronize()
         t0 = time.perf_counter()

@@ -44,16 +44,27 @@ Each time is a CUDA-event mean over back-to-back calls (`chip_smoke.
 time_ms`), taken `--repeats` times; the launches per call are counted.
 Besides, the forward's outputs (o, and lse where the version has it) at
 `chip_smoke.py` phase 3's shapes (the Danube prefill layer at windows
-4096 and 0, and its four edge shapes, both dtypes, from fixed seeds) are
-reduced to one sha256 digest each, so that two versions' outputs can be
-compared bit for bit.  Prints one line per measurement and, last, one
-JSON object.  Exits non-zero without a card.
+4096 and 0, and its four edge shapes, both dtypes, from fixed seeds) and
+the backward's (dq, dk, dv) at phase 3's backward shapes (the TinyLlama
+and Danube layers and four edges, both dtypes) are reduced to one sha256
+digest each, so that two versions' outputs can be compared bit for bit;
+one backward call of each dtype at the TinyLlama layer is profiled
+(`torch.profiler`), its device time split by kernel name.
+
+With `--federated-lm`, also `chip_smoke.py` phase 17's two GreedyFed
+rounds over LM clients (d_model 512, 8 layers, hd 128, f32: the f32
+flash routes both ways) are run and timed, with the peak device memory
+and the flash launches.
+
+Prints one line per measurement and, last, one JSON object.  Exits
+non-zero without a card.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -65,6 +76,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--federated-lm", action="store_true")
     args = ap.parse_args()
 
     import numpy as np
@@ -149,6 +161,16 @@ def main() -> int:
     for name, d in digests.items():
         print(f"[compare] {args.label}: forward output {name}: sha256 {d}",
               flush=True)
+    if bwd is not None:
+        out["backward_sha256"] = backward_digests(torch, flash_kernel, device)
+        for name, d in out["backward_sha256"].items():
+            print(f"[compare] {args.label}: backward output {name}: sha256 "
+                  f"{d}", flush=True)
+        out["backward_profile"] = backward_profile(torch, flash_kernel,
+                                                   device)
+        for dname, by_kernel in out["backward_profile"].items():
+            print(f"[compare] {args.label}: backward {dname}, TinyLlama "
+                  f"layer, device ms by kernel: {by_kernel}", flush=True)
     for name, (fn, iters) in calls.items():
         kernels.reset_launches()
         fn(0)
@@ -159,8 +181,99 @@ def main() -> int:
               f"{' '.join(f'{t:.4f}' for t in times)} ms "
               f"(median {sorted(times)[len(times) // 2]:.4f}); {launches} "
               f"launches a call", flush=True)
+    if args.federated_lm:
+        out["federated_lm"] = federated_lm(torch, device)
+        print(f"[compare] {args.label}: federated LM (phase 17): "
+              f"{out['federated_lm']}", flush=True)
     print(json.dumps(out))
     return 0
+
+
+def _bwd_cases():
+    """chip_smoke.py phase 3's backward shapes: (label, B, S, T, Hq, Kh,
+    hd, causal, window, q_pos offset)."""
+    return [("TinyLlama", 4, 2048, 2048, 32, 4, 64, True, 0, 0),
+            ("Danube", 1, 8192, 8192, 32, 8, 120, True, 4096, 0),
+            ("edge", 2, 1000, 1000, 8, 2, 128, True, 0, 0),
+            ("edge", 1, 777, 777, 6, 6, 120, True, 100, 0),
+            ("edge", 2, 500, 500, 8, 2, 64, False, 0, 0),
+            ("edge", 1, 300, 1300, 8, 4, 64, True, 512, 1000)]
+
+
+def _bwd_inputs(torch, flash_kernel, device, gen, case, dtype):
+    _, b, s_len, t_len, hq, kh, hd, causal, window, off = case
+    q, k, v, do = (torch.randn(shape, generator=gen, device=device).to(dtype)
+                   for shape in ((b, s_len, hq, hd), (b, t_len, kh, hd),
+                                 (b, t_len, kh, hd), (b, s_len, hq, hd)))
+    pos = torch.arange(off, off + s_len, device=device)
+    o, lse = flash_kernel.flash_attention_cuda(q, k, v, pos, causal=causal,
+                                               window=window, with_lse=True)
+    return (q, k, v, o, do, lse, pos), {"causal": causal, "window": window}
+
+
+def backward_digests(torch, flash_kernel, device) -> dict:
+    """sha256 of the backward kernel's (dq, dk, dv) at phase 3's backward
+    shapes, both dtypes, from fixed seeds."""
+    gen = torch.Generator(device=device).manual_seed(25)
+    out = {}
+    for case in _bwd_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            args, kw = _bwd_inputs(torch, flash_kernel, device, gen, case,
+                                   dtype)
+            h = hashlib.sha256()
+            for t in flash_kernel.flash_attention_bwd_cuda(*args, **kw):
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+            label, b, s_len, t_len, hq, kh, hd, causal, window, off = case
+            out[f"{label} B={b} S={s_len} T={t_len} Hq={hq} Kh={kh} hd={hd} "
+                f"causal={causal} window={window} q_pos from {off} "
+                f"{str(dtype)[6:]}"] = h.hexdigest()
+            del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def backward_profile(torch, flash_kernel, device) -> dict:
+    """Device milliseconds by kernel name of one backward call at the
+    TinyLlama layer, bf16 and f32, under `torch.profiler` (after a
+    warm-up call)."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=device).manual_seed(26)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        args, kw = _bwd_inputs(torch, flash_kernel, device, gen,
+                               _bwd_cases()[0], dtype)
+        flash_kernel.flash_attention_bwd_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            flash_kernel.flash_attention_bwd_cuda(*args, **kw)
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for e in prof.key_averages():
+            dev_us = getattr(e, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "cuda_time_total", 0)
+            name = re.search(r"bwd_\w+(<\w+>)?", e.key)
+            if name and dev_us > 0:
+                by_kernel[name[0]] = round(dev_us / 1e3, 4)
+        out[str(dtype)[6:]] = by_kernel
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def federated_lm(torch, device) -> dict:
+    """chip_smoke.py phase 17's rounds: their host times after a
+    synchronise, the peak device memory and the flash launches."""
+    from chip_smoke import phase_federated_lm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    launches = phase_federated_lm(torch, device, times)
+    return {"round_s": times, "launches": {k: v for k, v in launches.items()
+                                           if "flash" in k},
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
 
 
 def forward_digests(torch, flash_kernel, device) -> dict:

@@ -19,11 +19,11 @@
 // window; keys 0 .. T-1, query positions from q_pos).  Query head h reads
 // KV head h / G (G = Hq / Kh); dK and dV sum over the G heads of a group.
 //
-// Determinism: no atomics.  Pass 2 runs one block per (key tile, KV head,
-// batch row), which visits the G heads and then the query tiles in a fixed
-// order with its dK and dV tiles in registers; pass 3 one block per (query
-// tile, query head, batch row).  Two launches on the same inputs are
-// bitwise equal.  Each of passes 2 and 3 recomputes S and dP for its
+// Determinism: no atomics.  Pass 2 runs one block per (key block, KV
+// head, batch row), which visits the G heads and then the query tiles in a
+// fixed order with its dK and dV in registers; pass 3 one block per
+// (query block, query head, batch row).  Two launches on the same inputs
+// are bitwise equal.  Each of passes 2 and 3 recomputes S and dP for its
 // tiles, 14 hd flops a (query, key) pair in all against the 10 hd of a
 // pass that keeps them: the price of no atomics and no (S, T) buffer.
 // Band skipping: pass 1 also writes each 64-row query tile's least and
@@ -34,24 +34,27 @@
 // flops a pair (2.5 x the forward's 4 hd); at the TinyLlama layer (B = 4,
 // S = T = 2048, 32 / 4 heads of 64, causal: 2.686e8 pairs) that is 1.72e11
 // flops, 0.174 ms at the 989 TFLOP/s bf16 tensor-core peak, against 0.15
-// GB of traffic, 0.05 ms at 3.35 TB/s.  Two routes, by the inputs' type:
-//
-// bf16 (the training path): every product on the tensor cores, in the
-// shape of the forward's bf16 route (flash_attention.cu, flash_tc_kernel),
-// with the Hopper helpers of hopper.cuh.  Tiles are stored as 128-byte
-// rows under the 128-byte swizzle, in 64-column chunks of hd padded to 64
-// or 128 (the tensor maps' head_dim is a dimension of size hd, so pad
-// columns and rows past S or T arrive as zeros).  Pass 1 writes, for each
+// GB of traffic, 0.05 ms at 3.35 TB/s.  Two routes, by the inputs' type,
+// both on the tensor cores and fed by TMA, both with pass 1
+// (`bwd_rows_kernel`, a template on the element type) writing, for each
 // query row, the pair (L log2 e, D) into a (B, Hq, S padded to 64, 2)
 // scratch, rows past S as (+inf, 0), so that their P is exp2(-inf) = 0.
-// Pass 2 (`bwd_dkdv_tc_kernel`): a block of 256 threads owns 128 keys of
-// one KV head, 64 for each of two warpgroups.  Thread 0 loads K and V once
-// by TMA, then streams the (Q, dO) tiles of 64 rows of the visited (head,
-// query tile) pairs, each with its 64 (L log2 e, D) pairs (a 1-D bulk
-// copy), through a ring of 3 stages with "full" mbarriers (the copies'
-// bytes) and "empty" ones (the 8 warps' releases).  A warpgroup computes
-// the transposed scores, so that P and dS come out in the layout of a
-// register A operand:
+// Tiles are stored as 128-byte rows under the 128-byte swizzle (64 bf16
+// or 32 f32 columns a chunk of hd padded to 64 or 128); the tensor maps'
+// head_dim is a dimension of size hd, so pad columns and rows past S or T
+// arrive as zeros.  The producer of each ring is thread 0, not a warp of
+// its own: with a ninth warp a thread may hold 168 registers (an SM's four
+// register partitions, three warps on one); at 8 warps it may hold 255.
+//
+// bf16 (the training path), in the shape of the forward's bf16 route
+// (flash_attention.cu, flash_tc_kernel).  Pass 2 (`bwd_dkdv_tc_kernel`):
+// a block of 256 threads owns 128 keys of one KV head, 64 for each of two
+// warpgroups.  Thread 0 loads K and V once by TMA, then streams the (Q,
+// dO) tiles of 64 rows of the visited (head, query tile) pairs, each with
+// its 64 (L log2 e, D) pairs (a 1-D bulk copy), through a ring of 3
+// stages with "full" mbarriers (the copies' bytes) and "empty" ones (the
+// 8 warps' releases).  A warpgroup computes the transposed scores, so
+// that P and dS come out in the layout of a register A operand:
 //   S^T = K Q^T, dP^T = V dO^T    wgmma m64n64k16, both operands from
 //                                 shared memory, K-major;
 //   P^T = exp2(S^T scale log2 e - L log2 e), dS^T = P^T (dP^T - D)  f32,
@@ -66,30 +69,88 @@
 // loads Q and dO once and streams the 64-key K and V tiles of the block's
 // band through the same ring; S = Q K^T and dP = dO V^T (SS), P and dS in
 // f32 registers, dQ += bf16(dS) K (RS, K MN-major), dQ times the scale
-// stored as bf16.  The ring's producer is thread 0 and not a warp of its
-// own: with a ninth warp a thread may hold 168 registers (an SM's four
-// register partitions, three warps on one), and pass 2 needs ~230 at hd
-// 128; at 8 warps it may hold 255.
+// stored as bf16.  Pass 2 needs ~230 registers a thread at hd 128.
+// Arithmetic: P and dS are rounded to bf16 before the three products that
+// read them (P dO, dS Q, dS K), as the forward rounds P before P V; the
+// reference keeps them in f32.  S, dP, the sums, L, D and the rescales
+// stay f32; each output is rounded to bf16 once.
+// `ref.py::attention_bwd_bf16_ref` is this arithmetic on the CPU.
 //
-// Arithmetic of the bf16 route: P and dS are rounded to bf16 before the
-// three products that read them (P dO, dS Q, dS K), as the forward rounds
-// P before P V; the reference and today's f32 route keep them in f32.  S,
-// dP, the sums, L, D and the rescales stay f32; each output is rounded to
-// bf16 once.  `ref.py::attention_bwd_bf16_ref` is this arithmetic on the
-// CPU.
+// f32 (federated LM and f32 training): split-TF32 products on the tensor
+// cores, the arithmetic of the forward's f32 route.  Each f32 product a.b
+// is taken as a_hi b_hi + a_hi b_lo + a_lo b_hi, a_hi = a rounded to TF32
+// (cvt.rna, 10 mantissa bits), a_lo = a - a_hi exactly; P, dS, L, D, the
+// rescales and the outputs stay f32.  At the TinyLlama layer in f32 that
+// is 3 x 14 hd flops a pair, 7.22e11, 1.46 ms at the 495 TFLOP/s TF32
+// peak (the bound, 3 x 10 hd, 1.04 ms); the same flops as f32 FMA on the
+// CUDA cores would take 10.8 ms at 67 TFLOP/s.
 //
-// f32: every product and sum is an f32 FMA on the CUDA cores.  Tiles are
-// 64 query rows by 64 keys by hd padded to 64 or 128, f32 in shared memory
-// with each row padded by one word, so that both the row walks and the
-// column walks below are free of bank conflicts.  256 threads as 16 x 16:
-// thread (ty, tx) holds S and dP at rows ty + 16 r and keys tx + 16 c (r, c
-// < 4), and each accumulator at rows ty + 16 r and columns tx + 16 c (c <
-// HD_PAD / 16).  Rows past S, keys past T and columns past hd load as
-// zeros and are masked or not stored.  Shared memory at HD_PAD 128: pass 2
-// holds K, V, Q, dO (33 KB each) and P, dS (16.6 KB each), 165 KB, one
-// block per SM; pass 3 holds Q, dO, K, V and dS, 149 KB.  At HD_PAD 64
-// they take 100 and 83 KB, two blocks.  Its redesign (split-TF32 products
-// on the tensor cores, as the forward's f32 route) is later work.
+// Operand layouts.  wgmma takes .tf32 operands from shared memory only
+// K-major (no transpose bit), and each split operand needs its hi and lo
+// where the product reads it.  So each product is put in the form whose
+// shared-memory operand is stored K-major as loaded (hd contiguous), and
+// the other operand comes from registers:
+//   pass 2 (`bwd_dkdv_f32_kernel`): a block of 256 threads owns 64 keys
+//   of one KV head and streams (Q, dO) tiles of R query rows (R = 64 at
+//   hd padded to 64, 32 at 128) through a TMA ring of 2 stages; all 256
+//   threads split each tile in place (hi where TMA put it, lo beside it).
+//   The two warpgroups take different products of the same 64 keys:
+//     warpgroup 0: S^T = K Q^T    A = K from registers (loaded once,
+//                                 split per group of k8 steps), B = Q hi /
+//                                 lo; P^T = exp2(S^T scale log2 e - L
+//                                 log2 e), masked;
+//     warpgroup 1: dP^T = V dO^T  A = V, B = dO; dS^T = P^T (dP^T - D),
+//                                 P^T handed over through shared memory;
+//   each writes its P^T or dS^T, split, as a B operand (rows of 64 keys,
+//   K = the tile's rows), and then
+//     warpgroup 0: dV^T += dO^T P   M = hd, N = 64 keys, K = the rows: A
+//     warpgroup 1: dK^T += Q^T dS   (dO^T or Q^T) gathered into registers
+//                                   from the split tile (its hi and lo),
+//                                   B = P^T or dS^T hi / lo.
+//   The transposed outputs dV^T and dK^T (hd rows, 32 + 32 registers a
+//   thread a 64-row block of hd) avoid a transposed copy of Q and dO, which
+//   .tf32 would need as the B operand of dV = P^T dO: at hd 128 a tile's
+//   Q, dO, Q^T and dO^T, hi and lo, would take 128 KB for 32 rows.
+//   Pass 3 (`bwd_dq_f32_kernel`): a block of 256 threads owns 64 query
+//   rows of one head and streams 32-key (K, V) tiles; all threads split K
+//   and V in place and write K^T hi and lo (hd rows of the tile's 32 keys,
+//   in the order 0 2 4 6 1 3 5 7 within each 8, so that dS goes from the
+//   accumulator to the A layout as the forward's P does);
+//     warpgroup 0: S = Q K^T, P    A = Q from registers, B = K hi / lo;
+//     warpgroup 1: dP = dO V^T, dS = P (dP - D), P handed over;
+//   dS handed back, then each warpgroup takes half the head dim of
+//     dQ += dS K                    A = dS split in registers, B = K^T.
+// Registers: the A operand of the scores (hd / 2 a thread, as loaded) is
+// split a group of k8 steps at a time (all 8 at hd 64, 4 at 128), since
+// an A fragment must stay in its registers until its product completes.
+// ptxas: dK / dV 243 registers at hd 64 and 248 at 128, no spill; dQ 168
+// at 64, and at 128 255 with 88 bytes spilled (groups of 2 steps spill
+// as much).
+//
+// Short sums.  The tensor core truncates the sums it accumulates, so no
+// accumulator runs over a row's or key's whole band: S and dP sum over hd
+// (<= 16 k8 steps, 3 products each) in one accumulator; each tile's dV^T,
+// dK^T (R rows) and dQ (32 keys) go into a fresh accumulator, which meets
+// the running sum in an f32 add.  Error analysis: |a_lo| <= 2^-11 |a|;
+// a_hi b_lo and a_lo b_hi read the lo truncated to 10 mantissa bits (<=
+// 2^-21 |a b| each) and the dropped a_lo b_lo is <= 2^-22 |a b|, so each
+// product is within ~2^-20 of exact, and with random signs a sum of n
+// products within ~2^-20 sqrt(n) of its terms' magnitudes; a k8 step of
+// the tensor core truncates its sum (~2^-23 of the running sum, <= 48
+// truncations in S and dP, 24 in a tile's dV^T or dK^T, 12 in dQ); the
+// running sums' f32 adds round to nearest.  An error e in a score moves P
+// by e P, and so dV and dK by e times their terms.  All of it is of the
+// order of f32 rounding over the same sums: the route's rule, 2e-5 of max
+// |grad| per element against `attention_bwd_ref`, holds with room (on
+// the H100 at most 0.32 of the limit, at the TinyLlama, Danube and
+// hd-128 shapes).  `ref.py::attention_bwd_split_tf32` emulates the operands'
+// split on the CPU (not the tensor core's sums), where the tests hold it
+// to the rule against jax.grad at scores scaled to |s| = 30.
+//
+// Shared memory: pass 2 at hd 128 two 65 KB stages (Q, dO, their lo, the
+// rows), P^T and dS^T hi and lo 32 KB, the P hand-over 8 KB: 170 KB; at 64
+// (R = 64) 211 KB.  Pass 3 two stages of K, V and K^T with their lo (96
+// KB at hd 128, 48 at 64) and an 8 KB hand-over: 201 / 105 KB.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,104 +163,9 @@
 
 namespace {
 
-constexpr int kTile = 64;          // query rows, and keys, a tile
-constexpr int kThreads = 256;      // 16 x 16
-constexpr int kPLd = kTile + 1;    // padded row of a P or dS tile
 
-struct Shape {
-  int64_t b, s, t, hq, kh, hd;
-};
-
-template <int HD_PAD>
-struct BwdLayout {
-  static constexpr int kLd = HD_PAD + 1;         // padded row, in floats
-  static constexpr int kTileF = kTile * kLd;     // a (64, HD_PAD) tile
-  static constexpr int kPTileF = kTile * kPLd;   // a (64, 64) tile
-  static constexpr size_t kBytesKV = (4 * kTileF + 2 * kPTileF) * 4;
-  static constexpr size_t kBytesQ = (4 * kTileF + kPTileF) * 4;
-};
-
-// Rows r0 .. r0 + 63 of head h of batch row b of a contiguous
-// (B, len, heads, hd) tensor, as a (64, HD_PAD) f32 tile with padded rows;
-// zeros past len and past hd.
-template <int HD_PAD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t b, int64_t r0, int64_t len,
-                                          int64_t h, int64_t heads,
-                                          int64_t hd) {
-  constexpr int kLd = HD_PAD + 1;
-  for (int e = threadIdx.x; e < kTile * HD_PAD; e += kThreads) {
-    const int r = e / HD_PAD, c = e % HD_PAD;
-    const int64_t row = r0 + r;
-    float x = 0.0f;
-    if (row < len && c < hd) {
-      x = src[((b * len + row) * heads + h) * hd + c];
-    }
-    dst[r * kLd + c] = x;
-  }
-}
-
-// the forward's mask: true when the row at `pos` attends to `key`
-__device__ __forceinline__ bool attends(int64_t pos, int64_t key,
-                                        int64_t t_len, int causal,
-                                        int64_t window) {
-  return key < t_len && (!causal || key <= pos) &&
-         (window <= 0 || key > pos - window);
-}
-
-// S = Q K^T and dP = dO V^T over the padded head dim for this thread's
-// 4 x 4 rows and keys (unscaled, f32 FMA in the order d = 0 .. HD_PAD - 1)
-template <int HD_PAD>
-__device__ __forceinline__ void scores(const float* q_s, const float* do_s,
-                                       const float* k_s, const float* v_s,
-                                       int ty, int tx, float (&sc)[4][4],
-                                       float (&dp)[4][4]) {
-  constexpr int kLd = HD_PAD + 1;
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) sc[r][c] = dp[r][c] = 0.0f;
-#pragma unroll 4
-  for (int d = 0; d < HD_PAD; ++d) {
-    float qa[4], da[4], kb[4], vb[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      qa[r] = q_s[(ty + 16 * r) * kLd + d];
-      da[r] = do_s[(ty + 16 * r) * kLd + d];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      kb[c] = k_s[(tx + 16 * c) * kLd + d];
-      vb[c] = v_s[(tx + 16 * c) * kLd + d];
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sc[r][c] = fmaf(qa[r], kb[c], sc[r][c]);
-        dp[r][c] = fmaf(da[r], vb[c], dp[r][c]);
-      }
-  }
-}
-
-// the rows' positions, L and D of query tile q0 of head h into shared
-// memory (rows past S get zeros and are masked by their index)
-__device__ __forceinline__ void load_rows(int32_t* pos_s, float* lse_s,
-                                          float* dl_s, const int32_t* q_pos,
-                                          const float* lse,
-                                          const float* delta, int64_t b,
-                                          int64_t h, int64_t q0,
-                                          const Shape& sh) {
-  const int i = threadIdx.x;
-  if (i < kTile) {
-    const int64_t row = q0 + i;
-    const bool ok = row < sh.s;
-    const int64_t at = (b * sh.hq + h) * sh.s + row;
-    pos_s[i] = ok ? q_pos[row] : 0;
-    lse_s[i] = ok ? lse[at] : 0.0f;
-    dl_s[i] = ok ? delta[at] : 0.0f;
-  }
-}
+constexpr int kTile = 64;          // query rows a tile of pass 1 and the walk
+constexpr int kThreads = 256;      // pass 1's block
 
 // the least and greatest position of query tile qt's rows into bounds[2 qt]
 // and bounds[2 qt + 1] (one warp)
@@ -226,325 +192,20 @@ __device__ __forceinline__ void tile_bounds(const int32_t* q_pos,
   }
 }
 
-// pass 1: D = rowsum(dO o) for 64 rows of one (batch row, head), and the
-// rows' least and greatest positions (written by the (0, 0) blocks)
-__global__ void __launch_bounds__(kThreads)
-bwd_delta_kernel(const float* __restrict__ o, const float* __restrict__ dout,
-                 const int32_t* __restrict__ q_pos, float* __restrict__ delta,
-                 int32_t* __restrict__ bounds, Shape sh) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int64_t qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  for (int r = warp; r < kTile; r += kThreads / 32) {
-    const int64_t row = qt * kTile + r;
-    if (row >= sh.s) break;
-    const int64_t off = ((b * sh.s + row) * sh.hq + h) * sh.hd;
-    float acc = 0.0f;
-    for (int64_t c = lane; c < sh.hd; c += 32) {
-      acc = fmaf(dout[off + c], o[off + c], acc);
-    }
-#pragma unroll
-    for (int x = 16; x > 0; x >>= 1) {
-      acc += __shfl_xor_sync(0xffffffffu, acc, x);
-    }
-    if (lane == 0) delta[(b * sh.hq + h) * sh.s + row] = acc;
-  }
-  if (h == 0 && b == 0 && warp == 0) tile_bounds(q_pos, sh.s, qt, bounds);
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
-// pass 2: dK and dV of one 64-key tile of one KV head
-template <int HD_PAD>
+// pass 1 of both routes: for 64 rows of one (batch row, head), the pairs
+// (L log2 e, D = rowsum(dO o)) into `rows`, (B, Hq, S padded to 64, 2)
+// f32, rows past S as (+inf, 0).  o and dO (bf16 or f32) are read through
+// their strides (16-byte aligned, as TMA wants them), 8 lanes a row, 16
+// bytes a lane.  The (0, 0) blocks write the tile's least and greatest
+// positions.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, const float* __restrict__ dout,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta,
-                const int32_t* __restrict__ q_pos,
-                const int32_t* __restrict__ bounds, float* __restrict__ dk,
-                float* __restrict__ dv, Shape sh, int causal, int64_t window,
-                float scale) {
-  using L = BwdLayout<HD_PAD>;
-  constexpr int kLd = L::kLd;
-  constexpr int kC = HD_PAD / 16;
-  extern __shared__ float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + L::kTileF;
-  float* q_s = v_s + L::kTileF;
-  float* do_s = q_s + L::kTileF;
-  float* p_s = do_s + L::kTileF;
-  float* ds_s = p_s + L::kPTileF;
-  __shared__ float lse_s[kTile], dl_s[kTile];
-  __shared__ int32_t pos_s[kTile];
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int64_t k0 = (int64_t)blockIdx.x * kTile;
-  const int64_t kvh = blockIdx.y, b = blockIdx.z;
-  const int64_t group = sh.hq / sh.kh;
-  const int64_t n_qt = (sh.s + kTile - 1) / kTile;
-  const int64_t k_last = (k0 + kTile < sh.t ? k0 + kTile : sh.t) - 1;
-
-  load_tile<HD_PAD>(k_s, k, b, k0, sh.t, kvh, sh.kh, sh.hd);
-  load_tile<HD_PAD>(v_s, v, b, k0, sh.t, kvh, sh.kh, sh.hd);
-
-  float adk[4][kC], adv[4][kC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < kC; ++c) adk[r][c] = adv[r][c] = 0.0f;
-
-  for (int64_t g = 0; g < group; ++g) {
-    const int64_t h = kvh * group + g;
-    for (int64_t qt = 0; qt < n_qt; ++qt) {
-      int64_t lo, hi;
-      key_band(bounds[2 * qt], bounds[2 * qt + 1], sh.t, causal, window, lo,
-               hi);
-      if (lo > hi || hi < k0 || lo > k_last) continue;   // block-uniform
-      const int64_t q0 = qt * kTile;
-      __syncthreads();          // the last tile's reads of q_s .. ds_s
-      load_tile<HD_PAD>(q_s, q, b, q0, sh.s, h, sh.hq, sh.hd);
-      load_tile<HD_PAD>(do_s, dout, b, q0, sh.s, h, sh.hq, sh.hd);
-      load_rows(pos_s, lse_s, dl_s, q_pos, lse, delta, b, h, q0, sh);
-      __syncthreads();
-
-      float sc[4][4], dp[4][4];
-      scores<HD_PAD>(q_s, do_s, k_s, v_s, ty, tx, sc, dp);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = ty + 16 * r;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = tx + 16 * c;
-          const bool ok = q0 + i < sh.s &&
-                          attends(pos_s[i], k0 + j, sh.t, causal, window);
-          const float p = ok ? expf(fmaf(sc[r][c], scale, -lse_s[i])) : 0.0f;
-          p_s[i * kPLd + j] = p;
-          ds_s[i * kPLd + j] = ok ? p * (dp[r][c] - dl_s[i]) : 0.0f;
-        }
-      }
-      __syncthreads();
-
-      // dV += P^T dO, dK += dS^T Q over the tile's 64 rows
-#pragma unroll 4
-      for (int i = 0; i < kTile; ++i) {
-        float pa[4], sa[4], db[kC], qb[kC];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          pa[r] = p_s[i * kPLd + ty + 16 * r];
-          sa[r] = ds_s[i * kPLd + ty + 16 * r];
-        }
-#pragma unroll
-        for (int c = 0; c < kC; ++c) {
-          db[c] = do_s[i * kLd + tx + 16 * c];
-          qb[c] = q_s[i * kLd + tx + 16 * c];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < kC; ++c) {
-            adv[r][c] = fmaf(pa[r], db[c], adv[r][c]);
-            adk[r][c] = fmaf(sa[r], qb[c], adk[r][c]);
-          }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int64_t key = k0 + ty + 16 * r;
-    if (key >= sh.t) continue;
-    const int64_t base = ((b * sh.t + key) * sh.kh + kvh) * sh.hd;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int64_t d = tx + 16 * c;
-      if (d >= sh.hd) continue;
-      dk[base + d] = adk[r][c] * scale;
-      dv[base + d] = adv[r][c];
-    }
-  }
-}
-
-// pass 3: dQ of one 64-row query tile of one query head
-template <int HD_PAD>
-__global__ void __launch_bounds__(kThreads)
-bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              const int32_t* __restrict__ q_pos,
-              const int32_t* __restrict__ bounds, float* __restrict__ dq,
-              Shape sh, int causal, int64_t window, float scale) {
-  using L = BwdLayout<HD_PAD>;
-  constexpr int kLd = L::kLd;
-  constexpr int kC = HD_PAD / 16;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + L::kTileF;
-  float* k_s = do_s + L::kTileF;
-  float* v_s = k_s + L::kTileF;
-  float* ds_s = v_s + L::kTileF;
-  __shared__ float lse_s[kTile], dl_s[kTile];
-  __shared__ int32_t pos_s[kTile];
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int64_t n_qt = (sh.s + kTile - 1) / kTile;
-  // the last query tiles have the longest causal bands: launch them first
-  const int64_t qt = n_qt - 1 - (int64_t)blockIdx.x;
-  const int64_t q0 = qt * kTile;
-  const int64_t h = blockIdx.y, b = blockIdx.z;
-  const int64_t kvh = h / (sh.hq / sh.kh);
-
-  load_tile<HD_PAD>(q_s, q, b, q0, sh.s, h, sh.hq, sh.hd);
-  load_tile<HD_PAD>(do_s, dout, b, q0, sh.s, h, sh.hq, sh.hd);
-  load_rows(pos_s, lse_s, dl_s, q_pos, lse, delta, b, h, q0, sh);
-  int64_t lo, hi;
-  key_band(bounds[2 * qt], bounds[2 * qt + 1], sh.t, causal, window, lo, hi);
-
-  float adq[4][kC];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < kC; ++c) adq[r][c] = 0.0f;
-
-  for (int64_t k0 = lo <= hi ? lo / kTile * kTile : hi + 1; k0 <= hi;
-       k0 += kTile) {
-    __syncthreads();            // Q / rows loaded; the last tile's reads
-    load_tile<HD_PAD>(k_s, k, b, k0, sh.t, kvh, sh.kh, sh.hd);
-    load_tile<HD_PAD>(v_s, v, b, k0, sh.t, kvh, sh.kh, sh.hd);
-    __syncthreads();
-
-    float sc[4][4], dp[4][4];
-    scores<HD_PAD>(q_s, do_s, k_s, v_s, ty, tx, sc, dp);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = ty + 16 * r;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int j = tx + 16 * c;
-        const bool ok = q0 + i < sh.s &&
-                        attends(pos_s[i], k0 + j, sh.t, causal, window);
-        const float p = ok ? expf(fmaf(sc[r][c], scale, -lse_s[i])) : 0.0f;
-        ds_s[i * kPLd + j] = ok ? p * (dp[r][c] - dl_s[i]) : 0.0f;
-      }
-    }
-    __syncthreads();
-
-    // dQ += dS K over the tile's 64 keys
-#pragma unroll 4
-    for (int j = 0; j < kTile; ++j) {
-      float sa[4], kb[kC];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) sa[r] = ds_s[(ty + 16 * r) * kPLd + j];
-#pragma unroll
-      for (int c = 0; c < kC; ++c) kb[c] = k_s[j * kLd + tx + 16 * c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < kC; ++c) adq[r][c] = fmaf(sa[r], kb[c], adq[r][c]);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int64_t row = q0 + ty + 16 * r;
-    if (row >= sh.s) continue;
-    const int64_t base = ((b * sh.s + row) * sh.hq + h) * sh.hd;
-#pragma unroll
-    for (int c = 0; c < kC; ++c) {
-      const int64_t d = tx + 16 * c;
-      if (d < sh.hd) dq[base + d] = adq[r][c] * scale;
-    }
-  }
-}
-
-template <int HD_PAD>
-int launch_bwd(cudaStream_t stream, const void* q, const void* k,
-               const void* v, const void* o, const void* dout,
-               const void* lse, const void* q_pos, void* dq, void* dk,
-               void* dv, void* delta, void* bounds, const Shape& sh,
-               int causal, int64_t window, float scale) {
-  using L = BwdLayout<HD_PAD>;
-  const unsigned n_qt = (unsigned)((sh.s + kTile - 1) / kTile);
-  const unsigned n_kt = (unsigned)((sh.t + kTile - 1) / kTile);
-  bwd_delta_kernel<<<dim3(n_qt, (unsigned)sh.hq, (unsigned)sh.b), kThreads,
-                     0, stream>>>(
-      (const float*)o, (const float*)dout, (const int32_t*)q_pos,
-      (float*)delta, (int32_t*)bounds, sh);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dkdv_kernel<HD_PAD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)L::kBytesKV);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bwd_dq_kernel<HD_PAD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)L::kBytesQ);
-  if (err != cudaSuccess) return (int)err;
-  bwd_dkdv_kernel<HD_PAD><<<dim3(n_kt, (unsigned)sh.kh, (unsigned)sh.b),
-                            kThreads, L::kBytesKV, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      (const float*)lse, (const float*)delta, (const int32_t*)q_pos,
-      (const int32_t*)bounds, (float*)dk, (float*)dv, sh, causal, window,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  bwd_dq_kernel<HD_PAD><<<dim3(n_qt, (unsigned)sh.hq, (unsigned)sh.b),
-                          kThreads, L::kBytesQ, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
-      (const float*)lse, (const float*)delta, (const int32_t*)q_pos,
-      (const int32_t*)bounds, (float*)dq, sh, causal, window, scale);
-  return (int)cudaGetLastError();
-}
-
-// ----------------------------------------------------------- bf16 route --
-
-constexpr int kTcThreads = 256;            // two consumer warpgroups
-constexpr int kTcWarps = kTcThreads / 32;
-constexpr int kTcStages = 3;               // streamed tiles in flight
-constexpr int kTcBlock = 128;              // keys (pass 2), rows (pass 3)
-constexpr int kRowBytes = kTile * 8;       // a tile's (L log2 e, D) pairs
-
-// pass 2: K and V of the block's 128 keys, then a ring of (Q, dO) tiles of
-// 64 rows and their (L log2 e, D) pairs
-template <int HD_PAD>
-struct KvLayout {
-  static constexpr int kChunks = HD_PAD / 64;            // 64-column chunks
-  static constexpr int kKVChunk = kTcBlock * kSwizzleRow;
-  static constexpr int kKVBytes = kChunks * kKVChunk;    // K, or V
-  static constexpr int kTChunk = kTile * kSwizzleRow;
-  static constexpr int kTBytes = kChunks * kTChunk;      // a Q or dO tile
-  static constexpr int kOffV = kKVBytes;
-  static constexpr int kOffStage = 2 * kKVBytes;
-  static constexpr int kStage = 2 * kTBytes;              // Q, then dO
-  static constexpr int kOffRows = kOffStage + kTcStages * kStage;
-  static constexpr int kOffBar = kOffRows + kTcStages * kRowBytes;
-  static constexpr uint32_t kTx = 2 * kTBytes + kRowBytes;
-  // 1 + 2 * stages mbarriers, slack to align to 1 KB
-  static constexpr size_t kBytes = kOffBar + 8 * (1 + 2 * kTcStages) + 1024;
-};
-
-// pass 3: Q and dO of the block's 128 rows, then a ring of (K, V) tiles of
-// 64 keys
-template <int HD_PAD>
-struct QLayout {
-  static constexpr int kChunks = HD_PAD / 64;
-  static constexpr int kQChunk = kTcBlock * kSwizzleRow;
-  static constexpr int kQBytes = kChunks * kQChunk;      // Q, or dO
-  static constexpr int kTChunk = kTile * kSwizzleRow;
-  static constexpr int kTBytes = kChunks * kTChunk;      // a K or V tile
-  static constexpr int kOffDo = kQBytes;
-  static constexpr int kOffStage = 2 * kQBytes;
-  static constexpr int kStage = 2 * kTBytes;              // K, then V
-  static constexpr int kOffBar = kOffStage + kTcStages * kStage;
-  static constexpr uint32_t kTx = 2 * kTBytes;
-  static constexpr size_t kBytes = kOffBar + 8 * (1 + 2 * kTcStages) + 1024;
-};
-
-// pass 1 of the bf16 route: for 64 rows of one (batch row, head), the
-// pairs (L log2 e, D = rowsum(dO o)) into `rows`, (B, Hq, S padded to 64,
-// 2) f32, rows past S as (+inf, 0).  o and dO are read through their
-// strides (16-byte aligned, as TMA wants them), 8 lanes a row, 16 bytes a
-// lane.  The (0, 0) blocks write the tile's least and greatest positions.
-__global__ void __launch_bounds__(kThreads)
-bwd_rows_kernel(const __nv_bfloat16* __restrict__ o,
-                const __nv_bfloat16* __restrict__ dout,
+bwd_rows_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                 const float* __restrict__ lse,
                 const int32_t* __restrict__ q_pos, float* __restrict__ rows,
                 int32_t* __restrict__ bounds, int64_t s_len, int64_t hd,
@@ -553,13 +214,13 @@ bwd_rows_kernel(const __nv_bfloat16* __restrict__ o,
   const int64_t qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int64_t hq = gridDim.y, s_pad = (int64_t)gridDim.x * kTile;
   float* out = rows + ((b * hq + h) * s_pad + qt * kTile) * 2;
-  using W = Word<__nv_bfloat16>;
+  using W = Word<T>;
   for (int r = 4 * warp + (lane >> 3); r < kTile; r += kThreads / 8) {
     const int64_t row = qt * kTile + r;
     float acc = 0.0f;
     if (row < s_len) {
-      const __nv_bfloat16* op = o + b * os.b + row * os.s + h * os.h;
-      const __nv_bfloat16* dp = dout + b * ds.b + row * ds.s + h * ds.h;
+      const T* op = o + b * os.b + row * os.s + h * os.h;
+      const T* dp = dout + b * ds.b + row * ds.s + h * ds.h;
       for (int64_t c = W::kN * (lane & 7); c < hd; c += 8 * W::kN) {
         float x[W::kN], y[W::kN];
         if (c + W::kN <= hd) {
@@ -568,8 +229,8 @@ bwd_rows_kernel(const __nv_bfloat16* __restrict__ o,
         } else {
 #pragma unroll
           for (int e = 0; e < W::kN; ++e) {
-            x[e] = c + e < hd ? __bfloat162float(op[c + e]) : 0.0f;
-            y[e] = c + e < hd ? __bfloat162float(dp[c + e]) : 0.0f;
+            x[e] = c + e < hd ? widen(op[c + e]) : 0.0f;
+            y[e] = c + e < hd ? widen(dp[c + e]) : 0.0f;
           }
         }
 #pragma unroll
@@ -626,6 +287,51 @@ struct TileWalk {
     return true;
   }
 };
+
+// ----------------------------------------------------------- bf16 route --
+
+constexpr int kTcThreads = 256;            // two consumer warpgroups
+constexpr int kTcWarps = kTcThreads / 32;
+constexpr int kTcStages = 3;               // streamed tiles in flight
+constexpr int kTcBlock = 128;              // keys (pass 2), rows (pass 3)
+constexpr int kRowBytes = kTile * 8;       // a tile's (L log2 e, D) pairs
+
+// pass 2: K and V of the block's 128 keys, then a ring of (Q, dO) tiles of
+// 64 rows and their (L log2 e, D) pairs
+template <int HD_PAD>
+struct KvLayout {
+  static constexpr int kChunks = HD_PAD / 64;            // 64-column chunks
+  static constexpr int kKVChunk = kTcBlock * kSwizzleRow;
+  static constexpr int kKVBytes = kChunks * kKVChunk;    // K, or V
+  static constexpr int kTChunk = kTile * kSwizzleRow;
+  static constexpr int kTBytes = kChunks * kTChunk;      // a Q or dO tile
+  static constexpr int kOffV = kKVBytes;
+  static constexpr int kOffStage = 2 * kKVBytes;
+  static constexpr int kStage = 2 * kTBytes;              // Q, then dO
+  static constexpr int kOffRows = kOffStage + kTcStages * kStage;
+  static constexpr int kOffBar = kOffRows + kTcStages * kRowBytes;
+  static constexpr uint32_t kTx = 2 * kTBytes + kRowBytes;
+  // 1 + 2 * stages mbarriers, slack to align to 1 KB
+  static constexpr size_t kBytes = kOffBar + 8 * (1 + 2 * kTcStages) + 1024;
+};
+
+// pass 3: Q and dO of the block's 128 rows, then a ring of (K, V) tiles of
+// 64 keys
+template <int HD_PAD>
+struct QLayout {
+  static constexpr int kChunks = HD_PAD / 64;
+  static constexpr int kQChunk = kTcBlock * kSwizzleRow;
+  static constexpr int kQBytes = kChunks * kQChunk;      // Q, or dO
+  static constexpr int kTChunk = kTile * kSwizzleRow;
+  static constexpr int kTBytes = kChunks * kTChunk;      // a K or V tile
+  static constexpr int kOffDo = kQBytes;
+  static constexpr int kOffStage = 2 * kQBytes;
+  static constexpr int kStage = 2 * kTBytes;              // K, then V
+  static constexpr int kOffBar = kOffStage + kTcStages * kStage;
+  static constexpr uint32_t kTx = 2 * kTBytes;
+  static constexpr size_t kBytes = kOffBar + 8 * (1 + 2 * kTcStages) + 1024;
+};
+
 
 // the A fragments (bf16) of a k16 step from 64 columns of an f32
 // accumulator: the accumulator layout of columns 16 kk .. 16 kk + 15 is the
@@ -1131,6 +837,677 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   store_rows<HD_PAD>(dq, adq, scale, b, row_a, s_len, h, hq, hd, quad);
 }
 
+// ------------------------------------------------------------ f32 route --
+
+constexpr int kF32Threads = 256;           // two warpgroups
+constexpr int kF32Block = 64;              // keys (pass 2), rows (pass 3)
+constexpr int kF32Keys = 32;               // keys a pass-3 tile: a row of K^T
+constexpr int kF32Stages = 2;              // streamed tiles in flight
+constexpr int kF32Cols = kSwizzleRow / 4;  // f32 columns in a 128-byte row
+constexpr int kWgThreads = 128;
+
+// pass 2: a ring of (Q, dO) tiles of R query rows, each split in place (hi
+// where TMA put it, lo beside it), with the rows' (L log2 e, D) pairs;
+// then P^T and dS^T, hi and lo, as the B operands of dV^T and dK^T (64
+// keys x R rows), and the exchange of P from warpgroup 0 to warpgroup 1
+template <int HD_PAD>
+struct F32KvLayout {
+  static constexpr int kR = HD_PAD == 64 ? 64 : 32;    // query rows a tile
+  static constexpr int kGroup = HD_PAD == 64 ? 8 : 4;  // k8 steps a group
+  static constexpr int kChunks = HD_PAD / kF32Cols;    // 32-column chunks
+  static constexpr int kTChunk = kR * kSwizzleRow;
+  static constexpr int kTBytes = kChunks * kTChunk;    // Q or dO, hi or lo
+  // a stage: Q, Q lo, dO, dO lo, the rows' pairs (padded to 1 KB)
+  static constexpr int kOffRows = 4 * kTBytes;
+  static constexpr int kStage = kOffRows + 1024;
+  static constexpr int kPChunk = kF32Block * kSwizzleRow;   // 32 rows
+  static constexpr int kPBytes = (kR / kF32Cols) * kPChunk;
+  static constexpr int kOffP = kF32Stages * kStage;    // P^T hi, lo, dS^T ..
+  static constexpr int kOffX = kOffP + 4 * kPBytes;
+  static constexpr int kOffBar = kOffX + kWgThreads * (kR / 2) * 4;
+  static constexpr uint32_t kTx = 2 * kTBytes + kR * 8;
+  static constexpr size_t kBytes = kOffBar + 8 * kF32Stages + 1024;
+};
+
+// pass 3: a ring of 32-key (K, V) tiles, K and V split in place with their
+// lo beside them, and K^T hi and lo (HD_PAD rows of the tile's 32 keys);
+// then the exchange of P and dS between the warpgroups
+template <int HD_PAD>
+struct F32QLayout {
+  static constexpr int kGroup = HD_PAD == 64 ? 8 : 4;
+  static constexpr int kChunks = HD_PAD / kF32Cols;
+  static constexpr int kTChunk = kF32Keys * kSwizzleRow;     // 4 KB
+  static constexpr int kTBytes = kChunks * kTChunk;  // K, V or K^T, hi or lo
+  static constexpr int kOffV = 2 * kTBytes;
+  static constexpr int kOffKt = 4 * kTBytes;
+  static constexpr int kStage = 6 * kTBytes;
+  static constexpr int kOffX = kF32Stages * kStage;
+  static constexpr int kOffBar = kOffX + kWgThreads * (kF32Keys / 2) * 4;
+  static constexpr uint32_t kTx = 2 * kTBytes;
+  static constexpr size_t kBytes = kOffBar + 8 * kF32Stages + 1024;
+};
+
+__device__ __forceinline__ void sts_f32x2(uint32_t a, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n"
+               :: "r"(a), "f"(x), "f"(y) : "memory");
+}
+
+// named barrier ID (0 is __syncthreads') of N threads, some of which only
+// arrive
+template <int ID, int N>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
+}
+
+template <int ID, int N>
+__device__ __forceinline__ void bar_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
+}
+
+// D (64 x 32, f32) += A (64 x 8, tf32 in registers) * B (32 x 8, tf32,
+// K-major in shared memory through its descriptor); scale_d = 0 ignores D
+__device__ __forceinline__ void wgmma_tf32_rs_n32x(float (&d)[16],
+                                                   uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3,
+                                                   uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// D (64 x N) (+)= A (64 x 8, the fragments a[0..3]) * B (N x 8), N = 32 or
+// 64
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  if constexpr (N == 64) {
+    wgmma_tf32_rs_n64(d, a[0], a[1], a[2], a[3], db, scale_d);
+  } else {
+    wgmma_tf32_rs_n32x(d, a[0], a[1], a[2], a[3], db, scale_d);
+  }
+}
+
+// D (64 x N) = A B^T over the head dim, each f32 product as three TF32
+// products: A's A-fragments `raw` (as loaded, rows m, head dim k) split here
+// group by group, B (N rows of HD_PAD, hi; its lo `lo_off` bytes on) from
+// shared memory in 32-column chunks of `chunk` bytes.  One accumulator: the
+// sum runs over hd / 8 <= 16 steps.  A group's split fragments stay in
+// registers until its products are done, so a group is GROUP steps.
+template <int N, int HD_PAD, int GROUP>
+__device__ __forceinline__ void split_scores(float (&d)[N / 2],
+                                             const float (&raw)[HD_PAD / 2],
+                                             uint32_t b_hi, int lo_off,
+                                             int chunk) {
+  fence_regs(d);
+#pragma unroll
+  for (int g0 = 0; g0 < HD_PAD / 8; g0 += GROUP) {
+    uint32_t hi[GROUP][4], lo[GROUP][4];
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = raw[4 * (g0 + j) + e];
+        const float x_hi = tf32_hi(x);
+        hi[j][e] = __float_as_uint(x_hi);
+        lo[j][e] = __float_as_uint(x - x_hi);
+      }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j) {
+      const int ks = g0 + j;
+      const uint32_t bh = b_hi + (ks / 4) * chunk + (ks % 4) * 32;
+      wgmma_tf32<N>(d, hi[j], desc128(bh, 16, 1024), ks > 0);
+      wgmma_tf32<N>(d, hi[j], desc128(bh + lo_off, 16, 1024), 1);
+      wgmma_tf32<N>(d, lo[j], desc128(bh, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(d);
+  }
+}
+
+// A-fragments of a (64 x HD_PAD) operand of a tile, rows m0 + 16 (warp) +
+// 8 (e & 1) of the tile, head-dim columns 8 ks + quad + 4 (e >> 1), read
+// through strides from global memory; zeros past `len` and past hd
+template <int HD_PAD>
+__device__ __forceinline__ void load_frags(float (&raw)[HD_PAD / 2],
+                                           const float* src, Strides st,
+                                           int64_t b, int64_t row_a,
+                                           int64_t len, int64_t h,
+                                           int64_t hd, int quad) {
+#pragma unroll
+  for (int ks = 0; ks < HD_PAD / 8; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int64_t row = row_a + 8 * (e & 1);
+      const int64_t d = 8 * ks + quad + 4 * (e >> 1);
+      raw[4 * ks + e] = row < len && d < hd
+                            ? __ldg(src + b * st.b + row * st.s + h * st.h + d)
+                            : 0.0f;
+    }
+}
+
+// TileWalk's 64-row query tiles cut into R-row units, in order
+template <int R>
+struct UnitWalk {
+  TileWalk walk;
+  int g, sub;
+  int64_t qt;
+
+  __device__ __forceinline__ bool next(int& g_out, int64_t& qt_out,
+                                       int64_t& q0_out) {
+    if (sub + 1 < kTile / R) {
+      ++sub;
+    } else {
+      if (!walk.next(g, qt)) return false;      // and stays so
+      sub = 0;
+    }
+    g_out = g;
+    qt_out = qt;
+    q0_out = qt * kTile + sub * R;
+    return true;
+  }
+};
+
+// pass 2: dK and dV of 64 keys of one KV head.  Warpgroup 0 computes S^T =
+// K Q^T, P^T and dV^T += dO^T P; warpgroup 1 dP^T = V dO^T, dS^T = P^T
+// (dP^T - D) and dK^T += Q^T dS.
+template <int HD_PAD>
+__global__ void __launch_bounds__(kF32Threads, 1)
+bwd_dkdv_f32_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const float* __restrict__ k, const float* __restrict__ v,
+                    Strides ks, Strides vs, const float* __restrict__ rows,
+                    const int32_t* __restrict__ q_pos,
+                    const int32_t* __restrict__ bounds,
+                    float* __restrict__ dk, float* __restrict__ dv,
+                    int64_t s_len, int64_t t_len, int64_t hq, int64_t hd,
+                    int causal, int64_t window, float scale) {
+  using L = F32KvLayout<HD_PAD>;
+  constexpr int kR = L::kR;
+  constexpr int kNS = kR / 2;                // score registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_full = base + L::kOffBar;             // [stage]
+  float* xchg = reinterpret_cast<float*>(smem_raw + (base + L::kOffX - raw));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // grid (Kh, B, key blocks): the first key blocks, whose causal bands are
+  // the longest, are all launched first
+  const int64_t k0 = (int64_t)blockIdx.z * kF32Block;
+  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int group = (int)(hq / gridDim.x);
+  const int64_t n_qt = (s_len + kTile - 1) / kTile;
+  const int64_t s_pad = n_qt * kTile;
+  const int64_t k_last = (k0 + kF32Block < t_len ? k0 + kF32Block : t_len) - 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < kF32Stages; ++s) mbar_init(bar_full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every copy: the (Q, dO, rows) of the it-th unit into
+  // stage it % 2, once every thread has passed the split of unit it - 1
+  const auto load_stage = [&](int it, int g, int64_t q0) {
+    const int s = it % kF32Stages;
+    const uint32_t full = bar_full + 8 * s;
+    const uint32_t st = base + s * L::kStage;
+    const int h = kvh * group + g;
+    mbar_expect_tx(full, L::kTx);
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c) {
+      tma_load_4d(st + c * L::kTChunk, &q_map, full, kF32Cols * c, (int)q0,
+                  h, b);
+      tma_load_4d(st + 2 * L::kTBytes + c * L::kTChunk, &do_map, full,
+                  kF32Cols * c, (int)q0, h, b);
+    }
+    bulk_load(st + L::kOffRows,
+              rows + (((int64_t)b * hq + h) * s_pad + q0) * 2, kR * 8, full);
+  };
+  UnitWalk<kR> walk{{bounds, n_qt, k0, k_last, t_len, window, group, causal,
+                     0, -32, 0u}, 0, kTile / kR - 1, 0};
+  UnitWalk<kR> ahead = walk;          // the producer's, one unit on
+  if (warp == 0) {
+    int g;
+    int64_t qt, q0;
+    if (ahead.next(g, qt, q0) && lane == 0) load_stage(0, g, q0);
+    __syncwarp();
+  }
+
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wt = tid & (kWgThreads - 1);
+  const int quad = lane & 3;
+  const int m0 = 16 * (warp & 3) + (lane >> 2);   // accumulator rows m0, +8
+  const int64_t key_a = k0 + m0;
+  const int64_t kwarp = k0 + 16 * (warp & 3);     // this warp's 16 keys
+  const float sl2 = scale * kLog2e;
+  // the A operand of the scores, as loaded: K (warpgroup 0) or V (1)
+  float araw[HD_PAD / 2];
+  load_frags<HD_PAD>(araw, wg ? v : k, wg ? vs : ks, b, key_a, t_len, kvh,
+                     hd, quad);
+  // B of this warpgroup's product: P^T (0) or dS^T (1), hi then lo
+  const uint32_t pb = base + L::kOffP + wg * 2 * L::kPBytes;
+
+  float acc[HD_PAD / 2], sc[kNS], t[32];
+#pragma unroll
+  for (int i = 0; i < HD_PAD / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) sc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) t[i] = 0.0f;
+
+  for (int it = 0;; ++it) {
+    int g;
+    int64_t qt, q0;
+    if (!walk.next(g, qt, q0)) break;
+    const int s = it % kF32Stages;
+    const uint32_t st = base + s * L::kStage;
+    mbar_wait(bar_full + 8 * s, (uint32_t)((it / kF32Stages) & 1));
+
+    // split Q and dO, shared by both warpgroups: hi in place, lo kTBytes on
+#pragma unroll
+    for (int i = tid; i < L::kTBytes / 16; i += kF32Threads) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const uint32_t a = st + x * 2 * L::kTBytes + 16 * i;
+        const float4 y = lds_f32x4(a);
+        const float4 y_hi = tf32_hi4(y);
+        sts_f32x4(a, y_hi);
+        sts_f32x4(a + L::kTBytes, sub4(y, y_hi));
+      }
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (warp == 0) {
+      int g2;
+      int64_t qt2, q2;
+      if (ahead.next(g2, qt2, q2) && lane == 0) load_stage(it + 1, g2, q2);
+      __syncwarp();
+    }
+
+    // S^T = K Q^T (warpgroup 0), dP^T = V dO^T (1): sc[i] is key key_a
+    // (i & 2 == 0) or key_a + 8, query row q0 + c, c = 8 (i / 4) + 2 quad +
+    // (i & 1)
+    split_scores<kR, HD_PAD, L::kGroup>(sc, araw, st + wg * 2 * L::kTBytes,
+                                        L::kTBytes, L::kTChunk);
+    // rows_s holds rows c, c + 1 of column pair i / 4 as one float4 (L log2
+    // e, D, L log2 e, D)
+    const float4* rw =
+        reinterpret_cast<const float4*>(smem_raw + (st + L::kOffRows - raw));
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < kR / 8; ++j) {
+        const float4 x = rw[4 * j + quad];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          sc[i] = exp2f(fmaf(sc[i], sl2, (e & 1) ? -x.z : -x.x));
+        }
+      }
+      // Where a key of this warp lies past the tile's band edge, mask by
+      // selects (a masked p may be inf: it is replaced, not multiplied).
+      // Rows past S have P = 0 already; keys past T are never stored.
+      const int32_t pmin = bounds[2 * qt], pmax = bounds[2 * qt + 1];
+      const bool open = (!causal || kwarp + 15 <= pmin) &&
+                        (window <= 0 || kwarp > pmax - window);
+      if (!open) {                                     // warp-uniform
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const int64_t row = q0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+          const int64_t pos = row < s_len ? q_pos[row] : 0;
+          const int64_t key = key_a + ((i & 2) ? 8 : 0);
+          const bool ok = (!causal || key <= pos) &&
+                          (window <= 0 || key > pos - window);
+          sc[i] = ok ? sc[i] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) xchg[i * kWgThreads + wt] = sc[i];
+      bar_arrive<1, kF32Threads>();                      // P is there
+    } else {
+      bar_sync<1, kF32Threads>();
+#pragma unroll
+      for (int j = 0; j < kR / 8; ++j) {
+        const float4 x = rw[4 * j + quad];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          sc[i] = xchg[i * kWgThreads + wt] *
+                  (sc[i] - ((e & 1) ? x.w : x.y));
+        }
+      }
+    }
+    // this warpgroup's P^T or dS^T, split, as a B operand: rows of 64
+    // keys, 32 query rows (128 bytes) a chunk
+#pragma unroll
+    for (int j = 0; j < kR / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int i = 4 * j + e;
+        const int c = 8 * j + 2 * quad;
+        const uint32_t a = pb + (c / kF32Cols) * L::kPChunk +
+                           swz_f32(m0 + 4 * e, c % kF32Cols);
+        const float h0 = tf32_hi(sc[i]), h1 = tf32_hi(sc[i + 1]);
+        sts_f32x2(a, h0, h1);
+        sts_f32x2(a + L::kPBytes, sc[i] - h0, sc[i + 1] - h1);
+      }
+    fence_proxy_async();
+    if (wg == 0) {                         // this warpgroup's writes done
+      bar_sync<2, kWgThreads>();
+    } else {
+      bar_sync<3, kWgThreads>();
+    }
+
+    // dV^T += dO^T P (warpgroup 0), dK^T += Q^T dS (1): 64 head-dim rows
+    // a block, K the tile's rows; A gathered from the other operand's hi
+    // and lo, each block and tile into a fresh accumulator, added in f32
+    const uint32_t as = st + (1 - wg) * 2 * L::kTBytes;
+#pragma unroll
+    for (int mb = 0; mb < HD_PAD / 64; ++mb) {
+      uint32_t ahi[kR / 8][4], alo[kR / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kR / 8; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 64 * mb + m0 + 8 * (e & 1);
+          const int r = 8 * kk + quad + 4 * (e >> 1);
+          const uint32_t a = as + (d / kF32Cols) * L::kTChunk +
+                             swz_f32(r, d % kF32Cols);
+          ahi[kk][e] = __float_as_uint(lds_f32(a));
+          alo[kk][e] = __float_as_uint(lds_f32(a + L::kTBytes));
+        }
+      fence_regs(t);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kR / 8; ++kk) {
+        const uint32_t bh = pb + (kk / 4) * L::kPChunk + (kk % 4) * 32;
+        wgmma_tf32<64>(t, ahi[kk], desc128(bh, 16, 1024), kk > 0);
+        wgmma_tf32<64>(t, ahi[kk], desc128(bh + L::kPBytes, 16, 1024), 1);
+        wgmma_tf32<64>(t, alo[kk], desc128(bh, 16, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(t);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[32 * mb + i] += t[i];
+    }
+  }
+
+  // acc[32 mb + i]: head dim 64 mb + m0 (i & 2 == 0) or + 8, key k0 + 8 (i
+  // / 4) + 2 quad + (i & 1); dK times the scale
+  float* out = wg ? dk : dv;
+  const float mul = wg ? scale : 1.0f;
+  const int64_t kh = gridDim.x;
+#pragma unroll
+  for (int mb = 0; mb < HD_PAD / 64; ++mb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int64_t d = 64 * mb + m0 + ((i & 2) ? 8 : 0);
+      const int64_t key = k0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+      if (d < hd && key < t_len) {
+        out[((b * t_len + key) * kh + kvh) * hd + d] = acc[32 * mb + i] * mul;
+      }
+    }
+}
+
+// pass 3: dQ of 64 query rows of one head.  Warpgroup 0 computes S = Q K^T
+// and P, warpgroup 1 dP = dO V^T and dS = P (dP - D); each then takes half
+// the head dim of dQ += dS K.
+template <int HD_PAD>
+__global__ void __launch_bounds__(kF32Threads, 1)
+bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const float* __restrict__ q, const float* __restrict__ dout,
+                  Strides qs, Strides ds, const float* __restrict__ rows,
+                  const int32_t* __restrict__ q_pos,
+                  const int32_t* __restrict__ bounds,
+                  float* __restrict__ dq, int64_t s_len, int64_t t_len,
+                  int64_t group, int64_t hd, int causal, int64_t window,
+                  float scale) {
+  using L = F32QLayout<HD_PAD>;
+  constexpr int kNS = kF32Keys / 2;          // score registers a thread
+  constexpr int kNH = HD_PAD / 2;            // dQ columns a warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_full = base + L::kOffBar;             // [stage]
+  float* xchg = reinterpret_cast<float*>(smem_raw + (base + L::kOffX - raw));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t n_qt = (s_len + kTile - 1) / kTile;
+  const int64_t s_pad = n_qt * kTile;
+  // grid (Hq, B, query tiles): the last query tiles, whose causal bands
+  // are the longest, are all launched first
+  const int64_t qt = n_qt - 1 - (int64_t)blockIdx.z;
+  const int64_t q0 = qt * kTile;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (int)group;
+  const int64_t hq = gridDim.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < kF32Stages; ++s) mbar_init(bar_full + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int64_t lo, hi;
+  key_band(bounds[2 * qt], bounds[2 * qt + 1], t_len, causal, window, lo,
+           hi);
+  const int kt0 = __shfl_sync(
+      0xffffffffu, (int)(lo <= hi ? lo / kF32Keys * kF32Keys : 0), 0);
+  const int n_tiles = __shfl_sync(
+      0xffffffffu, (int)(lo <= hi ? (hi - kt0) / kF32Keys + 1 : 0), 0);
+
+  // thread 0 issues every copy: the K and V of key tile it into stage it %
+  // 2, once every thread has passed the split of tile it - 1
+  const auto load_kv = [&](int it) {
+    const int s = it % kF32Stages;
+    const uint32_t full = bar_full + 8 * s;
+    const uint32_t st = base + s * L::kStage;
+    const int kt = kt0 + it * kF32Keys;
+    mbar_expect_tx(full, L::kTx);
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c) {
+      tma_load_4d(st + c * L::kTChunk, &k_map, full, kF32Cols * c, kt, kvh,
+                  b);
+      tma_load_4d(st + L::kOffV + c * L::kTChunk, &v_map, full, kF32Cols * c,
+                  kt, kvh, b);
+    }
+  };
+  if (tid == 0 && n_tiles > 0) load_kv(0);
+
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wt = tid & (kWgThreads - 1);
+  const int quad = lane & 3;
+  const int m0 = 16 * (warp & 3) + (lane >> 2);   // rows q0 + m0, + 8
+  const int64_t row_a = q0 + m0, row_b = row_a + 8;
+  const int64_t pos_a = row_a < s_len ? q_pos[row_a] : 0;
+  const int64_t pos_b = row_b < s_len ? q_pos[row_b] : 0;
+  // (L log2 e, D) of the two rows; rows past S read (+inf, 0): P = 0
+  const float2* rb =
+      reinterpret_cast<const float2*>(rows) + ((int64_t)b * hq + h) * s_pad;
+  const float2 ra = rb[row_a], rr = rb[row_b];
+  const float sl2 = scale * kLog2e;
+  // the A operand of the scores, as loaded: Q (warpgroup 0) or dO (1)
+  float araw[HD_PAD / 2];
+  load_frags<HD_PAD>(araw, wg ? dout : q, wg ? ds : qs, b, row_a, s_len, h,
+                     hd, quad);
+
+  float acc[kNH / 2], t[kNH / 2], sc[kNS];
+#pragma unroll
+  for (int i = 0; i < kNH / 2; ++i) acc[i] = t[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) sc[i] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kF32Stages;
+    const uint32_t st = base + s * L::kStage;
+    mbar_wait(bar_full + 8 * s, (uint32_t)((it / kF32Stages) & 1));
+
+    // Split the tile, shared by both warpgroups: K and V hi in place, lo
+    // kTBytes on; K^T hi and lo (HD_PAD rows of 32 keys, the order 0 2 4 6
+    // 1 3 5 7 within each 8 of the A fragments of dS).  16-byte unit u of
+    // row d of K^T holds keys 8 (u / 2) + (u & 1) + 2 w, w = 0..3, read at
+    // one d and rounded in place by the thread that transposes them, so
+    // no element is read after another thread rounded it.
+#pragma unroll
+    for (int m = 0; m < HD_PAD * 8 / kF32Threads; ++m) {
+      const int i = tid + m * kF32Threads;
+      const int d = i % HD_PAD, u = i / HD_PAD;
+      const int key0 = 8 * (u >> 1) + (u & 1);
+      const uint32_t src = st + (d / kF32Cols) * L::kTChunk;
+      float x[4], x_hi[4];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        const uint32_t a = src + swz_f32(key0 + 2 * w, d % kF32Cols);
+        x[w] = lds_f32(a);
+        x_hi[w] = tf32_hi(x[w]);
+        sts_f32(a, x_hi[w]);
+        sts_f32(a + L::kTBytes, x[w] - x_hi[w]);
+      }
+      const uint32_t dst = st + L::kOffKt + swz_f32(d, 4 * u);
+      sts_f32x4(dst, make_float4(x_hi[0], x_hi[1], x_hi[2], x_hi[3]));
+      sts_f32x4(dst + L::kTBytes,
+                make_float4(x[0] - x_hi[0], x[1] - x_hi[1], x[2] - x_hi[2],
+                            x[3] - x_hi[3]));
+    }
+#pragma unroll
+    for (int i = tid; i < L::kTBytes / 16; i += kF32Threads) {
+      const uint32_t a = st + L::kOffV + 16 * i;
+      const float4 y = lds_f32x4(a);
+      const float4 y_hi = tf32_hi4(y);
+      sts_f32x4(a, y_hi);
+      sts_f32x4(a + L::kTBytes, sub4(y, y_hi));
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0 && it + 1 < n_tiles) load_kv(it + 1);
+
+    // S = Q K^T (warpgroup 0), dP = dO V^T (1): sc[i] is row row_a (i & 2
+    // == 0) or row_b, key kt + 8 (i / 4) + 2 quad + (i & 1)
+    split_scores<kF32Keys, HD_PAD, L::kGroup>(sc, araw, st + wg * L::kOffV,
+                                              L::kTBytes, L::kTChunk);
+    if (wg == 0) {
+      const int64_t kt = kt0 + (int64_t)it * kF32Keys;
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        sc[i] = exp2f(fmaf(sc[i], sl2, (i & 2) ? -rr.x : -ra.x));
+      }
+      // where any lane of the warp meets a masked key, mask by selects
+      const bool open =
+          tile_open<kF32Keys>(kt, pos_a, t_len, causal, window) &&
+          tile_open<kF32Keys>(kt, pos_b, t_len, causal, window);
+      if (__any_sync(0xffffffffu, !open)) {
+        const int64_t k0 = kt + 2 * quad;          // the key of sc[0]
+        const int t_rel = clamp_rel(t_len - k0);
+        const int far = 1 << 30;
+        const int hi_a = causal ? clamp_rel(pos_a - k0) : far;
+        const int hi_b = causal ? clamp_rel(pos_b - k0) : far;
+        const int lo_a = window > 0 ? clamp_rel(pos_a - window + 1 - k0) : -far;
+        const int lo_b = window > 0 ? clamp_rel(pos_b - window + 1 - k0) : -far;
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const int c = 8 * (i >> 2) + (i & 1);
+          const int hi_r = (i & 2) ? hi_b : hi_a, lo_r = (i & 2) ? lo_b : lo_a;
+          const bool ok = c <= hi_r && c >= lo_r && c < t_rel;
+          sc[i] = ok ? sc[i] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) xchg[i * kWgThreads + wt] = sc[i];
+      bar_arrive<1, kF32Threads>();                      // P is there
+      bar_sync<2, kF32Threads>();                        // dS is there
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) sc[i] = xchg[i * kWgThreads + wt];
+    } else {
+      bar_sync<1, kF32Threads>();
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        sc[i] = xchg[i * kWgThreads + wt] *
+                (sc[i] - ((i & 2) ? rr.y : ra.y));
+        xchg[i * kWgThreads + wt] = sc[i];
+      }
+      bar_arrive<2, kF32Threads>();
+    }
+
+    // dQ += dS K over this warpgroup's half of the head dim: A = dS split
+    // in registers (column c of a k8 step is key 2c, c < 4, or 2 (c - 4) +
+    // 1: the order of K^T's keys), B = K^T's rows, into a fresh
+    // accumulator added in f32
+    uint32_t shi[4][4], slo[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[4 * j + ((e & 1) << 1) + (e >> 1)];
+        const float x_hi = tf32_hi(x);
+        shi[j][e] = __float_as_uint(x_hi);
+        slo[j][e] = __float_as_uint(x - x_hi);
+      }
+    const uint32_t kth = st + L::kOffKt + wg * kNH * kSwizzleRow;
+    fence_regs(t);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kF32Keys / 8; ++j) {
+      wgmma_tf32<kNH>(t, shi[j], desc128(kth + 32 * j, 16, 1024), j > 0);
+      wgmma_tf32<kNH>(t, shi[j], desc128(kth + L::kTBytes + 32 * j, 16, 1024),
+                      1);
+      wgmma_tf32<kNH>(t, slo[j], desc128(kth + 32 * j, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(t);
+#pragma unroll
+    for (int i = 0; i < kNH / 2; ++i) acc[i] += t[i];
+  }
+
+  // acc[i]: row row_a (i & 2 == 0) or row_b, head dim wg kNH + 8 (i / 4) +
+  // 2 quad + (i & 1); times the scale
+#pragma unroll
+  for (int i = 0; i < kNH / 2; ++i) {
+    const int64_t row = (i & 2) ? row_b : row_a;
+    const int64_t d = wg * kNH + 8 * (i >> 2) + 2 * quad + (i & 1);
+    if (row < s_len && d < hd) {
+      dq[((b * s_len + row) * hq + h) * hd + d] = acc[i] * scale;
+    }
+  }
+}
+
+// pass 1 of both routes, `bwd_rows_kernel`, which reads o (and dO) by
+// 16-byte words, as TMA reads the others
+template <typename T>
+int launch_rows(cudaStream_t stream, const void* o, const void* dout,
+                const void* lse, const void* q_pos, void* rows, void* bounds,
+                int64_t b, int64_t s_len, int64_t hq, int64_t hd, Strides os,
+                Strides ds) {
+  const int64_t o_size[3] = {b, s_len, hq}, o_step[3] = {os.b, os.s, os.h};
+  for (int i = 0; i < 3; ++i) {
+    if (o_size[i] > 1 && (o_step[i] * (int64_t)sizeof(T)) % 16) {
+      return (int)cudaErrorMisalignedAddress;
+    }
+  }
+  if ((uintptr_t)o & 15) return (int)cudaErrorMisalignedAddress;
+  const unsigned n_qt = (unsigned)((s_len + kTile - 1) / kTile);
+  bwd_rows_kernel<T><<<dim3(n_qt, (unsigned)hq, (unsigned)b), kThreads, 0,
+                       stream>>>(
+      (const T*)o, (const T*)dout, (const float*)lse, (const int32_t*)q_pos,
+      (float*)rows, (int32_t*)bounds, s_len, hd, os, ds);
+  return (int)cudaGetLastError();
+}
+
 template <int HD_PAD>
 int launch_tc_bwd(cudaStream_t stream, const void* q, const void* k,
                   const void* v, const void* o, const void* dout,
@@ -1157,25 +1534,12 @@ int launch_tc_bwd(cudaStream_t stream, const void* q, const void* k,
   if (rc == 0) rc = make_map(&k64, k, kBf16, 2, hd, t_len, kh, b, ks, kTile);
   if (rc == 0) rc = make_map(&v64, v, kBf16, 2, hd, t_len, kh, b, vs, kTile);
   if (rc != 0) return rc;
-  // pass 1 reads o by 16-byte words, as TMA reads the others
-  const int64_t o_size[3] = {b, s_len, hq}, o_step[3] = {os.b, os.s, os.h};
-  for (int i = 0; i < 3; ++i) {
-    if (o_size[i] > 1 && (o_step[i] * 2) % 16) {
-      return (int)cudaErrorMisalignedAddress;
-    }
-  }
-  if ((uintptr_t)o & 15) return (int)cudaErrorMisalignedAddress;
-  const unsigned n_qt = (unsigned)((s_len + kTile - 1) / kTile);
-  bwd_rows_kernel<<<dim3(n_qt, (unsigned)hq, (unsigned)b), kThreads, 0,
-                    stream>>>(
-      (const __nv_bfloat16*)o, (const __nv_bfloat16*)dout,
-      (const float*)lse, (const int32_t*)q_pos, (float*)rows,
-      (int32_t*)bounds, s_len, hd, os, ds);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  rc = launch_rows<__nv_bfloat16>(stream, o, dout, lse, q_pos, rows, bounds,
+                                  b, s_len, hq, hd, os, ds);
+  if (rc != 0) return rc;
   const size_t kv_bytes = KvLayout<HD_PAD>::kBytes;
   const size_t q_bytes = QLayout<HD_PAD>::kBytes;
-  err = cudaFuncSetAttribute(bwd_dkdv_tc_kernel<HD_PAD>,
+  cudaError_t err = cudaFuncSetAttribute(bwd_dkdv_tc_kernel<HD_PAD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)kv_bytes);
   if (err != cudaSuccess) return (int)err;
@@ -1202,12 +1566,65 @@ int launch_tc_bwd(cudaStream_t stream, const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
+template <int HD_PAD>
+int launch_f32_bwd(cudaStream_t stream, const void* q, const void* k,
+                   const void* v, const void* o, const void* dout,
+                   const void* lse, const void* q_pos, void* dq, void* dk,
+                   void* dv, void* rows, void* bounds, int64_t b,
+                   int64_t s_len, int64_t t_len, int64_t hq, int64_t kh,
+                   int64_t hd, Strides qs, Strides ks, Strides vs,
+                   Strides os, Strides ds, int causal, int64_t window,
+                   float scale) {
+  // pass 2 streams Q and dO by R rows and reads K and V through their
+  // strides; pass 3 streams K and V by 32 keys and reads Q and dO
+  constexpr int kR = F32KvLayout<HD_PAD>::kR;
+  CUtensorMap q_map, do_map, k_map, v_map;
+  int rc = make_map(&q_map, q, kF32, 4, hd, s_len, hq, b, qs, kR);
+  if (rc == 0) rc = make_map(&do_map, dout, kF32, 4, hd, s_len, hq, b, ds,
+                             kR);
+  if (rc == 0) rc = make_map(&k_map, k, kF32, 4, hd, t_len, kh, b, ks,
+                             kF32Keys);
+  if (rc == 0) rc = make_map(&v_map, v, kF32, 4, hd, t_len, kh, b, vs,
+                             kF32Keys);
+  if (rc == 0) rc = launch_rows<float>(stream, o, dout, lse, q_pos, rows,
+                                       bounds, b, s_len, hq, hd, os, ds);
+  if (rc != 0) return rc;
+  const size_t kv_bytes = F32KvLayout<HD_PAD>::kBytes;
+  const size_t q_bytes = F32QLayout<HD_PAD>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkdv_f32_kernel<HD_PAD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_dq_f32_kernel<HD_PAD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)q_bytes);
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkdv_f32_kernel<HD_PAD>
+      <<<dim3((unsigned)kh, (unsigned)b,
+              (unsigned)((t_len + kF32Block - 1) / kF32Block)),
+         kF32Threads, kv_bytes, stream>>>(
+          q_map, do_map, (const float*)k, (const float*)v, ks, vs,
+          (const float*)rows, (const int32_t*)q_pos, (const int32_t*)bounds,
+          (float*)dk, (float*)dv, s_len, t_len, hq, hd, causal, window,
+          scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dq_f32_kernel<HD_PAD>
+      <<<dim3((unsigned)hq, (unsigned)b,
+              (unsigned)((s_len + kF32Block - 1) / kF32Block)),
+         kF32Threads, q_bytes, stream>>>(
+          k_map, v_map, (const float*)q, (const float*)dout, qs, ds,
+          (const float*)rows, (const int32_t*)q_pos, (const int32_t*)bounds,
+          (float*)dq, s_len, t_len, hq / kh, hd, causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 int check_shape(int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
-                int64_t kh, int64_t hd) {
+                int64_t kh, int64_t hd, int64_t block) {
   if (b < 1 || s_len < 1 || t_len < 1 || kh < 1 || hq < kh || hq % kh ||
       hd < 1 || hd > 128 || hq > 65535 || b > 65535 ||
-      (s_len + kTcBlock - 1) / kTcBlock > 65535 ||
-      (t_len + kTcBlock - 1) / kTcBlock > 65535) {
+      (s_len + block - 1) / block > 65535 ||
+      (t_len + block - 1) / block > 65535) {
     return (int)cudaErrorInvalidConfiguration;
   }
   return 0;
@@ -1215,41 +1632,41 @@ int check_shape(int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
 
 }  // namespace
 
-// f32: q, o, dO, dq (B, S, Hq, hd) and k, v, dk, dv (B, T, Kh, hd)
-// contiguous; lse and delta (B, Hq, S) f32 (delta is written); q_pos (S,)
+// q, o, dO (B, S, Hq, hd) and k, v (B, T, Kh, hd), bf16 or f32 by the
+// entry, read through their (batch, seq, head) strides with the head dim
+// contiguous, 16-byte aligned bases and strides (TMA reads q and dO or k
+// and v, pass 1 o and dO by 16-byte words); dq, dk, dv contiguous; lse (B,
+// Hq, S) f32; rows a (B, Hq, S padded to 64, 2) f32 scratch; q_pos (S,)
 // int32; bounds a (2 * ceil(S / 64),) int32 scratch.  Three kernels on
 // `stream`; returns cudaGetLastError() after them, or the error of a check.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* q_pos, void* dq, void* dk,
-    void* dv, void* delta, void* bounds, int64_t b, int64_t s_len,
-    int64_t t_len, int64_t hq, int64_t kh, int64_t hd, int64_t causal,
+    void* dv, void* rows, void* bounds, int64_t b, int64_t s_len,
+    int64_t t_len, int64_t hq, int64_t kh, int64_t hd, int64_t q_sb,
+    int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
+    int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb, int64_t o_ss,
+    int64_t o_sh, int64_t d_sb, int64_t d_ss, int64_t d_sh, int64_t causal,
     int64_t window, float scale, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  if (b < 1 || s_len < 1 || t_len < 1 || kh < 1 || hq < kh || hq % kh ||
-      hd < 1 || hd > 128 || hq > 65535 || kh > 65535 || b > 65535 ||
-      (s_len + kTile - 1) / kTile > 2147483647 ||
-      (t_len + kTile - 1) / kTile > 2147483647) {
-    return (int)cudaErrorInvalidConfiguration;
-  }
-  const Shape sh{b, s_len, t_len, hq, kh, hd};
+  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, kF32Block);
+  if (bad) return bad;
+  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh},
+      vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh}, ds{d_sb, d_ss, d_sh};
   const int c = causal ? 1 : 0;
   if (hd <= 64) {
-    return launch_bwd<64>((cudaStream_t)stream, q, k, v, o, dout, lse, q_pos,
-                          dq, dk, dv, delta, bounds, sh, c, window, scale);
+    return launch_f32_bwd<64>((cudaStream_t)stream, q, k, v, o, dout, lse,
+                              q_pos, dq, dk, dv, rows, bounds, b, s_len,
+                              t_len, hq, kh, hd, qs, ks, vs, os, ds, c,
+                              window, scale);
   }
-  return launch_bwd<128>((cudaStream_t)stream, q, k, v, o, dout, lse, q_pos,
-                         dq, dk, dv, delta, bounds, sh, c, window, scale);
+  return launch_f32_bwd<128>((cudaStream_t)stream, q, k, v, o, dout, lse,
+                             q_pos, dq, dk, dv, rows, bounds, b, s_len,
+                             t_len, hq, kh, hd, qs, ks, vs, os, ds, c,
+                             window, scale);
 }
 
-// q, o, dO (B, S, Hq, hd) and k, v (B, T, Kh, hd) bf16, read through
-// their (batch, seq, head) strides with the head dim contiguous, 16-byte
-// aligned bases and strides (TMA reads q, k, v and dO, pass 1 o and dO by
-// 16-byte words); dq, dk, dv contiguous; lse (B, Hq, S) f32; rows a (B, Hq, S padded to 64, 2) f32
-// scratch; q_pos (S,) int32; bounds a (2 * ceil(S / 64),) int32 scratch.
-// Three kernels on `stream`; returns cudaGetLastError() after them, or the
-// error of a check.
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* q_pos, void* dq, void* dk,
@@ -1261,7 +1678,7 @@ extern "C" int flash_attention_bwd_bf16(
     int64_t window, float scale, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  const int bad = check_shape(b, s_len, t_len, hq, kh, hd);
+  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, kTcBlock);
   if (bad) return bad;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh}, ds{d_sb, d_ss, d_sh};

@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the flash attention kernels
 // (flash_attention.cu and flash_attention_bwd.cu): shared-memory
 // addresses, mbarriers, TMA loads and their tensor maps, wgmma descriptors
-// and products with bf16 operands and f32 sums, and the attention mask's
-// tile tests.  One copy, included by both files.
+// and products with bf16 operands and f32 sums, the split-TF32 pieces of
+// the f32 routes (TF32 rounding, f32 shared-memory access under the
+// 128-byte swizzle, the tf32 product with A in registers), and the
+// attention mask's tile tests.  One copy, included by both files.
 #pragma once
 
 #include <cuda.h>
@@ -17,6 +19,7 @@ struct Strides {
 };
 
 constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 constexpr int kSwizzleRow = 128;        // bytes: 64 bf16 columns, one chunk
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -269,6 +272,87 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
          "r"(bar)
       : "memory");
+}
+
+__device__ __forceinline__ float lds_f32(uint32_t a) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(a) : "memory");
+  return x;
+}
+
+__device__ __forceinline__ void sts_f32(uint32_t a, float x) {
+  asm volatile("st.shared.f32 [%0], %1;\n" :: "r"(a), "f"(x) : "memory");
+}
+
+__device__ __forceinline__ float4 lds_f32x4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts_f32x4(uint32_t a, float4 v) {
+  asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(a), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as an f32
+// whose low 13 bits are zero, so the tensor core reads it exactly; the
+// split's lo is x - tf32_hi(x), exact in f32
+__device__ __forceinline__ float tf32_hi(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+__device__ __forceinline__ float4 tf32_hi4(float4 x) {
+  return make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
+}
+
+__device__ __forceinline__ float4 sub4(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+
+// generic-proxy writes to shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Byte offset of (row, col) in a 128-byte-swizzled block of 128-byte rows
+// of f32 (the 16-byte unit of a row is XORed with the row's index mod 8;
+// every block starts 1 KB aligned)
+__device__ __forceinline__ uint32_t swz_f32(int row, int col) {
+  return (uint32_t)(row * kSwizzleRow + ((((col >> 2) ^ row) & 7) << 4) +
+                    ((col & 3) << 2));
+}
+
+// D (64 x 64, f32) += A (64 x 8, tf32 in registers) * B (64 x 8, tf32,
+// K-major in shared memory through its descriptor); scale_d = 0 ignores D
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], uint32_t a0,
+                                                uint32_t a1, uint32_t a2,
+                                                uint32_t a3, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 
 

@@ -26,13 +26,14 @@ arithmetic on the CPU.  It does not depend on
 With `with_lse` the forward also returns each row's log-sum-exp, which
 `flash_attention_bwd_cuda` (`csrc/flash_attention_bwd.cu`) reads to
 recompute the softmax: dq, dk and dv in three kernels (D = rowsum(dO o),
-then dK / dV a key tile a block, then dQ a query tile a block), no
-atomics, so two launches on the same inputs are bitwise equal.  bf16
-inputs run on the tensor cores, Q, K, V and dO brought in by TMA (a view
-TMA cannot read is copied as above), with P and dS rounded to bf16
+then dK / dV a key block a block, then dQ a query block a block), no
+atomics, so two launches on the same inputs are bitwise equal.  Both
+dtypes run on the tensor cores, Q, K, V and dO brought in by TMA (a view
+TMA cannot read is copied as above).  bf16 rounds P and dS to bf16
 before the products that read them (`ref.py::attention_bwd_bf16_ref` is
-that arithmetic); float32 inputs run f32 FMA on the CUDA cores
-(`ref.py::attention_bwd_ref`).
+that arithmetic); float32 takes each of the five products as three TF32
+products of split operands, as the forward's float32 route does, with P
+and dS in float32 (`ref.py::attention_bwd_split_tf32`).
 """
 from __future__ import annotations
 
@@ -166,9 +167,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     one C entry a dtype) on PyTorch's current stream: (dq, dk, dv) in q's
     dtype, contiguous, from the forward's inputs, its output o, the
     upstream gradient do (both (B, S, Hq, hd)) and its lse (B, Hq, S)
-    f32.  bf16 reads q, k, v, o and do through their strides (copied
-    here when TMA cannot read them); float32 reads every tensor contiguous
-    (copied here when it is not).  No atomics: bitwise repeatable."""
+    f32.  Reads q, k, v, o and do through their strides (copied here when
+    TMA cannot read them).  No atomics: bitwise repeatable."""
     _check(q, k, v)
     b, s_len, hq, hd = q.shape
     t_len, kh = k.shape[1], k.shape[2]
@@ -184,29 +184,25 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
     q_pos = _positions(q_pos, q)
     lse = lse.contiguous()
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:
-        q, k, v, o, do = (t if t.stride(-1) == 1 and tma_ready(t)
-                          else tma_copy(t) for t in (q, k, v, o, do))
-    else:
-        q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    q, k, v, o, do = (t if t.stride(-1) == 1 and tma_ready(t) else tma_copy(t)
+                      for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
     n_qt = -(-s_len // 64)
-    # bf16: (L log2 e, D) of each row, S padded to 64; f32: D
-    scratch = torch.empty((b, hq, n_qt * 64, 2) if bf16 else (b, hq, s_len),
-                          dtype=torch.float32, device=q.device)
+    # (L log2 e, D) of each row, S padded to 64, and the 64-row tiles'
+    # position bounds
+    rows = torch.empty((b, hq, n_qt * 64, 2), dtype=torch.float32,
+                       device=q.device)
     bounds = torch.empty((2 * n_qt,), dtype=torch.int32, device=q.device)
-    strides = ([*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                *o.stride()[:3], *do.stride()[:3]] if bf16 else [])
     rc = getattr(library(), _BWD_ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), q_pos.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), bounds.data_ptr(),
-        b, s_len, t_len, hq, kh, hd, *strides, int(causal), int(window),
-        _scale(hd), q.device.index, stream_ptr(q))
+        dk.data_ptr(), dv.data_ptr(), rows.data_ptr(), bounds.data_ptr(),
+        b, s_len, t_len, hq, kh, hd, *q.stride()[:3], *k.stride()[:3],
+        *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], int(causal),
+        int(window), _scale(hd), q.device.index, stream_ptr(q))
     check_launch(rc, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
     return dq, dk, dv

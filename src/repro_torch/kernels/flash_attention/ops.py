@@ -16,7 +16,9 @@ Training: when grad is enabled and q, k or v requires it,
 `flash_attention_gqa` runs `FlashAttentionFn`, whose forward also keeps
 each row's log-sum-exp and whose backward recomputes P from it: on a CUDA
 tensor the forward kernel (with its lse output) and the backward kernel
-(`flash_attention_bwd_cuda`), on a CPU tensor `attention_ref` and
+(`flash_attention_bwd_cuda`, on the tensor cores in both dtypes: bf16
+with P and dS rounded to bf16, float32 as split-TF32 products with
+float32 P and dS), on a CPU tensor `attention_ref` and
 `attention_bwd_ref`.  Otherwise the forward call above runs unchanged.
 """
 from __future__ import annotations
@@ -73,8 +75,9 @@ def attention_bwd_gqa_ref(q, k, v, o, do, lse, *, q_pos=None, causal=True,
     """`attention_bwd_ref` on the model's layout: q, o, do (B, S, Hq, hd),
     k, v (B, T, Kh, hd), lse (B, Hq, S) -> (dq, dk, dv) in that layout;
     `plain` takes another function of its arguments instead
-    (`attention_bwd_bf16_ref`, the bf16 kernel's arithmetic, or
-    `attention_bwd_bf16_slack`)."""
+    (`attention_bwd_bf16_ref`, the bf16 kernel's arithmetic,
+    `attention_bwd_bf16_slack`, or `attention_bwd_split_tf32`, the
+    float32 kernel's)."""
     b = q.shape[0]
     dq, dk, dv = plain(
         _heads(q), _heads(k), _heads(v), _heads(o), _heads(do),

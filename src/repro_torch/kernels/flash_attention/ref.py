@@ -155,6 +155,40 @@ def attention_split_tf32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _split_matmul(p, v) / l.clamp_min(1e-30)
 
 
+def attention_bwd_split_tf32(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, lse: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             q_pos: Optional[torch.Tensor] = None,
+                             group: int = 1
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The float32 CUDA route's backward arithmetic on the CPU, for the
+    tests only: `attention_bwd_ref` (same arguments and layout, float32)
+    with each of its five products split as the kernels split them
+    (`_split_matmul`): S = Q K^T, dP = dO V^T, dV = P^T dO, dQ = dS K and
+    dK = dS^T Q, each as a_hi b_hi + (a_hi b_lo + a_lo b_hi).  P, dS, D,
+    L, the scale and the sums over a group's heads stay float32.  The
+    kernels' tensor cores truncate their own sums, which this does not
+    emulate (they keep each such sum short)."""
+    s_len, t_len, hd = q.shape[1], k.shape[1], q.shape[-1]
+    scale = torch.tensor(hd ** -0.5, dtype=torch.float32)
+    kf = torch.repeat_interleave(k, group, dim=0)
+    vf = torch.repeat_interleave(v, group, dim=0)
+    mask = _mask(s_len, t_len, q_pos, causal, window, q.device)[None]
+    s = torch.where(mask, _split_matmul(q, kf.transpose(1, 2)) * scale,
+                    NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    dp = _split_matmul(do, vf.transpose(1, 2))
+    dl = torch.sum(do * o, dim=-1, keepdim=True)
+    ds = torch.where(mask, p * (dp - dl), 0.0)
+    dv = _split_matmul(p.transpose(1, 2), do)
+    dq = _split_matmul(ds, kf) * scale
+    dk = _split_matmul(ds.transpose(1, 2), q) * scale
+    return (dq, dk.unflatten(0, (-1, group)).sum(1),
+            dv.unflatten(0, (-1, group)).sum(1))
+
+
 def _round_bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bf16 (to nearest, ties to even) and kept in x's dtype."""
     return x.to(torch.bfloat16).to(x.dtype)

@@ -1238,6 +1238,7 @@ def _padded_view(x):
     return wide[..., :x.shape[3]]
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,t,hq,kh,hd,causal,win,off,view", [
     (1, 256, 256, 16, 2, 64, True, 0, 0, False),       # G = 8
     (2, 200, 200, 8, 1, 128, True, 0, 0, False),       # G = 8, hd 128
@@ -1252,15 +1253,15 @@ def _padded_view(x):
     (1, 120, 120, 8, 2, 64, False, 30, 0, False),      # non-causal window
     (1, 129, 129, 6, 3, 72, True, 0, 0, True),         # views to copy
     (2, 100, 100, 4, 2, 60, True, 0, 0, False)])       # hd 60: copied
-def test_flash_attention_bwd_tensor_core_route(cuda, b, s, t, hq, kh, hd,
-                                               causal, win, off, view):
-    """The bf16 route's tensor-core kernels at G = 8, hd 32 / 60 / 64 / 72
-    / 120 / 128, S and T off the 64- and 128-row tiles, S = 1, T much
-    longer than S, window 1, a q_pos offset, non-causal, and views that
-    TMA cannot read (copied by the wrapper): both rules, two launches
-    bitwise equal."""
+def test_flash_attention_bwd_tensor_core_route(cuda, dtype, b, s, t, hq, kh,
+                                               hd, causal, win, off, view):
+    """Both routes' tensor-core kernels (bf16 wgmma; f32 split-TF32 wgmma)
+    at G = 8, hd 32 / 60 / 64 / 72 / 120 / 128, S and T off the 32-, 64-
+    and 128-row tiles, S = 1, T much longer than S, window 1, a q_pos
+    offset, non-causal, and views that TMA cannot read (copied by the
+    wrapper): each dtype's rules (`_check_bwd`), two launches bitwise
+    equal."""
     from repro_torch.kernels.flash_attention.kernel import tma_ready
-    dtype = torch.bfloat16
     pos = torch.arange(off, off + s, device=cuda)
     q, k, v, o, do, lse = _bwd_case(7 * s + t + hd, b, s, t, hq, kh, hd,
                                     dtype, cuda, pos, causal, win)

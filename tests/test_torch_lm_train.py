@@ -276,6 +276,53 @@ def test_bf16_slack_covers_sums_in_another_order(b, s, t, hq, kh, hd,
     assert flips > 0
 
 
+SPLIT_CASES = [  # b, s, t, hq, kh, hd, causal, window, q_pos offset, max |s|
+    (1, 256, 256, 4, 2, 64, True, 0, 0, None),
+    (1, 256, 256, 4, 2, 64, True, 128, 0, None),
+    (1, 200, 200, 4, 1, 120, True, 128, 0, None),
+    (1, 333, 333, 4, 2, 128, True, 0, 0, None),
+    (1, 100, 300, 4, 2, 64, True, 128, 200, None),
+    (2, 130, 130, 2, 2, 120, False, 0, 0, None),
+    (1, 256, 256, 4, 2, 120, True, 0, 0, 30.0),
+    (1, 200, 200, 4, 2, 128, True, 128, 0, 30.0)]
+
+
+@pytest.mark.parametrize("b,s,t,hq,kh,hd,causal,win,off,s_max", SPLIT_CASES)
+def test_split_tf32_backward_arithmetic_holds_the_f32_tolerance(
+        b, s, t, hq, kh, hd, causal, win, off, s_max):
+    """`attention_bwd_split_tf32` (the f32 backward kernels' arithmetic:
+    each of the five products as three TF32 products of split operands)
+    against `attention_bwd_ref` on the same o and lse and against
+    `jax.grad` of the reference's `dense_attention`, at the f32 route's
+    2e-5 of max |grad| per element: hd 64 / 120 / 128, windows 0 and 128,
+    ragged S, a q_pos offset, non-causal, and q and k scaled alike so that
+    max |s| is `s_max`."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_split_tf32,
+    )
+    q, k, v, do = _qkv(s + t + hd + win, b, s, t, hq, kh, hd)
+    if s_max is not None:
+        kr = np.repeat(k, hq // kh, axis=2)
+        s0 = np.abs(np.einsum("bqhd,bkhd->bhqk", q, kr)).max() * hd ** -0.5
+        c = np.float32(np.sqrt(s_max / s0))
+        q, k = q * c, k * c
+    pos = np.arange(off, off + s)
+    o, lse = _plain_o_lse(q, k, v, pos, causal, win)
+    args = (*(_t(x) for x in (q, k, v)), o, _t(do), lse)
+    kw = {"q_pos": _t(pos), "causal": causal, "window": win}
+    got = attention_bwd_gqa_ref(*args, **kw, plain=attention_bwd_split_tf32)
+    _assert_grads_close(got, attention_bwd_gqa_ref(*args, **kw), 2e-5)
+
+    def jloss(q_, k_, v_):
+        out = jattn.dense_attention(q_, k_, v_, q_pos=jnp.asarray(pos),
+                                    kv_pos=jnp.arange(t), causal=causal,
+                                    window=win)
+        return jnp.sum(out * jnp.asarray(do))
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
+        *map(jnp.asarray, (q, k, v)))
+    _assert_grads_close(got, want, 2e-5)
+
+
 @pytest.mark.parametrize("causal,win,off", [(True, 0, 0), (True, 5, 3),
                                             (False, 0, 0), (False, 6, 0)])
 def test_flash_attention_fn_gradcheck_in_float64(causal, win, off):
