@@ -136,7 +136,32 @@ exits non-zero without a result line:
    at --d-model 512 --layers 8 --seq 2048 --batch 2 --local-steps 2
    --clients 6 --select 3 --rounds 2 (hd 128, f32: the flash branch's f32
    route forward and backward): valid selections, finite SVs, both flash
-   entries launched, the round times printed.
+   entries launched, the round times printed;
+18. the other LM families served at full width (seeded weights drawn on
+   the card, f32 params, bf16 activations, 32 greedy decode steps, exact
+   Shapley over B = 4 requests): Mamba2-370M (48 layers, S = 8192, no
+   flash launch), Hymba-1.5B (32 layers, S = 8192, G = 5, window 1024: 32
+   flash launches), Whisper-medium (24 + 24 layers, 1500 frames, 448
+   decoder tokens: dense attention, 0), Qwen3-MoE-30B-A3B cut to 4 layers
+   (all 128 experts, S = 4096: 4) and InternVL2-76B cut to 2 layers (256
+   patches, S = 4096: 2); prefill and decode ms, tokens/s, peak memory and
+   launches printed beside the card's name and power limit; the launch
+   counts required, log-prob sums finite and <= 0, SVs summing to the grand
+   coalition.  Kimi-K2 is held on the CPU only (one f32 layer of its
+   experts is 67.6 GB);
+19. families parity: each of the five on the card against the port's CPU
+   path with the same weights, f32, full width (the MoE with all 128
+   experts), 2 layers (InternVL2 1, for the CPU's time), B = 1: forward
+   logits and aux, every prefill cache (k / v rings, SSM states and conv
+   windows, cross k / v) and 3 teacher-forced decode steps at atol and
+   rtol 2e-3, aux at 1e-5; Hymba at S = 2048 runs the f32 flash route at
+   G = 5;
+20. hybrid training: Hymba-1.5B at full width and depth (bf16
+   activations, f32 params, AdamW, remat), B = 4 x S = 2048, 3 steps on
+   one batch through `launch/train.py`'s LM-mode functions, twice: a
+   strictly falling loss, the runs bitwise equal, 64 flash_attention and
+   32 flash_attention_bwd launches a step (the bf16 backward at G = 5);
+   ms a step, tokens/s and peak memory printed.
 
 Phase 3 also holds flash_attention against its plain version at one
 layer's full prefill shape (B = 4, Hq = 32, Kh = 8, S = T = 8192, hd =
@@ -177,8 +202,9 @@ is bounded, with the f32 FMA bound of the CUDA cores printed beside it),
 with the TFLOP/s of the 14 hd flops a pair the kernel does and of the
 bound's 10 hd.
 
-Each path of phases 6-11, 13-15 and 17 runs with the launch counters zeroed
-just before it and read just after; every kernel must launch on its path.  A captured
+Each path of phases 6-11, 13-15, 17, 18 and 20 runs with the launch
+counters zeroed just before it and read just after (18 and 20 together
+are the "families" path); every kernel must launch on its path.  A captured
 graph's launches are counted when it is captured and not when it is
 replayed, so the scan path counts its warm-up round's launches plus each
 graph's times its replays.  The line
@@ -1800,7 +1826,7 @@ class Bf16AttentionError:
 
     def add(self, got, want):
         got, want = got.float(), want.float()
-        diff = (got - want).abs()
+        diff = (got - want).abs().nan_to_num(nan=math.inf)  # NaN fails
         self.max = max(self.max, float(diff.max()))
         self.share = max(self.share, float(
             (diff / (5e-3 + 1e-2 * want.abs())).max()))
@@ -1868,11 +1894,20 @@ def _sdpa_ms(torch, q, k, v, window):
     return None, None, None
 
 
+# the families path's prefill layers (phase 18): (label, B, S, Hq, Kh, hd,
+# window)
+FAMILY_ATTENTION = (("Hymba-1.5B", 4, 8192, 25, 5, 64, 1024),
+                    ("Qwen3-MoE-30B-A3B", 4, 4096, 32, 4, 128, 0),
+                    ("InternVL2-76B", 4, 4096, 64, 8, 128, 0))
+
+
 def check_flash_attention(torch, device):
     """Against the plain dense version at one layer's full H2O-Danube-3-4B
-    prefill shape (windows 4096 and 0, bf16 and f32) and at ragged and
-    other head shapes; times kernel, plain version and SDPA at the main
-    path's shape (bf16, window 4096), whose entry is the JSON line's."""
+    prefill shape (windows 4096 and 0, bf16 and f32), at ragged and other
+    head shapes, and in bf16 at the families path's prefill layers
+    (`FAMILY_ATTENTION`: G = 5 with a window, G = 8 at hd 128); times
+    kernel, plain version and SDPA at the main path's shape (bf16, window
+    4096), whose entry is the JSON line's."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import flash_attention_gqa
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -1891,7 +1926,8 @@ def check_flash_attention(torch, device):
         err, bf16 = 0.0, Bf16AttentionError()
         for bb, h0, h1, want in _plain_by_heads(torch, q, k, v, window):
             out = got[bb, :, h0:h1].transpose(0, 1)
-            err = max(err, float((out.float() - want.float()).abs().max()))
+            err = max(err, float((out.float() - want.float()).abs()
+                                 .nan_to_num(nan=math.inf).max()))
             if dtype == torch.bfloat16:
                 bf16.add(out, want)
         if dtype == torch.bfloat16:
@@ -1986,6 +2022,27 @@ def check_flash_attention(torch, device):
                 worst = max(worst, err)
         log(f"[flash_attention] edge B={bb} S=T={s_e} Hq={hq_e} Kh={kh_e} "
             f"hd={hd_e} window={win}: f32 within atol 2e-5; bf16 {verdict}")
+    for label, bb, s_e, hq_e, kh_e, hd_e, win in FAMILY_ATTENTION:
+        q, k, v = (torch.randn(shape, generator=gen, device=device
+                               ).to(torch.bfloat16)
+                   for shape in ((bb, s_e, hq_e, hd_e), (bb, s_e, kh_e, hd_e),
+                                 (bb, s_e, kh_e, hd_e)))
+        got = flash_attention_cuda(q, k, v, window=win)
+        bf16 = Bf16AttentionError()
+        for b_i, h0, h1, want in _plain_by_heads(torch, q, k, v, win):
+            bf16.add(got[b_i, :, h0:h1].transpose(0, 1), want)
+        verdict = bf16.check(f"{label} layer")
+        ms = time_ms(lambda _: flash_attention_cuda(q, k, v, window=win),
+                     iters=5, warmup=1)
+        pairs = band_pairs(s_e, s_e, win) * bb * hq_e
+        n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
+        b_ms, b_by = bound_ms(n_bytes, 4 * hd_e * pairs, BF16_PEAK_FLOPS)
+        log(f"[flash_attention] {label} layer B={bb} S=T={s_e} Hq={hq_e} "
+            f"Kh={kh_e} hd={hd_e} window={win} bfloat16 (the families "
+            f"path's call): {verdict}; kernel {ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), kernel / bound {ms / b_ms:.2f}")
+        del q, k, v, got
+        torch.cuda.empty_cache()
     kernels.LAUNCHES["flash_attention"] = saved  # checks do not count
     log(f"[flash_attention] worst f32 error over all shapes {worst:.2e}; "
         f"the JSON entry is the main path's call (bf16, window 4096), with "
@@ -2090,7 +2147,8 @@ class BwdError:
 
     def add(self, got, want, slack=None):
         for i, (name, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
-            diff, aw = (g.float() - w).abs(), w.abs()
+            diff = (g.float() - w).abs().nan_to_num(nan=math.inf)
+            aw = w.abs()
             top = float(aw.max())
             limit = self.rtol * aw + self.atol * top
             if slack is not None:
@@ -2176,8 +2234,10 @@ def _sdpa_bwd_ms(torch, q, k, v, do, window):
 def check_flash_attention_bwd(torch, device):
     """The backward kernel against its plain versions on the card
     (`_bwd_errors`): the full TinyLlama layer (B = 4, S = T = 2048, Hq =
-    32, Kh = 4, hd = 64, causal) and the Danube layer (B = 1, Hq = 32, Kh
-    = 8, hd = 120, window 4096, S = 8192) in bf16 and f32; ragged S, hd
+    32, Kh = 4, hd = 64, causal), the Danube layer (B = 1, Hq = 32, Kh =
+    8, hd = 120, window 4096, S = 8192) and phase 20's Hymba-1.5B layer
+    (B = 4, S = T = 2048, Hq = 25, Kh = 5, hd = 64, window 1024) in bf16
+    and f32; ragged S, hd
     128, G = 1, non-causal and a q_pos offset.  The bf16 route's product
     kernels must hold wgmma instructions.  Two launches bitwise equal; the
     forward's output with lse bitwise the output without, its lse the
@@ -2209,7 +2269,8 @@ def check_flash_attention_bwd(torch, device):
     gen = torch.Generator(device=device).manual_seed(24)
     entry, f32_route = None, None
     layers = (("TinyLlama", 4, 2048, 32, 4, 64, 0),
-              ("Danube", 1, 8192, 32, 8, 120, 4096))
+              ("Danube", 1, 8192, 32, 8, 120, 4096),
+              ("Hymba", 4, 2048, 25, 5, 64, 1024))
     for label, b, s_len, hq, kh, hd, window in layers:
         base = [torch.randn(shape, generator=gen, device=device)
                 for shape in ((b, s_len, hq, hd), (b, s_len, kh, hd),
@@ -2279,7 +2340,7 @@ def check_flash_attention_bwd(torch, device):
                     f"pairs), bound {b_ms:.4f} ms ({b_by}; 2.5 x the "
                     f"forward's {4 * hd * pairs:.4g} flops = {flops:.4g} "
                     f"{b_name}), kernel / bound {ms / b_ms:.2f}")
-            if label != "TinyLlama" and dtype == torch.float32:
+            if label == "Danube" and dtype == torch.float32:
                 # the f32 route's yardstick at the Danube layer too
                 lib_ms, backend = _sdpa_bwd_ms(torch, q, k, v, do, window)
                 if lib_ms is not None:
@@ -2696,6 +2757,227 @@ def phase_federated_lm(torch, device, times=None):
     return launches
 
 
+# phase 18: (config, layers or None for full depth, B, S, flash_attention
+# launches expected in the prefill); `synth_batch` draws the frontend's
+# inputs (Whisper's 1500 frames, InternVL2's 256 patches)
+FAMILY_SERVES = (
+    ("mamba2_370m", None, 4, 8192, 0),
+    ("hymba_1_5b", None, 4, 8192, 32),
+    # the encoder's 1500 keys are no multiple of 512 and the decoder's
+    # S <= 1024: both attend densely
+    ("whisper_medium", None, 4, 448, 0),
+    ("qwen3_moe_30b_a3b", 4, 4, 4096, 4),
+    ("internvl2_76b", 2, 4, 4096, 2),
+)
+
+
+def phase_families_serve(torch, device, smi):
+    """`serve_requests` on the MoE, SSM, hybrid, encoder-decoder and VLM
+    configs at full width (`FAMILY_SERVES`: Mamba2 and Hymba at full
+    depth, B = 4 x 8192; Whisper full, 1500 frames, 448 decoder tokens;
+    Qwen3-MoE cut to 4 layers and InternVL2 to 2, B = 4 x 4096), seeded
+    weights drawn on the card (f32 params, bf16 activations), 32 greedy
+    decode steps: flash_attention's launches in the prefill as the table
+    says, no other kernel, finite log-prob sums <= 0, SVs that sum to the
+    grand coalition.  Kimi-K2 cannot run on one card (one f32 layer of its
+    experts is 67.6 GB).  Returns the launches summed over the five."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.lm import model as M
+    from repro_torch.models.lm.config import param_count
+    from repro_torch.serve import serve_requests
+
+    gen_len, total = 32, dict.fromkeys(kernels.LAUNCHES, 0)
+    for arch, layers, b, s_len, flash in FAMILY_SERVES:
+        t_phase = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        gen = torch.Generator(device=device).manual_seed(18)
+        params = M.init_params(cfg, gen, device=device)
+        batch = synth_batch(cfg, gen, b, s_len)
+        front = {k: v for k, v in batch.items() if k != "tokens"}
+        # warm-up: a short serve (cuBLAS handles, allocator)
+        serve_requests(cfg, params, batch["tokens"][:1, :512], 2,
+                       device=device, **{k: v[:1] for k, v in front.items()})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launches()
+        res = serve_requests(cfg, params, batch["tokens"], gen_len,
+                             device=device, **front)
+        launches = dict(kernels.LAUNCHES)
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        sv, lp = res.sv.cpu().double(), res.logprob_sum.cpu()
+        grand = float(lp.mean())
+        enc = (f" + {cfg.encoder_layers} encoder" if cfg.encoder_layers
+               else "")
+        fr = "".join(f" {k}={v.shape[1]}" for k, v in front.items())
+        log(f"[families] {cfg.name} ({smi}): {cfg.n_layers} layers"
+            f"{' (cut)' if layers else ''}{enc}, d_model {cfg.d_model}, "
+            f"{param_count(cfg)} params, B={b} S={s_len}{fr}: prefill "
+            f"{res.prefill_s * 1e3:.2f} ms ({b * s_len / res.prefill_s:.1f} "
+            f"tokens/s), decode {res.decode_s * 1e3 / gen_len:.3f} ms a step "
+            f"({res.tokens_per_s:.2f} tokens/s), peak memory {peak_gb:.3f} "
+            f"GB; launches {launches}; logprob sums {lp.tolist()}; SVs "
+            f"{sv.tolist()}; phase {time.perf_counter() - t_phase:.1f} s")
+        require(launches["flash_attention"] == flash,
+                f"families: {cfg.name} launched flash_attention "
+                f"{launches['flash_attention']} times, expected {flash}")
+        require(all(n == 0 for k, n in launches.items()
+                    if k != "flash_attention"),
+                f"families: {cfg.name} launched another kernel")
+        require(tuple(res.generated.shape) == (b, gen_len)
+                and int(res.generated.min()) >= 0
+                and int(res.generated.max()) < cfg.vocab,
+                f"families: {cfg.name} bad tokens")
+        require(bool(torch.isfinite(lp).all()) and float(lp.max()) <= 0.0,
+                f"families: {cfg.name} log-prob sums must be finite and <= 0")
+        require(bool(torch.isfinite(sv).all()) and math.isclose(
+            float(sv.sum()), grand, rel_tol=1e-5, abs_tol=1e-4),
+            f"families: {cfg.name} SVs must sum to the grand coalition")
+        for k, n in launches.items():
+            total[k] += n
+        del params, batch, front, res
+        torch.cuda.empty_cache()
+    return total
+
+
+# phase 19: (config, layers, B, S); full width, f32
+FAMILY_PARITY = (
+    ("mamba2_370m", 2, 1, 512),
+    ("hymba_1_5b", 2, 1, 2048),          # the flash branch at G = 5, f32
+    ("whisper_medium", 2, 1, 448),
+    ("qwen3_moe_30b_a3b", 2, 1, 256),
+    ("internvl2_76b", 1, 1, 320),
+)
+FAMILY_ATOL = FAMILY_RTOL = 2e-3         # as phase 12's serving parity
+
+
+def phase_families_parity(torch, device):
+    """Each family on the card against the port's CPU path with the same
+    weights, f32 (`FAMILY_PARITY`: full width, the MoE with all 128
+    experts, 2 layers, InternVL2 1 for the CPU's time): forward logits and
+    aux, every prefill cache, and 3 teacher-forced decode steps, at atol
+    and rtol `FAMILY_ATOL`."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.lm import model as M
+    from repro_torch.tree import tree_map
+
+    saved = dict(kernels.LAUNCHES)
+    for arch, layers, b, s_len in FAMILY_PARITY:
+        t_phase = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype="float32")
+        if cfg.encoder_layers:
+            cfg = dataclasses.replace(cfg, encoder_layers=layers)
+        params = M.init_params(cfg, torch.Generator(device=device)
+                               .manual_seed(19), device=device)
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        batch = synth_batch(cfg, torch.Generator().manual_seed(20), b,
+                            s_len + 3)
+        prompt = {k: v[:, :s_len] if k == "tokens" else v
+                  for k, v in batch.items()}
+        runs = {}
+        for name, dev, p in (("cpu", torch.device("cpu"), cpu_params),
+                             ("card", device, params)):
+            t0 = time.perf_counter()
+            on = {k: v.to(dev) for k, v in prompt.items()}
+            fwd, aux = M.forward(cfg, p, on)
+            cache, lg = M.prefill_step(cfg, p, on, cache_len=s_len + 8)
+            # copies: decode writes the cache in place
+            caches = {k: v.to("cpu", copy=True) for k, v in cache.items()
+                      if k != "pos"}
+            logits = [lg.cpu()]
+            for i in range(3):
+                cache, lg = M.decode_step(cfg, p, cache, {
+                    "token": batch["tokens"][:, s_len + i].to(dev)})
+                logits.append(lg.cpu())
+            runs[name] = (fwd.cpu(), float(aux), caches, logits)
+            log(f"[families-parity] {cfg.name} {name}: forward, prefill and "
+                f"3 decode steps in {time.perf_counter() - t0:.2f} s")
+            del fwd, cache
+        (fc, ac, cc, lc), (fg, ag, cg, lgs) = runs["cpu"], runs["card"]
+        errs = {"forward": float((fg - fc).abs().max()),
+                "aux": abs(ag - ac)}
+        errs.update({k: float((cg[k] - cc[k]).abs().max()) for k in cc})
+        errs["decode"] = max(float((a - b_).abs().max())
+                             for a, b_ in zip(lgs, lc))
+        ok = (torch.allclose(fg, fc, atol=FAMILY_ATOL, rtol=FAMILY_RTOL)
+              and errs["aux"] <= 1e-5
+              and all(torch.allclose(cg[k], cc[k], atol=FAMILY_ATOL,
+                                     rtol=FAMILY_RTOL) for k in cc)
+              and all(torch.allclose(a, b_, atol=FAMILY_ATOL,
+                                     rtol=FAMILY_RTOL)
+                      for a, b_ in zip(lgs, lc)))
+        log(f"[families-parity] {cfg.name}: {layers} layer(s) at full width"
+            f"{f', {cfg.n_experts} experts' if cfg.is_moe else ''}, f32, "
+            f"B={b} S={s_len}: max errors "
+            f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} } (atol "
+            f"and rtol {FAMILY_ATOL:g}, aux 1e-5); "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        require(ok, f"families parity: {cfg.name} on the card disagrees "
+                f"with the CPU")
+        del params, cpu_params, runs
+        torch.cuda.empty_cache()
+    kernels.LAUNCHES.update(saved)          # comparisons do not count
+
+
+def phase_hybrid_train(torch, device, smi):
+    """Hymba-1.5B at full width and depth (32 layers, 25 / 5 heads of 64,
+    window 1024, SSM d_inner 3200, bf16 activations, f32 params, AdamW,
+    remat), B = 4 x S = 2048, 3 steps on one batch through
+    `launch/train.py`'s LM-mode functions, the whole run twice: a strictly
+    falling loss, the two runs bitwise equal, flash_attention launched 64
+    times a step (the forward and remat's recompute) and
+    flash_attention_bwd 32 (the bf16 route at G = 5).  Returns the first
+    run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.lm.config import param_count
+
+    cfg = get_config("hymba_1_5b")
+    b, s_len, steps = 4, 2048, 3
+    batch = synth_batch(cfg, torch.Generator(device=device).manual_seed(7),
+                        b, s_len)
+    torch.cuda.reset_peak_memory_stats(device)
+    losses, params, per_step, times = _train_run(torch, device, cfg, batch,
+                                                 steps)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    launches = {k: sum(d[k] for d in per_step) for k in per_step[0]}
+    ms = sorted(times)[len(times) // 2]
+    log(f"[hybrid-train] {cfg.name} ({smi}): {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"window {cfg.window}, d_inner {cfg.d_inner}, {param_count(cfg)} "
+        f"params ({cfg.param_dtype} params, {cfg.dtype} activations, "
+        f"{cfg.optimizer}, remat {cfg.remat}), B={b} S={s_len}: losses "
+        f"{losses}; ms a step {[round(t, 3) for t in times]} (median "
+        f"{ms:.3f}, {b * s_len / ms * 1e3:.1f} tokens/s); peak memory "
+        f"{peak_gb:.3f} GB; launches a step {per_step}")
+    require(all(math.isfinite(x) for x in losses)
+            and all(a > b_ for a, b_ in zip(losses, losses[1:])),
+            f"hybrid train: the loss must be finite and strictly falling: "
+            f"{losses}")
+    for i, d in enumerate(per_step):
+        require(d["flash_attention"] == 2 * cfg.n_layers
+                and d["flash_attention_bwd"] == cfg.n_layers,
+                f"hybrid train: step {i} launched flash_attention "
+                f"{d['flash_attention']} times (expected "
+                f"{2 * cfg.n_layers}) and flash_attention_bwd "
+                f"{d['flash_attention_bwd']} (expected {cfg.n_layers})")
+    again, params2, _, _ = _train_run(torch, device, cfg, batch, steps)
+    same = again == losses and all(torch.equal(x, y)
+                                   for x, y in zip(params, params2))
+    log(f"[hybrid-train] a second run from the same seed: losses {again}, "
+        f"params bitwise equal: {same}")
+    require(same, "hybrid train: a second run from the same seed differs")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2726,6 +3008,16 @@ def main() -> int:
     paths["train"] = phase_train(torch, device)
     phase_train_parity(torch, device)
     paths["federated_lm"] = phase_federated_lm(torch, device)
+    t_new = time.perf_counter()
+    families = phase_families_serve(torch, device, smi)
+    log(f"[families] phase 18: {time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    phase_families_parity(torch, device)
+    log(f"[families-parity] phase 19: {time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    hybrid = phase_hybrid_train(torch, device, smi)
+    log(f"[hybrid-train] phase 20: {time.perf_counter() - t_new:.1f} s")
+    paths["families"] = {k: families[k] + hybrid[k] for k in families}
     for e in entries:
         by_path = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())

@@ -3,11 +3,13 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 scripts/torch_serve_profile.py [--out FILE]
+    python3 scripts/torch_serve_profile.py [--arch ID] [--layers N]
+        [--seq S] [--out FILE]
 
-Serves full-width H2O-Danube-3-4B (bf16 activations, f32 params, random
-weights from a seed) to B = 4 prompts of S = 8192 tokens, as
-`chip_smoke.py` does, after a warm-up serve:
+Serves a full-width config (default H2O-Danube-3-4B; `--layers` cuts the
+depth; bf16 activations, f32 params, random weights from a seed) to B = 4
+prompts of S = 8192 tokens (`--seq`), with normal patches or frames for a
+vision or audio config, as `chip_smoke.py` does, after a warm-up serve:
 
 1. prefill and decode times on the host clock after a device synchronise,
    without the profiler;
@@ -62,6 +64,10 @@ def stage_profile(torch, label, fn):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="h2o_danube_3_4b")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: full)")
+    ap.add_argument("--seq", type=int, default=8192)
     ap.add_argument("--out", default=None, help="write the results as JSON")
     args = ap.parse_args()
     import subprocess
@@ -73,6 +79,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
+    from repro_torch.launch.train import synth_batch
     from repro_torch.models.lm import model as M
     from repro_torch.serve import serve_requests
 
@@ -81,15 +88,20 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     print(f"[env] torch {torch.__version__}; {smi}")
-    cfg = get_config("h2o_danube_3_4b")
-    b, s_len, steps = 4, 8192, 8
+    cfg = get_config(args.arch)
+    if args.layers:
+        import dataclasses
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    b, s_len, steps = 4, args.seq, 8
     gen = torch.Generator(device=device).manual_seed(0)
     params = M.init_params(cfg, gen, device=device)
-    tokens = torch.randint(0, cfg.vocab, (b, s_len), generator=gen,
-                           device=device)
-    serve_requests(cfg, params, tokens[:1, :2048], 2, device=device)
-    res = serve_requests(cfg, params, tokens, steps, device=device)
-    print(f"[serve] {cfg.n_layers} layers, B={b}, S={s_len}: prefill "
+    front = synth_batch(cfg, gen, b, s_len)
+    tokens = front.pop("tokens")
+    serve_requests(cfg, params, tokens[:1, :2048], 2, device=device,
+                   **{k: v[:1] for k, v in front.items()})
+    res = serve_requests(cfg, params, tokens, steps, device=device, **front)
+    print(f"[serve] {cfg.name}, {cfg.n_layers} layers, B={b}, S={s_len}: "
+          f"prefill "
           f"{res.prefill_s * 1e3:.2f} ms, decode "
           f"{res.decode_s * 1e3 / steps:.3f} ms per step "
           f"({res.tokens_per_s:.2f} tokens/s), Shapley "
@@ -99,7 +111,8 @@ def main() -> int:
 
     def prefill():
         state["cache"], state["logits"] = M.prefill_step(
-            cfg, params, {"tokens": tokens}, cache_len=s_len + steps)
+            cfg, params, {"tokens": tokens, **front},
+            cache_len=s_len + steps)
 
     def decode():
         tok = torch.argmax(state["logits"], -1)
@@ -108,7 +121,8 @@ def main() -> int:
                                                {"token": tok})
             tok = torch.argmax(lg, -1)
 
-    result = {"device": smi, "layers": cfg.n_layers, "batch": b,
+    result = {"device": smi, "arch": cfg.name, "layers": cfg.n_layers,
+              "batch": b,
               "prompt": s_len, "steps": steps,
               "prefill_ms": res.prefill_s * 1e3,
               "decode_ms_per_step": res.decode_s * 1e3 / steps,

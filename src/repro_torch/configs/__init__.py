@@ -2,8 +2,8 @@
 
 A copy of `repro/configs/` (pure data), so that `get_config` agrees with
 the reference by name.  Each module defines CONFIG (exact assigned spec,
-source cited).  The port's LM model serves the dense decoder-only
-families; the others raise in `repro_torch.models.lm.model`.
+source cited).  The port's LM model (`repro_torch.models.lm.model`)
+serves and trains all of them.
 """
 from __future__ import annotations
 

@@ -86,12 +86,22 @@ def build_lm(cfg, seed: int, device):
 
 def synth_batch(cfg, gen: torch.Generator, batch_size: int,
                 seq: int) -> dict:
-    """A batch of uniform random tokens (B, S) on `gen`'s device."""
-    from repro_torch.models.lm.model import check_served
-
-    check_served(cfg)       # the vision / audio stubs are not ported
-    return {"tokens": torch.randint(0, cfg.vocab, (batch_size, seq),
-                                    generator=gen, device=gen.device)}
+    """A batch of uniform random tokens (B, S) on `gen`'s device, with the
+    frontend stubs' inputs the reference's launcher draws: normal "patches"
+    (B, n_frontend_tokens, D) for vision, normal "frames" (B, max(
+    n_frontend_tokens, 8), D) for audio."""
+    dev = gen.device
+    batch = {"tokens": torch.randint(0, cfg.vocab, (batch_size, seq),
+                                     generator=gen, device=dev)}
+    if cfg.frontend == "vision":
+        batch["patches"] = torch.randn(
+            (batch_size, cfg.n_frontend_tokens, cfg.d_model), generator=gen,
+            device=dev)
+    if cfg.frontend == "audio":
+        batch["frames"] = torch.randn(
+            (batch_size, max(cfg.n_frontend_tokens, 8), cfg.d_model),
+            generator=gen, device=dev)
+    return batch
 
 
 def run_lm_mode(args) -> None:

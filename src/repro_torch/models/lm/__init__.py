@@ -1,4 +1,4 @@
-"""Dense decoder-only LM of the port (counterpart of `repro/models/lm`)."""
+"""The LM families of the port (counterpart of `repro/models/lm`)."""
 from repro_torch.models.lm.config import (
     ArchConfig, active_param_count, param_count,
 )

@@ -51,16 +51,22 @@ def request_shapley(logprob_sum: torch.Tensor) -> torch.Tensor:
 
 
 def serve_requests(cfg: ArchConfig, params, tokens: torch.Tensor,
-                   gen_len: int, *, device=None,
-                   telemetry=None) -> ServeResult:
+                   gen_len: int, *, device=None, telemetry=None,
+                   patches=None, frames=None) -> ServeResult:
     """Serve a batch of prompts `tokens` (B, S): prefill with room for
     `gen_len` more positions, then `gen_len` greedy decode steps.  The
     first fed token is the prefill's argmax; each step adds the log-prob
-    of the argmax of its logits, which is the next token fed.
+    of the argmax of its logits, which is the next token fed.  A vision
+    model's `patches` (B, n_frontend_tokens, D) or an audio model's
+    `frames` (B, F, D) go to the prefill with the prompts.
     `telemetry` (default None: nothing emitted) streams the run."""
     t_run = time.perf_counter()
     device = resolve_device(device)
     tokens = tokens.to(device)
+    batch = {"tokens": tokens}
+    for name, x in (("patches", patches), ("frames", frames)):
+        if x is not None:
+            batch[name] = x.to(device)
     b = tokens.shape[0]
     tel, ctimer, card = telemetry, CompileTimer(), None
     if tel is not None:
@@ -70,7 +76,7 @@ def serve_requests(cfg: ArchConfig, params, tokens: torch.Tensor,
     synchronize(device)
     t0 = time.perf_counter()
     with ctimer, stage("train"):    # the prefill is serving's "train"
-        cache, logits = M.prefill_step(cfg, params, {"tokens": tokens},
+        cache, logits = M.prefill_step(cfg, params, batch,
                                        cache_len=tokens.shape[1] + gen_len)
     synchronize(device)
     prefill_s = time.perf_counter() - t0

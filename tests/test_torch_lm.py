@@ -325,7 +325,7 @@ def model_runs():
     """The reference's forward, prefill and three decode steps for each
     case, computed once: S = 128 prompt, cache room for 8 more."""
     out = {}
-    for arch in ("h2o_danube_3_4b", "tinyllama_1_1b"):
+    for arch in DENSE:
         for dtype in ("float32", "bfloat16"):
             jcfg, tcfg = _cfg(arch, dtype)
             params = JM.init_params(jcfg, jax.random.key(11))
@@ -350,7 +350,7 @@ def _model_atol(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ["h2o_danube_3_4b", "tinyllama_1_1b"])
+@pytest.mark.parametrize("arch", DENSE)
 def test_forward_prefill_decode_match_reference(model_runs, arch, dtype):
     tcfg, params, tokens, fwd, steps, last_k = model_runs[arch, dtype]
     p = params_from_numpy(params)
@@ -417,15 +417,6 @@ def test_params_carry_across_and_init_matches_the_reference_tree():
                                rtol=0.05)
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(DENSE)))
-def test_non_dense_families_raise(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError):
-        TM.init_cache(cfg, 1, 8, device="cpu")
-
-
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
@@ -457,7 +448,9 @@ def _jax_serve(cfg, params, tokens, gen_len):
 
 
 @pytest.mark.parametrize("arch,s,gen_len", [("h2o_danube_3_4b", 128, 6),
-                                            ("tinyllama_1_1b", 40, 5)])
+                                            ("tinyllama_1_1b", 40, 5),
+                                            ("chatglm3_6b", 40, 5),
+                                            ("mistral_nemo_12b", 40, 5)])
 def test_serve_requests_matches_the_reference_loop(arch, s, gen_len):
     jcfg, tcfg = _cfg(arch)
     params = JM.init_params(jcfg, jax.random.key(7))
