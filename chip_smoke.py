@@ -161,7 +161,19 @@ exits non-zero without a result line:
    one batch through `launch/train.py`'s LM-mode functions, twice: a
    strictly falling loss, the runs bitwise equal, 64 flash_attention and
    32 flash_attention_bwd launches a step (the bf16 backward at G = 5);
-   ms a step, tokens/s and peak memory printed.
+   ms a step, tokens/s and peak memory printed;
+21. scan-serial: `engine="scan", shapley_impl="serial"` (Alg. 2, 250 MC
+   rounds at most, eps 1e-4) at phase 8's config against the batched
+   engine in the same call: selections, bytes, eval history, per-round
+   utility evaluations and MC rounds equal, params and SVs within 1e-6
+   (bitwise expected), segments of 4 bitwise the whole run, the captured
+   round holding one CUDA-graph WHILE node with M^2 = 25 IF nodes in its
+   body (`engine/graph_flow.py`, `csrc/graph_cond.cu`); replay ms a round
+   beside the batched engine's, capture seconds, peak memory, MC rounds
+   and evaluations a round printed; at eps 1e9 every round truncates and
+   the Shapley stage's device time must be under a fifth of eps 1e-4's;
+   the four flat codecs on the card bitwise the CPU's and the per-leaf
+   codecs' on five stacked MLP deltas.
 
 Phase 3 also holds flash_attention against its plain version at one
 layer's full prefill shape (B = 4, Hq = 32, Kh = 8, S = T = 8192, hd =
@@ -202,12 +214,12 @@ is bounded, with the f32 FMA bound of the CUDA cores printed beside it),
 with the TFLOP/s of the 14 hd flops a pair the kernel does and of the
 bound's 10 hd.
 
-Each path of phases 6-11, 13-15, 17, 18 and 20 runs with the launch
+Each path of phases 6-11, 13-15, 17, 18, 20 and 21 runs with the launch
 counters zeroed just before it and read just after (18 and 20 together
-are the "families" path); every kernel must launch on its path.  A captured
-graph's launches are counted when it is captured and not when it is
-replayed, so the scan path counts its warm-up round's launches plus each
-graph's times its replays.  The line
+are the "families" path, 21 is "scan_serial"); every kernel must launch
+on its path.  A captured graph's launches are counted when it is captured
+and not when it is replayed, so the scan path counts its warm-up round's
+launches plus each graph's times its replays.  The line
 before the last is a JSON object with one entry per kernel; the last line
 is `{"ok": true, "device": {...}}`.
 """
@@ -1109,8 +1121,8 @@ def drive(torch, device, cfg, label, **kw):
     res = run_federated(cfg, device=device, **kw)
     launches = dict(kernels.LAUNCHES)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    n_perms = cfg.shapley_max_iters or 50 * cfg.m
-    valued = (res.shapley_evals - 2 * cfg.rounds) // (n_perms * cfg.m)
+    # a truncated round evaluates U(w^t) and U(w^{t+1}) only
+    valued = sum(n > 2 for n in res.round_shapley_evals)
     for t, (rt, st) in enumerate(zip(res.round_time_s, res.shapley_time_s)):
         log(f"[{label}] round {t:2d} sel {res.selections[t].tolist()} "
             f"{rt * 1e3:8.2f} ms (Shapley {st * 1e3:8.2f} ms, "
@@ -2978,6 +2990,170 @@ def phase_hybrid_train(torch, device, smi):
     return launches
 
 
+def _stage_timed_scan(torch, device, cfg):
+    """One whole scan run of `cfg` through a SegmentStep that captures
+    the round as one graph a stage and times each between CUDA events:
+    (each stage's device seconds over the replays, the run's output)."""
+    from repro_torch.engine import (
+        SegmentCarry, make_scan_spec, make_segment_step, scan_operands,
+    )
+    from repro_torch.engine.round_engine import round_plan
+    from repro_torch.federated.draws import stack_rounds
+    from repro_torch.federated.server import setup_run
+
+    s = setup_run(cfg, device=device)
+    spec = make_scan_spec(cfg, (s.sel_spec,))
+    plan = round_plan(spec.round, cfg.client, spec.selectors, cfg.n_clients,
+                      cfg.m, s.params, s.n_valid.cpu().numpy())
+    step = make_segment_step(s.model, cfg.client, spec,
+                             scan_operands(cfg, s), stage_events=True)
+    draws = stack_rounds([s.draws.round(t, plan) for t in range(cfg.rounds)])
+    (out,) = step([SegmentCarry(s.params, s.sel_state, torch.zeros(
+        (), dtype=torch.int64, device=device))], 0, [draws])
+    torch.cuda.synchronize(device)
+    return step.stage_seconds(), out
+
+
+def phase_scan_serial(torch, device):
+    """Phase 21: `engine="scan", shapley_impl="serial"` (GTG-Shapley's
+    Alg. 2, max_iters 250 MC rounds, eps 1e-4) at the reference's defaults
+    (N = 50, M = 5, E = B = 5, the 784-200-100-10 MLP, greedyfed,
+    quant8_topk, 12 rounds) against the batched engine in the same call:
+    selections, bytes, eval history, per-round utility evaluations and MC
+    rounds equal, params and SVs within 1e-6 (bitwise expected); in
+    segments of 4 bitwise the whole run; the captured round holding one
+    WHILE node with M^2 IF nodes in its body.  eps = 1e9 truncates every
+    round: its Shapley stage (CUDA events, one graph a stage) must take
+    under a fifth of eps 1e-4's.  The four flat codecs on the card against
+    the CPU and the per-leaf codecs, bitwise, on five stacked MLP deltas."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.engine import graph_flow
+    from repro_torch.federated.compression import (
+        FLAT_CODECS, codec_roundtrip, flat_codec_roundtrip, flat_roundtrip,
+        flat_sizes,
+    )
+    from repro_torch.federated.server import FLConfig, run_federated
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+    t_phase = time.perf_counter()
+    cfg = FLConfig(rounds=12, upload_codec="quant8_topk", engine="batched",
+                   shapley_impl="serial")
+    batched, _, _ = drive(torch, device, cfg, "serial-batched")
+    scan_cfg = dataclasses.replace(cfg, engine="scan")
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    graph_flow.reset_nodes()
+    scan, launches = _scan_run(torch, device, scan_cfg)
+    peak_gb = (torch.cuda.max_memory_allocated(device) - base) / 1e9
+    nodes, bodies = dict(graph_flow.NODES), list(graph_flow.WHILE_BODIES)
+    seg = run_federated(scan_cfg, device=device, rounds_per_segment=4)
+
+    same = all((a == b).all() for a, b in zip(scan.selections,
+                                              batched.selections))
+    p_err = _max_err(scan.params, batched.params)
+    sv_err = float(np.abs(scan.sv_final - batched.sv_final).max())
+    counts_same = (scan.round_shapley_evals == batched.round_shapley_evals
+                   and scan.round_shapley_iterations
+                   == batched.round_shapley_iterations)
+    steady = 1e3 * sum(scan.round_time_s) / cfg.rounds
+    b_mean = 1e3 * sum(batched.round_time_s[1:]) / (cfg.rounds - 1)
+    log(f"[scan-serial] MC rounds a round "
+        f"{list(scan.round_shapley_iterations)}; utility evaluations a "
+        f"round {list(scan.round_shapley_evals)} "
+        f"(batched: {list(batched.round_shapley_iterations)}, "
+        f"{list(batched.round_shapley_evals)})")
+    log(f"[scan-serial] 12 rounds: steady replay {steady:.3f} ms a round "
+        f"(device time of the replays over the rounds), batched "
+        f"{b_mean:.2f} ms a round in the same call ({b_mean / steady:.2f}x);"
+        f" capture (warm-up of one MC round and both graphs) "
+        f"{scan.compile_time_s:.3f} s; peak memory above the set-up "
+        f"{peak_gb:.3f} GB")
+    log(f"[scan-serial] conditional nodes made {nodes}; IF nodes in each "
+        f"WHILE body {bodies}")
+    log(f"[scan-serial] vs batched: selections equal {same}; evaluations "
+        f"and MC rounds equal {counts_same}; upload bytes "
+        f"{scan.upload_bytes} vs {batched.upload_bytes}; eval history "
+        f"equal {scan.test_acc == batched.test_acc}; max param err "
+        f"{p_err:.2e}, max SV err {sv_err:.2e} (bitwise "
+        f"{p_err == 0.0 and sv_err == 0.0}; bound 1e-6); segments of 4 "
+        f"bitwise the whole run {_bitwise(torch, seg, scan)}")
+    log(f"[scan-serial] path launches {launches}")
+    require(same, "serial: scan and batched selections differ")
+    require(counts_same, "serial: scan and batched evaluation counts differ")
+    require(scan.upload_bytes == batched.upload_bytes
+            and scan.download_bytes == batched.download_bytes,
+            "serial: scan and batched byte counts differ")
+    require(scan.test_acc == batched.test_acc
+            and scan.val_loss == batched.val_loss,
+            "serial: scan and batched eval histories differ")
+    require(p_err <= 1e-6 and sv_err <= 1e-6,
+            "serial: scan and batched disagree")
+    require(_bitwise(torch, seg, scan),
+            "serial: the segmented scan differs from the whole run")
+    require(nodes == {"while": 1, "if": cfg.m ** 2}
+            and bodies == [cfg.m ** 2],
+            f"serial: the captured round holds {nodes}, bodies {bodies}")
+    require(0 < max(scan.round_shapley_iterations) <= 50 * cfg.m,
+            "serial: no MC round ran")
+    require(scan.final_acc > 0.2, f"final accuracy {scan.final_acc} <= 0.2")
+    expect_launches("scan-serial path", launches, {
+        "prefix_avg": 0, "ce_loss": 0, "cohort_gather": cfg.rounds + 1,
+        "delta_codec": cfg.rounds + 1, "weighted_avg": 0,
+        "flash_attention": 0, "flash_attention_bwd": 0})
+
+    # the Shapley stage's device time: every round truncated vs eps 1e-4
+    timed, out = _stage_timed_scan(torch, device, scan_cfg)
+    cut, cut_out = _stage_timed_scan(
+        torch, device, dataclasses.replace(scan_cfg, shapley_eps=1e9))
+    ratio = cut["shapley"] / timed["shapley"]
+    log(f"[scan-serial] Shapley stage over 12 replays (CUDA events, one "
+        f"graph a stage): eps 1e-4 {1e3 * timed['shapley']:.3f} ms, eps 1e9 "
+        f"{1e3 * cut['shapley']:.3f} ms ({ratio:.4f}x); utility "
+        f"evaluations {int(out.utility_evals.sum())} vs "
+        f"{int(cut_out.utility_evals.sum())}; stages eps 1e-4 "
+        f"{ {k: round(1e3 * v, 3) for k, v in timed.items()} } ms")
+    require(all(out.selections[t].tolist() == scan.selections[t].tolist()
+                for t in range(cfg.rounds)),
+            "serial: the stage-timed scan differs from the scan")
+    require(cut_out.utility_evals.tolist() == [2] * cfg.rounds
+            and not cut_out.sv_iterations.any(),
+            "serial: eps 1e9 did not truncate every round")
+    require(ratio < 0.2, f"serial: the truncated Shapley stage takes "
+            f"{ratio:.3f} of the default's (bound 0.2)")
+
+    # the flat codec layer: card vs CPU, flat vs per-leaf, bitwise
+    ref = tree_map(lambda x: x.detach().cpu(), scan.params)
+    sizes = flat_sizes(ref)
+    gen = torch.Generator().manual_seed(21)
+    rows = 0.01 * torch.randn((cfg.m, sum(sizes)), generator=gen)
+    rows[:, ::11] = rows[:, 3:4]           # exact |.| ties in every leaf
+    news = [tree_unflatten(ref, [r + d.reshape(r.shape) for r, d in zip(
+        tree_leaves(ref), torch.split(row, list(sizes)))]) for row in rows]
+    on_card = (lambda tree: tree_map(lambda x: x.to(device), tree))
+    flat_ok = {}
+    for codec in FLAT_CODECS:
+        want = flat_roundtrip(codec, rows, sizes)
+        got = flat_roundtrip(codec, rows.to(device), sizes).cpu()
+        ok = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        for new in news:
+            card = flat_codec_roundtrip(codec, on_card(new), on_card(ref))
+            leaf = codec_roundtrip(codec, on_card(new), on_card(ref))
+            cpu = codec_roundtrip(codec, new, ref)
+            ok = ok and all(torch.equal(a, b) and torch.equal(a.cpu(), c)
+                            for a, b, c in zip(tree_leaves(card),
+                                               tree_leaves(leaf),
+                                               tree_leaves(cpu)))
+        flat_ok[codec] = ok
+    log(f"[scan-serial] flat codecs on ({cfg.m}, {sum(sizes)}) deltas, card "
+        f"vs CPU and vs the per-leaf codecs, bitwise: {flat_ok}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    require(all(flat_ok.values()), f"flat codecs differ: {flat_ok}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3018,6 +3194,9 @@ def main() -> int:
     hybrid = phase_hybrid_train(torch, device, smi)
     log(f"[hybrid-train] phase 20: {time.perf_counter() - t_new:.1f} s")
     paths["families"] = {k: families[k] + hybrid[k] for k in families}
+    t_new = time.perf_counter()
+    paths["scan_serial"] = phase_scan_serial(torch, device)
+    log(f"[scan-serial] phase 21: {time.perf_counter() - t_new:.1f} s")
     for e in entries:
         by_path = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())

@@ -36,7 +36,7 @@ from repro_torch.core.selection import (
     DeviceSelectionContext, SelectionDraw, device_select, device_update,
     init_device_state, make_selector_spec, poc_d_schedule,
 )
-from repro_torch.core.shapley import _permutation_batch, gtg_shapley
+from repro_torch.core.shapley import gtg_shapley, permutation_block
 from repro_torch.device import resolve_device
 from repro_torch.models.lm import model as M
 from repro_torch.tree import tree_leaves
@@ -143,7 +143,7 @@ def run_round(run, t: int):
     if spec.uses_shapley:
         sv_round, _ = gtg_shapley(
             stacked, run["n_k"], params, lambda p: utility(run, p),
-            lambda: _permutation_batch(run["perm_gen"], args.select),
+            permutation_block(run["perm_gen"], args.select, 20),
             max_iters=20)
     run["params"] = weighted_average(stacked, normalized_weights(run["n_k"]))
     run["state"] = device_update(spec, state, sel, sv_round=sv_round)

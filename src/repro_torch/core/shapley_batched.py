@@ -38,7 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.aggregation import subset_average
 from repro_torch.core.shapley import (
-    ShapleyStats, _permutation_batch, gtg_shapley,
+    ShapleyStats, gtg_shapley, permutation_block,
 )
 from repro_torch.device import synchronize
 from repro_torch.kernels.ce_loss.ops import ce_loss
@@ -49,7 +49,8 @@ from repro_torch.tree import tree_map
 Params = Any
 
 # "streaming" (prefix walk, the default) | "batched" (dense oracle) |
-# "serial" (Alg. 2 with within-round truncation, a host loop)
+# "serial" (Alg. 2 with within-round truncation: a host loop, or the
+# device form under the captured round)
 SHAPLEY_IMPLS = ("streaming", "batched", "serial")
 
 
@@ -67,7 +68,7 @@ def _draw_perms(gen: torch.Generator, m: int, n_perms: int) -> torch.Tensor:
     """(R, M) permutation walks: whole (M, M) balanced batches (each client
     first exactly once per batch), rows shuffled, cut to n_perms."""
     n_batches = -(-n_perms // m)
-    perms = torch.cat([_permutation_batch(gen, m) for _ in range(n_batches)])
+    perms = permutation_block(gen, m, n_batches)
     order = torch.randperm(n_batches * m, generator=gen)
     return perms[order][:n_perms]
 
@@ -256,7 +257,7 @@ def shapley_stage(
     """One round's SV by the estimator `impl`, the stage both engines run.
 
     `walks` is the (R, M) walk tensor of the streaming and dense
-    estimators, or the serial estimator's batch callable.  Returns
+    estimators, or the serial estimator's (max_iters * M, M) block.  Returns
     (sv, stats, seconds), the seconds taken between two device
     synchronisations.
     """

@@ -52,10 +52,12 @@ from repro_torch.core.selection import (
     DeviceSelectionContext, DeviceSelectorState, SelectionDraw,
     device_select_any, device_update_any,
 )
+from repro_torch.core.shapley import gtg_shapley_device
 from repro_torch.core.shapley_batched import (
     SHAPLEY_IMPLS, gtg_shapley_batched, gtg_shapley_streaming,
     make_batched_mlp_utility, shapley_stage,
 )
+from repro_torch.engine import graph_flow
 from repro_torch.engine.batch_client import cohort_update
 from repro_torch.faults import harden_cohort, masked_average
 from repro_torch.federated.client import ClientConfig, local_loss
@@ -96,6 +98,7 @@ class RoundOutput(NamedTuple):
     ok: torch.Tensor           # (M,) bool: survived the faults and screen
     quarantined: Any           # () int32 quarantined rows (0 unhardened)
     shapley_time_s: float = 0.0   # the port's own: synchronised SV seconds
+    sv_iterations: Any = 0     # MC rounds (serial) / walks; int or () int32
 
 
 def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
@@ -110,7 +113,8 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
 
     idx (M, E*B, batch) and noise (leaves (M, *shape)) are the cohort's
     draws; `walks` is the (R, M) walk tensor of the streaming and dense
-    estimators, or the serial estimator's batch callable; `fault_codes`
+    estimators, or the serial estimator's (max_iters * M, M) block;
+    `fault_codes`
     the cohort's (M,) fault codes on the device (read only by a hardened
     round; None reads as no fault).  The host engines pass sel and
     epochs_k as host ints.
@@ -118,9 +122,11 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
     `capturable=True` builds the round a CUDA graph can hold: sel and
     epochs_k are device tensors, the local training runs the static
     `n_steps`, the gather reports a bad id into the word `error`, the
-    Shapley stage is neither timed nor skipped (a truncated round computes
-    its walk and zeroes it on the device), the walks and validation labels
-    come checked, and the stats come back as () device tensors.
+    Shapley stage is not timed, the walks and validation labels come
+    checked, and the stats come back as () device tensors.  The streaming
+    and dense estimators compute a truncated round's walk and zero it on
+    the device; the serial one is `gtg_shapley_device`, whose truncations
+    skip their work inside the graph (conditional nodes).
     """
     if spec.shapley_impl not in SHAPLEY_IMPLS:
         raise ValueError(f"unknown shapley_impl {spec.shapley_impl!r}; "
@@ -128,11 +134,6 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
     if spec.faults is not None:
         spec.faults.validate()
     hardened = spec.faults is not None or spec.quarantine
-    if capturable and spec.shapley_impl == "serial":
-        raise NotImplementedError(
-            "shapley_impl='serial' under engine='scan' is not ported yet: "
-            "its within-round truncation is a host loop; it comes with a "
-            "later slice of the PyTorch port (see ROADMAP.md)")
 
     def shapley(stacked, n_k_sel, params, x_val, y_val, walks):
         def utility_fn(p):  # U(w) = -L(w; D_val), as in the loop engine
@@ -146,7 +147,11 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
                 spec.shapley_impl, stacked, n_k_sel, params, utility_fn,
                 batched, walks, eps=spec.shapley_eps,
                 max_iters=spec.shapley_max_iters, sv_chunk=spec.sv_chunk)
-        if spec.shapley_impl == "streaming":
+        if spec.shapley_impl == "serial":
+            sv, stats = gtg_shapley_device(
+                stacked, n_k_sel, params, utility_fn, walks,
+                eps=spec.shapley_eps, max_iters=spec.shapley_max_iters)
+        elif spec.shapley_impl == "streaming":
             sv, stats = gtg_shapley_streaming(
                 stacked, n_k_sel, params, utility_fn, batched, walks,
                 eps=spec.shapley_eps, sv_chunk=spec.sv_chunk,
@@ -187,15 +192,17 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
                                   z=spec.quarantine_z)
             stacked, n_k_sv = h.stacked, h.n_k_sv
         sv = torch.zeros((m,), device=device)
-        evals, truncated, sv_s = 0, False, 0.0
+        evals, truncated, iters, sv_s = 0, False, 0, 0.0
         if capturable:
             evals = torch.zeros((), dtype=torch.int32, device=device)
             truncated = torch.zeros((), dtype=torch.bool, device=device)
+            iters = torch.zeros((), dtype=torch.int32, device=device)
         if spec.needs_sv:
             with named_stage("shapley"):
                 sv, stats, sv_s = shapley(stacked, n_k_sv, params, x_val,
                                           y_val, walks)
                 evals, truncated = stats.utility_evals, stats.truncated_round
+                iters = stats.iterations
                 if hardened:
                     # quarantined rows walked as w_prev at 2^-100: no credit
                     sv = torch.where(h.ok, sv, 0.0)
@@ -204,7 +211,7 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
             if hardened:
                 return RoundOutput(
                     masked_average(stacked, h.n_k_agg, h.ok, params), sv,
-                    evals, truncated, h.ok, h.quarantined, sv_s)
+                    evals, truncated, h.ok, h.quarantined, sv_s, iters)
             with torch.no_grad():
                 new_params = weighted_average(stacked,
                                               normalized_weights(n_k_sel))
@@ -212,7 +219,7 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
                        if capturable else 0)
         return RoundOutput(new_params, sv, evals, truncated,
                            torch.ones((m,), dtype=torch.bool, device=device),
-                           quarantined, sv_s)
+                           quarantined, sv_s, iters)
 
     return round_step
 
@@ -221,9 +228,10 @@ def round_plan(spec: RoundSpec, ccfg: ClientConfig, selectors: tuple,
                n_clients: int, m: int, params: Params,
                n_valid: np.ndarray) -> DrawPlan:
     """The draws one round of `spec` takes under the SelectorSpecs
-    `selectors`.  The serial estimator draws its walks as it goes
-    (`RunDraws.perm_batches`), so its plan has none."""
-    walked = spec.needs_sv and spec.shapley_impl != "serial"
+    `selectors`.  The serial estimator's walks are a block of
+    max_iters (M, M) batches, one a MC round."""
+    serial = spec.needs_sv and spec.shapley_impl == "serial"
+    n_perms = spec.shapley_max_iters * (m if serial else 1)
     return DrawPlan(
         selection=tuple(sorted({k for sp in selectors
                                 for k in sp.selection_draws})),
@@ -231,8 +239,8 @@ def round_plan(spec: RoundSpec, ccfg: ClientConfig, selectors: tuple,
         n_steps=ccfg.epochs * ccfg.batches_per_epoch,
         batch_size=ccfg.batch_size,
         shapes=tuple(tuple(x.shape) for x in tree_leaves(params)),
-        n_perms=spec.shapley_max_iters if walked else 0,
-        n_valid=tuple(int(n) for n in n_valid))
+        n_perms=n_perms if spec.needs_sv else 0,
+        n_valid=tuple(int(n) for n in n_valid), walk_block=serial)
 
 
 class RoundEngine:
@@ -273,14 +281,11 @@ class RoundEngine:
         idx = minibatch_rows(rd.rows, torch.as_tensor(sel,
                                                       device=nv_all.device),
                              nv_all)
-        spec, walks = self.spec, None
-        if spec.needs_sv:
-            walks = (self.draws.perm_batches(t, m)
-                     if spec.shapley_impl == "serial" else rd.walks)
         codes = (None if fault_codes is None else torch.as_tensor(
             np.asarray(fault_codes, np.int64), device=nv_all.device))
         return self._step(params, *self._operands, sel,
-                          np.asarray(epochs_k), idx, rd.noise, walks, codes)
+                          np.asarray(epochs_k), idx, rd.noise, rd.walks,
+                          codes)
 
     def upload_nbytes_per_client(self, params: Params) -> int:
         """Wire bytes of one client upload under this spec's codec."""
@@ -352,6 +357,7 @@ class SegmentOutput(NamedTuple):
     val_loss: torch.Tensor      # (K,) NaN on non-eval rounds
     granted: torch.Tensor       # (K,) int64 active (granted) cohort size
     quarantined: torch.Tensor   # (K,) int32 (zeros without faults)
+    sv_iterations: torch.Tensor  # (K,) int32 MC rounds (serial) / walks
 
 
 class ScanRunOutput(NamedTuple):
@@ -367,10 +373,11 @@ class ScanRunOutput(NamedTuple):
     granted: torch.Tensor       # (T,)
     quarantined: torch.Tensor   # (T,)
     eval_count: torch.Tensor    # () evals performed
+    sv_iterations: torch.Tensor  # (T,)
 
 
 _OUTPUTS = ("selections", "epochs", "sv", "utility_evals", "sv_truncated",
-            "granted", "quarantined")
+            "granted", "quarantined", "sv_iterations")
 
 
 def _complete_draw(need: set, m: int, draw: SelectionDraw,
@@ -435,7 +442,8 @@ def _make_scan_body(model: ClassifierModel, ccfg: ClientConfig,
             ys = {"selections": sel, "epochs": epochs_k, "sv": out.sv,
                   "utility_evals": out.utility_evals,
                   "sv_truncated": out.sv_truncated, "granted": granted,
-                  "quarantined": out.quarantined}
+                  "quarantined": out.quarantined,
+                  "sv_iterations": out.sv_iterations}
             return SegmentCarry(out.params, sstate, eval_slot), ys
 
         def evaluate(params):
@@ -533,6 +541,8 @@ class _Replica:
             "sv_truncated": torch.zeros((k,), dtype=torch.bool, device=dev),
             "granted": torch.zeros((k,), dtype=torch.int64, device=dev),
             "quarantined": torch.zeros((k,), dtype=torch.int32, device=dev),
+            "sv_iterations": torch.zeros((k,), dtype=torch.int32,
+                                         device=dev),
             "test_acc": nan(), "val_loss": nan()}
 
     # the two captured functions: all their inputs and outputs are static
@@ -603,7 +613,7 @@ class _Replica:
             _clone_tree(self.carry), *(o[k][:n].clone() for k in (
                 "selections", "epochs", "sv", "utility_evals",
                 "sv_truncated", "test_acc", "val_loss", "granted",
-                "quarantined")))
+                "quarantined", "sv_iterations")))
 
 
 class SegmentStep:
@@ -636,7 +646,11 @@ class SegmentStep:
     counts the matrix-product FLOPs of the round and of the eval in the
     eager run the step makes anyway (the warm-up on a card, the first
     round and eval on the CPU) into `flops`; with `spec.live_tap` each run
-    has a `TapRing` (`tap_rings`).
+    has a `TapRing` (`tap_rings`).  Under the serial estimator that eager
+    round is a masked unroll: on a card one MC round with its M^2
+    utilities all evaluated (the warm-up's one pass), on the CPU all
+    max_iters, so `flops` is what that unroll does, not what a replay
+    whose truncations skip work does.
 
         step.stage(carries, t0, draws_segs); step.replay(t0, n);
         step.output(n) -> [SegmentOutput, ...]
@@ -660,6 +674,9 @@ class SegmentStep:
         self.stage_events = stage_events and cuda
         self._timer = trace.StageTimer() if self.stage_events else None
         self.flops = {} if count_flops else None
+        if cuda and spec.round.needs_sv and \
+                spec.round.shapley_impl == "serial":
+            graph_flow.check_versions(self.device)
 
     @property
     def tap_rings(self) -> list:
@@ -685,15 +702,18 @@ class SegmentStep:
     def _capture(self) -> None:
         """Warm both functions up on a side stream, put the carries and
         error words back, capture each as a CUDA graph (the round as one
-        graph a stage under `stage_events`).  A capture that raises resets
-        the graphs made so far before the error goes on, so their pools are
-        released with them."""
+        graph a stage under `stage_events`).  The warm-up runs one pass of
+        a `graph_flow.while_` (the serial estimator: one MC round, its M^2
+        utilities all evaluated), enough to meet every op; the capture
+        names its memory pool, which conditional bodies allocate from.  A
+        capture that raises resets the graphs made so far before the error
+        goes on, so their pools are released with them."""
         t_start = time.perf_counter()
         fns = {"round": self._round, "eval": self._eval}
         saved = [_clone_tree(run.carry) for run in self.runs]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), graph_flow.eager_passes(1):
             for name, fn in fns.items():
                 self._counted(name, fn)
         torch.cuda.current_stream(self.device).wait_stream(side)
@@ -706,11 +726,14 @@ class SegmentStep:
                 before = dict(kernels.LAUNCHES)
                 if name == "round" and self.stage_events:
                     graphs[name] = trace.StageCapture()
-                    with torch.cuda.stream(side):
+                    with torch.cuda.stream(side), \
+                            graph_flow.capture_pool(graphs[name].pool):
                         graphs[name].run(fn)
                 else:
                     graphs[name] = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graphs[name]):
+                    pool = torch.cuda.graph_pool_handle()
+                    with graph_flow.capture_pool(pool), \
+                            torch.cuda.graph(graphs[name], pool=pool):
                         fn()
                 launches[name] = {n: kernels.LAUNCHES[n] - before[n]
                                   for n in before}
@@ -824,6 +847,7 @@ def make_run_scan(model: ClassifierModel, ccfg: ClientConfig,
                              out.selections, out.epochs, out.sv,
                              out.utility_evals, out.sv_truncated,
                              out.test_acc, out.val_loss, out.granted,
-                             out.quarantined, out.carry.eval_slot)
+                             out.quarantined, out.carry.eval_slot,
+                             out.sv_iterations)
 
     return run_scan

@@ -26,15 +26,19 @@ capture (warm-up included) is `compile_time_s`, the host's draw staging
 
 Parity: on one device the scan makes the batched engine's run bit for
 bit (same draws, same ops; a finished straggler keeps its params through a
-device select, and a truncated round computes its walk and zeroes it).
+device select, a truncated round of the streaming or dense estimator
+computes its walk and zeroes it, and the serial estimator's device form
+makes the host loop's bits).
 Faults and the quarantine screen run inside the captured round (the
 cohort's codes gathered from a device copy of the fault table by the
 round counter); the quarantined counts come back with the segment's other
 outputs.  Telemetry is built from the segments' read-back (the reference's
 stream: `compile` with the round's cost card, per-round `round_metrics` /
 `eval`, `run_end`); the live tap and the stage-timed capture are
-`telemetry.trace`'s.  Client sharding and the serial Shapley estimator
-raise `NotImplementedError`, each naming its slice.
+`telemetry.trace`'s.  The serial Shapley estimator runs in the captured
+round as conditional nodes (`engine/graph_flow.py`): a WHILE node over its
+MC rounds, an IF node a walk step, so truncated work is skipped on the
+card.  Client sharding raises `NotImplementedError`, naming its slice.
 """
 from __future__ import annotations
 
@@ -188,11 +192,17 @@ def results_from_scan(cfg, s, out: dict, *, wall_time_s: float,
         execute_time_s=max(wall_time_s - compile_time_s, 0.0),
         quarantined_total=int(out["quarantined"].sum()),
         round_time_s=tuple(round_time_s), shapley_time_s=(),
-        stage_time_s=stage_time_s, graph_launches=graph_launches)
+        stage_time_s=stage_time_s, graph_launches=graph_launches,
+        round_shapley_evals=tuple(
+            int(x) for x in (out["utility_evals"] if uses_shapley
+                             else np.zeros_like(out["utility_evals"]))),
+        round_shapley_iterations=tuple(
+            int(x) for x in (out["sv_iterations"] if uses_shapley
+                             else np.zeros_like(out["sv_iterations"]))))
 
 
 _READ = ("selections", "epochs", "sv", "utility_evals", "sv_truncated",
-         "test_acc", "val_loss", "granted", "quarantined")
+         "test_acc", "val_loss", "granted", "quarantined", "sv_iterations")
 
 
 def read_back(named: dict) -> dict:

@@ -9,10 +9,11 @@ interface, `RunDraws`:
     in one fixed order (`RoundDraws`): the selection draw (`random`'s
     cohort or the Gumbel noise of `power_of_choice` and `s_fedavg`, when
     the strategy reads one), then each cohort slot's minibatch draws and
-    noise leaves, then the (R, M) walks of streaming and dense
-    GTG-Shapley;
-  * `perm_batches(t, m)`   — a callable giving the serial estimator's next
-    (M, M) batch of walks (a host loop, drawn as it goes).
+    noise leaves, then the walks of GTG-Shapley: the (R, M) walks of the
+    streaming and dense estimators, or the serial estimator's block of
+    max_iters (M, M) batches (`core.shapley.permutation_block`), drawn
+    whole whatever the round's convergence uses, as the reference splits
+    one key a MC round.
 
 A round's draws are indexed by (round, slot), never by the client a slot
 holds, so they can be made before selection and staged on the card for a
@@ -33,7 +34,7 @@ checkpointed grid calls them.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Protocol, Sequence
+from typing import NamedTuple, Optional, Protocol, Sequence
 
 import torch
 
@@ -53,6 +54,8 @@ class DrawPlan(NamedTuple):
     shapes: tuple       # the noise leaves' shapes, in tree order
     n_perms: int        # walks of the round (0: none)
     n_valid: tuple      # (N,) valid rows per client, as host ints
+    walk_block: bool = False   # the walks are the serial estimator's
+                               # block: n_perms // m batches of (M, M)
 
 
 class RoundDraws(NamedTuple):
@@ -71,8 +74,6 @@ class RunDraws(Protocol):
     def init_params(self, model): ...
 
     def round(self, t: int, plan: DrawPlan) -> RoundDraws: ...
-
-    def perm_batches(self, t: int, m: int) -> Callable[[], torch.Tensor]: ...
 
     def state(self) -> torch.Tensor: ...
 
@@ -133,6 +134,7 @@ class TorchDraws:
                 for k, v in cpu.items()}
 
     def round(self, t, plan):
+        from repro_torch.core.shapley import permutation_block
         from repro_torch.core.shapley_batched import _draw_perms
         g, n = self.gen, plan.n_clients
         choice = gumbel = walks = None
@@ -149,14 +151,12 @@ class TorchDraws:
                                       generator=g))
             for leaves, shape in zip(noise, plan.shapes):
                 leaves.append(torch.randn(shape, generator=g))
-        if plan.n_perms:
+        if plan.walk_block:
+            walks = permutation_block(g, plan.m, plan.n_perms // plan.m)
+        elif plan.n_perms:
             walks = _draw_perms(g, plan.m, plan.n_perms)
         return RoundDraws(SelectionDraw(choice, gumbel), torch.stack(rows),
                           [torch.stack(leaves) for leaves in noise], walks)
-
-    def perm_batches(self, t, m):
-        from repro_torch.core.shapley import _permutation_batch
-        return lambda: _permutation_batch(self.gen, m).to(self.device)
 
     def state(self):
         return self.gen.get_state()

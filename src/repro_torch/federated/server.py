@@ -145,6 +145,10 @@ class FLResult(NamedTuple):
     # {...}}, each replayed once a replay; None when nothing was captured)
     stage_time_s: float = 0.0
     graph_launches: Optional[dict] = None
+    # the port's own, per round: GTG-Shapley's utility evaluations and its
+    # MC rounds (serial) or walks (streaming, dense), 0 where unvalued
+    round_shapley_evals: tuple = ()
+    round_shapley_iterations: tuple = ()
 
 
 def _not_in_slice(what: str, slice_: str) -> NotImplementedError:
@@ -161,9 +165,6 @@ def check_config(cfg: FLConfig) -> None:
     if cfg.shapley_impl not in SHAPLEY_IMPLS:
         raise ValueError(f"unknown shapley_impl {cfg.shapley_impl!r}; "
                          f"options: {SHAPLEY_IMPLS}")
-    if cfg.engine == "scan" and cfg.shapley_impl == "serial":
-        raise _not_in_slice("shapley_impl='serial' under engine='scan'",
-                            "a later scan slice")
     if cfg.faults is not None:
         if getattr(cfg.faults, "_fields", None) != FaultSpec._fields:
             raise ValueError(f"faults must be a FaultSpec, got "
@@ -390,6 +391,7 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
 
     test_acc, val_loss_hist, selections = [], [], []
     round_times, shapley_times = [], []
+    round_evals, round_iters = [], []
     total_evals = upload_bytes = download_bytes = dispatches = 0
     quarantined_total = 0
     sv_rounds = trunc_rounds = 0   # telemetry-only truncation counters
@@ -419,7 +421,7 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
 
             sel_t = torch.as_tensor(sel, device=device)
             sv_round = None
-            evals_round, trunc_round, q_round = 0, False, 0
+            evals_round, trunc_round, q_round, iters_round = 0, False, 0, 0
             if engine is not None:
                 # ---- fused round: ONE call for train+codec+SV+average -----
                 out = engine.step(params, sel, epochs_k, t, rd,
@@ -430,6 +432,7 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
                     sv_round = out.sv
                     evals_round = out.utility_evals
                     trunc_round = out.sv_truncated
+                    iters_round = out.sv_iterations
                     total_evals += evals_round
                 shapley_times.append(out.shapley_time_s)
                 if hardened:
@@ -487,20 +490,18 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
                     dispatches += 1
 
                 # ---- GTG-Shapley at the PS --------------------------------
-                # the walks are drawn before the stage's timer, as the
-                # batched engine draws them before its round step
+                # the walks were drawn with the round's other draws
                 if needs_sv:
-                    walks = (draws.perm_batches(t, cfg.m)
-                             if cfg.shapley_impl == "serial" else rd.walks)
                     with stage("shapley"):
                         sv_round, stats, sv_s = shapley_stage(
                             cfg.shapley_impl, stacked, n_k_sv, params,
-                            utility_fn, batched_utility_fn, walks,
+                            utility_fn, batched_utility_fn, rd.walks,
                             eps=cfg.shapley_eps, max_iters=max_iters,
                             sv_chunk=cfg.sv_chunk)
                     shapley_times.append(sv_s)
                     evals_round = stats.utility_evals
                     trunc_round = stats.truncated_round
+                    iters_round = stats.iterations
                     total_evals += evals_round
                     dispatches += 1
                     if h is not None:
@@ -537,6 +538,8 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
                 dispatches += 2
             synchronize(device)
             round_times.append(time.perf_counter() - t_round)
+            round_evals.append(int(evals_round))
+            round_iters.append(int(iters_round))
 
             if telemetry is not None:
                 if needs_sv:
@@ -587,6 +590,8 @@ def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
         quarantined_total=quarantined_total,
         round_time_s=tuple(round_times),
         shapley_time_s=tuple(shapley_times),
+        round_shapley_evals=tuple(round_evals),
+        round_shapley_iterations=tuple(round_iters),
     )
 
 

@@ -116,7 +116,8 @@ def _out_like(m: int, k: int) -> dict:
             "sv": z((k, m), np.float32), "utility_evals": z((k,), np.int32),
             "sv_truncated": z((k,), bool), "test_acc": z((k,), np.float32),
             "val_loss": z((k,), np.float32), "granted": z((k,), np.int64),
-            "quarantined": z((k,), np.int32)}
+            "quarantined": z((k,), np.int32),
+            "sv_iterations": z((k,), np.int32)}
 
 
 def _seg_path(checkpoint_dir: str, tag: str, seg: int) -> str:

@@ -167,6 +167,14 @@ _SIGNATURES = {
                                                             _PTR],
     "flash_attention_bwd_bf16": [_PTR] * 12 + [_I64] * 23 + [_F32, _I64,
                                                              _PTR],
+    # conditional nodes (engine/graph_flow.py): (out: runtime, driver);
+    # (device, out: stream); (flag, kind, mode, device, stream, body
+    # stream, out: body graph, handle); (handle, flag or null, device,
+    # body stream)
+    "graph_cond_versions": [_PTR],
+    "graph_cond_stream": [_I64, _PTR],
+    "graph_cond_begin": [_PTR] + [_I64] * 3 + [_PTR] * 3,
+    "graph_cond_end": [_I64, _PTR, _I64, _PTR],
 }
 
 _lib = None

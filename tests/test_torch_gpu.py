@@ -1558,7 +1558,7 @@ def test_scan_segments_on_the_card_equal_the_whole_run(cuda):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("impl", ["streaming", "batched"])
+@pytest.mark.parametrize("impl", ["streaming", "batched", "serial"])
 def test_scan_graph_holds_the_kernels_and_no_sync(cuda, impl):
     """The captured round launches each kernel of its path once; the
     replays run under set_sync_debug_mode("error"), which refuses a sync
@@ -1566,10 +1566,11 @@ def test_scan_graph_holds_the_kernels_and_no_sync(cuda, impl):
     from repro_torch.federated.server import run_federated
     res = run_federated(_scan_cfg(engine="scan", shapley_impl=impl,
                                   upload_codec="quant8_topk"), device=cuda)
-    dense = impl == "batched"
+    dense, serial = impl == "batched", impl == "serial"
+    # the serial estimator's utilities are `model.loss`: no kernel
     assert res.graph_launches["round"] == {
-        "prefix_avg": 0 if dense else 1, "ce_loss": 1, "cohort_gather": 1,
-        "delta_codec": 1, "weighted_avg": 1 if dense else 0,
+        "prefix_avg": int(impl == "streaming"), "ce_loss": int(not serial),
+        "cohort_gather": 1, "delta_codec": 1, "weighted_avg": int(dense),
         "flash_attention": 0, "flash_attention_bwd": 0}
     assert not any(res.graph_launches["eval"].values())
     assert np.isfinite(res.final_acc) and res.params["layer0"]["w"].is_cuda
@@ -1906,3 +1907,128 @@ def test_stage_events_sum_within_the_replays_time(cuda, tmp_path):
     total = sum(prof["stage_wall_s"].values())
     replays = sum(res.round_time_s)
     assert 0.0 < total <= replays * 1.01
+
+
+# ---------------------------- the serial estimator in the captured round --
+def test_graph_flow_nodes_on_the_card(cuda):
+    """A captured WHILE node holding an IF node: the loop runs the passes
+    its device flag allows (none when it is false on entry), the IF skips
+    its body where its flag is false, a body allocates from the graph's
+    pool, and that pool is released with the graph."""
+    from repro_torch.engine import graph_flow
+    x, n, hits = (torch.zeros((), device=cuda) for _ in range(3))
+    go = torch.zeros((), dtype=torch.bool, device=cuda)
+
+    def body():
+        x.add_(1.0)
+        odd = torch.remainder(x, 2.0) == 1.0
+        graph_flow.if_(odd, lambda: hits.add_(1.0), (hits,))
+        scratch = torch.ones((4096,), device=cuda) * x   # pool memory
+        x.copy_(scratch[4095])
+        go.copy_(x < n)
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_reserved(cuda)
+    graph_flow.reset_nodes()
+    g, pool = torch.cuda.CUDAGraph(), torch.cuda.graph_pool_handle()
+    with graph_flow.capture_pool(pool), torch.cuda.graph(g, pool=pool):
+        x.zero_()
+        hits.zero_()
+        go.copy_(x < n)
+        graph_flow.while_(go, body, (x, hits), max_passes=100)
+    assert graph_flow.NODES == {"while": 1, "if": 1}
+    assert graph_flow.WHILE_BODIES == [1]
+    for target, want_hits in ((5.0, 3.0), (0.0, 0.0), (8.0, 4.0)):
+        n.fill_(target)
+        g.replay()
+        torch.cuda.synchronize()
+        assert (float(x), float(hits)) == (target, want_hits)
+    torch.cuda.empty_cache()        # the live graph keeps its pool
+    n.fill_(3.0)
+    g.replay()
+    torch.cuda.synchronize()
+    assert (float(x), float(hits)) == (3.0, 2.0)
+    del g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved(cuda) <= base
+
+
+@pytest.mark.parametrize("over", [
+    {"upload_codec": "quant8_topk"},
+    {"upload_codec": "quant8_topk", "quarantine": True,
+     "faults": FaultSpec(rate=0.4, kinds=("nan", "sign_flip", "crash"))}])
+def test_serial_scan_on_the_card_matches_batched_and_the_cpu(cuda, over):
+    """The serial estimator under the captured round: one WHILE node
+    holding M^2 IF nodes; the card's scan equals its batched engine
+    (counts equal, floats within 1e-6, bitwise expected) and the CPU's
+    scan (counts equal, floats at 1e-4); with max_iters 40 the WHILE
+    stops early, on convergence."""
+    import dataclasses
+    from repro_torch.engine import graph_flow
+    from repro_torch.federated.server import run_federated
+    cfg = _scan_cfg(engine="scan", shapley_impl="serial",
+                    shapley_max_iters=40, **over)
+    graph_flow.reset_nodes()
+    scan = run_federated(cfg, device=cuda)
+    assert graph_flow.NODES["while"] == 1
+    assert graph_flow.WHILE_BODIES == [cfg.m ** 2]
+    batched = run_federated(dataclasses.replace(cfg, engine="batched"),
+                            device=cuda)
+    cpu = run_federated(cfg, device="cpu")
+    for other, atol in ((batched, 1e-6), (cpu, 1e-4)):
+        for a, b in zip(scan.selections, other.selections):
+            np.testing.assert_array_equal(a, b)
+        assert scan.upload_bytes == other.upload_bytes
+        assert scan.round_shapley_evals == other.round_shapley_evals
+        assert scan.round_shapley_iterations == \
+            other.round_shapley_iterations
+        assert scan.quarantined_total == other.quarantined_total
+        np.testing.assert_allclose(scan.sv_final, other.sv_final, atol=atol)
+        assert _max_err(scan.params, {k: {n: t.to(cuda) for n, t in
+                                          v.items()}
+                                      for k, v in other.params.items()}
+                        ) <= atol
+    iters = [n for n in scan.round_shapley_iterations if n]
+    assert iters and max(iters) < 40
+
+
+def test_captured_serial_round_at_huge_eps_evaluates_two_utilities(cuda):
+    """eps = 1e9 truncates every round between rounds: the WHILE node's
+    flag is false on entry, so a round evaluates U(w^t) and U(w^{t+1})
+    only and values no one."""
+    from repro_torch.federated.server import run_federated
+    cfg = _scan_cfg(engine="scan", shapley_impl="serial", shapley_eps=1e9)
+    res = run_federated(cfg, device=cuda)
+    assert res.round_shapley_evals == (2,) * cfg.rounds
+    assert res.round_shapley_iterations == (0,) * cfg.rounds
+    assert not res.sv_final.any()
+
+
+def test_flat_codecs_on_the_card_are_bitwise_the_cpu(cuda):
+    """The flat codec layer on five stacked full-width MLP deltas: the
+    card's rows bitwise the CPU's, and each client's tree roundtrip on the
+    card bitwise the per-leaf codec's on the CPU."""
+    from repro_torch.federated.compression import (
+        FLAT_CODECS, codec_roundtrip, flat_codec_roundtrip, flat_roundtrip,
+        flat_sizes,
+    )
+    from repro_torch.models.mlp_cnn import make_mlp
+    from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+    gen = torch.Generator().manual_seed(21)
+    ref = make_mlp(784, (200, 100), 10).init(gen, torch.device("cpu"))
+    sizes = flat_sizes(ref)
+    rows = 0.01 * torch.randn((5, sum(sizes)), generator=gen)
+    rows[:, ::11] = rows[:, 3:4]           # exact |.| ties in every leaf
+    news = [tree_unflatten(ref, [r + s.reshape(r.shape) for r, s in zip(
+        tree_leaves(ref), torch.split(row, list(sizes)))]) for row in rows]
+    on_card = (lambda tree: tree_map(lambda x: x.to(cuda), tree))
+    for codec in FLAT_CODECS:
+        want = flat_roundtrip(codec, rows, sizes)
+        got = flat_roundtrip(codec, rows.to(cuda), sizes).cpu()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        for new in news:
+            card = flat_codec_roundtrip(codec, on_card(new), on_card(ref))
+            for a, b in zip(tree_leaves(card),
+                            tree_leaves(codec_roundtrip(codec, new, ref))):
+                assert torch.equal(a.cpu(), b)

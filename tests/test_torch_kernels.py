@@ -322,7 +322,7 @@ def test_build_names_the_sources_and_hashes_them():
     srcs = [p.name for p in kernels._sources()]
     assert srcs == ["ce_loss.cu", "cohort_gather.cu", "delta_codec.cu",
                     "flash_attention.cu", "flash_attention_bwd.cu",
-                    "prefix_avg.cu", "weighted_avg.cu"]
+                    "graph_cond.cu", "prefix_avg.cu", "weighted_avg.cu"]
     assert "--use_fast_math" not in kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert len(kernels._digest()) == 16

@@ -362,6 +362,7 @@ def _raise(*args, **kwargs):
 @pytest.mark.parametrize("over", [
     {"upload_codec": "quant8_topk"}, {"selector": "power_of_choice"},
     {"selector": "greedyfed_dropout", "rounds": 5, "shapley_impl": "batched"},
+    {"upload_codec": "quant8_topk", "shapley_impl": "serial"},
     {"selector": "ucb", "straggler_frac": 0.5},
     {"upload_codec": "quant8_topk", "quarantine": True,
      "faults": FaultSpec(rate=0.4, kinds=("nan", "sign_flip", "crash"))},
@@ -439,9 +440,8 @@ def test_scan_spec_and_later_slices():
                                             live_tap=True),
                              scan_operands(cfg, s))
     assert len(step.tap_rings) == 1
-    for over in ({"shapley_impl": "serial"}, {"clients_shards": 2}):
-        with pytest.raises(NotImplementedError, match="slice"):
-            run_federated(_cfg(engine="scan", **over), device="cpu")
+    with pytest.raises(NotImplementedError, match="slice"):
+        run_federated(_cfg(engine="scan", clients_shards=2), device="cpu")
     # faults and the screen run under the scan since the faults slice
     with pytest.raises(ValueError, match="kinds"):
         run_federated(_cfg(engine="scan", faults=FaultSpec(kinds=())),

@@ -40,6 +40,17 @@ def _t(a):
     return torch.tensor(np.asarray(a))
 
 
+def jax_walk_block(key, m, max_iters):
+    """The reference serial estimator's walks as one (max_iters * M, M)
+    block: MC round tau walks `_permutation_batch` of the tau-th split of
+    its key (`gtg_shapley.mc_round`)."""
+    batches = []
+    for _ in range(max_iters):
+        key, sub = jax.random.split(key)
+        batches.append(np.asarray(jax_perm_batch(sub, m)))
+    return torch.from_numpy(np.concatenate(batches)).long()
+
+
 class JaxReplayDraws:
     """`RunDraws` that replays the reference loop engine's key tree (its
     batched and scan engines split the same keys).  A slot's minibatch
@@ -68,20 +79,17 @@ class JaxReplayDraws:
             gumbel = _t(jax.random.gumbel(sel_key, (plan.n_clients,),
                                           jnp.float32))
         slots = [_slot_draws(self.ckeys[t][i], plan) for i in range(plan.m)]
-        walks = (_t(jax_draw_perms(self.ckeys[t][-1], plan.m, plan.n_perms)
-                    ).long() if plan.n_perms else None)
+        walks = None
+        if plan.walk_block:
+            walks = jax_walk_block(self.ckeys[t][-1], plan.m,
+                                   plan.n_perms // plan.m)
+        elif plan.n_perms:
+            walks = _t(jax_draw_perms(self.ckeys[t][-1], plan.m,
+                                      plan.n_perms)).long()
         return RoundDraws(SelectionDraw(choice, gumbel),
                           torch.stack([tables for tables, _ in slots]),
                           [torch.stack(leaves) for leaves in
                            zip(*(noise for _, noise in slots))], walks)
-
-    def perm_batches(self, t, m):
-        state = {"key": self.ckeys[t][-1]}
-
-        def next_batch():
-            state["key"], sub = jax.random.split(state["key"])
-            return _t(jax_perm_batch(sub, m)).long()
-        return next_batch
 
 
 def _slot_draws(key, plan):
@@ -211,7 +219,6 @@ def test_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("over", [
     {"engine": "batched", "faults": object()},
-    {"engine": "scan", "shapley_impl": "serial"},
     {"engine": "batched", "faults": FaultSpec(kinds=("gremlin",))},
     {"faults": FaultSpec(rate=1.5)}, {"engine": "batched",
                                       "clients_shards": 2},

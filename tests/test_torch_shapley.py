@@ -13,7 +13,6 @@ import pytest
 import torch
 
 from repro.core.aggregation import tree_stack as jax_tree_stack
-from repro.core.shapley import _permutation_batch as jax_perm_batch
 from repro.core.shapley import exact_shapley as jax_exact
 from repro.core.shapley import gtg_shapley as jax_gtg
 from repro.core.shapley_batched import _draw_perms as jax_draw_perms
@@ -24,13 +23,16 @@ from repro.core.shapley_batched import (
 )
 from repro.models.mlp_cnn import make_mlp as jax_make_mlp
 from repro_torch.core.aggregation import tree_stack
-from repro_torch.core.shapley import _permutation_batch, exact_shapley, gtg_shapley
+from repro_torch.core.shapley import (
+    exact_shapley, gtg_shapley, permutation_block,
+)
 from repro_torch.core.shapley_batched import (
     _draw_perms, _walk_sv, chunk_walks_for, gtg_shapley_streaming,
     make_batched_mlp_utility,
 )
 from repro_torch.interop import params_from_numpy
 from repro_torch.models.mlp_cnn import make_mlp
+from test_torch_server import jax_walk_block
 
 
 def _t(a, dtype=None):
@@ -143,13 +145,8 @@ def test_serial_gtg_matches_reference_with_injected_walks():
     jax_args, port_args = _toy(seed=3)
     key = jax.random.key(2)
     want, wstats = jax_gtg(*jax_args, key, eps=1e-7, max_iters=40)
-    state = {"key": key}
-
-    def next_batch():      # the reference's key walk, gtg_shapley.mc_round
-        state["key"], sub = jax.random.split(state["key"])
-        return _t(jax_perm_batch(sub, 4), torch.int64)
-
-    got, stats = gtg_shapley(*port_args, next_batch, eps=1e-7, max_iters=40)
+    got, stats = gtg_shapley(*port_args, jax_walk_block(key, 4, 40),
+                             eps=1e-7, max_iters=40)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
     assert stats.iterations == int(wstats.iterations)
     assert stats.utility_evals == int(wstats.utility_evals)
@@ -172,8 +169,9 @@ def test_between_round_truncation_matches_reference():
     assert stats.utility_evals == int(wstats.utility_evals) == 2
     np.testing.assert_array_equal(sv.numpy(), np.asarray(want))
     sv_s, stats_s = gtg_shapley(stacked, n_k, w_full, util,
-                                lambda: _permutation_batch(
-                                    torch.Generator().manual_seed(0), 3))
+                                permutation_block(
+                                    torch.Generator().manual_seed(0), 3, 9),
+                                max_iters=9)
     assert stats_s.truncated_round and stats_s.utility_evals == 2
     assert float(sv_s.abs().sum()) == 0.0
 
@@ -196,7 +194,7 @@ def test_draw_perms_are_balanced_walks(m, n_perms):
     assert perms.shape == (n_perms, m) and perms.dtype == torch.int64
     for row in perms.tolist():
         assert sorted(row) == list(range(m))
-    batch = _permutation_batch(torch.Generator().manual_seed(0), m)
+    batch = permutation_block(torch.Generator().manual_seed(0), m, 1)
     assert batch[:, 0].tolist() == list(range(m))
     if n_perms % m == 0:
         counts = torch.bincount(perms[:, 0], minlength=m)
