@@ -173,7 +173,21 @@ exits non-zero without a result line:
    and evaluations a round printed; at eps 1e9 every round truncates and
    the Shapley stage's device time must be under a fifth of eps 1e-4's;
    the four flat codecs on the card bitwise the CPU's and the per-leaf
-   codecs' on five stacked MLP deltas.
+   codecs' on five stacked MLP deltas;
+22. dry-run (`repro_torch.launch`): `python -m repro_torch.launch.dryrun
+   --arch all --shape all` (every step counted on meta tensors by
+   `launch.compat.Count`: FLOPs, bytes, live-byte peak, each hand-written
+   kernel by its formula) and the TinyLlama hillclimb, in processes beside
+   this one: 40 records, `long_500k` skipped on full-attention archs, the
+   rest `ok`, each printed with its FLOPs, bytes, peak GB, `fits`, lower
+   bound and dominant term; meanwhile TinyLlama's train step (phase 15's
+   B = 4 x 2048), Danube's prefill (phase 11's 4 x 8192) and 4-layer
+   Qwen3-MoE's prefill (phase 18's 4 x 4096) run on the card under the
+   same counter: FLOPs and bytes equal to the meta count's, the peak
+   estimate within 0.85-1.15x of the measured one from an empty allocator,
+   each measured step at least its lower bound (the ratio printed), and
+   TinyLlama's FLOPs less the flash kernels' equal to phase 15's matrix
+   products.
 
 Phase 3 also holds flash_attention against its plain version at one
 layer's full prefill shape (B = 4, Hq = 32, Kh = 8, S = T = 8192, hd =
@@ -214,9 +228,15 @@ is bounded, with the f32 FMA bound of the CUDA cores printed beside it),
 with the TFLOP/s of the 14 hd flops a pair the kernel does and of the
 bound's 10 hd.
 
-Each path of phases 6-11, 13-15, 17, 18, 20 and 21 runs with the launch
-counters zeroed just before it and read just after (18 and 20 together
-are the "families" path, 21 is "scan_serial"); every kernel must launch
+Every bound printed (phase 3's, the JSON line's `bound_ms`) is the
+kernel's cost formula, `launch/roofline.py::kernel_cost`, through
+`bound_s`: the larger of its bytes over 3.35 TB/s and its operations over
+the peak of their type (67 TFLOP/s f32, 495 TF32, 989 bf16).
+
+Each path of phases 6-11, 13-15, 17, 18, 20, 21 and 22 runs with the
+launch counters zeroed just before it and read just after (18 and 20
+together are the "families" path, 21 is "scan_serial", 22 "dryrun");
+every kernel must launch
 on its path.  A captured graph's launches are counted when it is captured
 and not when it is replayed, so the scan path counts its warm-up round's
 launches plus each graph's times its replays.  The line
@@ -237,24 +257,31 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-F32_PEAK_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
-TF32_PEAK_FLOPS = 495e12    # H100 SXM TF32 tensor cores, dense
-BF16_PEAK_FLOPS = 989e12    # H100 SXM bf16 tensor cores, dense
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 
 
 def log(*parts):
     print(*parts, flush=True)
 
 
-def bound_ms(n_bytes: float, n_ops: float,
-             peak: float = F32_PEAK_FLOPS) -> tuple[float, str]:
-    """Least time for the work: the larger of bytes over HBM rate and
-    operations over the peak rate for their type (float32 outside the
-    tensor cores unless `peak` says otherwise)."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / peak * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def kernel_bound_ms(name: str, **shapes) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the least time the card takes for one
+    call of kernel `name` at `shapes`, from its cost formula
+    (`launch/roofline.py::kernel_cost`: each input read once, each output
+    written once, the operations at the peak of their type)."""
+    from repro_torch.launch.roofline import bound_s, kernel_cost
+    seconds, by = bound_s(*kernel_cost(name, **shapes))
+    return seconds * 1e3, by
+
+
+def f32_fma_bound_ms(name: str, **shapes) -> tuple[float, str]:
+    """A float32 flash call's bound were its products f32 FMA on the CUDA
+    cores (a third of its split-TF32 work, at 67 TFLOP/s)."""
+    from repro_torch.launch.roofline import (
+        F32_PEAK_FLOPS, bound_s, kernel_cost,
+    )
+    flops, n_bytes, _ = kernel_cost(name, **shapes)
+    seconds, by = bound_s(flops / 3, n_bytes, F32_PEAK_FLOPS)
+    return seconds * 1e3, by
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -354,11 +381,9 @@ def time_prefix_avg(torch, tree, perms, n_k):
     kernels.LAUNCHES["prefix_avg"] = saved     # timing launches do not count
     plain_ms = time_ms(lambda i: [prefix_avg_ref(x.reshape(m, -1), perms, n_k)
                                   for x in leaves], iters=5, warmup=1)
-    # each input read once (the stacks, the (R, M) int64 perms and the (M,)
-    # f32 n_k), each output written once; 3 flops per output element
-    n_bytes = sum(x.numel() * x.element_size() * (1 + r) for x in leaves) \
-        + perms.numel() * 8 + m * 4
-    b_ms, b_by = bound_ms(n_bytes, 3 * r * sum(x.numel() for x in leaves))
+    b_ms, b_by = kernel_bound_ms(
+        "prefix_avg", r=r, m=m, d=sum(x.numel() for x in leaves) // m,
+        itemsize=leaves[0].element_size())
     return ms, plain_ms, b_ms, b_by
 
 
@@ -564,10 +589,8 @@ def check_ce_loss(torch, device):
             copies[i % k].view(b, rows, v), labels), iters=40)
         library_ms = time_ms(lambda i: F.cross_entropy(
             copies[i % k], tiled, reduction="none"), iters=40)
-        # logits read once, labels once, one f32 loss per row written;
-        # ~4 flops per logit (max, subtract, exp, add)
-        b_ms, b_by = bound_ms(n_in + rows * 8 + b * rows * 4,
-                              4 * b * rows * v)
+        b_ms, b_by = kernel_bound_ms("ce_loss", models=b, rows=rows, v=v,
+                                     itemsize=itemsize)
         log(f"[ce_loss] rows={b * rows} V={v} {str(dtype)[6:]} "
             f"({plan.variant} variant): max abs err "
             f"{err:.2e} (rtol 1e-5 + atol {atol:.1e}; model means rtol "
@@ -734,22 +757,24 @@ def check_cohort_gather(torch, device):
         lib.cohort_gather_ids(*dargs), "cohort_gather"), iters=200)
     raise_on_error(word, n)
     kernels.LAUNCHES["cohort_gather"] = saved  # check launches do not count
-    total = {"plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
+    total = {"plain_ms": 0.0, "library_ms": 0.0, "row_bytes": 0}
     for name, flat in flats.items():
         plain_ms = time_ms(lambda _: cohort_gather_ref(flat, sel_dev),
                            iters=200)
         lib_ms = time_ms(lambda _: torch.index_select(flat, 0, sel_dev),
                          iters=200)
-        n_bytes = 2 * 5 * flat.shape[1] * flat.element_size() + 5 * 8
-        b_ms, b_by = bound_ms(n_bytes, 0)
+        row_bytes = flat.shape[1] * flat.element_size()
+        b_ms, b_by = kernel_bound_ms("cohort_gather", m=5,
+                                     row_bytes=row_bytes)
         total["plain_ms"] += plain_ms
         total["library_ms"] += lib_ms
-        total["bytes"] += n_bytes
+        total["row_bytes"] += row_bytes
         log(f"[cohort_gather] {name:12s} N={flat.shape[0]} M=5 row "
             f"{flat.shape[1] * flat.element_size()} B: plain "
             f"{plain_ms:.4f} ms, index_select {lib_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by})")
-    b_ms, b_by = bound_ms(total["bytes"], 0)
+    b_ms, b_by = kernel_bound_ms("cohort_gather", m=5,
+                                 row_bytes=total["row_bytes"])
     log(f"[cohort_gather] main-path round (4 stacks, one launch): through "
         f"the wrapper with host ids {ms:.4f} ms, the C entry alone "
         f"{c_entry_ms:.4f} ms; device ids (the scan's form): through the "
@@ -902,10 +927,7 @@ def check_delta_codec(torch, device):
     plain_ms = time_ms(lambda _: plain_round(codec), iters=10, warmup=1)
     active = occupancy(smem, dev)
     d_total = sum(b.numel() for b in refs)
-    # the stack and the server weights read once, the result written once;
-    # per element ~8 ops (subtract, abs, max, divide, round, clip, multiply,
-    # add) plus the compares of the keep set
-    b_ms, b_by = bound_ms((2 * m + 1) * d_total * 4, 8 * m * d_total)
+    b_ms, b_by = kernel_bound_ms("delta_codec", m=m, d=d_total)
     log(f"[delta_codec] main-path round (6 leaves, M={m}, D={d_total}, "
         f"quant8_topk, one launch of {n * m} clusters x {CLUSTER} blocks, "
         f"{smem} B of shared memory a block, {active} clusters resident at "
@@ -1019,23 +1041,21 @@ def check_weighted_avg(torch, device):
     c_entry_ms = time_ms(lambda _: kernels.check_launch(
         lib.weighted_avg_f32(*args), "weighted_avg"))
     del outs
-    total = {"plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0}
+    total = {"plain_ms": 0.0, "library_ms": 0.0, "d": 0}
     for name, x in zip(tree_paths(stacked), flats):
         leaf_ms = time_ms(lambda _: weighted_avg({"w": x}, weights))
         plain_ms = time_ms(lambda _: weighted_avg_ref(x, weights), iters=10)
         lib_ms = time_ms(lambda _: torch.matmul(weights, x))
-        n_bytes = (x.numel() + weights.numel() + r * m * x.shape[1]
-                   ) * x.element_size()
-        n_ops = 2 * r * m * x.numel()
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        b_ms, b_by = kernel_bound_ms("weighted_avg", r=r * m, m=m,
+                                     d=x.shape[1])
         for key, v in (("plain_ms", plain_ms), ("library_ms", lib_ms),
-                       ("bytes", n_bytes), ("ops", n_ops)):
+                       ("d", x.shape[1])):
             total[key] += v
         log(f"[weighted_avg] {name:14s} R={r * m} M={m} D={x.shape[1]:6d}: "
             f"alone in its launch {leaf_ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     kernels.LAUNCHES["weighted_avg"] = saved  # check launches do not count
-    b_ms, b_by = bound_ms(total["bytes"], total["ops"])
+    b_ms, b_by = kernel_bound_ms("weighted_avg", r=r * m, m=m, d=total["d"])
     log(f"[weighted_avg] main-path valued round (6 leaves, one launch): "
         f"through the wrapper {ms:.4f} ms, the C entry alone "
         f"{c_entry_ms:.4f} ms; plain {total['plain_ms']:.4f} ms, "
@@ -1731,6 +1751,11 @@ def phase_telemetry(torch, device, grid_ref):
             f"run also counts the round's FLOPs in its warm-up); cost card "
             f"{json.dumps(comp[0]['cost_card'])}; capture ms by mode and "
             f"turn {captures}")
+        card = comp[0]["cost_card"]
+        require(card["bytes_accessed"] > 0
+                and card["roofline"]["memory_s"] > 0
+                and card["roofline"]["dominant"] in ("compute", "memory"),
+                "telemetry: the cost card lacks its bytes term")
 
         # the host engines with a sink, against their runs without one
         scan_rounds = [e for e in streams["host"]
@@ -1812,16 +1837,6 @@ def phase_telemetry(torch, device, grid_ref):
 def _to_device(tree, device):
     from repro_torch.tree import tree_map
     return tree_map(lambda t: t.to(device), tree)
-
-
-def band_pairs(s_len: int, t_len: int, window: int) -> int:
-    """Unmasked (query, key) pairs of causal attention with query and key
-    positions from 0 and an optional window: the work the data needs."""
-    import numpy as np
-    q = np.arange(s_len, dtype=np.int64)
-    hi = np.minimum(q, t_len - 1)
-    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros_like(q)
-    return int(np.maximum(hi - lo + 1, 0).sum())
 
 
 class Bf16AttentionError:
@@ -1923,6 +1938,7 @@ def check_flash_attention(torch, device):
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import flash_attention_gqa
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.launch.roofline import band_pairs
 
     gen = torch.Generator(device=device).manual_seed(6)
     saved = kernels.LAUNCHES["flash_attention"]
@@ -1952,15 +1968,14 @@ def check_flash_attention(torch, device):
         ms = time_ms(lambda _: flash_attention_cuda(q, k, v, window=window),
                      iters=5, warmup=1)
         pairs = band_pairs(s_len, s_len, window) * b * hq
-        n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
+        shape = dict(b=b, s=s_len, t=s_len, hq=hq, kh=kh, hd=hd,
+                     itemsize=q.element_size(), window=window)
+        b_ms, b_by = kernel_bound_ms("flash_attention", **shape)
         if dtype == torch.bfloat16:
-            b_ms, b_by = bound_ms(n_bytes, 4 * hd * pairs, BF16_PEAK_FLOPS)
             b_name = ""
         else:
             # the work the f32 route does: three TF32 products a product
-            b_ms, b_by = bound_ms(n_bytes, 3 * 4 * hd * pairs,
-                                  TF32_PEAK_FLOPS)
-            fma_ms, fma_by = bound_ms(n_bytes, 4 * hd * pairs)
+            fma_ms, fma_by = f32_fma_bound_ms("flash_attention", **shape)
             b_name = (f" (split TF32: 3 products at 495 TFLOP/s; as f32 FMA "
                       f"on the CUDA cores {fma_ms:.4f} ms, {fma_by})")
         line = (f"[flash_attention] B={b} Hq={hq} Kh={kh} S=T={s_len} "
@@ -2046,9 +2061,9 @@ def check_flash_attention(torch, device):
         verdict = bf16.check(f"{label} layer")
         ms = time_ms(lambda _: flash_attention_cuda(q, k, v, window=win),
                      iters=5, warmup=1)
-        pairs = band_pairs(s_e, s_e, win) * bb * hq_e
-        n_bytes = sum(x.numel() * x.element_size() for x in (q, k, v, got))
-        b_ms, b_by = bound_ms(n_bytes, 4 * hd_e * pairs, BF16_PEAK_FLOPS)
+        b_ms, b_by = kernel_bound_ms("flash_attention", b=bb, s=s_e, t=s_e,
+                                     hq=hq_e, kh=kh_e, hd=hd_e, itemsize=2,
+                                     window=win)
         log(f"[flash_attention] {label} layer B={bb} S=T={s_e} Hq={hq_e} "
             f"Kh={kh_e} hd={hd_e} window={win} bfloat16 (the families "
             f"path's call): {verdict}; kernel {ms:.4f} ms, bound "
@@ -2263,6 +2278,7 @@ def check_flash_attention_bwd(torch, device):
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda,
     )
+    from repro_torch.launch.roofline import band_pairs
 
     # both routes run only tensor-core kernels: each of their two product
     # kernels (bf16; split-TF32 f32) holds wgmma instructions at both
@@ -2323,21 +2339,20 @@ def check_flash_attention_bwd(torch, device):
             ms = time_ms(lambda _: flash_attention_bwd_cuda(
                 q, k, v, o, do, lse, window=window), iters=3, warmup=1)
             pairs = band_pairs(s_len, s_len, window) * b * hq
-            n_bytes = (sum(x.numel() * x.element_size()
-                           for x in (q, k, v, o, do, *got))
-                       + lse.numel() * 4)
             flops = 2.5 * 4 * hd * pairs
+            shape = dict(b=b, s=s_len, t=s_len, hq=hq, kh=kh, hd=hd,
+                         itemsize=q.element_size(), window=window)
+            b_ms, b_by = kernel_bound_ms("flash_attention_bwd", **shape)
             if dtype == torch.bfloat16:
-                b_ms, b_by = bound_ms(n_bytes, flops, BF16_PEAK_FLOPS)
-                b_name = f"at {BF16_PEAK_FLOPS / 1e12:g} TFLOP/s"
+                b_name = "at 989 TFLOP/s"
             else:
                 # f32-accurate products as phase 3's forward bounds them:
                 # split TF32, three TF32 products a product
-                b_ms, b_by = bound_ms(n_bytes, 3 * flops, TF32_PEAK_FLOPS)
-                fma_ms, fma_by = bound_ms(n_bytes, flops)
-                b_name = (f"x 3 split-TF32 products at "
-                          f"{TF32_PEAK_FLOPS / 1e12:g} TFLOP/s; as f32 FMA "
-                          f"on the CUDA cores {fma_ms:.4f} ms, {fma_by}")
+                fma_ms, fma_by = f32_fma_bound_ms("flash_attention_bwd",
+                                                  **shape)
+                b_name = (f"x 3 split-TF32 products at 495 TFLOP/s; as f32 "
+                          f"FMA on the CUDA cores {fma_ms:.4f} ms, "
+                          f"{fma_by}")
             tc_rate = ("" if dtype == torch.bfloat16 else
                        f", {3 * 14 * hd * pairs / ms / 1e9:.2f} TFLOP/s of "
                        f"TF32 in its 3 split products")
@@ -2593,6 +2608,24 @@ def _train_run(torch, device, cfg, batch, steps, seed=0):
     return losses, cpu, per_step, times
 
 
+def train_step_flops(cfg, b: int, s_len: int) -> tuple[float, float]:
+    """(matrix-product FLOPs, flash kernels' FLOPs) of one remat train step
+    of a dense decoder at B x S: forward 2, backward 4 and the recompute 2
+    a weight a token for the layers' products, less the recompute of each
+    layer's last product (w_down: non-reentrant checkpointing stops the
+    recompute once the saved tensors are back), 6 for the head; attention
+    4 hd a pair forward (twice: remat) and 2.5 x that backward."""
+    from repro_torch.launch.roofline import band_pairs
+    from repro_torch.models.lm.config import _attn_params, _ffn_params
+    tokens = b * s_len
+    weights = cfg.n_layers * (_attn_params(cfg) + _ffn_params(cfg))
+    w_down = cfg.n_layers * cfg.d_ff * cfg.d_model
+    matmul = tokens * (8 * weights - 2 * w_down
+                       + 6 * cfg.vocab * cfg.d_model)
+    pairs = band_pairs(s_len, s_len, cfg.window) * b * cfg.n_heads
+    return matmul, cfg.n_layers * 4 * cfg.hd * pairs * (2 + 2.5)
+
+
 def phase_train(torch, device):
     """LM training at full width and depth: TinyLlama-1.1B (22 layers,
     d_model 2048, 32 / 4 heads of 64, d_ff 5632, vocab 32000, bf16
@@ -2603,6 +2636,7 @@ def phase_train(torch, device):
     run from the same seed bitwise equal.  Returns the first run's
     launches (its three steps)."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import BF16_PEAK_FLOPS
     from repro_torch.launch.train import synth_batch
     from repro_torch.models.lm.config import param_count
 
@@ -2616,13 +2650,7 @@ def phase_train(torch, device):
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     launches = {k: sum(d[k] for d in per_step) for k in per_step[0]}
     tokens = b * s_len
-    # matmul flops: forward 2, backward 4 and remat's recompute 2 a param a
-    # token for the layers, 6 for the head; attention 4 hd a pair forward
-    # (twice: remat) and 2.5 x that backward
-    p_layers = param_count(cfg) - 2 * cfg.vocab * cfg.d_model - cfg.d_model
-    pairs = band_pairs(s_len, s_len, cfg.window) * b * cfg.n_heads
-    flops = (tokens * (8 * p_layers + 6 * cfg.vocab * cfg.d_model)
-             + cfg.n_layers * 4 * cfg.hd * pairs * (2 + 2.5))
+    flops = sum(train_step_flops(cfg, b, s_len))
     ms = sorted(times)[len(times) // 2]
     log(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
         f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, d_ff {cfg.d_ff}, "
@@ -3154,6 +3182,171 @@ def phase_scan_serial(torch, device):
     return launches
 
 
+# phase 22's card runs: (label, arch, layers or None for full depth, the
+# phase whose shape it takes, B, S, kind)
+DRYRUN_ON_CARD = (
+    ("TinyLlama-1.1B train step", "tinyllama_1_1b", None, 15, 4, 2048,
+     "train"),
+    ("H2O-Danube-3-4B prefill", "h2o_danube_3_4b", None, 11, 4, 8192,
+     "prefill"),
+    ("Qwen3-MoE-30B-A3B prefill, 4 layers", "qwen3_moe_30b_a3b", 4, 18, 4,
+     4096, "prefill"),
+)
+PEAK_RATIO = (0.85, 1.15)   # measured peak over the meta estimate
+
+
+def _dryrun_clis(tmp: Path) -> list:
+    """Start the dry-run CLI over every arch and shape and the TinyLlama
+    hillclimb, on meta tensors (host only), as processes beside this one."""
+    import os
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    cmds = ([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "all", "--shape", "all", "--jobs", "5", "--out-dir",
+             str(tmp / "dryrun")],
+            [sys.executable, "-m", "repro_torch.launch.hillclimb",
+             "--target", "tinyllama_train", "--jobs", "2", "--out-dir",
+             str(tmp / "perf")])
+    return [subprocess.Popen(c, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True, env=env,
+                             cwd=str(ROOT)) for c in cmds]
+
+
+def phase_dryrun(torch, device, smi):
+    """The single-device dry-run (`repro_torch.launch.dryrun`, on meta
+    tensors: every step counted, nothing computed or allocated) over the
+    10 configs x 4 shapes and the TinyLlama hillclimb, in processes beside
+    this one: every record `ok`, `long_500k` on a full-attention arch
+    `skipped`.  Meanwhile three steps run on the card under the same
+    `launch.compat.Count` as their meta count (`DRYRUN_ON_CARD`, from an
+    empty allocator): the meta count's FLOPs and bytes must equal the card
+    run's exactly, its peak estimate must lie within 0.85-1.15x of
+    `max_memory_allocated`, and each measured step time (the best of two
+    after the counted run, CUDA-synchronised host clock) must be at least
+    the dry-run's lower bound (the assembled roofline's and the full
+    count's).  The TinyLlama step's counted FLOPs less the flash kernels'
+    formula FLOPs must equal phase 15's matrix-product count.  Returns the
+    card runs' kernel launches."""
+    import dataclasses
+    import gc
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.compat import Count
+    from repro_torch.launch.dryrun import build_step, count_step
+    from repro_torch.launch.roofline import (
+        HBM_BYTES_PER_S, assembled_roofline, roofline_report,
+    )
+    from repro_torch.launch.shapes import SHAPES, InputShape, shape_applicable
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        procs = _dryrun_clis(tmp)
+        try:
+            kernels.reset_launches()
+            for label, arch, layers, phase, b, s_len, kind in DRYRUN_ON_CARD:
+                cfg = get_config(arch)
+                if layers:
+                    cfg = dataclasses.replace(cfg, n_layers=layers)
+                shape = InputShape(f"phase{phase}", s_len, b, kind)
+                meta = count_step(cfg, shape, "meta")
+                report = roofline_report(cfg, shape, {
+                    "assembled": assembled_roofline(cfg, shape)})
+                bound = max(report["step_time_lower_bound_s"],
+                            meta["compute_s"],
+                            meta["bytes_accessed"] / HBM_BYTES_PER_S)
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.synchronize(device)
+                base = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
+                fn, args = build_step(cfg, shape, device)
+                with Count() as card:
+                    card.track(args)
+                    out = fn(*args)
+                torch.cuda.synchronize(device)
+                peak = torch.cuda.max_memory_allocated(device) - base
+                del out
+                times = []
+                for _ in range(2):
+                    torch.cuda.synchronize(device)
+                    t0 = time.perf_counter()
+                    out = fn(*args)
+                    torch.cuda.synchronize(device)
+                    times.append(time.perf_counter() - t0)
+                    del out
+                del fn, args
+                step_s = min(times)
+                ratio = peak / meta["peak_bytes"]
+                same = (meta["flops"] == card.flops
+                        and meta["bytes_accessed"] == card.bytes
+                        and meta["kernels"] == card.summary()["kernels"])
+                log(f"[dryrun] {label} (phase {phase}'s B={b} S={s_len}; "
+                    f"{smi}): meta FLOPs {meta['flops']:.6e}, card "
+                    f"{card.flops:.6e}; bytes {meta['bytes_accessed']:.6e} "
+                    f"/ {card.bytes:.6e}; equal: {same}; kernels "
+                    f"{ {k: v['calls'] for k, v in meta['kernels'].items()} }"
+                    f"; peak estimate {meta['peak_bytes'] / 1e9:.4f} GB "
+                    f"(arguments {meta['argument_bytes'] / 1e9:.4f}), "
+                    f"measured {peak / 1e9:.4f} GB above {base / 1e9:.4f}: "
+                    f"ratio {ratio:.4f}; step {step_s * 1e3:.3f} ms "
+                    f"(runs {[round(t * 1e3, 3) for t in times]}), bound "
+                    f"{bound * 1e3:.3f} ms (assembled "
+                    f"{report['step_time_lower_bound_s'] * 1e3:.3f}, "
+                    f"{report['dominant']}; full count compute "
+                    f"{meta['compute_s'] * 1e3:.3f}, memory "
+                    f"{meta['bytes_accessed'] / HBM_BYTES_PER_S * 1e3:.3f})"
+                    f", measured / bound {step_s / bound:.4f}; meta count "
+                    f"{meta['count_s']:.2f} s")
+                require(same, f"dryrun {label}: the meta count differs from "
+                        f"the card's")
+                require(PEAK_RATIO[0] <= ratio <= PEAK_RATIO[1],
+                        f"dryrun {label}: measured peak / estimate {ratio}")
+                require(step_s >= bound, f"dryrun {label}: a step of "
+                        f"{step_s} s under its bound {bound} s is impossible")
+                if kind == "train":
+                    matmul, flash = train_step_flops(cfg, b, s_len)
+                    kf = sum(v["flops"] for v in meta["kernels"].values())
+                    log(f"[dryrun] {label}: counted FLOPs less the flash "
+                        f"kernels' {kf:.6e} = {meta['flops'] - kf:.6e}; "
+                        f"phase 15's matrix products {matmul:.6e}, its "
+                        f"flash {flash:.6e}")
+                    require(meta["flops"] - kf == matmul and kf == flash,
+                            f"dryrun {label}: the count is not phase 15's")
+                torch.cuda.empty_cache()
+            launches = dict(kernels.LAUNCHES)
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for p, text in zip(procs, outs):
+            for line in text.splitlines():
+                log(f"[dryrun] {line}")
+            require(p.returncode == 0, f"dryrun: {p.args[2]} exited "
+                    f"{p.returncode}")
+        recs = {f.stem: json.loads(f.read_text())
+                for f in (tmp / "dryrun").glob("*.json")}
+        perf = list((tmp / "perf").glob("*.json"))
+    require(len(recs) == len(ARCH_IDS) * len(SHAPES),
+            f"dryrun: {len(recs)} records")
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for name, shape in SHAPES.items():
+            rec = recs[f"{cfg.name}__{name}__h100"]
+            want = "ok" if shape_applicable(cfg, shape)[0] else "skipped"
+            require(rec["status"] == want, f"dryrun {rec['tag']}: "
+                    f"{rec['status']}, expected {want}")
+    n_ok = sum(r["status"] == "ok" for r in recs.values())
+    require(len(perf) == 7, f"hillclimb: {len(perf)} records")
+    log(f"[dryrun] {len(recs)} records ({n_ok} ok, {len(recs) - n_ok} "
+        f"skipped), 7 hillclimb records; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3197,6 +3390,7 @@ def main() -> int:
     t_new = time.perf_counter()
     paths["scan_serial"] = phase_scan_serial(torch, device)
     log(f"[scan-serial] phase 21: {time.perf_counter() - t_new:.1f} s")
+    paths["dryrun"] = phase_dryrun(torch, device, smi)
     for e in entries:
         by_path = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())

@@ -11,7 +11,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """`None` means the CUDA card; a CUDA device without a card raises.
 
     The port never drops to the CPU by itself: a caller that wants the CPU
-    (the tests do) asks for it.  Also turns TF32 off for matmuls and cuDNN
+    (the tests do) asks for it.  `meta` is accepted too: tensors with a
+    shape and a dtype and no data, on which a dry run counts a step
+    (`launch/dryrun.py`) without computing or allocating it.  Also turns TF32 off for matmuls and cuDNN
     convolutions, since the reference computes in full float32 and cuDNN
     convolutions default to TF32.
     """
@@ -19,8 +21,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' "
                            "to run the port on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; options: 'cuda', 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; options: 'cuda', "
+                         f"'cpu', 'meta'")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev

@@ -67,8 +67,9 @@ from repro_torch.federated.draws import (
 )
 from repro_torch.kernels.cohort_gather.kernel import error_word
 from repro_torch.kernels.delta_codec import delta_codec_roundtrip
+from repro_torch.launch.compat import Count
 from repro_torch.models.mlp_cnn import ClassifierModel
-from repro_torch.telemetry import profile, trace
+from repro_torch.telemetry import trace
 from repro_torch.telemetry.trace import named_stage
 from repro_torch.tree import tree_leaves
 
@@ -642,22 +643,23 @@ class SegmentStep:
     `stage_events=True` captures the round as one graph a named stage
     (`telemetry.trace.StageCapture`) and replays each piece between CUDA
     timing events, so `stage_seconds()` gives each stage's device time
-    over the replays (on the CPU it is the plain path); `count_flops=True`
-    counts the matrix-product FLOPs of the round and of the eval in the
-    eager run the step makes anyway (the warm-up on a card, the first
-    round and eval on the CPU) into `flops`; with `spec.live_tap` each run
-    has a `TapRing` (`tap_rings`).  Under the serial estimator that eager
-    round is a masked unroll: on a card one MC round with its M^2
-    utilities all evaluated (the warm-up's one pass), on the CPU all
-    max_iters, so `flops` is what that unroll does, not what a replay
-    whose truncations skip work does.
+    over the replays (on the CPU it is the plain path); `count_costs=True`
+    counts the round and the eval (`launch.compat.Count`: FLOPs, bytes,
+    the hand-written kernels by their formulas) in the eager run the step
+    makes anyway (the warm-up on a card, the first round and eval on the
+    CPU) into `costs`; with `spec.live_tap` each run has a `TapRing`
+    (`tap_rings`).  Under the serial estimator that eager round is a
+    masked unroll: on a card one MC round with its M^2 utilities all
+    evaluated (the warm-up's one pass), on the CPU all max_iters, so
+    `costs` is what that unroll does, not what a replay whose truncations
+    skip work does.
 
         step.stage(carries, t0, draws_segs); step.replay(t0, n);
         step.output(n) -> [SegmentOutput, ...]
     """
 
     def __init__(self, model, ccfg, spec: ScanSpec, ops_list: list, *,
-                 stage_events: bool = False, count_flops: bool = False):
+                 stage_events: bool = False, count_costs: bool = False):
         self.runs = [_Replica(model, ccfg, spec, ops) for ops in ops_list]
         self.spec, self.k = spec, self.runs[0].k
         self.device = self.runs[0].device
@@ -673,7 +675,7 @@ class SegmentStep:
         cuda = self.device.type == "cuda"
         self.stage_events = stage_events and cuda
         self._timer = trace.StageTimer() if self.stage_events else None
-        self.flops = {} if count_flops else None
+        self.costs = {} if count_costs else None
         if cuda and spec.round.needs_sv and \
                 spec.round.shapley_impl == "serial":
             graph_flow.check_versions(self.device)
@@ -691,13 +693,13 @@ class SegmentStep:
             run.eval()
 
     def _counted(self, name: str, fn) -> None:
-        """Run `fn`, under the FLOP counter when `name` is still to count."""
-        if self.flops is None or name in self.flops:
+        """Run `fn`, under the cost counter when `name` is still to count."""
+        if self.costs is None or name in self.costs:
             fn()
             return
-        with profile.FlopCount() as fc:
+        with Count() as c:
             fn()
-        self.flops[name] = float(fc.get_total_flops())
+        self.costs[name] = c
 
     def _capture(self) -> None:
         """Warm both functions up on a side stream, put the carries and

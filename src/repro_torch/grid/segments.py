@@ -246,7 +246,7 @@ def run_segments(model, ccfg, spec: ScanSpec, batch: ReplicaBatch, *,
         model, ccfg, spec._replace(rounds_per_segment=k), list(batch.ops),
         stage_events=bool(telemetry is not None
                           and getattr(telemetry, "trace_dir", None)),
-        count_flops=want_card and card is None)
+        count_costs=want_card and card is None)
     draws = [s.draws for s in batch.setups]
     n_rep, m, n_clients = len(batch.ops), spec.selectors[0].m, \
         spec.selectors[0].n_clients
@@ -355,13 +355,13 @@ def run_segments(model, ccfg, spec: ScanSpec, batch: ReplicaBatch, *,
                     peak_bytes = (torch.cuda.max_memory_allocated(step.device)
                                   - mem_base)
                 card = card if card is not None else profile.cached_card(
-                    card_key, lambda: profile.card(
-                        step.flops.get("round"),
+                    card_key, lambda: profile.card_of(
+                        step.costs["round"],
                         kernel_launches=(dict(step.graph_launches["round"])
                                          if step.graphs is not None
                                          else None),
                         peak_bytes=peak_bytes) | {
-                            "eval_flops": step.flops.get("eval")})
+                            "eval_flops": step.costs["eval"].flops})
                 if tel is not None:
                     tel.emit("compile", seconds=ctimer.seconds,
                              program=f"segment_step:{tag or 'solo'}",

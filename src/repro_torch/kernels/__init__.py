@@ -2,8 +2,16 @@
 
 Routing: an ops wrapper sends a CUDA tensor to its hand-written Hopper
 kernel (`kernel.py`, CUDA C++ under `csrc/`) and a CPU tensor to its plain
-PyTorch version (`ref.py`).  There is no third path: a failed build or
-launch raises, and no wrapper falls back to the plain version on the card.
+PyTorch version (`ref.py`).  A `meta` tensor takes the kernel's route too,
+up to the launch: the wrapper returns empty `meta` outputs of the kernel's
+shapes and computes nothing (a dry run counts the step, `launch/dryrun.py`).
+There is no other path: a failed build or launch raises, and no wrapper
+falls back to the plain version on the card.
+
+Cost counting: each wrapper runs under `counted(name, **shapes)`, which
+adds the kernel's formula (`launch/roofline.py::kernel_cost`) to the
+innermost active `launch.compat.Count` and mutes the aten ops the wrapper
+runs, on every route; with no Count active it does nothing.
 
 Launch counters: `LAUNCHES[name]` is a plain int that a kernel's launcher
 bumps once per launch, and nothing else touches, so a run can show that
@@ -18,6 +26,7 @@ so an edited source never loads a stale build.
 from __future__ import annotations
 
 import array
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -48,6 +57,25 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# the active `launch.compat.Count` modes, innermost last
+COUNTERS: list = []
+
+
+@contextlib.contextmanager
+def counted(name: str, **shapes):
+    """Count one call of kernel `name` by its formula in the innermost
+    active Count, its wrapper's aten ops muted; a no-op when none is
+    active, and inside another kernel's muted wrapper."""
+    if not COUNTERS or COUNTERS[-1].muted:
+        yield
+        return
+    from repro_torch.launch.roofline import kernel_cost
+    count = COUNTERS[-1]
+    count.kernel(name, *kernel_cost(name, **shapes))
+    with count.mute():
+        yield
+
+
 def pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
     """Zero-pad the last axis of a (M, D) matrix view up to a multiple of
     `mult` (the reference's helper; the CUDA kernels mask ragged edges
@@ -57,9 +85,10 @@ def pad_to(x: torch.Tensor, mult: int) -> torch.Tensor:
 
 
 def use_kernel(x: torch.Tensor) -> bool:
-    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (run the plain version); any other device raises."""
-    if x.device.type == "cuda":
+    """True for a CUDA tensor (launch the kernel) and a meta tensor (the
+    kernel's shapes, nothing launched), False for a CPU tensor (run the
+    plain version); any other device raises."""
+    if x.device.type in ("cuda", "meta"):
         return True
     if x.device.type == "cpu":
         return False

@@ -6,7 +6,8 @@ and gathers the M rows `ids`; `cohort_take(arr, ids)` is its one-leaf
 form.  The CUDA leaves of one device go to the CUDA kernel together, in
 one launch whatever their widths (the reference's D < 2048 cut-over to its
 ref exists only for its 2048-lane tile); a CPU leaf goes to the plain
-version.  On the card, host ids (a list, a numpy array or a CPU tensor)
+version; a meta leaf gets an empty output.  On the card, host ids (a list,
+a numpy array or a CPU tensor)
 are checked on the host and passed to the kernel by value; CUDA ids go to
 the device-id entry, which reads them from the card and writes an id out
 of range into the int64 word `error` (`kernel.error_word`; the caller
@@ -17,11 +18,12 @@ mesh axis) comes with the client-sharding slice of the port.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
 
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import counted, use_kernel
 from repro_torch.kernels.cohort_gather.kernel import cohort_gather_cuda
 from repro_torch.kernels.cohort_gather.ref import cohort_gather_ref
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -38,19 +40,28 @@ def cohort_gather(tree: Tree, ids, *, axis_name: Optional[str] = None,
             "gather comes with the client-sharding slice of the PyTorch port "
             "(see ROADMAP.md)")
     leaves = tree_leaves(tree)
-    outs: list = [None] * len(leaves)
-    groups: dict = {}
-    for i, leaf in enumerate(leaves):
-        if use_kernel(leaf):
-            groups.setdefault(leaf.device, []).append(i)
-        else:
-            flat = cohort_gather_ref(leaf.reshape(leaf.shape[0], -1),
-                                     torch.as_tensor(ids).to(leaf.device))
-            outs[i] = flat.reshape((flat.shape[0],) + leaf.shape[1:])
-    for idx in groups.values():
-        for i, out in zip(idx, cohort_gather_cuda(
-                [leaves[i].contiguous() for i in idx], ids, error)):
-            outs[i] = out
+    device_ids = isinstance(ids, torch.Tensor) and ids.device.type != "cpu"
+    with counted("cohort_gather", m=len(ids), device_ids=device_ids,
+                 row_bytes=sum(math.prod(x.shape[1:]) * x.element_size()
+                               for x in leaves)):
+        outs: list = [None] * len(leaves)
+        groups: dict = {}
+        for i, leaf in enumerate(leaves):
+            if use_kernel(leaf):
+                groups.setdefault(leaf.device, []).append(i)
+            else:
+                flat = cohort_gather_ref(leaf.reshape(leaf.shape[0], -1),
+                                         torch.as_tensor(ids).to(leaf.device))
+                outs[i] = flat.reshape((flat.shape[0],) + leaf.shape[1:])
+        for device, idx in groups.items():
+            if device.type == "meta":
+                for i in idx:
+                    outs[i] = leaves[i].new_empty((len(ids),)
+                                                  + leaves[i].shape[1:])
+                continue
+            for i, out in zip(idx, cohort_gather_cuda(
+                    [leaves[i].contiguous() for i in idx], ids, error)):
+                outs[i] = out
     return tree_unflatten(tree, outs)
 
 

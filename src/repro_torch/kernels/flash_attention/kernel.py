@@ -34,6 +34,10 @@ before the products that read them (`ref.py::attention_bwd_bf16_ref` is
 that arithmetic); float32 takes each of the five products as three TF32
 products of split operands, as the forward's float32 route does, with P
 and dS in float32 (`ref.py::attention_bwd_split_tf32`).
+
+Meta tensors take both launchers up to the launch: the same checks, the
+outputs (the lse included) allocated on `meta`, nothing launched or
+counted in `LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -100,9 +104,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if t_len < 1:
         raise ValueError("flash_attention needs at least one key")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda or t.device != q.device:
+        if t.device.type not in ("cuda", "meta") or t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, not on {q.device} "
-                             f"(a CUDA device)")
+                             f"(a CUDA or meta device)")
         if t.dtype != q.dtype:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
         if t.stride(-1) != 1:
@@ -138,7 +142,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, s_len, hq, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, hq, s_len), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    if out.numel() == 0:
+    if out.numel() == 0 or q.is_meta:
         return (out, lse) if with_lse else out
     if hq > 65535 or b > 65535:
         raise ValueError(f"flash_attention takes at most 65535 heads and "
@@ -184,12 +188,12 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"{q.device}, got {lse.dtype} {tuple(lse.shape)}")
     q_pos = _positions(q_pos, q)
     lse = lse.contiguous()
-    q, k, v, o, do = (t if t.stride(-1) == 1 and tma_ready(t) else tma_copy(t)
-                      for t in (q, k, v, o, do))
     dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                   for t in (q, k, v))
-    if q.numel() == 0:
+    if q.numel() == 0 or q.is_meta:
         return dq, dk, dv
+    q, k, v, o, do = (t if t.stride(-1) == 1 and tma_ready(t) else tma_copy(t)
+                      for t in (q, k, v, o, do))
     n_qt = -(-s_len // 64)
     # (L log2 e, D) of each row, S padded to 64, and the 64-row tiles'
     # position bounds

@@ -20,6 +20,12 @@ tensor the forward kernel (with its lse output) and the backward kernel
 with P and dS rounded to bf16, float32 as split-TF32 products with
 float32 P and dS), on a CPU tensor `attention_ref` and
 `attention_bwd_ref`.  Otherwise the forward call above runs unchanged.
+
+A meta tensor takes the kernels' route (`kernel.py`: empty outputs, the
+lse included, nothing launched).  Each call runs under `kernels.counted`
+with the kernel's shapes, whatever its route; the count takes the query
+positions 0 .. S-1 (the model's; `q_pos` lives on the device and is not
+read back).
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import counted, use_kernel
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_cuda, flash_attention_cuda,
 )
@@ -36,14 +42,27 @@ from repro_torch.kernels.flash_attention.ref import (
 )
 
 
+def _cost(q, k, causal, window, **extra) -> dict:
+    """`kernels.counted`'s shapes of a call on (B, S, Hq, hd) q and
+    (B, T, Kh, hd) k, or (BH, S, hd) q and k."""
+    if q.dim() == 3:
+        (b, s_len, hd), hq, kh = q.shape, 1, 1
+    else:
+        (b, s_len, hq, hd), kh = q.shape, k.shape[2]
+    return dict(b=b, s=s_len, t=k.shape[1], hq=hq, kh=kh, hd=hd,
+                itemsize=q.element_size(), causal=causal, window=window,
+                **extra)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (BH, S, hd); k/v (BH, T, hd) -> (BH, S, hd)."""
-    if use_kernel(q):
-        return flash_attention_cuda(q[:, :, None], k[:, :, None],
-                                    v[:, :, None], causal=causal,
-                                    window=window)[:, :, 0]
-    return attention_ref(q, k, v, causal=causal, window=window)
+    with counted("flash_attention", **_cost(q, k, causal, window)):
+        if use_kernel(q):
+            return flash_attention_cuda(q[:, :, None], k[:, :, None],
+                                        v[:, :, None], causal=causal,
+                                        window=window)[:, :, 0]
+        return attention_ref(q, k, v, causal=causal, window=window)
 
 
 def _heads(x: torch.Tensor) -> torch.Tensor:
@@ -58,16 +77,19 @@ def _unheads(x: torch.Tensor, b: int) -> torch.Tensor:
 
 def _forward_ref(q, k, v, q_pos, causal, window, with_lse=False):
     """The plain forward on (B, S, Hq, hd) / (B, T, Kh, hd), KV repeated
-    per group as the reference does; (o, lse (B, Hq, S)) with `with_lse`."""
+    per group as the reference does; (o, lse (B, Hq, S)) with `with_lse`.
+    Contiguous, as the kernel writes them (so what follows runs the same
+    ops on either route)."""
     g = q.shape[2] // k.shape[2]
     out = attention_ref(_heads(q), torch.repeat_interleave(_heads(k), g, 0),
                         torch.repeat_interleave(_heads(v), g, 0),
                         causal=causal, window=window, q_pos=q_pos,
                         with_lse=with_lse)
     if not with_lse:
-        return _unheads(out, q.shape[0])
+        return _unheads(out, q.shape[0]).contiguous()
     o, lse = out
-    return _unheads(o, q.shape[0]), lse.unflatten(0, (q.shape[0], -1))
+    return (_unheads(o, q.shape[0]).contiguous(),
+            lse.unflatten(0, (q.shape[0], -1)).contiguous())
 
 
 def attention_bwd_gqa_ref(q, k, v, o, do, lse, *, q_pos=None, causal=True,
@@ -95,12 +117,14 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, causal, window):
-        if use_kernel(q):
-            o, lse = flash_attention_cuda(q, k, v, q_pos, causal=causal,
-                                          window=window, with_lse=True)
-        else:
-            o, lse = _forward_ref(q, k, v, q_pos, causal, window,
-                                  with_lse=True)
+        with counted("flash_attention", **_cost(q, k, causal, window,
+                                                lse=True)):
+            if use_kernel(q):
+                o, lse = flash_attention_cuda(q, k, v, q_pos, causal=causal,
+                                              window=window, with_lse=True)
+            else:
+                o, lse = _forward_ref(q, k, v, q_pos, causal, window,
+                                      with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.q_pos, ctx.causal, ctx.window = q_pos, causal, window
         return o
@@ -110,8 +134,12 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         fn = (flash_attention_bwd_cuda if use_kernel(q)
               else attention_bwd_gqa_ref)
-        dq, dk, dv = fn(q, k, v, o, do, lse, q_pos=ctx.q_pos,
-                        causal=ctx.causal, window=ctx.window)
+        with counted("flash_attention_bwd", **_cost(q, k, ctx.causal,
+                                                    ctx.window)):
+            # contiguous on both routes, as the kernel writes them
+            dq, dk, dv = (g.contiguous() for g in fn(
+                q, k, v, o, do, lse, q_pos=ctx.q_pos, causal=ctx.causal,
+                window=ctx.window))
         return dq, dk, dv, None, None, None
 
 
@@ -126,7 +154,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, q_pos, causal, window)
-    if use_kernel(q):
-        return flash_attention_cuda(q, k, v, q_pos, causal=causal,
-                                    window=window)
-    return _forward_ref(q, k, v, q_pos, causal, window)
+    with counted("flash_attention", **_cost(q, k, causal, window)):
+        if use_kernel(q):
+            return flash_attention_cuda(q, k, v, q_pos, causal=causal,
+                                        window=window)
+        return _forward_ref(q, k, v, q_pos, causal, window)

@@ -4,7 +4,9 @@ Counterpart of `repro/models/lm/attention.py`.  Shapes: q (B, S, Hq, hd)
 with Hq = Kh * G (GQA group G); k/v (B, T, Kh, hd).  q is regrouped to
 (B, S, Kh, G, hd) so the contractions never repeat KV heads.
 
-The flash branch routes by device.  A CUDA tensor goes to the hand-written
+The flash branch routes by device.  A CUDA tensor (and a `meta` tensor,
+which a dry run counts: the kernels' shapes, nothing computed) goes to the
+hand-written
 `flash_attention` kernel (`kernels/flash_attention`), which skips the key
 tiles outside each query tile's causal / sliding-window band; under grad
 it runs through `FlashAttentionFn`, whose backward is the hand-written
@@ -110,7 +112,7 @@ def flash_attention(q, k, v, *, q_pos, causal=True, window=0, kv_chunk=512,
 
     Assumes T % kv_chunk == 0, as the reference does: keys past the last
     whole block are dropped on both routes, as the reference's scan drops
-    them.  On a CUDA tensor the kernels run (their own 64-key tiles; the
+    them.  On a CUDA or meta tensor the kernels' route runs (their own 64-key tiles; the
     backward recomputes P from the forward's log-sum-exp, so `remat`, the
     reference's per-block checkpoint, changes nothing there); on a CPU
     tensor the plain blocked loop, with `remat` checkpointing each block.

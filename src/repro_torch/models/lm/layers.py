@@ -18,7 +18,10 @@ import torch.nn.functional as F
 def _init(gen: torch.Generator, shape, scale: float,
           device=None) -> torch.Tensor:
     """Float32 normals times `scale`, drawn on `gen`'s device, then moved to
-    `device` (drawn in place, so a large leaf costs one buffer)."""
+    `device` (drawn in place, so a large leaf costs one buffer).  On
+    `meta` nothing is drawn: the leaf's shape and dtype only."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     x = torch.empty(shape, dtype=torch.float32, device=gen.device)
     x.normal_(generator=gen).mul_(scale)
     return x if device is None else x.to(device)

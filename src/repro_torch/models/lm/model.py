@@ -53,7 +53,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lm.attention import attention, dense_attention
 from repro_torch.models.lm.config import ArchConfig
 from repro_torch.models.lm.layers import (
-    apply_norm, apply_rope, cross_entropy_tokens, dense_init, embed_apply,
+    _init, apply_norm, apply_rope, cross_entropy_tokens, dense_init,
+    embed_apply,
     embed_init, ffn_apply, ffn_init, head_apply, head_init, norm_init,
 )
 from repro_torch.models.lm.moe import moe_apply, moe_init
@@ -83,14 +84,12 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
 # ======================================================== attention =========
 def attn_init(gen, cfg: ArchConfig, device=None, lead=()):
     d, hq, kh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    wo = torch.empty((*lead, hq, hd, d), dtype=torch.float32,
-                     device=gen.device)
-    wo.normal_(generator=gen).mul_((1.0 / (hq * hd)) ** 0.5)
+    wo = _init(gen, (*lead, hq, hd, d), (1.0 / (hq * hd)) ** 0.5, device)
     return {
         "wq": dense_init(gen, d, (hq, hd), device, lead),
         "wk": dense_init(gen, d, (kh, hd), device, lead),
         "wv": dense_init(gen, d, (kh, hd), device, lead),
-        "wo": wo if device is None else wo.to(device),
+        "wo": wo,
     }
 
 
@@ -288,7 +287,8 @@ def _sinusoid(n: int, d: int, dtype, device=None) -> torch.Tensor:
 def init_params(cfg: ArchConfig, gen: torch.Generator,
                 device=None) -> Params:
     """Random params in the reference's tree, drawn from `gen` on its own
-    device and stored on `device` (default: the CUDA card).  A generator
+    device and stored on `device` (default: the CUDA card; on `meta`
+    nothing is drawn or allocated, the tree's shapes and dtypes only).  A generator
     on the card draws a full-width model in well under a second; a CPU
     generator takes tens of seconds for billions of normals.  The numbers
     differ from the reference's threefry draws: carry weights across with

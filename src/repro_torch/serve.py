@@ -23,6 +23,7 @@ import torch
 from repro_torch.core.aggregation import tree_stack
 from repro_torch.core.shapley import exact_shapley
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.launch.compat import Count
 from repro_torch.models.lm import model as M
 from repro_torch.models.lm.config import ArchConfig
 from repro_torch.telemetry import profile
@@ -91,10 +92,10 @@ def serve_requests(cfg: ArchConfig, params, tokens: torch.Tensor,
             with stage("eval"):
                 if tel is not None and i == 0:
                     # the decode step's cost card, counted as it runs
-                    with profile.FlopCount() as fc:
+                    with Count() as c:
                         cache, logits = M.decode_step(cfg, params, cache,
                                                       {"token": tok})
-                    card = profile.card(float(fc.get_total_flops()))
+                    card = profile.card_of(c)
                 else:
                     cache, logits = M.decode_step(cfg, params, cache,
                                                   {"token": tok})

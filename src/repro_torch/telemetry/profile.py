@@ -2,17 +2,20 @@
 (counterpart of `repro/telemetry/profile.py`).
 
   * `cost_card(fn, *args)`: one eager run of `fn` under
-    `torch.utils.flop_counter`'s formulas gives `flops`, the matrix-product
-    FLOPs of the run (matmuls, convolutions, attention; the hand-written
-    kernels and elementwise work are not counted).  `card(...)` assembles a card from counts an engine
-    measured itself: the scan counts its round body's FLOPs in the eager
-    run it makes anyway (the capture's warm-up on a card, the first round
-    on the CPU), its `kernel_launches` are the launches its captured round
-    holds, and `peak_bytes` is `torch.cuda.max_memory_allocated` above the
-    set-up (None on the CPU).  `roofline.compute_s` is `flops` at the
-    H100's float32 CUDA-core peak (the port turns TF32 off).  XLA's
-    `bytes_accessed` has no torch counterpart: it is left out, not
-    estimated, and the roofline block names the term it lacks.
+    `launch.compat.Count` gives `flops` (the matrix products by
+    `torch.utils.flop_counter`'s formulas, and each hand-written kernel by
+    its formula, `launch.roofline.kernel_cost`, whichever route ran;
+    elementwise work has no FLOPs) and `bytes_accessed` (each op's tensor
+    inputs and outputs, each kernel's formula bytes).  `card_of(count)`
+    assembles a card from a Count an engine ran itself: the scan counts its
+    round body in the eager run it makes anyway (the capture's warm-up on a
+    card, the first round on the CPU), its `kernel_launches` are the
+    launches its captured round holds, and `peak_bytes` is
+    `torch.cuda.max_memory_allocated` above the set-up (None on the CPU).
+    The roofline block is the reference's `cost_card_of_compiled`'s at the
+    H100's rates (`launch/roofline.py`): `compute_s` sums each op's FLOPs
+    over its dtype's peak (float32 on the CUDA cores: the port turns TF32
+    off), `memory_s` is `bytes_accessed` over the HBM rate.
     `cached_cost_card` memoises by (fn, arg shapes and dtypes), so a warm
     step pays nothing.
 
@@ -24,9 +27,6 @@
     from the `repro.<stage>` spans of the exported trace
     (`source="trace"`), else from the host SpanRecorder (`source="host"`).
     A window opened while the profiler already runs degrades to host spans.
-
-The H100 SXM rates below are `chip_smoke.py`'s; they live here until the
-port has its `launch/roofline.py`.
 """
 from __future__ import annotations
 
@@ -38,40 +38,10 @@ import os
 from typing import Any, Iterator, Optional
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch.launch.compat import Count
+from repro_torch.launch.roofline import F32_PEAK_FLOPS, HBM_BYTES_PER_S
 from repro_torch.telemetry.trace import SPAN_PREFIX, record_spans
-
-F32_PEAK_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores
-TF32_PEAK_FLOPS = 495e12    # H100 SXM TF32 tensor cores, dense
-BF16_PEAK_FLOPS = 989e12    # H100 SXM bf16 tensor cores, dense
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-
-
-class FlopCount(TorchDispatchMode):
-    """`with FlopCount() as fc: ...; fc.get_total_flops()`: the
-    matrix-product FLOPs (matmuls, convolutions, attention) of the
-    enclosed ops, by `torch.utils.flop_counter`'s formulas, each op run as
-    it is.  FlopCounterMode itself first tries to decompose an op it has
-    no formula for, which costs seconds on a full round and runs other
-    kernels than the plain run."""
-
-    def __init__(self) -> None:
-        super().__init__()
-        self.total = 0
-
-    def get_total_flops(self) -> int:
-        return self.total
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.utils.flop_counter import flop_registry
-        kwargs = kwargs or {}
-        out = func(*args, **kwargs)
-        formula = flop_registry.get(func._overloadpacket)
-        if formula is not None:
-            self.total += formula(*args, **kwargs, out_val=out)
-        return out
-
 
 _MODE_READY = False
 
@@ -82,31 +52,48 @@ def prepare_counting() -> None:
     the card's host), on a CPU scalar and outside any timed window."""
     global _MODE_READY
     if not _MODE_READY:
-        with FlopCount():
+        with Count():
             torch.zeros(()) + 1
         _MODE_READY = True
 
 
-def card(flops: Optional[float], *, kernel_launches: Optional[dict] = None,
+def card(flops: Optional[float], *, bytes_accessed: Optional[float] = None,
+         compute_s: Optional[float] = None,
+         kernel_launches: Optional[dict] = None,
          peak_bytes: Optional[int] = None) -> dict:
-    """A cost card from measured counts."""
-    out: dict = {"flops": flops, "kernel_launches": kernel_launches,
+    """A cost card from measured counts, with the reference's roofline
+    block: compute and memory seconds at the card's rates (`compute_s`
+    defaults to `flops` at the float32 peak), the dominant term, the
+    arithmetic intensity and the ridge, the intensity at which the two
+    terms meet (at the FLOPs' own mix of peaks)."""
+    out: dict = {"flops": flops, "bytes_accessed": bytes_accessed,
+                 "kernel_launches": kernel_launches,
                  "peak_bytes": peak_bytes}
-    if flops is not None:
+    if flops is not None and bytes_accessed:
+        out["intensity_flops_per_byte"] = flops / bytes_accessed
+    if flops is not None or bytes_accessed is not None:
+        if compute_s is None:
+            compute_s = (flops or 0.0) / F32_PEAK_FLOPS
+        memory_s = (bytes_accessed or 0.0) / HBM_BYTES_PER_S
+        peak = flops / compute_s if flops and compute_s else F32_PEAK_FLOPS
         out["roofline"] = {
-            "compute_s": flops / F32_PEAK_FLOPS,
-            "peak_flops": F32_PEAK_FLOPS,
-            "hbm_bytes_per_s": HBM_BYTES_PER_S,
-            "memory_s": None,
-            "dominant": None,
-            "lacks": "bytes_accessed",
+            "compute_s": compute_s,
+            "memory_s": memory_s,
+            "dominant": "compute" if compute_s >= memory_s else "memory",
+            "ridge_intensity_flops_per_byte": peak / HBM_BYTES_PER_S,
         }
     return out
 
 
+def card_of(count: Count, **kw) -> dict:
+    """`card` of a finished `launch.compat.Count`."""
+    return card(float(count.flops), bytes_accessed=float(count.bytes),
+                compute_s=count.compute_s, **kw)
+
+
 def cost_card(fn, *args, **kwargs) -> dict:
-    """Run `fn(*args, **kwargs)` once, eagerly, under the FLOP counter;
-    the card of that run (peak bytes above the start on a card)."""
+    """Run `fn(*args, **kwargs)` once, eagerly, under `Count`; the card of
+    that run (peak bytes above the start on a card)."""
     cuda = torch.cuda.is_available() and any(
         isinstance(a, torch.Tensor) and a.is_cuda
         for a in _leaves((args, kwargs)))
@@ -114,13 +101,13 @@ def cost_card(fn, *args, **kwargs) -> dict:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-    with FlopCount() as fc:
+    with Count() as c:
         fn(*args, **kwargs)
     peak = None
     if cuda:
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-    return card(float(fc.get_total_flops()), peak_bytes=peak)
+    return card_of(c, peak_bytes=peak)
 
 
 def _leaves(x):

@@ -2032,3 +2032,116 @@ def test_flat_codecs_on_the_card_are_bitwise_the_cpu(cuda):
             for a, b in zip(tree_leaves(card),
                             tree_leaves(codec_roundtrip(codec, new, ref))):
                 assert torch.equal(a.cpu(), b)
+
+
+# ------------------------------------------- the dry-run's counts, on card --
+
+def _phase3_calls():
+    """(name, the wrapper's inputs on a device, a call of the wrapper):
+    phase 3's main-path shapes (five full-width MLPs, R = 250 walks; 1250
+    prefix models x 500 rows x 10 classes; the four (N = 50) client
+    stacks; the Danube prefill layer in bf16 and f32; the TinyLlama
+    training layer's backward, both dtypes)."""
+    def mlp(dev):
+        g = torch.Generator().manual_seed(0)
+        shapes = {"l0": {"w": (784, 200), "b": (200,)},
+                  "l1": {"w": (200, 100), "b": (100,)},
+                  "l2": {"w": (100, 10), "b": (10,)}}
+        return {k: {n: torch.randn((5, *s), generator=g).to(dev)
+                    for n, s in v.items()} for k, v in shapes.items()}
+
+    def perms(dev):
+        g = torch.Generator().manual_seed(1)
+        return torch.stack([torch.randperm(5, generator=g)
+                            for _ in range(250)]).to(dev)
+
+    def stacks(dev):
+        g = torch.Generator().manual_seed(2)
+        return {"xs": torch.randn((50, 158, 784), generator=g).to(dev),
+                "ys": torch.randint(0, 10, (50, 158), generator=g).to(dev),
+                "n_valid": torch.full((50,), 158).to(dev),
+                "sigma": torch.rand(50, generator=g).to(dev)}
+
+    def attn(dev, dtype, b, s_len, hq, kh, hd, grad=False):
+        g = torch.Generator().manual_seed(3)
+        return [torch.randn(sh, generator=g).to(dev, dtype).requires_grad_(
+            grad) for sh in ((b, s_len, hq, hd), (b, s_len, kh, hd),
+                             (b, s_len, kh, hd))]
+
+    def backward(q, k, v):
+        from repro_torch.kernels.flash_attention import flash_attention_gqa
+        flash_attention_gqa(q, k, v).sum().backward()
+
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    return [
+        ("prefix_avg", lambda d: (mlp(d), perms(d), torch.full(
+            (5,), 100.0, device=d)), prefix_avg),
+        ("ce_loss", lambda d: (torch.randn((1250, 500, 10)).to(d),
+                               torch.arange(500, device=d) % 10), ce_loss),
+        ("cohort_gather", lambda d: (stacks(d), np.array([7, 31, 2, 49, 18])),
+         cohort_gather),
+        ("delta_codec", lambda d: (mlp(d), {k: {n: t[0] for n, t in v.items()}
+                                            for k, v in mlp(d).items()},
+                                   "quant8_topk"), delta_codec_roundtrip),
+        ("weighted_avg", lambda d: (mlp(d), torch.rand((1250, 5)).to(d)),
+         weighted_avg),
+        ("flash_attention", lambda d: attn(d, torch.bfloat16, 4, 8192, 32, 8,
+                                           120),
+         lambda q, k, v: flash_attention_gqa(q, k, v, window=4096)),
+        ("flash_attention", lambda d: attn(d, torch.float32, 4, 8192, 32, 8,
+                                           120),
+         lambda q, k, v: flash_attention_gqa(q, k, v, window=4096)),
+        ("flash_attention_bwd", lambda d: attn(d, torch.bfloat16, 4, 2048,
+                                               32, 4, 64, grad=True),
+         backward),
+        ("flash_attention_bwd", lambda d: attn(d, torch.float32, 4, 2048, 32,
+                                               4, 64, grad=True), backward),
+    ]
+
+
+@pytest.mark.parametrize("case", range(9), ids=[
+    "prefix_avg", "ce_loss", "cohort_gather", "delta_codec", "weighted_avg",
+    "flash_bf16", "flash_f32", "flash_bwd_bf16", "flash_bwd_f32"])
+def test_wrapper_meta_count_equals_its_card_count(cuda, case):
+    """Each wrapper at phase 3's shapes, counted by `launch.compat.Count`
+    on meta and on the card: the same FLOPs, bytes and kernel terms, the
+    kernel launched on the card (and not on meta)."""
+    from repro_torch.launch.compat import Count
+    name, make, call = _phase3_calls()[case]
+    counts = {}
+    for dev in ("meta", "cuda"):
+        args = make(dev)
+        before = kernels.LAUNCHES[name]
+        with Count() as c:
+            call(*args)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[name] == before + (dev == "cuda")
+        counts[dev] = c
+        del args
+    assert counts["meta"].by_kernel[name]["calls"] == 1
+    assert counts["meta"].flops == counts["cuda"].flops
+    assert counts["meta"].bytes == counts["cuda"].bytes
+    assert counts["meta"].by_kernel == counts["cuda"].by_kernel
+
+
+def test_reduced_train_step_meta_count_equals_its_card_count(cuda):
+    """TinyLlama's head structure at 2 layers and d_model 256, bf16, remat,
+    B = 2 x S = 2048 (the flash kernels, forward and backward): the meta
+    count equals the card's, FLOPs, bytes, kernels and live-byte peak."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.shapes import InputShape
+    cfg = dataclasses.replace(get_config("tinyllama_1_1b").reduced(
+        n_layers=2), dtype="bfloat16", remat=True)
+    shape = InputShape("reduced", 2048, 2, "train")
+    before = dict(kernels.LAUNCHES)
+    meta = count_step(cfg, shape, "meta")
+    card = count_step(cfg, shape, cuda)
+    assert kernels.LAUNCHES["flash_attention"] == \
+        before["flash_attention"] + 4
+    assert kernels.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 2
+    for key in ("flops", "bytes_accessed", "compute_s", "argument_bytes",
+                "peak_bytes", "kernels"):
+        assert meta[key] == card[key], key

@@ -11,6 +11,8 @@ same left-to-right walk; a 4-position walk on unit-scale inputs differs by
 a few ulp), bf16 at one bf16 ulp of the output scale (8e-3); ce_loss at
 1e-5 relative (logsumexp's exp/log differ across libraries).
 """
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -299,9 +301,12 @@ def test_ce_loss_launch_plan(rows, v, variant, blocks):
 
 # ------------------------------------------------------- routing, build ----
 def test_routing_and_counters():
+    """CPU tensors take the plain version, meta tensors the kernel's route
+    (shapes only, for a dry run's count), any other device raises."""
     assert kernels.use_kernel(torch.zeros(1)) is False
+    assert kernels.use_kernel(torch.zeros(1, device="meta")) is True
     with pytest.raises(ValueError):
-        kernels.use_kernel(torch.zeros(1, device="meta"))
+        kernels.use_kernel(types.SimpleNamespace(device=torch.device("xla")))
     kernels.LAUNCHES["prefix_avg"] += 3
     kernels.reset_launches()
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": 0,

@@ -527,11 +527,17 @@ def test_cost_card_counts_the_rounds_matrix_products():
     clients, E * B steps of a 16-row batch: forward, weight gradients and
     the hidden layer's input gradient) plus the GTG-Shapley utilities
     (R * M prefix models and the two end points, each on the validation
-    rows); the eval's are the test and validation forwards."""
+    rows) plus the hand-written kernels by their formulas: prefix_avg's 3
+    FLOPs an output of the R * M prefix models, ce_loss's 4 a logit of
+    their validation rows; the eval's are the test and validation
+    forwards.  The bytes term is the reference's: `memory_s` is
+    `bytes_accessed` over the H100's 3.35 TB/s."""
     per_row = 2 * (784 * 16 + 16 * 10)
     m, steps, batch, walks = SLICE["m"], 4, 16, SLICE["shapley_max_iters"]
     train = m * steps * (2 * batch * per_row + 2 * batch * 16 * 10)
     utility = (walks * m + 2) * SLICE["n_val"] * per_row
+    d = 784 * 16 + 16 + 16 * 10 + 10
+    kernels = 3 * walks * m * d + 4 * walks * m * SLICE["n_val"] * 10
     evals = (SLICE["n_test"] + SLICE["n_val"]) * per_row
     before = len(profile._CARD_CACHE)
     cards = []
@@ -542,10 +548,17 @@ def test_cost_card_counts_the_rounds_matrix_products():
         (comp,) = [e for e in tel.events if e["event"] == "compile"]
         cards.append(comp["cost_card"])
     card = cards[0]
-    assert card["flops"] == train + utility and card["eval_flops"] == evals
+    assert card["flops"] == train + utility + kernels
+    assert card["eval_flops"] == evals
     assert card["peak_bytes"] is None and card["kernel_launches"] is None
     assert card["roofline"]["compute_s"] == card["flops"] / 67e12
-    assert card["roofline"]["lacks"] == "bytes_accessed"
+    assert card["bytes_accessed"] > 0 and "lacks" not in card["roofline"]
+    assert card["roofline"]["memory_s"] == card["bytes_accessed"] / 3.35e12
+    assert card["roofline"]["dominant"] == "memory"
+    assert card["intensity_flops_per_byte"] == \
+        card["flops"] / card["bytes_accessed"]
+    assert card["roofline"]["ridge_intensity_flops_per_byte"] == \
+        67e12 / 3.35e12
     assert cards[1] == card and len(profile._CARD_CACHE) <= before + 1
 
     calls = []
