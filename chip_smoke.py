@@ -187,7 +187,25 @@ exits non-zero without a result line:
    estimate within 0.85-1.15x of the measured one from an empty allocator,
    each measured step at least its lower bound (the ratio printed), and
    TinyLlama's FLOPs less the flash kernels' equal to phase 15's matrix
-   products.
+   products;
+23. client-sharded scan: a one-rank NCCL world (NCCL refuses two ranks on
+   one card) and its (1, 1) run mesh; `run_federated(cfg, mesh=mesh)` at
+   phase 8's config under power_of_choice goes through
+   `grid.shard.sharded_segment_step`: the round, captured thread-local,
+   holds the selector state's all_gather and the cohort's all_reduce
+   (NCCL) and the sharded cohort_gather entry, and must equal the dense
+   scan bit for bit; the collectives counted; the replay ms a round,
+   sharded and dense in turns, the graph's launches and the NCCL kernels
+   of a profiled run printed, held to no bound.
+
+Phase 3 also holds cohort_gather's sharded entry (one rank's client
+block, the rows it holds packed with zeros for the rest) against its plain
+version at the main path's six stacks split into W = 1, 2, 4 and 8
+blocks, each bitwise, and the W blocks' int32 words summed on the card
+equal to the dense kernel's rows; and relaunches the f32 flash backward
+100 times at the shape of ROADMAP Queue 3's open fault (B 1, S = T =
+1300, 25 / 5 heads, hd 64, window 1024), each launch against one plain
+result, printing how many passed.
 
 Phase 3 also holds flash_attention against its plain version at one
 layer's full prefill shape (B = 4, Hq = 32, Kh = 8, S = T = 8192, hd =
@@ -233,9 +251,10 @@ kernel's cost formula, `launch/roofline.py::kernel_cost`, through
 `bound_s`: the larger of its bytes over 3.35 TB/s and its operations over
 the peak of their type (67 TFLOP/s f32, 495 TF32, 989 bf16).
 
-Each path of phases 6-11, 13-15, 17, 18, 20, 21 and 22 runs with the
+Each path of phases 6-11, 13-15, 17, 18, 20, 21, 22 and 23 runs with the
 launch counters zeroed just before it and read just after (18 and 20
-together are the "families" path, 21 is "scan_serial", 22 "dryrun");
+together are the "families" path, 21 is "scan_serial", 22 "dryrun", 23
+"client_sharded");
 every kernel must launch
 on its path.  A captured graph's launches are counted when it is captured
 and not when it is replayed, so the scan path counts its warm-up round's
@@ -791,6 +810,118 @@ def check_cohort_gather(torch, device):
             "library_ms": total["library_ms"], "c_entry_ms": c_entry_ms,
             "cuda_ids_ms": cuda_ids_ms, "device_ids_ms": device_ids_ms,
             "device_ids_c_entry_ms": device_c_entry_ms}
+
+
+def check_cohort_gather_shard(torch, device):
+    """The sharded entry (`cohort_gather_shard`: one rank's block of the
+    client stacks, the M global ids on the card, the block's rows packed
+    with zeros for the other ids) against its plain version at the main
+    path's stacks (N = 50, the MNIST MLP's xs, ys, n_valid and sigma and
+    one round's epoch and fault-code rows, as the client-sharded round
+    gathers them), split into W = 1, 2, 4 and 8 blocks: each block bitwise
+    its plain version, and the W blocks' int32 words summed on the card
+    (the all_reduce's arithmetic) equal to the dense kernel's rows in the
+    packed layout; an id of N sets the error word.  Timed at W = 1 (every
+    id a hit: the card's path, phase 23) through the launcher with the
+    caller's error word (`ms`), the C entry alone and the plain version;
+    the W = 8 block's time is printed beside.  No one PyTorch call
+    computes it (`library_ms` null)."""
+    from repro_torch import kernels
+    from repro_torch.engine.scan_engine import scan_operands
+    from repro_torch.federated.server import FLConfig, setup_run
+    from repro_torch.grid.shard import client_block, clients_padded
+    from repro_torch.kernels.cohort_gather import cohort_gather
+    from repro_torch.kernels.cohort_gather.kernel import (
+        cohort_gather_shard_cuda, error_word, raise_on_error, shard_c_args,
+        shard_layout,
+    )
+    from repro_torch.kernels.cohort_gather.ref import cohort_gather_shard_ref
+
+    cfg = FLConfig(engine="scan")
+    s = setup_run(cfg, device=device)
+    ops = scan_operands(cfg, s)
+    stacks = {"xs": ops.xs_all, "ys": ops.ys_all, "nv": ops.nv_all,
+              "sigma": ops.sigma_all, "epochs": ops.epochs_table[0],
+              "codes": ops.fault_table[0]}
+    n, m = ops.nv_all.shape[0], 5
+    sel = torch.tensor([7, 31, 2, 49, 18], device=device)
+    saved = kernels.LAUNCHES["cohort_gather_shard"]
+    leaves = list(stacks.values())
+    row_bytes = [x[0].numel() * x.element_size() for x in leaves]
+    offsets, total = shard_layout(row_bytes, m)
+    dense = cohort_gather(stacks, sel)
+    packed = torch.zeros((total,), dtype=torch.uint8, device=device)
+    for x, off, rb in zip((dense[k] for k in stacks), offsets, row_bytes):
+        packed[off:off + m * rb] = x.contiguous().reshape(-1).view(
+            torch.uint8)
+    times = {}
+    for w in (1, 2, 4, 8):
+        n_pad = clients_padded(n, w)
+        padded = [torch.cat([x, x.new_zeros((n_pad - n,) + x.shape[1:])])
+                  for x in leaves]
+        summed = torch.zeros((total // 4,), dtype=torch.int32, device=device)
+        for b in range(w):
+            lo, hi = client_block(n, w, b)
+            block = [x[lo:hi].contiguous() for x in padded]
+            word = error_word(device)
+            got = cohort_gather_shard_cuda(block, sel, lo, n, word)
+            want = cohort_gather_shard_ref(block, sel, lo, n)
+            require(torch.equal(got, want),
+                    f"cohort_gather_shard W={w} block {b}: not bitwise its "
+                    f"plain version")
+            raise_on_error(word, n)
+            summed += got
+            if b == 0 and w in (1, 8):
+                times[w] = time_ms(lambda _: cohort_gather_shard_cuda(
+                    block, sel, lo, n, word), iters=200)
+                hits = int(((sel >= lo) & (sel < hi)).sum())
+                times[f"bound{w}"] = kernel_bound_ms(
+                    "cohort_gather_shard", m=m, row_bytes=sum(row_bytes),
+                    hits=hits)
+                if w == 1:
+                    plain_ms = time_ms(lambda _: cohort_gather_shard_ref(
+                        block, sel, lo, n), iters=50)
+                    work = [(t, got.view(torch.uint8)[off:off + m * rb])
+                            for t, off, rb in zip(block, offsets,
+                                                  row_bytes)]
+                    args = shard_c_args(work, sel, lo, n, word)
+                    lib = kernels.library()
+                    c_entry_ms = time_ms(lambda _: kernels.check_launch(
+                        lib.cohort_gather_shard(*args),
+                        "cohort_gather_shard"), iters=200)
+        require(torch.equal(summed.view(torch.uint8), packed),
+                f"cohort_gather_shard: the W={w} blocks' words summed are "
+                f"not the dense gather")
+        log(f"[cohort_gather_shard] W={w} blocks of {n_pad // w} rows "
+            f"(N={n}, N_pad={n_pad}): each bitwise its plain version; the "
+            f"{w} outputs' int32 words summed on the card equal the dense "
+            f"kernel's rows in the packed layout ({total} bytes)")
+    bad = sel.clone()
+    bad[2] = n
+    word = error_word(device)
+    cohort_gather_shard_cuda([x.contiguous() for x in leaves], bad, 0, n,
+                             word)
+    require(int(word.item()) == n, f"error word {int(word.item())}, not {n}")
+    kernels.LAUNCHES["cohort_gather_shard"] = saved  # checks do not count
+    b_ms, b_by = times["bound1"]
+    # the W = 8 sum's xs rows against the dense kernel's, as floats
+    xs = dense["xs"].reshape(-1)
+    worst = float((summed.view(torch.float32)[:xs.numel()].double()
+                   - xs.double()).abs().max())
+    log(f"[cohort_gather_shard] main-path round (6 leaves, {sum(row_bytes)} "
+        f"B a row, M={m}): W=1 through the launcher {times[1]:.4f} ms, the "
+        f"C entry alone {c_entry_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); a W=8 block ({times['bound8'][0]:.4f} ms "
+        f"bound, its hits read) {times[8]:.4f} ms; an id of N={n} set the "
+        f"error word")
+    return {"name": "cohort_gather_shard", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/cohort_gather.cu",
+            "replaces": "src/repro/kernels/cohort_gather/ops.py:39 "
+                        "(_cross_shard_take, a masked take and a psum a "
+                        "leaf; the TPU kernel is kernel.py:37)",
+            "max_abs_err": worst, "ms": times[1], "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "c_entry_ms": c_entry_ms, "w8_block_ms": times[8]}
 
 
 def check_delta_codec(torch, device):
@@ -1623,7 +1754,7 @@ def phase_grid(torch, device):
     path = {k: 0 for k in launches}
     for p in parts:
         n = len(p.cell_indices)
-        want = {"cohort_gather": n,
+        want = {"cohort_gather": n, "cohort_gather_shard": 0,
                 "prefix_avg": n if p.needs_sv else 0,
                 "ce_loss": n if p.needs_sv else 0,
                 "delta_codec": n if p.upload_codec != "identity" else 0,
@@ -2444,6 +2575,73 @@ def check_flash_attention_bwd(torch, device):
     return entry
 
 
+BWD_REPRO = dict(b=1, s=1300, t=1300, hq=25, kh=5, hd=64, window=1024)
+
+
+def check_bwd_repro(torch, device, launches: int = 100):
+    """ROADMAP Queue 3's open fault, one reproduction attempt a chip run:
+    the f32 backward at the shape of `tests/test_torch_gpu.py`'s
+    `test_flash_attention_bwd_kernel_matches_plain[1-1300-1300-25-5-64-
+    True-1024-0-dtype0]` (B 1, S = T = 1300, 25 / 5 heads, hd 64, causal,
+    window 1024; the test's inputs, seed 2664), relaunched `launches`
+    times in this process, each output held against one plain result
+    (`attention_bwd_gqa_ref` on the CPU, as the test computes it) at the
+    test's limit, |err| <= 2e-5 max |grad| a tensor.  Prints how many
+    launches passed; the assertion names the first bad (b, s, h, d) of the
+    first failing launch."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import attention_bwd_gqa_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda,
+    )
+    c = BWD_REPRO
+    gen = torch.Generator().manual_seed(c["s"] + c["t"] + c["hd"])
+    q, k, v = [torch.randn(shape, generator=gen).to(device, torch.float32)
+               for shape in ((c["b"], c["s"], c["hq"], c["hd"]),
+                             (c["b"], c["t"], c["kh"], c["hd"]),
+                             (c["b"], c["t"], c["kh"], c["hd"]))]
+    saved = dict(kernels.LAUNCHES)
+    pos = torch.arange(c["s"], device=device)
+    o, lse = flash_attention_cuda(q, k, v, pos, causal=True,
+                                  window=c["window"], with_lse=True)
+    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(
+        c["s"] + c["t"] + c["hd"] + 1)).to(device, torch.float32)
+    t0 = time.perf_counter()
+    want = attention_bwd_gqa_ref(*(x.cpu() for x in (q, k, v, o, do, lse)),
+                                 q_pos=pos.cpu(), causal=True,
+                                 window=c["window"])
+    plain_s = time.perf_counter() - t0
+    want = [w.to(device) for w in want]
+    limits = [2e-5 * float(w.abs().max()) for w in want]
+    passed, first_bad, worst = 0, None, 0.0
+    for i in range(launches):
+        got = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, causal=True,
+                                       window=c["window"])
+        ok = True
+        for name, g, w, lim in zip(("dq", "dk", "dv"), got, want, limits):
+            err = (g - w).abs()
+            worst = max(worst, float(err.nan_to_num(nan=math.inf).max())
+                        / lim)
+            bad = ~(err <= lim)                 # a NaN is over its limit
+            if bool(bad.any()):
+                ok = False
+                if first_bad is None:
+                    first_bad = (i, name, int(bad.sum()),
+                                 float(err.nan_to_num(nan=math.inf).max()),
+                                 lim, bad.nonzero()[:8].tolist())
+        passed += ok
+    kernels.LAUNCHES.update(saved)          # checks do not count
+    log(f"[flash_attention_bwd] Queue 3 reproduction (f32, B 1, S = T = "
+        f"1300, 25 / 5 heads, hd 64, causal, window 1024): {passed} of "
+        f"{launches} launches within 2e-5 max |grad| of one plain result "
+        f"(CPU, {plain_s:.1f} s); worst error over its limit {worst:.3f}")
+    require(passed == launches,
+            f"flash_attention_bwd Queue 3 fault reproduced: {passed} of "
+            f"{launches} launches passed; first bad (launch, tensor, count, "
+            f"max err, limit, first (b, s, h, d)) {first_bad}")
+    return passed
+
+
 def phase_serve(torch, device):
     """`serve_requests` on full-width, full-depth H2O-Danube-3-4B: B = 4
     prompts of 8192 tokens, 32 greedy steps, exact Shapley over the 4
@@ -3195,6 +3393,94 @@ DRYRUN_ON_CARD = (
 PEAK_RATIO = (0.85, 1.15)   # measured peak over the meta estimate
 
 
+def phase_client_sharded(torch, device):
+    """Client-axis sharding on the card: a one-rank NCCL world (two ranks
+    on one card are refused by NCCL), the (1, 1) run mesh
+    (`launch.mesh.client_mesh`), and `run_federated(cfg, mesh=mesh)` at
+    phase 8's config under power_of_choice (N = 50, M = 5, quant8_topk, 12
+    rounds): the round goes through `grid.shard.sharded_segment_step`,
+    holds the selector-state all_gather and the cohort all_reduce (NCCL,
+    captured thread-local) and the sharded cohort_gather entry, and must
+    equal the dense scan of the same config bit for bit (selections, bytes,
+    eval history, SVs, counts, params).  Collectives counted: the warm-up
+    round's two, the capture's two (replayed each round), the final
+    state's gather.  Printed and held to no bound: the replay ms a round,
+    sharded and dense in turns (dense, sharded, sharded, dense); the graph's
+    kernel launches a replay; the NCCL kernels a profiled sharded run
+    launched."""
+    import os
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.federated.server import FLConfig, run_federated
+    from repro_torch.launch import mesh as run_mesh
+
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.set_device(device.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        mesh = run_mesh.client_mesh(1, 1)
+        cfg = FLConfig(rounds=12, upload_codec="quant8_topk", engine="scan",
+                       selector="power_of_choice")
+        dense, _ = _scan_run(torch, device, cfg)
+        run_mesh.reset_collectives()
+        sharded, launches = _scan_run(torch, device, cfg, mesh=mesh)
+        collectives = dict(run_mesh.COLLECTIVES)
+        same = _bitwise(torch, sharded, dense) and np.array_equal(
+            sharded.selection_counts, dense.selection_counts)
+        g = sharded.graph_launches
+        log(f"[client-sharded] NCCL world of 1 rank, mesh "
+            f"{tuple(mesh.shape)} {mesh.mesh_dim_names}, "
+            f"NCCL_SOCKET_IFNAME={os.environ['NCCL_SOCKET_IFNAME']}; "
+            f"power_of_choice, quant8_topk, 12 rounds: bitwise the dense "
+            f"scan {same}; selections "
+            f"{[x.tolist() for x in sharded.selections[:3]]}...; final acc "
+            f"{sharded.final_acc:.4f}; collectives {collectives} (warm-up "
+            f"1 + 1, captured 1 + 1 replayed each round, the final state's "
+            f"gather 1)")
+        log(f"[client-sharded] graph launches a replay {g}; path launches "
+            f"{launches}")
+        require(same, "the client-sharded scan differs from the dense scan")
+        require(collectives == {"all_gather": 3, "all_reduce": 2},
+                f"client-sharded collectives {collectives}")
+        require(g["round"]["cohort_gather_shard"] == 1
+                and g["round"]["cohort_gather"] == 0,
+                f"the sharded round's graph holds {g['round']}")
+        expect_launches("client-sharded path", launches, {
+            "cohort_gather_shard": cfg.rounds + 1, "cohort_gather": 0,
+            "delta_codec": cfg.rounds + 1, "prefix_avg": 0, "ce_loss": 0,
+            "weighted_avg": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0})
+        turns = {"dense": [], "sharded": []}
+        for label in ("dense", "sharded", "sharded", "dense"):
+            res = run_federated(cfg, device=device,
+                                mesh=mesh if label == "sharded" else None)
+            turns[label].append(1e3 * sum(res.round_time_s) / cfg.rounds)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run_federated(cfg, device=device, mesh=mesh)
+            torch.cuda.synchronize(device)
+        nccl = {e.key: e.count for e in prof.key_averages()
+                if "nccl" in e.key.lower()}
+        kernels_seen = sum(e.count for e in prof.key_averages()
+                           if str(e.device_type).endswith("CUDA"))
+        log(f"[client-sharded] replay ms a round in turns (dense, sharded, "
+            f"sharded, dense): dense {turns['dense']}, sharded "
+            f"{turns['sharded']} (sharded / dense "
+            f"{sum(turns['sharded']) / sum(turns['dense']):.3f})")
+        log(f"[client-sharded] a profiled sharded run (warm-up, capture, 12 "
+            f"replays, the final gather): {kernels_seen} device events, NCCL "
+            f"kernels {nccl or 'none seen'}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
 def _dryrun_clis(tmp: Path) -> list:
     """Start the dry-run CLI over every arch and shape and the TinyLlama
     hillclimb, on meta tensors (host only), as processes beside this one."""
@@ -3359,10 +3645,12 @@ def main() -> int:
     entries = [check_prefix_avg(torch, device),
                check_ce_loss(torch, device),
                check_cohort_gather(torch, device),
+               check_cohort_gather_shard(torch, device),
                check_delta_codec(torch, device),
                check_weighted_avg(torch, device),
                check_flash_attention(torch, device),
                check_flash_attention_bwd(torch, device)]
+    check_bwd_repro(torch, device)
     phase_full_width_shapley(torch, device)
     phase_reference_run(torch, device)
     paths = {"loop": phase_main_path(torch, device),
@@ -3391,6 +3679,9 @@ def main() -> int:
     paths["scan_serial"] = phase_scan_serial(torch, device)
     log(f"[scan-serial] phase 21: {time.perf_counter() - t_new:.1f} s")
     paths["dryrun"] = phase_dryrun(torch, device, smi)
+    t_new = time.perf_counter()
+    paths["client_sharded"] = phase_client_sharded(torch, device)
+    log(f"[client-sharded] phase 23: {time.perf_counter() - t_new:.1f} s")
     for e in entries:
         by_path = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())

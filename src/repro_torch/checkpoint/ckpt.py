@@ -18,6 +18,14 @@ previous segment boundary.  A missing checkpoint is not corruption
 structure mismatch (the caller handed the wrong `like`) stays a
 ValueError.
 
+On a world of several ranks (`grid/shard.py`) every rank saves its own
+files, tagged by its replica row and client block (`p{i}-r{row}c{block}-`),
+not one gathered carry from rank 0: a rank's carry holds only its
+replicas and its client block, so it writes and reads its own with no
+collective at a segment boundary, each file O(N / shards) client rows, and
+a resume restores each block where it was; `run_grid`'s fingerprint holds
+the world's size, so a rerun on another world is refused.
+
 The reference keeps its PRNG key inside the carry (`encode_prng_keys`).
 The port's draws come from a `RunDraws` source outside the carry, so
 `save_carry` / `load_carry` store each source's `state()` beside it and

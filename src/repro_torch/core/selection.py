@@ -25,7 +25,7 @@ resolve by client index, as the reference's stable `jnp.argsort` does.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -374,3 +374,60 @@ def device_dropped_fraction(state: DeviceSelectorState) -> torch.Tensor:
     return torch.where(state.frozen,
                        1.0 - torch.mean(state.active.to(torch.float32)),
                        0.0)
+
+
+def gather_client_state(state: DeviceSelectorState, axis, n_clients: int,
+                        extra: Sequence[torch.Tensor] = ()):
+    """Client-sharded selector state -> (full state, put_back, extra full).
+
+    Under client sharding every per-client leaf of `state` (sv, counts,
+    initialised, rr_order, active) is this rank's (N_pad / shards,) block;
+    the scalars (round, frozen) are the same on every rank.  Selection is
+    a global top-m, so the strategies run on the exact (N,) state:
+
+        full, put_back, (losses,) = gather_client_state(
+            state, group, n, (local_losses,))
+        sel, full = device_select_any(specs, sid, full, ctx, draw)
+        state = put_back(device_update_any(specs, sid, full, sel, sv))
+
+    The blocks, and the (n_local,) tensors `extra` beside them (the
+    Power-of-Choice losses), are packed into one int32 buffer (bool as
+    uint8, each padded to 16 bytes) and all-gathered in ONE collective
+    over the client group `axis` (`launch.mesh.client_group`); each comes
+    back as its (N,) form.  `put_back` re-pads the updated (N,) leaves with
+    the gathered pad rows, which keep their initial values, and slices this
+    rank's block back out.  Every leaf round-trips bitwise: the gather and
+    the slices copy bits, and no strategy reads or writes a pad row."""
+    from repro_torch.launch.mesh import (
+        all_gather_words, client_group, group_rank, pack_words,
+        unpack_blocks,
+    )
+    group = client_group(axis)
+    index = group_rank(group)[0]
+    val = state.valuation
+    blocks = [val.sv, val.counts, val.initialised, state.rr_order,
+              state.active, *extra]
+    n_local = blocks[0].shape[0]
+    padded = unpack_blocks(all_gather_words(pack_words(blocks), group),
+                           blocks)
+    exact = [x[:n_clients] for x in padded]
+    sv, counts, initialised, rr_order, active = exact[:5]
+    full = state._replace(
+        valuation=ValuationState(sv=sv, counts=counts,
+                                 initialised=initialised),
+        rr_order=rr_order, active=active)
+    lo = index * n_local
+
+    def put_back(new: DeviceSelectorState) -> DeviceSelectorState:
+        def block(pad, x):
+            return torch.cat([x, pad[n_clients:]])[lo:lo + n_local]
+        nv = new.valuation
+        return new._replace(
+            valuation=ValuationState(
+                sv=block(padded[0], nv.sv), counts=block(padded[1],
+                                                         nv.counts),
+                initialised=block(padded[2], nv.initialised)),
+            rr_order=block(padded[3], new.rr_order),
+            active=block(padded[4], new.active))
+
+    return full, put_back, exact[5:]

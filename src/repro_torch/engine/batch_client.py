@@ -130,13 +130,17 @@ def cohort_update(
     *,
     n_steps: Optional[int] = None,
     error: Optional[torch.Tensor] = None,
+    cohort: Optional[dict] = None,
 ) -> tuple[Params, torch.Tensor]:
     """Gather the cohort out of the full stacks (one `cohort_gather` call,
     one launch on the card; `error` is the device-id gather's error word)
     and train it as one batch.  Returns (stacked updates, n_k of the cohort
-    as float32)."""
-    cohort = cohort_gather({"xs": xs_all, "ys": ys_all, "nv": nv_all,
-                            "sigma": sigma_all}, sel, error=error)
+    as float32).  A client-sharded round has gathered the cohort already
+    (its "xs", "ys", "nv" and "sigma" rows, across the blocks): it passes
+    them as `cohort`, and the stacks are not read."""
+    if cohort is None:
+        cohort = cohort_gather({"xs": xs_all, "ys": ys_all, "nv": nv_all,
+                                "sigma": sigma_all}, sel, error=error)
     xs, ys, nv, sg = (cohort[k] for k in ("xs", "ys", "nv", "sigma"))
     stacked = batched_client_update(model, ccfg, params, xs, ys, epochs_k,
                                     sg, idx, noise, n_steps=n_steps)

@@ -49,16 +49,24 @@ from repro_torch import kernels
 IF, WHILE = 0, 1
 MIN_CUDA = 12040             # conditional nodes: CUDA 12.4
 CAPTURE_MODE = 0             # cudaStreamCaptureModeGlobal, torch's default
+THREAD_LOCAL_MODE = 1        # cudaStreamCaptureModeThreadLocal
 
 NODES = {"while": 0, "if": 0}
 WHILE_BODIES: list = []      # conditional nodes made in each WHILE body
 
 _pool = None                 # memory pool of the capture in progress
+_mode = CAPTURE_MODE         # its capture mode
 _eager_passes: Optional[int] = None
 _depth = 0                   # nesting depth of the body being captured
 _inside: list = []           # nodes made in each body being captured
 _streams: dict = {}          # (device index, depth) -> body stream
 _versions: dict = {}         # device index -> (runtime, driver)
+
+
+def depth() -> int:
+    """How many conditional bodies enclose the code running now (captured,
+    or the masked unroll's eager passes); 0 outside them."""
+    return _depth
 
 
 def reset_nodes() -> None:
@@ -67,15 +75,20 @@ def reset_nodes() -> None:
 
 
 @contextlib.contextmanager
-def capture_pool(pool) -> Iterator[None]:
+def capture_pool(pool, *, thread_local: bool = False) -> Iterator[None]:
     """Name the memory pool of the graph captured inside the block (the
-    `pool=` given to `torch.cuda.graph` or `CUDAGraph.capture_begin`)."""
-    global _pool
-    previous, _pool = _pool, pool
+    `pool=` given to `torch.cuda.graph` or `CUDAGraph.capture_begin`), and
+    its capture mode: the bodies are captured in the graph's own mode
+    (`thread_local=True` for a graph captured with
+    `capture_error_mode="thread_local"`, as a round holding NCCL
+    collectives is)."""
+    global _pool, _mode
+    previous = _pool, _mode
+    _pool, _mode = pool, THREAD_LOCAL_MODE if thread_local else CAPTURE_MODE
     try:
         yield
     finally:
-        _pool = previous
+        _pool, _mode = previous
 
 
 @contextlib.contextmanager
@@ -162,7 +175,7 @@ def _node(kind: int, flag: torch.Tensor, body: Callable[[], None]) -> None:
     child = _body_stream(device, _depth)
     made = (ctypes.c_int64 * 2)()
     kernels.check_launch(lib.graph_cond_begin(
-        flag.data_ptr(), kind, CAPTURE_MODE, idx, parent.cuda_stream,
+        flag.data_ptr(), kind, _mode, idx, parent.cuda_stream,
         child.cuda_stream, made), "graph_cond_begin")
     NODES["while" if kind == WHILE else "if"] += 1
     if _inside:

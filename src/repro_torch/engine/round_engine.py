@@ -50,7 +50,7 @@ from repro_torch import kernels
 from repro_torch.core.aggregation import normalized_weights, weighted_average
 from repro_torch.core.selection import (
     DeviceSelectionContext, DeviceSelectorState, SelectionDraw,
-    device_select_any, device_update_any,
+    device_select_any, device_update_any, gather_client_state,
 )
 from repro_torch.core.shapley import gtg_shapley_device
 from repro_torch.core.shapley_batched import (
@@ -63,8 +63,9 @@ from repro_torch.faults import harden_cohort, masked_average
 from repro_torch.federated.client import ClientConfig, local_loss
 from repro_torch.federated.compression import codec_nbytes
 from repro_torch.federated.draws import (
-    DrawPlan, RoundDraws, RunDraws, minibatch_rows, round_at,
+    DrawPlan, RoundDraws, RunDraws, cohort_rows, minibatch_rows, round_at,
 )
+from repro_torch.kernels.cohort_gather import cohort_gather
 from repro_torch.kernels.cohort_gather.kernel import error_word
 from repro_torch.kernels.delta_codec import delta_codec_roundtrip
 from repro_torch.launch.compat import Count
@@ -89,6 +90,11 @@ class RoundSpec(NamedTuple):
     faults: Optional[Any] = None
     quarantine: bool = False
     quarantine_z: float = 8.0
+    # client-axis sharding: the process group of the run mesh's "clients"
+    # axis when the (N, ...) stacks and the per-client selector state are
+    # this rank's blocks (`grid/shard.py`); None = the dense stacks.  A
+    # sharded round makes the dense round's bits.
+    client_axis: Optional[Any] = None
 
 
 class RoundOutput(NamedTuple):
@@ -119,6 +125,10 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
     the cohort's (M,) fault codes on the device (read only by a hardened
     round; None reads as no fault).  The host engines pass sel and
     epochs_k as host ints.
+
+    `cohort` is the cohort's rows already gathered ("xs", "ys", "nv",
+    "sigma"), as a client-sharded round passes them; the stacks are then
+    not read.
 
     `capturable=True` builds the round a CUDA graph can hold: sel and
     epochs_k are device tensors, the local training runs the static
@@ -165,13 +175,14 @@ def make_round_step(model: ClassifierModel, ccfg: ClientConfig,
 
     def round_step(params, xs_all, ys_all, nv_all, sigma_all, x_val, y_val,
                    sel, epochs_k, idx, noise, walks, fault_codes=None, *,
-                   error=None) -> RoundOutput:
+                   error=None, cohort=None) -> RoundOutput:
         # the named stages are profiler / NVTX ranges (metadata only), or
         # graph boundaries of a stage-timed capture (telemetry.trace)
         with named_stage("train"):
             stacked, n_k_sel = cohort_update(
                 model, ccfg, params, xs_all, ys_all, nv_all, sigma_all, sel,
-                epochs_k, idx, noise, n_steps=n_steps, error=error)
+                epochs_k, idx, noise, n_steps=n_steps, error=error,
+                cohort=cohort)
             if spec.upload_codec != "identity":
                 with named_stage("codec"):
                     stacked = delta_codec_roundtrip(stacked, params,
@@ -401,23 +412,48 @@ def _make_scan_body(model: ClassifierModel, ccfg: ClientConfig,
     """The per-round body that `make_segment_step` captures: selection,
     the straggler E_k gather, training, codec, GTG-Shapley, the valuation
     update; and the eval, apart, since the host picks the rounds it runs
-    on.  Everything is tensors in, tensors out, with no host read."""
+    on.  Everything is tensors in, tensors out, with no host read.
+
+    Under client sharding (`spec.round.client_axis`, the clients group)
+    the stacks, the epoch and fault rows and the per-client selector state
+    are this rank's blocks, and the round makes two collectives, both
+    outside any conditional node: (1) the selector state, with the
+    Power-of-Choice losses of the block when a strategy reads them, packed
+    and all-gathered to the exact (N,) state (`gather_client_state`); the
+    strategies select on it; (2) one sharded `cohort_gather` of every row
+    the round reads (xs, ys, nv and sigma from the stacks, this round's
+    epochs and fault codes), summed across the blocks.  The minibatch rows
+    come from the gathered nv.  Training, codec, Shapley and the average
+    then run on the same replicated cohort on every rank; the updated
+    state goes back to the block (`put_back`)."""
     round_step = make_round_step(model, ccfg, spec.round, capturable=True,
                                  n_steps=n_steps)
     uses_losses = any(sp.uses_local_losses for sp in spec.selectors)
     needs_sv = spec.round.needs_sv
     draws_needed = {k for sp in spec.selectors for k in sp.selection_draws}
-    m = spec.selectors[0].m
+    m, n_clients = spec.selectors[0].m, spec.selectors[0].n_clients
+    axis = spec.round.client_axis
 
     def bind(ops: ScanOperands):
+        def select_state(params, sstate):
+            """(losses, the state to select on, put_back)."""
+            block = ([local_loss(model, params, ops.xs_all, ops.ys_all,
+                                 ops.nv_all)] if uses_losses else [])
+            if axis is None:
+                full, put_back, gathered = sstate, (lambda s: s), block
+            else:
+                full, put_back, gathered = gather_client_state(
+                    sstate, axis, n_clients, block)
+            losses = (gathered[0] if uses_losses
+                      else torch.zeros_like(ops.fractions))
+            return losses, full, put_back
+
         def body(carry: SegmentCarry, per_round, error):
             params, sstate, eval_slot = carry
             epochs_row, fault_row, d_t, rd = per_round
-            if uses_losses:   # Power-of-Choice ranks clients by w^t loss
-                losses = local_loss(model, params, ops.xs_all, ops.ys_all,
-                                    ops.nv_all)
-            else:
-                losses = torch.zeros_like(ops.fractions)
+            # Power-of-Choice ranks clients by w^t loss
+            losses, sstate, put_back = select_state(params, sstate)
+            cohort = None
             with named_stage("select"):
                 ctx = DeviceSelectionContext(data_fractions=ops.fractions,
                                              local_losses=losses, poc_d=d_t)
@@ -425,21 +461,31 @@ def _make_scan_body(model: ClassifierModel, ccfg: ClientConfig,
                     spec.selectors, ops.strategy_id, sstate, ctx,
                     _complete_draw(draws_needed, m, rd.selection,
                                    ops.fractions))
-                epochs_k = epochs_row.index_select(0, sel)
-                codes_k = fault_row.index_select(0, sel)
+                if axis is None:
+                    epochs_k = epochs_row.index_select(0, sel)
+                    codes_k = fault_row.index_select(0, sel)
+                    idx = minibatch_rows(rd.rows, sel, ops.nv_all)
+                else:
+                    cohort = cohort_gather(
+                        {"xs": ops.xs_all, "ys": ops.ys_all,
+                         "nv": ops.nv_all, "sigma": ops.sigma_all,
+                         "epochs": epochs_row, "codes": fault_row}, sel,
+                        axis_name=axis, error=error, n_clients=n_clients)
+                    epochs_k, codes_k = cohort.pop("epochs"), \
+                        cohort.pop("codes")
+                    idx = cohort_rows(rd.rows, sel, cohort["nv"])
                 # active mask at select time: dropout strategies freeze it
                 active_sel = sstate.active.index_select(0, sel)
-                idx = minibatch_rows(rd.rows, sel, ops.nv_all)
             out = round_step(params, ops.xs_all, ops.ys_all, ops.nv_all,
                              ops.sigma_all, ops.x_val, ops.y_val, sel,
                              epochs_k, idx, rd.noise, rd.walks, codes_k,
-                             error=error)
+                             error=error, cohort=cohort)
             # the granted cohort: active under the strategy's mask and not
             # refused by a fault screen (`ok` is all true without faults)
             granted = torch.sum(active_sel & out.ok)
-            sstate = device_update_any(spec.selectors, ops.strategy_id,
-                                       sstate, sel,
-                                       out.sv if needs_sv else None)
+            sstate = put_back(device_update_any(
+                spec.selectors, ops.strategy_id, sstate, sel,
+                out.sv if needs_sv else None))
             ys = {"selections": sel, "epochs": epochs_k, "sv": out.sv,
                   "utility_evals": out.utility_evals,
                   "sv_truncated": out.sv_truncated, "granted": granted,
@@ -723,19 +769,25 @@ class SegmentStep:
             _copy_tree(run.carry, carry)
             run.error.zero_()
         graphs, launches = {}, {}
+        # a sharded round holds NCCL collectives: captured thread-local, so
+        # the NCCL watchdog's event queries on its own thread do not
+        # invalidate the capture
+        local = self.spec.round.client_axis is not None
+        mode = "thread_local" if local else "global"
         try:
             for name, fn in fns.items():
                 before = dict(kernels.LAUNCHES)
                 if name == "round" and self.stage_events:
-                    graphs[name] = trace.StageCapture()
-                    with torch.cuda.stream(side), \
-                            graph_flow.capture_pool(graphs[name].pool):
+                    graphs[name] = trace.StageCapture(mode)
+                    with torch.cuda.stream(side), graph_flow.capture_pool(
+                            graphs[name].pool, thread_local=local):
                         graphs[name].run(fn)
                 else:
                     graphs[name] = torch.cuda.CUDAGraph()
                     pool = torch.cuda.graph_pool_handle()
-                    with graph_flow.capture_pool(pool), \
-                            torch.cuda.graph(graphs[name], pool=pool):
+                    with graph_flow.capture_pool(pool, thread_local=local), \
+                            torch.cuda.graph(graphs[name], pool=pool,
+                                             capture_error_mode=mode):
                         fn()
                 launches[name] = {n: kernels.LAUNCHES[n] - before[n]
                                   for n in before}

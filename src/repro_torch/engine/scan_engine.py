@@ -38,11 +38,16 @@ stream: `compile` with the round's cost card, per-round `round_metrics` /
 `telemetry.trace`'s.  The serial Shapley estimator runs in the captured
 round as conditional nodes (`engine/graph_flow.py`): a WHILE node over its
 MC rounds, an IF node a walk step, so truncated work is skipped on the
-card.  Client sharding raises `NotImplementedError`, naming its slice.
+card.  With `clients_shards > 1` (or a client mesh) the run is client-
+sharded (`run_federated_sharded`): each rank of the
+mesh holds one block of the clients, every round makes two collectives
+over the clients group, and every rank returns the dense run's FLResult
+bit for bit.
 """
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -220,9 +225,55 @@ def read_back(named: dict) -> dict:
     return out
 
 
+def run_federated_sharded(cfg, mesh, data=None, model=None, *, device=None,
+                          draws=None, telemetry=None,
+                          rounds_per_segment: int = 0,
+                          t_start: Optional[float] = None):
+    """`run_federated` on the client mesh `mesh` (SPMD: every rank of the
+    world calls it).  A rank of the mesh sets up its client block
+    (`setup_run(..., shard=)`) on its device (default: its card,
+    `launch.mesh.rank_device`) and runs the scan client-sharded; a rank
+    outside the mesh runs nothing and receives the result on the host.
+    Only rank 0 emits telemetry, so the stream is the dense run's but for
+    the compile event's program, "run_scan_client_sharded"."""
+    from repro_torch.federated.server import setup_run
+    from repro_torch.grid.shard import position, share_result
+    from repro_torch.launch.mesh import rank_device, world
+    from repro_torch.telemetry.events import provenance
+
+    if t_start is None:
+        t_start = time.perf_counter()
+    rank, size = world()
+    if rank != 0:
+        telemetry = None
+    if device is None and torch.cuda.is_available():
+        device = rank_device()
+    pos = position(mesh)
+    res = None
+    if pos is not None:
+        ctimer = CompileTimer()
+        with ctimer:
+            s = setup_run(cfg, data, model, device=device, draws=draws,
+                          shard=(pos[1], pos[3]))
+        if telemetry is not None:
+            telemetry.emit("run_start", run_id=telemetry.run_id,
+                           kind="solo", engine=cfg.engine,
+                           selector=cfg.selector, n_clients=cfg.n_clients,
+                           m=cfg.m, rounds=cfg.rounds, seed=cfg.seed,
+                           eval_every=cfg.eval_every,
+                           provenance=provenance())
+        res = run_federated_scan(cfg, s, t_start,
+                                 rounds_per_segment=rounds_per_segment,
+                                 telemetry=telemetry, ctimer=ctimer,
+                                 mesh=mesh)
+    if size > mesh.size():
+        res = share_result(res, device if device is not None else "cpu")
+    return res
+
+
 def run_federated_scan(cfg, s, t_start: float, *,
                        rounds_per_segment: int = 0, telemetry=None,
-                       ctimer=None):
+                       ctimer=None, mesh=None):
     """Run `cfg.rounds` rounds from the RunSetup `s` as segments of
     captured round replays (one segment unless `rounds_per_segment` > 0),
     reading the outputs back once a segment: `grid.segments.run_segments`
@@ -233,8 +284,14 @@ def run_federated_scan(cfg, s, t_start: float, *,
     capture seconds `ctimer` saw, and the round's cost card), then per
     round `round_metrics` / `eval`, then `run_end`; no event comes from
     inside a segment except the live tap's (`telemetry.live_tap`), and
-    `telemetry.trace_dir` wraps the segments in a profiler window."""
+    `telemetry.trace_dir` wraps the segments in a profiler window.  With a
+    client `mesh` the run is client-sharded: the batch padded and cut to
+    this rank's block (`grid.shard.pad_batch_clients`; `s` may hold the
+    block already), the segments driven by the sharded step, the final
+    selector state gathered back to its exact (N,) form by `run_segments`,
+    so the outputs have the dense run's shapes."""
     from repro_torch.grid.segments import ReplicaBatch, run_segments
+    from repro_torch.grid.shard import position, pad_batch_clients
 
     uses_shapley = s.sel_spec.uses_shapley
     spec = make_scan_spec(cfg, (s.sel_spec,),
@@ -243,22 +300,29 @@ def run_federated_scan(cfg, s, t_start: float, *,
                                         and telemetry.live_tap))
     ops = scan_operands(cfg, s)
     plan = round_plan(spec.round, cfg.client, spec.selectors, cfg.n_clients,
-                      cfg.m, s.params, s.n_valid.cpu().numpy())
+                      cfg.m, s.params, s.valid_counts)
     carry = SegmentCarry(s.params, s.sel_state, torch.zeros(
         (), dtype=torch.int64, device=ops.nv_all.device))
     if ctimer is None:
         ctimer = CompileTimer()
-    with ctimer, trace_capture(telemetry, label="run_scan"):
-        (out,), rep = run_segments(s.model, cfg.client, spec, ReplicaBatch(
-            cfgs=(cfg,), setups=(s,), ops=(ops,), plans=(plan,),
-            carries=(carry,)), telemetry=telemetry, segment_events=False)
+    batch = ReplicaBatch(cfgs=(cfg,), setups=(s,), ops=(ops,),
+                         plans=(plan,), carries=(carry,))
+    program = "run_scan"
+    if mesh is not None:
+        _, block, _, blocks = position(mesh)
+        batch = pad_batch_clients(batch, blocks, block)
+        program = "run_scan_client_sharded"
+    with ctimer, trace_capture(telemetry, label=program):
+        (out,), rep = run_segments(s.model, cfg.client, spec, batch,
+                                   telemetry=telemetry, segment_events=False,
+                                   mesh=mesh)
     res = results_from_scan(
         cfg, s, out, wall_time_s=time.perf_counter() - t_start,
         dispatches=sum(rep.replays.values()), uses_shapley=uses_shapley,
         compile_time_s=rep.compile_time_s, round_time_s=rep.round_time_s,
         stage_time_s=rep.stage_time_s, graph_launches=rep.graph_launches)
     if telemetry is not None:
-        telemetry.emit("compile", seconds=ctimer.seconds, program="run_scan",
+        telemetry.emit("compile", seconds=ctimer.seconds, program=program,
                        cost_card=rep.cost_card)
         emit_scan_rounds(
             telemetry, out, uses_shapley=uses_shapley,

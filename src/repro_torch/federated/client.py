@@ -79,11 +79,16 @@ def local_loss(model: ClassifierModel, params: Params, x: torch.Tensor,
                y: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
     """Masked mean loss of `params` on clients' padded data, used by
     Power-of-Choice to rank candidates: x (N, cap, ...), y (N, cap),
-    n_valid (N,) -> (N,)."""
+    n_valid (N,) -> (N,).
+
+    The model runs one client's `cap` rows a call: a matrix product's bits
+    may depend on its row count (on the CPU a (13 cap)-row product and
+    blocks of it differ by ~5e-7), so a client's loss has the same bits
+    whether its rows come with all N clients' or with one block's of a
+    client-sharded run (`launch/mesh.py`)."""
     n, cap = y.shape
     with torch.no_grad():
-        logits = model.apply(params, x.reshape((n * cap,) + x.shape[2:]))
-        logits = logits.reshape(n, cap, -1)
+        logits = torch.stack([model.apply(params, x[i]) for i in range(n)])
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, y.to(torch.int64)[..., None])[..., 0]
         mask = (torch.arange(cap, device=y.device)[None, :]

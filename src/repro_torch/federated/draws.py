@@ -114,11 +114,19 @@ def minibatch_rows(rows: torch.Tensor, sel: torch.Tensor,
     """(M, S, B) minibatch row indices of the cohort `sel`, each in
     [0, max(n_valid[sel[i]], 1)), on the inputs' device."""
     sel = sel.to(torch.int64)
+    n = n_valid.index_select(0, sel) if rows.dim() == 3 else None
+    return cohort_rows(rows, sel, n)
+
+
+def cohort_rows(rows: torch.Tensor, sel: torch.Tensor,
+                n_sel: Optional[torch.Tensor]) -> torch.Tensor:
+    """`minibatch_rows` from the cohort's own (M,) valid-row counts `n_sel`
+    (the form a client-sharded round takes, whose counts come with the
+    cohort's gathered rows)."""
     if rows.dim() == 3:       # 31-bit draws: scale by the client's rows
-        n = n_valid.index_select(0, sel).to(torch.int64)
-        return (rows * n[:, None, None]) >> ROW_BITS
+        return (rows * n_sel.to(torch.int64)[:, None, None]) >> ROW_BITS
     slots = torch.arange(rows.shape[0], device=rows.device)
-    return rows[slots, sel]   # every client's table: take the selected one
+    return rows[slots, sel.to(torch.int64)]   # every client's table
 
 
 class TorchDraws:

@@ -24,8 +24,10 @@ seeds of one config together (`engine/replicated.py`) or, under the scan
 engine, a strategies x seeds grid (`repro_torch.grid.run_grid`).  A
 `telemetry=` sink (`repro_torch.telemetry.Telemetry`) streams the
 reference's events: `run_start`, per round `round_metrics` and `eval`,
-`compile` and `run_end`.  Parts of the reference that later slices of the
-port bring raise `NotImplementedError` naming that slice.
+`compile` and `run_end`.  `clients_shards > 1` (engine="scan") shards the
+client population over that many ranks of a `torch.distributed` world
+(`launch/mesh.py`, `grid/shard.py`): each rank builds only its block of
+the client stacks, and every rank returns the dense run's FLResult.
 """
 from __future__ import annotations
 
@@ -151,12 +153,6 @@ class FLResult(NamedTuple):
     round_shapley_iterations: tuple = ()
 
 
-def _not_in_slice(what: str, slice_: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: it comes with {slice_} of the PyTorch "
-        "port (see ROADMAP.md)")
-
-
 def check_config(cfg: FLConfig) -> None:
     """Reject what this slice of the port does not run yet."""
     if cfg.engine not in ("loop", "batched", "scan"):
@@ -170,8 +166,10 @@ def check_config(cfg: FLConfig) -> None:
             raise ValueError(f"faults must be a FaultSpec, got "
                              f"{type(cfg.faults).__name__}")
         cfg.faults.validate()
-    if cfg.clients_shards > 1:
-        raise _not_in_slice("clients_shards > 1", "the client-sharding slice")
+    if cfg.clients_shards > 1 and cfg.engine != "scan":
+        raise ValueError("clients_shards > 1 requires engine='scan' (the "
+                         "loop and batched engines are host-driven and hold "
+                         "dense stacks by design)")
 
 
 class RunSetup(NamedTuple):
@@ -198,15 +196,36 @@ class RunSetup(NamedTuple):
     clock: Any                # engine.schedule.ClientClock | None
     epochs_table: Any = None  # (T, N) pre-drawn straggler budgets
     fault_table: Any = None   # (T, N) int32 pre-drawn fault codes
+    # (N,) int32 valid rows of every client, on the host (a round's draw
+    # plan reads it; under `shard` the device `n_valid` is one block)
+    valid_counts: Any = None
+
+
+def selector_spec(cfg: FLConfig) -> SelectorSpec:
+    """The run's SelectorSpec: its selector with its kwargs, GreedyFed's
+    averaging defaulting to the config's."""
+    sel_kwargs = dict(cfg.selector_kwargs)
+    if cfg.selector in ("greedyfed", "greedyfed_dropout"):
+        sel_kwargs.setdefault("averaging", cfg.sv_averaging)
+        sel_kwargs.setdefault("alpha", cfg.sv_alpha)
+    return make_selector_spec(cfg.selector, cfg.n_clients, cfg.m,
+                              **sel_kwargs)
 
 
 def setup_run(cfg: FLConfig, data: Optional[SynthDataset] = None,
               model: Optional[ClassifierModel] = None, *,
-              device=None, draws: Optional[RunDraws] = None) -> RunSetup:
+              device=None, draws: Optional[RunDraws] = None,
+              shard: Optional[tuple[int, int]] = None) -> RunSetup:
     """Partition data, assign heterogeneity, init model/selector state.
 
     The numpy rng is consumed in the reference's order; the initial model
-    comes from `draws.init_params`, which consumes no numpy draw.
+    comes from `draws.init_params`, which consumes no numpy draw.  With
+    `shard=(index, shards)` the padded stacks (`xs`, `ys`, `n_valid`,
+    `n_k_all`) are only block `index` of the client axis padded to a
+    multiple of `shards` (`grid.shard.client_block`; rows past N are zero
+    clients), built from the partition on the host, which stays whole, as
+    the reference's `_shard_clients` builds each device's rows; every other
+    field, the draws included, is the dense run's.
     """
     check_config(cfg)
     device = resolve_device(device)
@@ -225,12 +244,17 @@ def setup_run(cfg: FLConfig, data: Optional[SynthDataset] = None,
     parts = dirichlet_partition(data.y_train, cfg.n_clients,
                                 cfg.dirichlet_alpha, rng, fractions)
     cap, n = client_cap(parts), len(parts)
-    xs = torch.as_tensor(padded_x_block(data.x_train, parts, cap, 0, n),
+    lo, hi = 0, n
+    if shard is not None:
+        from repro_torch.grid.shard import client_block
+        lo, hi = client_block(n, shard[1], shard[0])
+    xs = torch.as_tensor(padded_x_block(data.x_train, parts, cap, lo, hi),
                          device=device)
-    ys = torch.as_tensor(padded_y_block(data.y_train, parts, cap, 0, n),
+    ys = torch.as_tensor(padded_y_block(data.y_train, parts, cap, lo, hi),
                          dtype=torch.int64, device=device)
     n_valid_np = valid_counts(parts, 0, n)
-    n_valid = torch.as_tensor(n_valid_np, dtype=torch.int64, device=device)
+    n_valid = torch.as_tensor(valid_counts(parts, lo, hi), dtype=torch.int64,
+                              device=device)
 
     # ---- heterogeneity assignments --------------------------------------
     n_stragglers = int(round(cfg.straggler_frac * cfg.n_clients))
@@ -243,12 +267,7 @@ def setup_run(cfg: FLConfig, data: Optional[SynthDataset] = None,
 
     # ---- model / selector setup ------------------------------------------
     params = draws.init_params(model)
-    sel_kwargs = dict(cfg.selector_kwargs)
-    if cfg.selector in ("greedyfed", "greedyfed_dropout"):
-        sel_kwargs.setdefault("averaging", cfg.sv_averaging)
-        sel_kwargs.setdefault("alpha", cfg.sv_alpha)
-    sel_spec = make_selector_spec(cfg.selector, cfg.n_clients, cfg.m,
-                                  **sel_kwargs)
+    sel_spec = selector_spec(cfg)
     sel_state = init_device_state(sel_spec, cfg.seed, device)
     model_bytes = sum(int(x.numel()) * x.element_size()
                       for x in tree_leaves(params))
@@ -284,7 +303,7 @@ def setup_run(cfg: FLConfig, data: Optional[SynthDataset] = None,
         x_val=dev(data.x_val), y_val=dev(data.y_val, torch.int64),
         x_test=dev(data.x_test), y_test=dev(data.y_test, torch.int64),
         model_bytes=model_bytes, clock=clock, epochs_table=epochs_table,
-        fault_table=fault_table,
+        fault_table=fault_table, valid_counts=n_valid_np,
     )
 
 
@@ -326,17 +345,39 @@ def _make_round_engine(cfg: FLConfig, s: RunSetup, needs_sv: bool,
 def run_federated(cfg: FLConfig, data: Optional[SynthDataset] = None,
                   model: Optional[ClassifierModel] = None, *,
                   device=None, draws: Optional[RunDraws] = None,
-                  telemetry=None, rounds_per_segment: int = 0) -> FLResult:
-    """Drive one federated run on `device` (default: the CUDA card).
+                  telemetry=None, rounds_per_segment: int = 0,
+                  mesh=None) -> FLResult:
+    """Drive one federated run on `device` (default: the CUDA card; this
+    rank's card in a world of several ranks).
 
     `draws` replaces the run's default torch-generator draws (a test hands
     the reference's draws in through it).  Under engine="scan",
     `rounds_per_segment` K > 0 reads the run back every K rounds (the
     segmented run equals the whole run bit for bit); other engines ignore
     it.  `telemetry` (a `repro_torch.telemetry.Telemetry`, default None)
-    streams the run; it changes no output and no dispatch count.
+    streams the run; it changes no output and no dispatch count; in a
+    world of several ranks only rank 0 emits.
+
+    `cfg.clients_shards > 1` runs the scan client-sharded on the
+    (1, clients_shards) run mesh (`launch.mesh.make_run_mesh`: ValueError
+    when the world has fewer ranks); `mesh=` gives the mesh instead, a
+    clients axis of one rank included (`launch.mesh.client_mesh(1, 1)`:
+    the sharded path on one card).  Every rank of the world returns the
+    same FLResult, bitwise the dense scan's.
     """
     t_start = time.perf_counter()
+    check_config(cfg)
+    if mesh is None and cfg.clients_shards > 1:
+        from repro_torch.launch.mesh import make_run_mesh
+        mesh = make_run_mesh(1, cfg.clients_shards)
+    if mesh is not None:
+        if cfg.engine != "scan":
+            raise ValueError("a client mesh requires engine='scan'")
+        from repro_torch.engine.scan_engine import run_federated_sharded
+        return run_federated_sharded(
+            cfg, mesh, data, model, device=device, draws=draws,
+            telemetry=telemetry, rounds_per_segment=rounds_per_segment,
+            t_start=t_start)
     ctimer = CompileTimer()
     with ctimer:
         s = setup_run(cfg, data, model, device=device, draws=draws)

@@ -10,10 +10,11 @@ knob under a fixed round budget.
   * `segments`  — a partition's replicas in one captured round graph,
                   chained over T/K segments, checkpointed at every
                   boundary for a bit-identical resume;
+  * `shard`     — replicas and clients over the ranks of a
+                  `torch.distributed` world (`launch/mesh.py`'s run
+                  meshes): whole replicas a replica row, one client block
+                  a rank of a row;
   * `runner`    — `run_grid`, the single entry point.
-
-The reference's `shard` module (replicas and clients over a device mesh)
-is not ported: on one card `shard=True` is the plain path.
 """
 from repro_torch.grid.runner import run_grid
 from repro_torch.grid.spec import CellFailure, GridCell, GridResult, GridSpec

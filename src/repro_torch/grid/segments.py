@@ -205,7 +205,7 @@ def run_segments(model, ccfg, spec: ScanSpec, batch: ReplicaBatch, *,
                  resume: bool = True, max_segments: Optional[int] = None,
                  retries: int = 0, retry_backoff_s: float = 0.05,
                  compile_stats: bool = False, telemetry=None,
-                 segment_events: bool = True
+                 segment_events: bool = True, mesh=None
                  ) -> tuple[Optional[list], SegmentRunReport]:
     """Drive one partition's replicas through all segments of K =
     `spec.rounds_per_segment` rounds (0: one segment of T), the last one
@@ -232,7 +232,16 @@ def run_segments(model, ccfg, spec: ScanSpec, batch: ReplicaBatch, *,
     each stage of its replays.  `compile_stats` (or a sink) fills the
     report's cost card: the FLOPs of the round counted in the eager run
     the step makes anyway, the launches its graph holds and, on a card,
-    the peak memory above the set-up."""
+    the peak memory above the set-up.
+
+    `mesh` (a run mesh, `launch/mesh.py`) takes the step from
+    `grid.shard.sharded_segment_step`: with a clients axis the batch holds
+    this rank's client blocks (`grid.shard.pad_batch_clients`), each round
+    makes its two collectives over the clients group, and at the end each
+    replica's final selector state is gathered back to its exact (N,) form
+    (`grid.shard.unpad_scan_output`), so the outputs have the dense run's
+    shapes.  The checkpoints hold the rank's own blocks: give each rank
+    its own `tag`."""
     rounds = spec.rounds
     k = spec.rounds_per_segment or rounds
     n_segments = -(-rounds // k)
@@ -242,11 +251,17 @@ def run_segments(model, ccfg, spec: ScanSpec, batch: ReplicaBatch, *,
     want_card = compile_stats or telemetry is not None
     if want_card and card is None:
         profile.prepare_counting()
-    step = SegmentStep(
-        model, ccfg, spec._replace(rounds_per_segment=k), list(batch.ops),
-        stage_events=bool(telemetry is not None
-                          and getattr(telemetry, "trace_dir", None)),
-        count_costs=want_card and card is None)
+    options = dict(stage_events=bool(telemetry is not None
+                                     and getattr(telemetry, "trace_dir",
+                                                 None)),
+                   count_costs=want_card and card is None)
+    spec_k = spec._replace(rounds_per_segment=k)
+    if mesh is None:
+        step = SegmentStep(model, ccfg, spec_k, list(batch.ops), **options)
+    else:
+        from repro_torch.grid.shard import sharded_segment_step
+        step = sharded_segment_step(model, ccfg, spec_k, list(batch.ops),
+                                    mesh, **options)
     draws = [s.draws for s in batch.setups]
     n_rep, m, n_clients = len(batch.ops), spec.selectors[0].m, \
         spec.selectors[0].n_clients
@@ -401,4 +416,9 @@ def run_segments(model, ccfg, spec: ScanSpec, batch: ReplicaBatch, *,
                    counts=final["counts"],
                    eval_count=int(final["eval_count"]))
         results.append(out)
+    axis = step.spec.round.client_axis
+    if axis is not None:
+        from repro_torch.grid.shard import unpad_scan_output
+        results = [unpad_scan_output(out, n_clients, axis)
+                   for out in results]
     return results, report()

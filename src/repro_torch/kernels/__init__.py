@@ -48,8 +48,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES = {"prefix_avg": 0, "ce_loss": 0, "cohort_gather": 0,
-            "delta_codec": 0, "weighted_avg": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0}
+            "cohort_gather_shard": 0, "delta_codec": 0, "weighted_avg": 0,
+            "flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -178,6 +178,10 @@ _SIGNATURES = {
     "cohort_gather": [_PTR, _I64, _PTR] + [_I64] * 3 + [_PTR],
     # (leaf table, leaves, device ids, M, blocks, error word, device, stream)
     "cohort_gather_ids": [_PTR, _I64, _PTR, _I64, _I64, _PTR, _I64, _PTR],
+    # (leaf table, leaves, device ids, M, blocks, lo, N, error word, device,
+    # stream)
+    "cohort_gather_shard": [_PTR, _I64, _PTR, _I64, _I64, _I64, _I64, _PTR,
+                            _I64, _PTR],
     # (leaf table, leaves, rows, codec, shared memory, device, stream)
     "delta_codec_f32": [_PTR] + [_I64] * 5 + [_PTR],
     # (shared memory, device, out: clusters)

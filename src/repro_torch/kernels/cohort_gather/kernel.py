@@ -17,6 +17,14 @@ int64 error word on the card (`error_word`) and its row is not copied;
 `raise_on_error` reads the word and raises IndexError.  A caller that
 passes its own word (a captured run) reads it once, after the run; a call
 without one makes its own word and reads it back at once.
+
+The sharded entry (`cohort_gather_shard_cuda`) takes one rank's block of
+client rows [lo, lo + n_local) of every table, the M global cohort ids on
+the card and the global N, and writes every leaf's M rows into one packed
+int32 buffer (`shard_layout`: the leaves in order, each segment padded to
+16 bytes): the rows the block holds, zeros for the others.  Summed over
+the client group as int32 words (`ops.py`), the blocks' buffers give the
+dense gather bit for bit (the argument is in `csrc/cohort_gather.cu`).
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ UNROLL = 4             # words in flight per thread (kUnroll)
 MAX_LEAVES = 16        # csrc/cohort_gather.cu::kMaxLeaves
 MAX_IDS = 256          # csrc/cohort_gather.cu::kMaxIds: ids passed by value
 MAX_DEVICE_IDS = 65535  # device ids: one grid.y slot each
+SEGMENT_ALIGN = 16     # the sharded entry pads each leaf's segment to this
 
 
 class LeafPlan(NamedTuple):
@@ -195,3 +204,72 @@ def device_c_args(work: Sequence[tuple[torch.Tensor, torch.Tensor]],
     t0 = work[0][0]
     return (table, n, ids.data_ptr(), len(ids), blocks_x, error.data_ptr(),
             t0.get_device(), stream_ptr(t0))
+
+
+def shard_layout(row_bytes: Sequence[int], m: int) -> tuple[list[int], int]:
+    """The packed buffer of the sharded entry: each leaf's byte offset (its
+    M rows of `row_bytes`, then zeros up to SEGMENT_ALIGN bytes) and the
+    buffer's total bytes, a whole number of int32 words."""
+    offsets, off = [], 0
+    for rb in row_bytes:
+        offsets.append(off)
+        off += -(-m * rb // SEGMENT_ALIGN) * SEGMENT_ALIGN
+    return offsets, off
+
+
+def cohort_gather_shard_cuda(tables: Sequence[torch.Tensor], ids, lo: int,
+                             n_total: int,
+                             error: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """The packed (words,) int32 buffer of one rank's block: each table's
+    rows at `ids` (global, a CUDA tensor or host ids) that lie in [lo, lo +
+    n_local), zeros for the others, in `shard_layout`, one launch per
+    MAX_LEAVES tables on PyTorch's current stream.  An id outside [0,
+    n_total) is written into `error` (made and read back here when None)."""
+    if not tables:
+        raise ValueError("the sharded gather needs at least one table")
+    dev = tables[0].device
+    for t in tables:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"a table is on {t.device}, not on {dev} (a "
+                             "CUDA device)")
+        if t.dim() == 0 or not t.is_contiguous() \
+                or t.shape[0] != tables[0].shape[0]:
+            raise ValueError(f"tables must be contiguous blocks of the same "
+                             f"rows, got shape {tuple(t.shape)}")
+    if lo < 0 or n_total < 1:
+        raise ValueError(f"a block from row {lo} of {n_total} clients")
+    if not isinstance(ids, torch.Tensor):
+        ids = torch.as_tensor(np.asarray(ids, np.int64), device=dev)
+    ids = _device_ids(ids.to(dev) if not ids.is_cuda else ids, dev)
+    m = len(ids)
+    row_bytes = [prod(t.shape[1:]) * t.element_size() for t in tables]
+    offsets, total = shard_layout(row_bytes, m)
+    words = torch.empty((total // 4,), dtype=torch.int32, device=dev)
+    flat = words.view(torch.uint8)
+    work = [(t, flat[off:off + m * rb])
+            for t, off, rb in zip(tables, offsets, row_bytes) if m * rb]
+    word = error_word(dev) if error is None else error
+    if error is not None and (error.dtype != torch.int64 or error.numel() != 1
+                              or error.device != dev):
+        raise ValueError("error must be one int64 on the tables' device")
+    for i in range(0, len(work), MAX_LEAVES):
+        rc = library().cohort_gather_shard(*shard_c_args(
+            work[i:i + MAX_LEAVES], ids, lo, n_total, word))
+        check_launch(rc, "cohort_gather_shard")
+        LAUNCHES["cohort_gather_shard"] += 1
+    if error is None:
+        raise_on_error(word, n_total)
+    return words
+
+
+def shard_c_args(work: Sequence[tuple[torch.Tensor, torch.Tensor]],
+                 ids: torch.Tensor, lo: int, n_total: int,
+                 error: torch.Tensor) -> tuple:
+    """The sharded C entry's arguments for (block table, output segment)
+    pairs, (M,) int64 CUDA ids, the block's first row, N and the error
+    word."""
+    table, n, blocks_x = _leaf_table(work)
+    t0 = work[0][0]
+    return (table, n, ids.data_ptr(), len(ids), blocks_x, lo, n_total,
+            error.data_ptr(), t0.get_device(), stream_ptr(t0))

@@ -33,6 +33,30 @@
 // one to arrive wins, by compare-and-swap on zero) and its row is not
 // copied.  The host reads the word once, after the run, and raises
 // IndexError as index_select does.  No row is ever clamped.
+//
+// A third entry, cohort_gather_shard, is the client-sharded gather (the
+// reference's `_cross_shard_take`, src/repro/kernels/cohort_gather/ops.py,
+// a clamped take, a mask and one psum a leaf; not a Pallas kernel there).
+// Each rank holds one block of n_local clients, global rows [lo, lo +
+// n_local), of every per-client table, and every rank knows the M cohort
+// ids.  The kernel writes the M rows of every leaf into ONE packed output,
+// the leaves one after the other, each segment padded with zeros to 16
+// bytes: a row's bytes where lo <= id < lo + n_local, zeros elsewhere.  An
+// id outside [0, N) (the global N, not the block) goes into the error word,
+// as in the device-id entry, and its row is zeros.  The wrapper then sums
+// the packed output over the client group as int32 words with one
+// all_reduce and views the leaves back out.  That sum is exact for every
+// dtype (-0.0, NaN payloads, bool, 16-bit leaves of odd width): every id
+// lies in exactly one block, so every byte of the output has at most one
+// rank that may write a nonzero value into it, and all others write 0.
+// Adding integers whose nonzero bytes never share a position makes no
+// carry, so the sum of each word is the OR of the ranks' words, which is
+// the one writer's bytes.  No overflow either: at most one addend of a word
+// has its top bit set.  (Gloo refuses int16 and NCCL has no bitwise-OR
+// reduction, so the reference's per-leaf psum of a same-width uint does not
+// carry over.)  Like the device-id entry it reads nothing back, so a
+// captured round holds it.  Bounded by bytes: the block's hits read, M
+// rows written a leaf.
 #include "common.cuh"
 
 namespace {
@@ -65,6 +89,41 @@ struct DeviceTable {
   const int64_t* ids;               // (m,) cohort ids in device memory
   unsigned long long* error;        // the first id out of range, or 0
 };
+
+// The sharded entry's parameters: the block's first row and the global N.
+struct ShardTable {
+  Leaf leaf[kMaxLeaves];
+  int64_t n;
+  const int64_t* ids;               // (m,) global cohort ids, device memory
+  unsigned long long* error;        // the first id outside [0, n_total)
+  int64_t lo;                       // global row of the block's first row
+  int64_t n_total;                  // N
+};
+
+template <typename U>
+__device__ __forceinline__ void zero_chunk(const Leaf& leaf, int64_t slot,
+                                           int64_t chunk) {
+  const int64_t units = leaf.row_bytes / (int64_t)sizeof(U);
+  U* dst = reinterpret_cast<U*>(leaf.dst + slot * leaf.row_bytes);
+  const int64_t u0 = chunk * (kThreads * kUnroll) + threadIdx.x;
+  const U z{};
+#pragma unroll
+  for (int i = 0; i < kUnroll; ++i) {
+    const int64_t u = u0 + i * kThreads;
+    if (u < units) dst[u] = z;
+  }
+}
+
+__device__ __forceinline__ void zero_row_chunk(const Leaf& leaf, int64_t slot,
+                                               int64_t chunk) {
+  if (leaf.unit == 16) {
+    zero_chunk<uint4>(leaf, slot, chunk);
+  } else if (leaf.unit == 4) {
+    zero_chunk<uint32_t>(leaf, slot, chunk);
+  } else {
+    zero_chunk<uint8_t>(leaf, slot, chunk);
+  }
+}
 
 template <typename U>
 __device__ __forceinline__ void copy_chunk(const Leaf& leaf, int64_t id,
@@ -123,6 +182,31 @@ cohort_gather_ids_kernel(const __grid_constant__ DeviceTable t) {
     return;
   }
   copy_row_chunk(leaf, id, slot, (int64_t)blockIdx.x - leaf.blk0);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cohort_gather_shard_kernel(const __grid_constant__ ShardTable t) {
+  const Leaf& leaf = t.leaf[leaf_of(t)];
+  const int64_t slot = blockIdx.y;
+  const int64_t chunk = (int64_t)blockIdx.x - leaf.blk0;
+  const int64_t id = t.ids[slot];
+  const bool valid = id >= 0 && id < t.n_total;
+  if (!valid && threadIdx.x == 0) {
+    atomicCAS(t.error, 0ull, (unsigned long long)id);
+  }
+  const int64_t local = id - t.lo;
+  if (valid && local >= 0 && local < leaf.rows) {
+    copy_row_chunk(leaf, local, slot, chunk);
+  } else {
+    zero_row_chunk(leaf, slot, chunk);
+  }
+  // the segment's pad after the last row, up to 16 bytes: zeros, written by
+  // the leaf's first block
+  if (slot == 0 && chunk == 0) {
+    const int64_t used = (int64_t)gridDim.y * leaf.row_bytes;
+    const int64_t pad = (16 - used % 16) % 16;
+    if (threadIdx.x < pad) leaf.dst[used + threadIdx.x] = 0;
+  }
 }
 
 bool aligned(const void* p, int64_t a) { return (uintptr_t)p % a == 0; }
@@ -208,5 +292,38 @@ extern "C" int cohort_gather_ids(const int64_t* leaves, int64_t n_leaves,
   }
   cohort_gather_ids_kernel<<<dim3((unsigned)blocks_x, (unsigned)m), kThreads,
                              0, (cudaStream_t)stream>>>(t);
+  return (int)cudaGetLastError();
+}
+
+// leaves as above, each dst the leaf's segment of the packed output (16-byte
+// aligned, its m rows and then zeros up to 16 bytes) and rows the block's
+// n_local; ids: m int64 global ids in device memory; lo: the block's first
+// global row; n_total: N; error as in cohort_gather_ids.
+extern "C" int cohort_gather_shard(const int64_t* leaves, int64_t n_leaves,
+                                   const int64_t* ids, int64_t m,
+                                   int64_t blocks_x, int64_t lo,
+                                   int64_t n_total, int64_t* error,
+                                   int64_t device, void* stream) {
+  cudaError_t err = cudaSetDevice((int)device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_shape(n_leaves, m, 65535, blocks_x) || ids == nullptr ||
+      error == nullptr || !aligned(ids, 8) || !aligned(error, 8) || lo < 0 ||
+      n_total < 1) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
+  ShardTable t{};
+  t.n = n_leaves;
+  t.ids = ids;
+  t.error = reinterpret_cast<unsigned long long*>(error);
+  t.lo = lo;
+  t.n_total = n_total;
+  if (!parse_leaves(leaves, n_leaves, blocks_x, t.leaf)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int64_t i = 0; i < n_leaves; ++i) {
+    if (!aligned(t.leaf[i].dst, 16)) return (int)cudaErrorInvalidValue;
+  }
+  cohort_gather_shard_kernel<<<dim3((unsigned)blocks_x, (unsigned)m),
+                               kThreads, 0, (cudaStream_t)stream>>>(t);
   return (int)cudaGetLastError();
 }

@@ -23,8 +23,8 @@ inputs and outputs, and each hand-written kernel by its own formula,
 on a card whose float32 and bf16 rates are 15x apart, so `compute_s` sums
 each op's FLOPs over its own dtype's peak.  One device moves no collective
 bytes: `collective_s` is 0.  XLA's HLO-text parse of the collectives
-(`collective_bytes_from_text`) has no torch counterpart here; it comes with
-client sharding (ROADMAP).
+(`collective_bytes_from_text`) has no torch counterpart yet; it comes with
+the multi-device half of `launch/` (ROADMAP).
 
 Eager torch counts every layer, but the 1- and 2-layer differencing of the
 reference (`assembled_roofline`) is kept, so that `per_layer` and `stem`
@@ -92,6 +92,11 @@ def kernel_cost(name: str, **shapes) -> tuple[float, float, float]:
     cohort_gather(m, row_bytes, device_ids): M rows of `row_bytes` (summed
         over the tables) read and written, the M int64 ids read once, and
         with device ids the int64 error word written.
+    cohort_gather_shard(m, row_bytes, hits): one rank's block: the `hits`
+        rows of its block that the cohort holds read (default M, as on
+        one rank), M rows of `row_bytes` written (zeros where the block
+        misses), the M int64 ids read and the error word written.  The
+        all_reduce after it is not the kernel's.
     delta_codec(m, d): the (M, D) f32 stack and the (D,) server weights in,
         the (M, D) result out; ~8 FLOPs an entry.
     weighted_avg(r, m, d, itemsize): the (M, D) stacks and (R, M) weights
@@ -118,6 +123,10 @@ def kernel_cost(name: str, **shapes) -> tuple[float, float, float]:
         m = shapes["m"]
         word = 8 if shapes.get("device_ids", False) else 0
         return 0, 2 * m * shapes["row_bytes"] + m * 8 + word, F32_PEAK_FLOPS
+    if name == "cohort_gather_shard":
+        m, row = shapes["m"], shapes["row_bytes"]
+        return (0, (shapes.get("hits", m) + m) * row + m * 8 + 8,
+                F32_PEAK_FLOPS)
     if name == "delta_codec":
         m, d = shapes["m"], shapes["d"]
         return 8 * m * d, (2 * m + 1) * d * 4, F32_PEAK_FLOPS

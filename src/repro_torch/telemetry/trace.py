@@ -147,17 +147,20 @@ class StageCapture:
     one memory pool, so the pieces replayed in order do what one graph of
     the function does.  `pieces` is [(stage, CUDAGraph)]; code outside any
     stage is labelled "other".  Run it on a side stream, as
-    `torch.cuda.graph` does."""
+    `torch.cuda.graph` does, in `capture_error_mode` ("thread_local" for a
+    round that holds NCCL collectives)."""
 
-    def __init__(self) -> None:
+    def __init__(self, capture_error_mode: str = "global") -> None:
         self.pool = torch.cuda.graph_pool_handle()
         self.pieces: list = []
         self._labels = ["other"]
         self._graph = None
+        self._mode = capture_error_mode
 
     def _begin(self) -> None:
         self._graph = torch.cuda.CUDAGraph()
-        self._graph.capture_begin(pool=self.pool)
+        self._graph.capture_begin(pool=self.pool,
+                                  capture_error_mode=self._mode)
 
     def _end(self) -> None:
         with warnings.catch_warnings():

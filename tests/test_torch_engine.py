@@ -130,7 +130,10 @@ def test_cohort_gather_rejects_bad_ids_and_the_sharded_path():
         cohort_take(table, torch.tensor([0, 4]))
     with pytest.raises(IndexError):
         cohort_take(table, torch.tensor([-5]))
-    with pytest.raises(NotImplementedError, match="client-sharding"):
+    # the sharded path runs since the client-sharding slice, over a client
+    # mesh (tests/test_torch_client_sharding.py); with none made, the axis
+    # name names nothing
+    with pytest.raises(ValueError, match="no client mesh"):
         cohort_take(table, torch.tensor([0]), axis_name="clients")
     with pytest.raises(ValueError, match="CUDA"):
         cohort_gather_cuda([table], [0])

@@ -841,11 +841,12 @@ def test_batched_path_runs_through_all_five_kernels(cuda):
     # leaves), one prefix_avg a valued streaming round (six leaves) and one
     # weighted_avg a valued dense round (six leaves)
     assert streaming == {"prefix_avg": valued[0], "ce_loss": valued[0],
-                         "cohort_gather": 3, "delta_codec": 3,
-                         "weighted_avg": 0, "flash_attention": 0,
-                         "flash_attention_bwd": 0}
+                         "cohort_gather": 3, "cohort_gather_shard": 0,
+                         "delta_codec": 3, "weighted_avg": 0,
+                         "flash_attention": 0, "flash_attention_bwd": 0}
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": valued[1],
-                                "cohort_gather": 3, "delta_codec": 0,
+                                "cohort_gather": 3, "cohort_gather_shard": 0,
+                                "delta_codec": 0,
                                 "weighted_avg": valued[1],
                                 "flash_attention": 0,
                                 "flash_attention_bwd": 0}
@@ -1570,8 +1571,9 @@ def test_scan_graph_holds_the_kernels_and_no_sync(cuda, impl):
     # the serial estimator's utilities are `model.loss`: no kernel
     assert res.graph_launches["round"] == {
         "prefix_avg": int(impl == "streaming"), "ce_loss": int(not serial),
-        "cohort_gather": 1, "delta_codec": 1, "weighted_avg": int(dense),
-        "flash_attention": 0, "flash_attention_bwd": 0}
+        "cohort_gather": 1, "cohort_gather_shard": 0, "delta_codec": 1,
+        "weighted_avg": int(dense), "flash_attention": 0,
+        "flash_attention_bwd": 0}
     assert not any(res.graph_launches["eval"].values())
     assert np.isfinite(res.final_acc) and res.params["layer0"]["w"].is_cuda
     torch.cuda.set_sync_debug_mode("error")
@@ -1580,6 +1582,108 @@ def test_scan_graph_holds_the_kernels_and_no_sync(cuda, impl):
             torch.ones((1,), device=cuda).item()
     finally:
         torch.cuda.set_sync_debug_mode(0)
+
+
+# ------------------------------------------------------ client sharding ---
+@pytest.mark.parametrize("w", [1, 2, 4, 8])
+def test_cohort_gather_shard_kernel_matches_plain(cuda, w):
+    """The sharded entry at each of W blocks of the main path's stacks
+    (padded to a multiple of W), with -0.0 and NaN payloads, bf16 rows of
+    6 bytes, rows 2 and 4 bytes past a 16-byte boundary and a bool leaf:
+    one launch a block for the tree, no host read, bitwise its plain
+    version; the W blocks' int32 words summed on the card equal the dense
+    kernel's rows in the packed layout; an id of N sets the error word."""
+    from repro_torch.grid.shard import client_block, clients_padded
+    from repro_torch.kernels.cohort_gather.kernel import (
+        cohort_gather_shard_cuda, error_word, raise_on_error, shard_layout,
+    )
+    from repro_torch.kernels.cohort_gather.ref import cohort_gather_shard_ref
+    gen = torch.Generator().manual_seed(11)
+    tree = _gather_tree(gen, cuda)
+    tree["bool"] = (torch.rand((50, 5), generator=gen) < 0.5).to(cuda)
+    leaves = list(tree.values())
+    sel = torch.tensor([7, 31, 2, 49, 18, 7], device=cuda)
+    m, n, n_pad = len(sel), 50, clients_padded(50, w)
+    row_bytes = [x[0].numel() * x.element_size() for x in leaves]
+    offsets, total = shard_layout(row_bytes, m)
+    packed = torch.zeros((total,), dtype=torch.uint8, device=cuda)
+    dense = cohort_gather(tree, sel)
+    for x, off, rb in zip((dense[k] for k in tree), offsets, row_bytes):
+        packed[off:off + m * rb] = x.contiguous().reshape(-1).view(
+            torch.uint8)
+    summed = torch.zeros((total // 4,), dtype=torch.int32, device=cuda)
+    for b in range(w):
+        lo, hi = client_block(n, w, b)
+        block = [x[lo:min(hi, n)] if hi <= n else torch.cat(
+            [x[lo:], x.new_zeros((n_pad - n,) + x.shape[1:])])
+            for x in leaves]
+        word = error_word(cuda)
+        before = kernels.LAUNCHES["cohort_gather_shard"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = cohort_gather_shard_cuda(block, sel, lo, n, word)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert kernels.LAUNCHES["cohort_gather_shard"] == before + 1
+        raise_on_error(word, n)
+        assert torch.equal(got, cohort_gather_shard_ref(block, sel, lo, n))
+        summed += got
+    assert torch.equal(summed.view(torch.uint8), packed)
+    word = error_word(cuda)
+    cohort_gather_shard_cuda(leaves, torch.tensor([3, n], device=cuda), 0,
+                             n, word)
+    assert int(word.item()) == n
+
+
+@pytest.fixture
+def one_rank_nccl(cuda):
+    """A one-rank NCCL world on the card (NCCL refuses two ranks on one
+    card) and its (1, 1) client mesh; destroyed after the test."""
+    import os
+    import socket
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import client_mesh
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    torch.cuda.set_device(cuda.index or 0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        yield client_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("over", [
+    {"selector": "power_of_choice", "upload_codec": "quant8_topk"},
+    {"straggler_frac": 0.5, "privacy_sigma": 0.05}])
+def test_client_sharded_scan_on_one_nccl_rank_is_the_dense_scan(
+        cuda, one_rank_nccl, over):
+    """The sharded round (the state's all_gather and the cohort's
+    all_reduce over NCCL, the sharded gather entry), captured thread-local
+    and replayed, equals the dense scan bit for bit; its graph holds the
+    sharded entry, not the dense one."""
+    from repro_torch.federated.server import run_federated
+    from repro_torch.launch import mesh
+    from repro_torch.tree import tree_leaves
+    cfg = _scan_cfg(engine="scan", **over)
+    dense = run_federated(cfg, device=cuda)
+    mesh.reset_collectives()
+    got = run_federated(cfg, device=cuda, mesh=one_rank_nccl)
+    assert mesh.COLLECTIVES == {"all_gather": 3, "all_reduce": 2}
+    for a, b in zip(got.selections, dense.selections):
+        np.testing.assert_array_equal(a, b)
+    assert got.upload_bytes == dense.upload_bytes
+    assert got.test_acc == dense.test_acc and got.val_loss == dense.val_loss
+    np.testing.assert_array_equal(got.sv_final, dense.sv_final)
+    np.testing.assert_array_equal(got.selection_counts,
+                                  dense.selection_counts)
+    for a, b in zip(tree_leaves(got.params), tree_leaves(dense.params)):
+        assert torch.equal(a, b)
+    assert got.graph_launches["round"]["cohort_gather_shard"] == 1
+    assert got.graph_launches["round"]["cohort_gather"] == 0
 
 
 # ------------------------------------------------- faults and quarantine ---
@@ -1730,7 +1834,7 @@ def test_grid_on_the_card_is_bitwise_the_solo_runs(cuda):
         assert p.replays["round"] == spec.base.rounds
         assert p.graph_launches["round"] == {
             "prefix_avg": s * p.needs_sv, "ce_loss": s * p.needs_sv,
-            "cohort_gather": s,
+            "cohort_gather": s, "cohort_gather_shard": 0,
             "delta_codec": s * (p.upload_codec != "identity"),
             "weighted_avg": 0, "flash_attention": 0,
             "flash_attention_bwd": 0}

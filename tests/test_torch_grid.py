@@ -460,10 +460,16 @@ def test_replicated_scan_branch_is_run_grid():
 
 @pytest.mark.parametrize("kw,match", [
     ({"spec": GridSpec.product(_base(clients_shards=2), seeds=(0,))},
-     "client-sharding slice")])
+     "clients_shards=2 needs that many ranks but only 1"),
+    ({"spec": GridSpec.product(_base(clients_shards=2), seeds=(0,)),
+      "shard": False}, "requires shard=True")])
 def test_later_slices_raise_not_implemented(kw, match):
+    """Client sharding runs since its slice: on a world of one rank
+    `clients_shards > 1` raises ValueError with the count, and without
+    `shard=True` the reference's error (tests/test_torch_client_sharding.py
+    runs it on gloo ranks)."""
     kw = {"spec": SPEC, **kw}
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         _grid(**kw)
 
 

@@ -310,8 +310,9 @@ def test_routing_and_counters():
     kernels.LAUNCHES["prefix_avg"] += 3
     kernels.reset_launches()
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": 0,
-                                "cohort_gather": 0, "delta_codec": 0,
-                                "weighted_avg": 0, "flash_attention": 0,
+                                "cohort_gather": 0, "cohort_gather_shard": 0,
+                                "delta_codec": 0, "weighted_avg": 0,
+                                "flash_attention": 0,
                                 "flash_attention_bwd": 0}
 
 

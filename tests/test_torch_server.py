@@ -198,8 +198,9 @@ def test_default_draws_reproduce_and_cpu_never_counts_launches():
     a = run_federated(cfg, model=model, device="cpu")
     b = run_federated(cfg, model=model, device="cpu")
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": 0,
-                                "cohort_gather": 0, "delta_codec": 0,
-                                "weighted_avg": 0, "flash_attention": 0,
+                                "cohort_gather": 0, "cohort_gather_shard": 0,
+                                "delta_codec": 0, "weighted_avg": 0,
+                                "flash_attention": 0,
                                 "flash_attention_bwd": 0}
     for x, y in zip(a.selections, b.selections):
         np.testing.assert_array_equal(x, y)
@@ -225,12 +226,12 @@ def test_entry_points_default_to_the_card():
     {"clients_shards": 2},
 ])
 def test_later_slices_raise_not_implemented(over):
-    """What no slice runs yet raises NotImplementedError naming its slice;
-    faults run since the faults slice, and a malformed fault spec is a
-    ValueError before anything runs."""
+    """A malformed fault spec is a ValueError before anything runs (faults
+    run since the faults slice); client sharding runs since its slice,
+    under engine="scan" only, as in the reference."""
     cfg = dataclasses.replace(FLConfig(**SLICE), **over)
     error, match = ((ValueError, "FaultSpec|kinds|rate") if "faults" in over
-                    else (NotImplementedError, "slice"))
+                    else (ValueError, "clients_shards > 1 requires"))
     with pytest.raises(error, match=match):
         run_federated(cfg, device="cpu")
 
