@@ -266,6 +266,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -1201,6 +1202,132 @@ def check_weighted_avg(torch, device):
             "library_ms": total["library_ms"], "c_entry_ms": c_entry_ms}
 
 
+# the wide route's main-path layer: the federated LM example at --d-model
+# 1024 (phase 24's wide-heads path): B 2, S = T = 2048, 4 query heads of
+# 256 over 2 KV heads, causal; and two edge shapes
+WIDE_LAYER = (2, 2048, 4, 2, 256, 0)
+WIDE_EDGES = ((1, 700, 6, 3, 160, 256), (1, 333, 4, 2, 384, 0))
+
+
+def check_flash_attention_wide(torch, device):
+    """The wide route (`csrc/flash_attention_wide.cu`: head dims above 128
+    on the CUDA cores, float32 throughout, the head dim in chunks of 128)
+    against the plain versions on the card: the forward at atol 2e-5 (f32)
+    or `Bf16AttentionError` (bf16; this route keeps P in f32), its lse at
+    1e-4; the backward element by element against the exact
+    `attention_bwd_ref`, |err| <= rtol |grad| + 2e-5 max |grad| (rtol 0
+    f32, 2^-7 bf16: one rounding of each output), two launches bitwise
+    equal.  Times kernel, plain version and SDPA (forward, and backward) in
+    f32 at `WIDE_LAYER`, beside the bound (the tensor-core routes' work:
+    `kernel_cost` names both the same); returns the two JSON entries."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import attention_bwd_gqa_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda,
+    )
+    from repro_torch.kernels.flash_attention.ops import _forward_ref
+    saved = {n: kernels.LAUNCHES[n] for n in ("flash_attention_wide",
+                                              "flash_attention_wide_bwd")}
+    gen = torch.Generator(device=device).manual_seed(26)
+    entries = {}
+    for shape in (WIDE_LAYER, *WIDE_EDGES):
+        b, s_len, hq, kh, hd, win = shape
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn(sh, generator=gen, device=device
+                                       ).to(dtype)
+                           for sh in ((b, s_len, hq, hd), (b, s_len, kh, hd),
+                                      (b, s_len, kh, hd),
+                                      (b, s_len, hq, hd)))
+            o, lse = flash_attention_cuda(q, k, v, window=win,
+                                          with_lse=True)
+            f32 = [x.float() for x in (q, k, v)]
+            want, want_lse = _forward_ref(*f32, None, True, win,
+                                          with_lse=True)
+            err = float((o.float() - want).abs().nan_to_num(
+                nan=math.inf).max())
+            lse_err = float((lse - want_lse).abs().max())
+            what = (f"B={b} S=T={s_len} Hq={hq} Kh={kh} hd={hd} window={win}"
+                    f" {str(dtype)[6:]}")
+            if dtype == torch.float32:
+                require(err <= 2e-5, f"flash_attention_wide {what}: {err}")
+                verdict = f"max abs err {err:.2e} (atol 2e-5)"
+            else:
+                verdict = Bf16AttentionError().add(
+                    o, want.to(dtype)).check(f"wide {what}")
+            require(lse_err <= 1e-4, f"flash_attention_wide {what} lse "
+                    f"{lse_err}")
+            got = flash_attention_bwd_cuda(q, k, v, o, do, lse, window=win)
+            again = flash_attention_bwd_cuda(q, k, v, o, do, lse, window=win)
+            require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"flash_attention_wide_bwd {what}: two launches differ")
+            exact = attention_bwd_gqa_ref(*f32, o.float(), do.float(), lse,
+                                          window=win)
+            rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+            share = 0.0
+            for g, w in zip(got, exact):
+                limit = rtol * w.abs() + 2e-5 * w.abs().max()
+                share = max(share, float(((g.float() - w).abs() / limit)
+                                         .nan_to_num(nan=math.inf).max()))
+            require(share <= 1.0, f"flash_attention_wide_bwd {what}: "
+                    f"{share} of its limit")
+            bwd_err = max(float((g.float() - w).abs().max())
+                          for g, w in zip(got, exact))
+            line = (f"[flash_attention_wide] {what}: forward {verdict}, lse "
+                    f"{lse_err:.2e}; backward max abs err {bwd_err:.2e}, "
+                    f"worst {share:.3f} of |err| <= {rtol:g} |grad| + 2e-5 "
+                    f"max |grad|, two launches bitwise equal")
+            if shape == WIDE_LAYER and dtype == torch.float32:
+                cost = dict(b=b, s=s_len, t=s_len, hq=hq, kh=kh, hd=hd,
+                            itemsize=4, window=win)
+                ms = time_ms(lambda _: flash_attention_cuda(
+                    q, k, v, window=win), iters=5, warmup=1)
+                plain_ms = time_ms(lambda _: _forward_ref(
+                    q, k, v, None, True, win), iters=3, warmup=1)
+                lib_ms, backend, lib_out = _sdpa_ms(torch, q, k, v, win)
+                b_ms, b_by = kernel_bound_ms("flash_attention_wide", **cost)
+                entries["fwd"] = {
+                    "name": "flash_attention_wide", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "flash_attention_wide.cu",
+                    "replaces": "src/repro/kernels/flash_attention/"
+                                "kernel.py:74 (head dims above 128)",
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms,
+                    "library": f"scaled_dot_product_attention ({backend})",
+                    "max_abs_err": err}
+                bms = time_ms(lambda _: flash_attention_bwd_cuda(
+                    q, k, v, o, do, lse, window=win), iters=5, warmup=1)
+                bplain = time_ms(lambda _: attention_bwd_gqa_ref(
+                    q, k, v, o, do, lse, window=win), iters=3, warmup=1)
+                blib, bbackend = _sdpa_bwd_ms(torch, q, k, v, do, win)
+                bb_ms, bb_by = kernel_bound_ms("flash_attention_wide_bwd",
+                                               **cost)
+                entries["bwd"] = {
+                    "name": "flash_attention_wide_bwd", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "flash_attention_wide.cu",
+                    "replaces": "src/repro/models/lm/attention.py:56 "
+                                "(autodiff of the flash scan, head dims "
+                                "above 128; no Pallas kernel)",
+                    "ms": bms, "plain_ms": bplain, "bound_ms": bb_ms,
+                    "bound_by": bb_by, "library_ms": blib,
+                    "library": "scaled_dot_product_attention backward "
+                               f"({bbackend})",
+                    "max_abs_err": bwd_err}
+                line += (f"; forward kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+                         f", SDPA ({backend}) {lib_ms}, bound {b_ms:.4f} "
+                         f"({b_by}), kernel / bound {ms / b_ms:.2f}; "
+                         f"backward kernel {bms:.4f} ms, plain {bplain:.4f}, "
+                         f"SDPA ({bbackend}) {blib}, bound {bb_ms:.4f} "
+                         f"({bb_by}), kernel / bound {bms / bb_ms:.2f}")
+                del lib_out
+            log(line)
+            del q, k, v, do, o, lse, got, again, exact, want
+            torch.cuda.empty_cache()
+    kernels.LAUNCHES.update(saved)      # checks do not count
+    return [entries["fwd"], entries["bwd"]]
+
+
 def phase_full_width_shapley(torch, device):
     from repro_torch.core.aggregation import tree_stack
     from repro_torch.core.shapley_batched import (
@@ -1759,7 +1886,8 @@ def phase_grid(torch, device):
                 "ce_loss": n if p.needs_sv else 0,
                 "delta_codec": n if p.upload_codec != "identity" else 0,
                 "weighted_avg": 0, "flash_attention": 0,
-                "flash_attention_bwd": 0}
+                "flash_attention_bwd": 0, "flash_attention_wide": 0,
+                "flash_attention_wide_bwd": 0}
         require(p.graph_launches["round"] == want and p.replays["round"]
                 == base.rounds, f"grid: {p.label} is not one round graph "
                 f"of {n} replicas replayed once a round")
@@ -3488,8 +3616,8 @@ def _dryrun_clis(tmp: Path) -> list:
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
     cmds = ([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "all", "--shape", "all", "--jobs", "5", "--out-dir",
-             str(tmp / "dryrun")],
+             "all", "--shape", "all", "--mesh", "h100", "--jobs", "5",
+             "--out-dir", str(tmp / "dryrun")],
             [sys.executable, "-m", "repro_torch.launch.hillclimb",
              "--target", "tinyllama_train", "--jobs", "2", "--out-dir",
              str(tmp / "perf")])
@@ -3633,6 +3761,598 @@ def phase_dryrun(torch, device, smi):
     return launches
 
 
+# ------------------------------------------- phase 24: the LM mesh ---------
+
+# (label, arch, layers or None for full depth, config overrides, kind, B, S,
+# train steps or decode steps)
+TP_CASES = (
+    ("TinyLlama-1.1B", "tinyllama_1_1b", None, {"parallelism": "tp"},
+     "train", 4, 2048, 2),
+    ("Hymba-1.5B, 2 layers", "hymba_1_5b", 2, {"dtype": "float32"},
+     "serve", 4, 2048, 4),
+    ("Qwen3-MoE-30B-A3B, 2 layers", "qwen3_moe_30b_a3b", 2,
+     {"dtype": "float32"}, "serve", 4, 2048, 4),
+)
+# a planted fault, run once beside the TinyLlama case and held to the
+# same limits, which it must fail: the mesh's gradients are not
+# all-reduced over "data" (each data shard steps on its own rows)
+TP_FAULT_CASE = ("TinyLlama-1.1B, 2 layers, no data all-reduce",
+                 "tinyllama_1_1b", 2, {"parallelism": "tp"}, "train", 4,
+                 2048, 2)
+TP_MESH = ((2, 2), ("data", "model"))
+# tolerances against the single-device port on the same card: TinyLlama
+# trains in its config's bf16 (a row-parallel sum is rounded to bf16 once
+# more than the whole product), the serving cases in f32 (Qwen3-MoE's
+# top-8 of 128 experts may flip on a near-tie, as phase 19 allows).  The
+# loss limits are 9x and 17x the first card run's 5.9e-6 and 1.1e-5
+TP_LOSS_RTOL = (1e-4, 1e-4)          # step 1 (same params), step 2
+TP_MU_RTOL = 0.1                     # |mu - mu1| / |mu1| a leaf, 2 steps
+TP_UPDATE_RTOL = 0.3                 # |dp - dp1| / |dp1| a leaf, 2 steps
+TP_LOGIT_TOL = {"Hymba-1.5B, 2 layers": 1e-4,
+                "Qwen3-MoE-30B-A3B, 2 layers": 2e-3}   # of max |logit|
+
+
+def _tp_cfg(case):
+    import dataclasses
+    from repro_torch.configs import get_config
+    _, arch, layers, over, *_ = case
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return dataclasses.replace(cfg, **over)
+
+
+def _tp_inputs(torch, cfg, b, s_len, steps, seed=24):
+    """The same global params, `steps` batches and `steps` decode tokens on
+    every rank, drawn on the card from `seed` (int32 tokens, the
+    dry-run's)."""
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.lm import model as M
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = M.init_params(cfg, gen, device="cuda")
+    batches = []
+    for _ in range(steps):
+        batch = synth_batch(cfg, gen, b, s_len)
+        batch["tokens"] = batch["tokens"].to(torch.int32)
+        batches.append(batch)
+    tokens = [torch.randint(0, cfg.vocab, (b,), generator=gen,
+                            device="cuda", dtype=torch.int32)
+              for _ in range(steps)]
+    return params, batches, tokens
+
+
+def _tp_probe(torch, mesh):
+    """That gloo runs each collective on CUDA tensors, f32 and bf16, and
+    that each gives the right values on the card."""
+    from repro_torch.launch import collectives as C
+    x = torch.arange(8, dtype=torch.float32, device="cuda") + 10 * (
+        mesh.index(("data", "model"))[0])
+    got = {
+        "all_reduce": C.all_reduce(x, "model", count=False, mesh=mesh),
+        "all_reduce_max": C.all_reduce(x, "model", "max", count=False,
+                                       mesh=mesh),
+        "all_gather": C.all_gather(x, "model", 0, count=False, mesh=mesh),
+        "reduce_scatter": C.reduce_scatter(x, "model", 0, count=False,
+                                           mesh=mesh),
+        "all_reduce_bf16": C.all_reduce(x.bfloat16(), "model", count=False,
+                                        mesh=mesh),
+        "all_gather_bf16": C.all_gather(x.bfloat16(), "model", 0,
+                                        count=False, mesh=mesh),
+        "reduce_scatter_bf16": C.reduce_scatter(x.bfloat16(), "model", 0,
+                                                count=False, mesh=mesh)}
+    d = mesh.coords["data"]
+    blocks = [torch.arange(8, dtype=torch.float32, device="cuda")
+              + 10 * (2 * d + m) for m in range(2)]
+    want = {"all_reduce": blocks[0] + blocks[1],
+            "all_reduce_max": torch.maximum(blocks[0], blocks[1]),
+            "all_gather": torch.cat(blocks),
+            "reduce_scatter": (blocks[0] + blocks[1])[
+                4 * mesh.coords["model"]:4 * mesh.coords["model"] + 4],
+            "all_reduce_bf16": (blocks[0] + blocks[1]).bfloat16()}
+    for k in ("all_gather", "reduce_scatter"):
+        want[k + "_bf16"] = want[k].bfloat16()
+    return {k: bool(torch.equal(got[k], want[k])) and got[k].is_cuda
+            for k in got}
+
+
+def _tp_single(torch, cfg, params, batches) -> dict:
+    """`len(batches)` AdamW steps of `cfg` on one device from `params`:
+    the losses, and each leaf's update and first moment on the host."""
+    from repro_torch.models.lm import model as M
+    from repro_torch.tree import tree_leaves
+    opt_init, step = M.make_train_step(cfg)
+    p, opt, losses = params, opt_init(params), []
+    for batch in batches:
+        p, opt, m = step(p, opt, batch)
+        losses.append(float(m["loss"]))
+    return {"losses": losses,
+            "update": [(a - b).cpu() for a, b in
+                       zip(tree_leaves(p), tree_leaves(params))],
+            "mu": [t.cpu() for t in tree_leaves(opt.mu)]}
+
+
+def _tp_timed_collectives(torch, spent: list):
+    """A context in which each of torch.distributed's three collectives
+    that `launch.collectives` calls adds its wall seconds, the card
+    synchronized before and after, to `spent[0]`."""
+    import contextlib
+    from unittest import mock
+    import torch.distributed as dist
+
+    def timed(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return run
+    stack = contextlib.ExitStack()
+    for name in ("all_reduce", "all_gather_into_tensor",
+                 "reduce_scatter_tensor"):
+        stack.enter_context(mock.patch.object(dist, name,
+                                              timed(getattr(dist, name))))
+    return stack
+
+
+def _tp_rel(a, b) -> float:
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def _tp_train_case(torch, case, mesh, rank, out, fault=False):
+    """Rank 0 runs the case on one device first (results kept in host
+    memory), then every rank runs its part on the mesh; the shards are held
+    against the single-device params and first moments (rank 0 checks its
+    blocks, and sends rank 1 its own: the two model blocks cover the tree,
+    ranks 2 and 3 repeat them over "data").  Rank 0 also trains the case
+    in f32 on one device, and both bf16 first moments, the mesh's and the
+    single device's, are held against that one.  With `fault` the mesh's
+    gradients skip their all-reduce over "data" (`tp.sync_grads` replaced
+    in this process) and no f32 run or meta count is made."""
+    import contextlib
+    import dataclasses
+    import gc
+    from unittest import mock
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.compat import Count, set_mesh
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.mesh import LMMesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models.lm import model as M
+    from repro_torch.models.lm import tp
+    from repro_torch.tree import tree_leaves
+    label, _, _, _, _, b, s_len, steps = case
+    base = _tp_cfg(case)
+    shape = InputShape("tp", s_len, b, "train")
+    cfg = S.launch_cfg(base, mesh, shape)
+    params, batches, _ = _tp_inputs(torch, cfg, b, s_len, steps)
+    pspecs = S.param_specs(cfg, mesh, params)
+    ref = None
+    if rank == 0:
+        ref = _tp_single(torch, cfg, params, batches)
+        if not fault:
+            ref["mu32"] = _tp_single(torch, dataclasses.replace(
+                cfg, dtype="float32"), params, batches)["mu"]
+            out["single_mu_vs_f32"] = max(
+                _tp_rel(a, b) for a, b in zip(ref["mu"], ref["mu32"]))
+    local = S.shard_tree(params, pspecs, mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    opt_init, step = M.make_train_step(cfg)
+    p0 = [t.cpu() for t in tree_leaves(local)]      # host: the card is full
+    p, opt = local, opt_init(local)
+    del local
+    times, losses, colls, card, free, in_colls = [], [], [], None, [], []
+    planted = mock.patch.object(
+        tp, "sync_grads",
+        lambda grads, specs: [g / tp.layout().rules.n_batch for g in grads]
+    ) if fault else contextlib.nullcontext()
+    spent = [0.0]
+    with set_mesh(mesh), planted, _tp_timed_collectives(torch, spent):
+        for i, batch in enumerate(batches):
+            C.reset()
+            spent[0] = 0.0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                rows = {k: v.clone() for k, v in S.shard_tree(
+                    batch, S.batch_specs(cfg, mesh, batch), mesh).items()}
+                with Count() as card:
+                    card.track(p, opt, rows)
+                    p, opt, m = step(p, opt, batch)
+                del rows
+            else:
+                p, opt, m = step(p, opt, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            in_colls.append(spent[0] * 1e3)
+            free.append(torch.cuda.mem_get_info()[0] / 1e9)
+            losses.append(float(m["loss"]))
+            colls.append(C.collective_bytes())
+    out.update(ms=times, collective_ms=in_colls, losses=losses,
+               collectives=colls,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card_free_gb=min(free), launches=dict(kernels.LAUNCHES))
+    if rank == 0 and not fault:
+        meta = count_step(cfg, shape, mesh=LMMesh(*TP_MESH, (0, 0)))
+        card_sum = card.summary()
+        out["count"] = {
+            k: (meta[k] == card_sum[k]) for k in
+            ("flops", "bytes_accessed", "argument_bytes", "kernels",
+             "collectives")}
+        out["count_values"] = {"meta_flops": meta["flops"],
+                               "card_flops": card_sum["flops"],
+                               "meta_bytes": meta["bytes_accessed"],
+                               "card_bytes": card_sum["bytes_accessed"],
+                               "meta_peak": meta["peak_bytes"],
+                               "card_peak": card_sum["peak_bytes"]}
+    if rank == 0:
+        out["ref_losses"] = ref["losses"]
+    # hold the shards: rank 0 its blocks, rank 1 the blocks rank 0 sends
+    p1, mu1 = tree_leaves(p), tree_leaves(opt.mu)
+    keys = ("update", "mu") if fault else ("update", "mu", "mu32")
+    worst = dict.fromkeys(keys, 0.0)
+    mesh1 = LMMesh(*TP_MESH, (0, 1))
+    for i, spec in enumerate(tree_leaves(pspecs)):
+        dp1 = p1[i] - p0[i].to(p1[i].device)
+        for key in keys:
+            mine = dp1 if key == "update" else mu1[i]
+            if rank == 0:
+                whole = ref[key][i]
+                block = S.shard_tree({"x": whole}, {"x": spec}, mesh)["x"]
+                other = S.shard_tree({"x": whole}, {"x": spec}, mesh1)["x"]
+                dist.send(other.contiguous(), 1)
+            elif rank == 1:
+                block = torch.empty(mine.shape, dtype=mine.dtype)
+                dist.recv(block, 0)
+            else:
+                continue
+            worst[key] = max(worst[key], _tp_rel(mine, block.to(mine.device)))
+    out["worst"] = worst
+    del p, opt, p0, p1, mu1, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tp_serve_case(torch, case, mesh, rank, out):
+    """Prefill then decode steps, on one device (rank 0) and on the mesh;
+    the mesh's logits gathered back to whole (`logits_spec`) and held on
+    rank 0."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import sharding as S
+    from repro_torch.launch.compat import set_mesh
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.models.lm import model as M
+    label, _, _, _, _, b, s_len, steps = case
+    base = _tp_cfg(case)
+    cfgs = {k: S.launch_cfg(base, mesh, InputShape("tp", s_len, b, k))
+            for k in ("prefill", "decode")}
+    params, batches, tokens = _tp_inputs(torch, base, b, s_len, steps)
+    ref = None
+    if rank == 0:
+        cache, logits = M.prefill_step(cfgs["prefill"], params, batches[0])
+        ref = [logits]
+        for tok in tokens:
+            cache, logits = M.decode_step(cfgs["decode"], params, cache,
+                                          {"token": tok}, cache_len=s_len)
+            ref.append(logits)
+        del cache
+    local = S.shard_tree(params, S.param_specs(base, mesh, params), mesh)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    spec = S.logits_spec(base, mesh, b)
+    got, times, colls = [], [], []
+    with set_mesh(mesh):
+        for i in range(steps + 1):
+            C.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                cache, logits = M.prefill_step(cfgs["prefill"], local,
+                                               batches[0])
+            else:
+                cache, logits = M.decode_step(cfgs["decode"], local, cache,
+                                              {"token": tokens[i - 1]},
+                                              cache_len=s_len)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            colls.append(C.collective_bytes())
+            got.append(S.unshard_tree({"l": logits}, {"l": spec}, mesh)["l"])
+    out.update(ms=times, collectives=colls,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=dict(kernels.LAUNCHES),
+               cache_layout={k: tuple(v.shape) for k, v in cache.items()
+                             if isinstance(v, torch.Tensor)})
+    if rank == 0:
+        out["logit_err"] = max(
+            float((g.float() - w.float()).abs().max()
+                  / w.float().abs().max()) for g, w in zip(got, ref))
+    del local, cache, got, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _tp_rank(rank: int, world: int, store: str, out_dir: str) -> None:
+    """One rank of phase 24: gloo over CUDA tensors (NCCL refuses two ranks
+    on one card), the (2, 2) debug mesh, the probe, then every case, the
+    planted fault after the train case."""
+    sys.path.insert(0, str(ROOT / "src"))
+    # four ranks share the card: no reserved-but-free segments
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_debug_mesh
+    kernels.library()
+    mesh = make_debug_mesh(*TP_MESH)
+    res = {"coords": dict(mesh.coords)}
+    try:
+        res["probe"] = _tp_probe(torch, mesh)
+        for case in TP_CASES:
+            out = {}
+            if case[4] == "train":
+                _tp_train_case(torch, case, mesh, rank, out)
+                res[TP_FAULT_CASE[0]] = {}
+                _tp_train_case(torch, TP_FAULT_CASE, mesh, rank,
+                               res[TP_FAULT_CASE[0]], fault=True)
+                # the training is timed: the dry-run starts only now
+                dist.barrier()
+                if rank == 0:
+                    (Path(out_dir) / "trained").touch()
+            else:
+                _tp_serve_case(torch, case, mesh, rank, out)
+            res[case[0]] = out
+    except Exception:
+        import traceback
+        res["error"] = traceback.format_exc()
+    torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _dryrun_mesh_cli(tmp: Path):
+    """The multi-mesh dry-run CLI over every arch and shape on both
+    production meshes, on meta tensors, as a process beside this one."""
+    import os
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "all",
+         "--shape", "all", "--mesh", "both", "--jobs", "3", "--out-dir",
+         str(tmp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env, cwd=str(ROOT))
+
+
+def _tp_train_verdict(ranks, label) -> dict:
+    """Log a train case's losses and worst shards against the single
+    device's; which of the TP_* limits they keep."""
+    zero = ranks[0][label]
+    worst = max((res[label]["worst"] for res in ranks[:2]),
+                key=lambda w: w["update"])
+    mu = max(res[label]["worst"]["mu"] for res in ranks[:2])
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(zero["losses"], zero["ref_losses"])]
+    log(f"[lm-mesh] {label}: losses {zero['losses']} against one "
+        f"device's {zero['ref_losses']} (rel {rel}, limits "
+        f"{TP_LOSS_RTOL}); worst leaf |mu - mu1| / |mu1| {mu:.4e} "
+        f"(limit {TP_MU_RTOL}), |dp - dp1| / |dp1| "
+        f"{worst['update']:.4e} (limit {TP_UPDATE_RTOL})")
+    return {"loss": all(r <= t for r, t in zip(rel, TP_LOSS_RTOL)),
+            "mu": mu <= TP_MU_RTOL, "update": worst["update"] <= TP_UPDATE_RTOL}
+
+
+def phase_lm_mesh(torch, device, smi):
+    """The LMs' tensor-parallel layout on the card: 4 spawned ranks on the
+    one H100 over gloo (NCCL refuses two ranks on one card), the (2, 2)
+    ("data", "model") debug mesh, every rank on CUDA tensors.  Full-width
+    TinyLlama-1.1B (full depth, bf16, tp) trains 2 AdamW steps at B = 4 x
+    2048 (the flash forward and backward on a rank's 16 query / 2 KV heads);
+    2-layer Hymba-1.5B (25 heads replicated, 5 KV heads: the ring split on
+    its positions, decode a distributed softmax; SSM heads split) and
+    2-layer Qwen3-MoE-30B-A3B (experts over "model", FSDP over "data")
+    prefill 4 x 2048 and decode 4 steps in f32.  Each case against the
+    single-device port on the same card (rank 0 runs it first): the losses
+    and, a leaf at a time, the first moment and the update of every
+    shard (TP_* tolerances); the logits gathered back to whole.  TinyLlama's
+    first moments are also held against one device's f32 run (the mesh's
+    and one device's bf16 ones, the cause of their difference), and a
+    planted fault (`TP_FAULT_CASE`: no gradient all-reduce over "data")
+    must fail the same limits.  Each rank's ms a step, peak memory, the
+    card's free memory, collectives a step by kind and bytes and flash
+    launches are printed; rank 0's first TinyLlama step counted on the
+    card equals the dry-run's meta count of it on the virtual (2, 2) mesh
+    at rank 0's coordinates.  Once the training is done (its steps are
+    timed with the host to themselves), the multi-mesh dry-run counts the
+    10 archs x 4 shapes x 2 production meshes on meta beside the serving
+    cases.  Returns the ranks' kernel launches, summed."""
+    import gc
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.shapes import SHAPES, shape_applicable
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp_name:
+        tmp = Path(tmp_name)
+        (tmp / "dry").mkdir()
+        cli = None
+        try:
+            ctx = mp.start_processes(_tp_rank, args=(4, str(tmp / "store"),
+                                                     str(tmp)),
+                                     nprocs=4, start_method="spawn",
+                                     join=False)
+            # the dry-run's workers share the host's cores with the ranks:
+            # they start once the ranks' training, which is timed, is done
+            while not ctx.join(timeout=1):
+                if cli is None and (tmp / "trained").exists():
+                    cli = _dryrun_mesh_cli(tmp / "dry")
+            if cli is None:
+                cli = _dryrun_mesh_cli(tmp / "dry")
+            ranks = [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                     for r in range(4)]
+            text = cli.communicate(timeout=900)[0]
+        finally:
+            if cli is not None and cli.poll() is None:
+                cli.kill()
+                cli.wait()
+        recs = {f.stem: json.loads(f.read_text())
+                for f in (tmp / "dry").glob("*.json")}
+    for r, res in enumerate(ranks):
+        require("error" not in res, f"lm-mesh rank {r}: {res.get('error')}")
+        require(all(res["probe"].values()), f"lm-mesh rank {r} probe "
+                f"{res['probe']}")
+    log(f"[lm-mesh] 4 ranks, gloo on CUDA tensors, one card ({smi}); probe "
+        f"on CUDA tensors, each value right: {ranks[0]['probe']}")
+    launches = {}
+    for case in TP_CASES:
+        label = case[0]
+        for r, res in enumerate(ranks):
+            c = res[label]
+            per = [{k: v for k, v in x["by_kind"].items() if v}
+                   for x in c["collectives"]]
+            counts = [{k: v for k, v in x["counts"].items() if v}
+                      for x in c["collectives"]]
+            flash = {k: v for k, v in c["launches"].items()
+                     if k.startswith("flash") and v}
+            inside = (f" (in gloo's collectives "
+                      f"{[round(t, 3) for t in c['collective_ms']]})"
+                      if "collective_ms" in c else "")
+            log(f"[lm-mesh] {label} rank {r} {res['coords']}: ms a step "
+                f"{[round(t, 3) for t in c['ms']]}{inside}; peak "
+                f"{c['peak_gb']:.4f} GB; collectives a step (bytes) {per}, "
+                f"(calls) {counts}; flash launches {flash}")
+            for k, v in c["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        zero = ranks[0][label]
+        if case[4] == "train":
+            held = _tp_train_verdict(ranks, label)
+            require(all(held.values()), f"lm-mesh {label}: off the limits "
+                    f"{held}")
+            mu32 = max(res[label]["worst"]["mu32"] for res in ranks[:2])
+            log(f"[lm-mesh] {label}: first moments against one device's f32 "
+                f"run, worst leaf: the mesh's (bf16) {mu32:.4e}, one "
+                f"device's bf16 {zero['single_mu_vs_f32']:.4e}; card free "
+                f"after a step, least of the ranks "
+                f"{min(res[label]['card_free_gb'] for res in ranks):.4f} GB")
+            fault = TP_FAULT_CASE[0]
+            held = _tp_train_verdict(ranks, fault)
+            require(not all(held.values()), f"lm-mesh {fault}: a planted "
+                    f"fault passed every limit")
+            log(f"[lm-mesh] {fault} (planted fault): limits held "
+                f"{held}, as they must not all be")
+            cv = zero["count_values"]
+            log(f"[lm-mesh] {label} rank 0's first step, counted on the "
+                f"card and on meta over the virtual (2, 2) mesh: equal "
+                f"{zero['count']}; FLOPs {cv['card_flops']:.6e} / "
+                f"{cv['meta_flops']:.6e}, bytes {cv['card_bytes']:.6e} / "
+                f"{cv['meta_bytes']:.6e}, peak estimate "
+                f"{cv['meta_peak'] / 1e9:.4f} GB, measured rank 0 "
+                f"{zero['peak_gb']:.4f} GB")
+            require(all(zero["count"].values()), f"lm-mesh {label}: the "
+                    f"card's count is not the meta count: {zero['count']}")
+        else:
+            tol = TP_LOGIT_TOL[label]
+            log(f"[lm-mesh] {label}: prefill + {case[7]} decode steps, "
+                f"logits gathered against one device's: max err / max "
+                f"|logit| {zero['logit_err']:.4e} (limit {tol}); cache "
+                f"blocks {zero['cache_layout']}")
+            require(zero["logit_err"] <= tol, f"lm-mesh {label}: logits "
+                    f"{zero['logit_err']}")
+    for line in text.splitlines():
+        if not line.startswith("[ok]"):
+            log(f"[lm-mesh] dryrun {line}")
+    require(cli.returncode == 0, f"dryrun --mesh both exited {cli.returncode}")
+    require(len(recs) == 2 * len(ARCH_IDS) * len(SHAPES),
+            f"dryrun --mesh both: {len(recs)} records")
+    n_ok = 0
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for name, shape in SHAPES.items():
+            for mesh_name, n_dev in (("single", 256), ("multi", 512)):
+                rec = recs[f"{cfg.name}__{name}__{mesh_name}"]
+                want = "ok" if shape_applicable(cfg, shape)[0] else "skipped"
+                require(rec["status"] == want, f"dryrun {rec['tag']}: "
+                        f"{rec['status']}")
+                if want == "ok":
+                    n_ok += 1
+                    require(rec["n_devices"] == n_dev
+                            and rec["collective_bytes_toplevel"][
+                                "weighted_total"] > 0,
+                            f"dryrun {rec['tag']}: {rec['n_devices']} "
+                            f"devices, no collectives")
+    tl = recs["tinyllama-1.1b__train_4k__single"]
+    log(f"[lm-mesh] dryrun --mesh both: {len(recs)} records ({n_ok} ok, "
+        f"{len(recs) - n_ok} skipped); TinyLlama train_4k on (16, 16): "
+        f"collectives {tl['collective_bytes_toplevel']['by_kind']}, "
+        f"roofline {tl['roofline']['dominant']} "
+        f"{tl['roofline']['step_time_lower_bound_s'] * 1e3:.3f} ms; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def phase_wide_heads(torch, device):
+    """The federated LM example's model at --d-model 1024 (4 query heads of
+    256 over 2 KV heads), 2 layers, f32: one loss_and_grads at B = 2 x 2048
+    on the card (the wide route of flash_attention, forward and backward)
+    against the CPU's plain blocked loop: the loss at 1e-5 relative, each
+    gradient leaf at TRAIN_GRAD_RTOL of its max.  Returns its launches."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.lm import model as M
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(
+        get_config("tinyllama_1_1b").reduced(n_layers=2, d_model=1024),
+        vocab=1024, dtype="float32")
+    gen = torch.Generator().manual_seed(25)
+    params = M.init_params(cfg, gen, device="cpu")
+    batch = synth_batch(cfg, gen, 2, 2048)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    loss, grads = M.loss_and_grads(cfg, tree_map(lambda t: t.to(device),
+                                                 params),
+                                   {k: v.to(device) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    want_loss, want = M.loss_and_grads(cfg, params, batch)
+    rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
+    worst = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                for g, w in zip(tree_leaves(grads), tree_leaves(want)))
+    log(f"[wide-heads] hd {cfg.hd}, {cfg.n_heads} / {cfg.n_kv_heads} heads, "
+        f"B 2 x 2048, f32: card {card_s * 1e3:.1f} ms; loss {float(loss)} "
+        f"vs CPU {float(want_loss)} (rel {rel:.2e}, limit 1e-5); worst "
+        f"gradient leaf {worst:.2e} of its max (limit {TRAIN_GRAD_RTOL}); "
+        f"launches {launches}")
+    require(rel <= 1e-5 and worst <= TRAIN_GRAD_RTOL,
+            f"wide heads: loss rel {rel}, gradient {worst}")
+    require(launches["flash_attention_wide"] > 0
+            and launches["flash_attention_wide_bwd"] > 0
+            and launches["flash_attention"] == 0,
+            f"wide heads: launches {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3649,7 +4369,8 @@ def main() -> int:
                check_delta_codec(torch, device),
                check_weighted_avg(torch, device),
                check_flash_attention(torch, device),
-               check_flash_attention_bwd(torch, device)]
+               check_flash_attention_bwd(torch, device),
+               *check_flash_attention_wide(torch, device)]
     check_bwd_repro(torch, device)
     phase_full_width_shapley(torch, device)
     phase_reference_run(torch, device)
@@ -3682,6 +4403,10 @@ def main() -> int:
     t_new = time.perf_counter()
     paths["client_sharded"] = phase_client_sharded(torch, device)
     log(f"[client-sharded] phase 23: {time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    paths["lm_mesh"] = phase_lm_mesh(torch, device, smi)
+    paths["wide_heads"] = phase_wide_heads(torch, device)
+    log(f"[lm-mesh] phase 24: {time.perf_counter() - t_new:.1f} s")
     for e in entries:
         by_path = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())

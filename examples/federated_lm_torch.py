@@ -16,7 +16,8 @@ aggregates (`weighted_average`), values contributions with GTG-Shapley
 updates cumulative SVs.  The streams, batches and selection draws come
 from torch generators seeded as the run is (the reference's threefry draws
 differ).  On the card, `--seq` above 1024 sends attention to the flash
-kernels, forward and backward; they take head dims up to 128.
+kernels, forward and backward, at any head dim (above 128, as at
+`--d-model 1024`, their wide route).
 """
 import argparse
 import dataclasses

@@ -49,7 +49,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"prefix_avg": 0, "ce_loss": 0, "cohort_gather": 0,
             "cohort_gather_shard": 0, "delta_codec": 0, "weighted_avg": 0,
-            "flash_attention": 0, "flash_attention_bwd": 0}
+            "flash_attention": 0, "flash_attention_bwd": 0,
+            "flash_attention_wide": 0, "flash_attention_wide_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -200,6 +201,15 @@ _SIGNATURES = {
                                                             _PTR],
     "flash_attention_bwd_bf16": [_PTR] * 12 + [_I64] * 23 + [_F32, _I64,
                                                              _PTR],
+    # head dims above 128: the forward's arguments; the backward's without
+    # the bounds scratch (rows: the (B, Hq, S) f32 D)
+    "flash_attention_wide_f32": [_PTR] * 6 + [_I64] * 20 + [_F32, _I64, _PTR],
+    "flash_attention_wide_bf16": [_PTR] * 6 + [_I64] * 20 + [_F32, _I64,
+                                                             _PTR],
+    "flash_attention_wide_bwd_f32": [_PTR] * 11 + [_I64] * 23 + [_F32, _I64,
+                                                                 _PTR],
+    "flash_attention_wide_bwd_bf16": [_PTR] * 11 + [_I64] * 23 + [_F32, _I64,
+                                                                  _PTR],
     # conditional nodes (engine/graph_flow.py): (out: runtime, driver);
     # (device, out: stream); (flag, kind, mode, device, stream, body
     # stream, out: body graph, handle); (handle, flag or null, device,

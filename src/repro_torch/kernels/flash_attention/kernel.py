@@ -5,8 +5,12 @@
 q (B, S, Hq, hd), k/v (B, T, Kh, hd) of one dtype (float32 or bfloat16),
 read through their strides (the last axis must be contiguous), and query
 positions q_pos (S,) -> o (B, S, Hq, hd) in q's dtype.  Query head h reads
-KV head h // (Hq // Kh).  Head dims up to 128; S and T need not be
-multiples of the tiles.
+KV head h // (Hq // Kh).  Any head dim: up to `MAX_HEAD_DIM` (128) on
+the tensor cores as below, wider on the wide route (`csrc/
+flash_attention_wide.cu`, CUDA cores, float32 throughout, the head dim
+walked in chunks of 128; counted in `LAUNCHES["flash_attention_wide"]` and
+`["flash_attention_wide_bwd"]`).  S and T need not be multiples of the
+tiles.
 
 Both dtypes run on the tensor cores, with Q, K and V brought in by TMA,
 which needs each tensor's base 16-byte aligned and its batch, sequence and
@@ -53,7 +57,17 @@ _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 _BWD_ENTRY = {torch.float32: "flash_attention_bwd_f32",
               torch.bfloat16: "flash_attention_bwd_bf16"}
-MAX_HEAD_DIM = 128
+_WIDE_ENTRY = {torch.float32: "flash_attention_wide_f32",
+               torch.bfloat16: "flash_attention_wide_bf16"}
+_WIDE_BWD_ENTRY = {torch.float32: "flash_attention_wide_bwd_f32",
+                   torch.bfloat16: "flash_attention_wide_bwd_bf16"}
+MAX_HEAD_DIM = 128     # the tensor-core routes'; wider runs the wide route
+WIDE_CHUNK = 128       # the wide route's head-dim chunk (a grid z slice)
+
+
+def wide(hd: int) -> bool:
+    """True when head dim `hd` runs the wide route (CUDA cores)."""
+    return hd > MAX_HEAD_DIM
 TMA_ALIGN = 16         # bytes: base address and every stepped stride
 
 
@@ -98,9 +112,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if kh < 1 or hq % kh:
         raise ValueError(f"query heads {hq} are not a multiple of KV heads "
                          f"{kh}")
-    if not 1 <= hd <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention takes head dims 1..{MAX_HEAD_DIM}"
-                         f", got {hd}")
+    if hd < 1:
+        raise ValueError(f"flash_attention needs a head dim, got {hd}")
     if t_len < 1:
         raise ValueError("flash_attention needs at least one key")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -111,6 +124,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dim must be contiguous")
+
+
+def _check_grid(b: int, hq: int, hd: int) -> None:
+    """The launch grid's limits: heads and batch rows (times the wide
+    route's head-dim chunks) on grid axes of at most 65535."""
+    chunks = -(-hd // WIDE_CHUNK) if wide(hd) else 1
+    if hq > 65535 or b * chunks > 65535:
+        raise ValueError(f"flash_attention takes at most 65535 heads and "
+                         f"65535 batch rows x head-dim chunks, got Hq={hq}, "
+                         f"B={b}, chunks={chunks}")
 
 
 def _positions(q_pos: Optional[torch.Tensor], q: torch.Tensor
@@ -144,19 +167,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if with_lse else None)
     if out.numel() == 0 or q.is_meta:
         return (out, lse) if with_lse else out
-    if hq > 65535 or b > 65535:
-        raise ValueError(f"flash_attention takes at most 65535 heads and "
-                         f"batch rows, got Hq={hq}, B={b}")
-    q, k, v = (t if tma_ready(t) else tma_copy(t) for t in (q, k, v))
-    rc = getattr(library(), _ENTRY[q.dtype])(
+    _check_grid(b, hq, hd)
+    if wide(hd):
+        entry, counter = _WIDE_ENTRY[q.dtype], "flash_attention_wide"
+    else:
+        q, k, v = (t if tma_ready(t) else tma_copy(t) for t in (q, k, v))
+        entry, counter = _ENTRY[q.dtype], "flash_attention"
+    rc = getattr(library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         q_pos.data_ptr(), b, s_len, t_len, hq, kh, hd,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], int(causal), int(window), _scale(hd),
         q.device.index, stream_ptr(q))
-    check_launch(rc, "flash_attention")
-    LAUNCHES["flash_attention"] += 1
+    check_launch(rc, counter)
+    LAUNCHES[counter] += 1
     return (out, lse) if with_lse else out
 
 
@@ -192,6 +217,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                   for t in (q, k, v))
     if q.numel() == 0 or q.is_meta:
         return dq, dk, dv
+    _check_grid(b, hq, hd)
+    if wide(hd):
+        return _wide_bwd(q, k, v, o, do, lse, q_pos, dq, dk, dv, causal,
+                         window)
     q, k, v, o, do = (t if t.stride(-1) == 1 and tma_ready(t) else tma_copy(t)
                       for t in (q, k, v, o, do))
     n_qt = -(-s_len // 64)
@@ -209,4 +238,23 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         int(window), _scale(hd), q.device.index, stream_ptr(q))
     check_launch(rc, "flash_attention_bwd")
     LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def _wide_bwd(q, k, v, o, do, lse, q_pos, dq, dk, dv, causal, window):
+    """The wide route's backward (`csrc/flash_attention_wide.cu`: D a row,
+    then dQ, then dK / dV, no atomics) into the contiguous dq, dk, dv."""
+    b, s_len, hq, hd = q.shape
+    t_len, kh = k.shape[1], k.shape[2]
+    o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (o, do))
+    rows = torch.empty((b, hq, s_len), dtype=torch.float32, device=q.device)
+    rc = getattr(library(), _WIDE_BWD_ENTRY[q.dtype])(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), q_pos.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), rows.data_ptr(), b, s_len, t_len, hq,
+        kh, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *o.stride()[:3], *do.stride()[:3], int(causal), int(window),
+        _scale(hd), q.device.index, stream_ptr(q))
+    check_launch(rc, "flash_attention_wide_bwd")
+    LAUNCHES["flash_attention_wide_bwd"] += 1
     return dq, dk, dv

@@ -35,11 +35,18 @@ import torch
 
 from repro_torch.kernels import counted, use_kernel
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_bwd_cuda, flash_attention_cuda,
+    flash_attention_bwd_cuda, flash_attention_cuda, wide,
 )
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref, attention_ref,
 )
+
+
+def _name(q, backward=False) -> str:
+    """The kernel a call on `q` runs, as `LAUNCHES` and the counts name
+    it: the wide route past 128 head dims."""
+    return ("flash_attention" + ("_wide" if wide(q.shape[-1]) else "")
+            + ("_bwd" if backward else ""))
 
 
 def _cost(q, k, causal, window, **extra) -> dict:
@@ -57,7 +64,7 @@ def _cost(q, k, causal, window, **extra) -> dict:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (BH, S, hd); k/v (BH, T, hd) -> (BH, S, hd)."""
-    with counted("flash_attention", **_cost(q, k, causal, window)):
+    with counted(_name(q), **_cost(q, k, causal, window)):
         if use_kernel(q):
             return flash_attention_cuda(q[:, :, None], k[:, :, None],
                                         v[:, :, None], causal=causal,
@@ -117,8 +124,7 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, q_pos, causal, window):
-        with counted("flash_attention", **_cost(q, k, causal, window,
-                                                lse=True)):
+        with counted(_name(q), **_cost(q, k, causal, window, lse=True)):
             if use_kernel(q):
                 o, lse = flash_attention_cuda(q, k, v, q_pos, causal=causal,
                                               window=window, with_lse=True)
@@ -134,8 +140,8 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         fn = (flash_attention_bwd_cuda if use_kernel(q)
               else attention_bwd_gqa_ref)
-        with counted("flash_attention_bwd", **_cost(q, k, ctx.causal,
-                                                    ctx.window)):
+        with counted(_name(q, backward=True),
+                     **_cost(q, k, ctx.causal, ctx.window)):
             # contiguous on both routes, as the kernel writes them
             dq, dk, dv = (g.contiguous() for g in fn(
                 q, k, v, o, do, lse, q_pos=ctx.q_pos, causal=ctx.causal,
@@ -150,11 +156,12 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, S, Hq, hd); k/v (B, T, Kh, hd) -> (B, S, Hq, hd).  Query
     positions `q_pos` (S,) default to 0 .. S-1; key positions are
     0 .. T-1.  Differentiable (through `FlashAttentionFn`) when grad is
-    enabled and an input requires it."""
+    enabled and an input requires it.  Any head dim: past 128 the wide
+    route runs (`kernel.py::wide`)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, q_pos, causal, window)
-    with counted("flash_attention", **_cost(q, k, causal, window)):
+    with counted(_name(q), **_cost(q, k, causal, window)):
         if use_kernel(q):
             return flash_attention_cuda(q, k, v, q_pos, causal=causal,
                                         window=window)

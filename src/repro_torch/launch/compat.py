@@ -25,11 +25,20 @@ runs (their storages still count as live).  So a kernel counts the same
 whether its CUDA route, its meta route or its plain version on the CPU
 ran.
 
+A collective (`launch/collectives.py`) is counted by kind in calls and
+result bytes (`collectives`, the reference's `collective_bytes_from_text`
+record), and its own aten ops not at all, on every route.
+
 `cost_analysis_of`, `memory_stats_of`, `compiled_flops` and
 `compiled_memory_stats` return the reference's keys.  The reference's
 "compile" is here one eager run on `meta` copies of the arguments, which
-touches no data; a run that fails raises.  `set_mesh` and
-`named_shardings` come with client sharding (ROADMAP).
+touches no data; a run that fails raises.  So `aot_compile` has no
+counterpart: `count_call` on `meta` tensors is it.
+
+`set_mesh(mesh)` installs the ambient LM mesh that the model's collectives
+read (the reference's `jax.set_mesh`); `named_shardings(mesh, specs)`
+gives each leaf's placement, which block of which dim this rank holds
+(the reference's `NamedSharding`s).
 """
 from __future__ import annotations
 
@@ -37,12 +46,13 @@ import contextlib
 import functools
 import threading
 import weakref
-from typing import Any, Iterator
+from typing import Any, Iterator, NamedTuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch import kernels
+from repro_torch.launch import collectives as C
 from repro_torch.launch.roofline import (
     BF16_PEAK_FLOPS, F32_PEAK_FLOPS, HBM_BYTES_PER_S,
 )
@@ -103,6 +113,9 @@ class Count(TorchDispatchMode):
         self._storages: dict[int, int] = {}      # live storage -> its bytes
         self._muted = 0
         self._lock = threading.Lock()
+        self.collective_by_kind = {k: 0 for k in C.KINDS}
+        self.collective_counts = {k: 0 for k in C.KINDS}
+        self.collective_by_axes: dict[str, int] = {}
 
     # ---- the totals ----
     @property
@@ -131,7 +144,22 @@ class Count(TorchDispatchMode):
                 "peak_bytes": self.peak_bytes,
                 "argument_bytes": self.argument_bytes,
                 "temp_bytes": self.temp_bytes,
-                "kernels": {k: dict(v) for k, v in self.by_kernel.items()}}
+                "kernels": {k: dict(v) for k, v in self.by_kernel.items()},
+                "collectives": dict(
+                    C.collective_bytes(self.collective_by_kind,
+                                       self.collective_counts),
+                    by_axes=dict(self.collective_by_axes))}
+
+    def collective(self, kind: str, n_bytes: int, axes: tuple = ()
+                   ) -> None:
+        """Add one collective of `kind` over `axes` with a result of
+        `n_bytes` (`collective_by_axes`: the weighted bytes, all-reduce
+        twice, by the axes they cross, which the roofline prices)."""
+        self.collective_by_kind[kind] += n_bytes
+        self.collective_counts[kind] += 1
+        key = "+".join(axes)
+        self.collective_by_axes[key] = self.collective_by_axes.get(key, 0) \
+            + n_bytes * (2 if kind == "all-reduce" else 1)
 
     # ---- live memory ----
     def track(self, *trees: Any) -> None:
@@ -276,3 +304,46 @@ def compiled_memory_stats(fn, *args, **kwargs) -> dict:
     """`memory_stats_of` for `fn` at these arguments, counted on meta
     copies of them."""
     return memory_stats_of(count_call(fn, *to_meta(args), **to_meta(kwargs)))
+
+
+# ------------------------------------------------------------ the mesh --
+
+def set_mesh(mesh):
+    """Context manager installing `mesh` (an `LMMesh`) as the ambient mesh
+    that the LM's collectives and entry points read."""
+    return C.ambient(mesh)
+
+
+class NamedSharding(NamedTuple):
+    """Where a leaf lives on `mesh`: its `spec`, and for each dim the
+    (index, count) of the block this rank holds ((0, 1): whole)."""
+    mesh: Any
+    spec: tuple
+    blocks: tuple
+
+    def slices(self, shape) -> tuple:
+        """This rank's block of a leaf of global `shape`, as slices."""
+        out = []
+        for n, (i, k) in zip(shape, self.blocks + ((0, 1),) * len(shape)):
+            out.append(slice(i * (n // k), (i + 1) * (n // k)))
+        return tuple(out)
+
+
+def named_shardings(mesh, specs: Any) -> Any:
+    """Each spec of the tree `specs` (None: replicated) as a
+    `NamedSharding` on `mesh`."""
+    from repro_torch.launch.sharding import is_spec
+
+    def conv(s):
+        s = () if s is None else s
+        return NamedSharding(mesh, s, tuple(mesh.index(a) for a in s))
+
+    def walk(t):
+        if t is None or is_spec(t):
+            return conv(t)
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(walk(v) for v in t))
+        return type(t)(walk(v) for v in t)
+    return walk(specs)

@@ -1,20 +1,21 @@
 """§Perf hillclimbing driver: named config variants per target pair
-(counterpart of `repro/launch/hillclimb.py`, on one H100).
+(counterpart of `repro/launch/hillclimb.py`).
 
-Each variant re-runs the single-device dry-run (`launch/dryrun.py::run_one`,
-counted on `meta` tensors) for one (arch, shape) pair with a config delta,
-so every hypothesis -> change -> before/after cycle is one CLI invocation
-producing a JSON record under experiments/perf_torch/.
+Each variant re-runs the dry-run (`launch/dryrun.py::run_one`, counted on
+`meta` tensors) for one (arch, shape) pair with a config delta, on the
+single-pod (16, 16) mesh as the reference does, so every hypothesis ->
+change -> before/after cycle is one CLI invocation producing a JSON record
+under experiments/perf_torch/.
 
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --target tinyllama_train
 
-`VARIANTS` is the reference's list, whole.  Some of its overrides act only
-on the reference's multi-device layout: `parallelism` (which mesh axis
-shards weights; the port's model does not read it) and `moe_groups` (the
-dispatch groups a launcher sets to the data shards; on one device it only
-regroups the dispatch, capacity rounded per group).  A record lists those
-of its overrides under `sharding_overrides`: on one device they spread
-nothing.
+`VARIANTS` is the reference's list, whole.  Two of its overrides act on the
+layout over the mesh rather than on the model's arithmetic:
+`parallelism` (which mesh axes the batch and the weights split over:
+"dp" puts "model" among the batch axes and splits no weight) and
+`moe_groups` (the dispatch groups, which `launch_cfg` otherwise sets to the
+data shards).  A record lists those of its overrides under
+`sharding_overrides`.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from repro_torch.launch.dryrun import run_one
 
 OUT = Path(__file__).resolve().parents[3] / "experiments" / "perf_torch"
 
-SHARDING_ONLY = ("parallelism", "moe_groups")
+LAYOUT_OVERRIDES = ("parallelism", "moe_groups")
 
 # variant name -> (arch, shape, config overrides)
 VARIANTS = {
@@ -94,11 +95,12 @@ def run_variant(name: str, out_dir: Path = OUT) -> dict:
     cfg = get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
-    rec = run_one(arch, shape, assemble=True, save=False, cfg_override=cfg)
+    rec = run_one(arch, shape, mesh="single", assemble=True, save=False,
+                  cfg_override=cfg)
     rec["variant"] = name
     rec["overrides"] = overrides
     rec["sharding_overrides"] = sorted(k for k in overrides
-                                       if k in SHARDING_ONLY)
+                                       if k in LAYOUT_OVERRIDES)
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(out_dir / (name.replace("/", "__") + ".json"), "w") as f:

@@ -1,5 +1,27 @@
-"""Run meshes of the federated engines over `torch.distributed`
-(counterpart of the run half of `repro/launch/mesh.py`).
+"""Meshes over `torch.distributed` (counterpart of `repro/launch/mesh.py`):
+the LMs' (data, model) meshes, and the federated engines' run meshes.
+
+LM meshes (`LMMesh`): named axes over ranks, the first the major one.
+
+  * `make_production_mesh(multi_pod=False)`: (16, 16) over ("data",
+    "model"), or (2, 16, 16) over ("pod", "data", "model"), as the
+    reference's 256 / 512 chips;
+  * `make_debug_mesh(shape=(2, 2), axes=("data", "model"))`;
+  * `batch_axes(mesh)`: every axis but "model".
+
+A mesh is live or virtual.  A live mesh spans the world's ranks and
+holds one process group a set of its axes (its `DeviceMesh`'s for single
+axes, `new_group`s for the sets of several), NCCL on cards and gloo on the
+CPU (and for several ranks on one card), as the run meshes below.  A virtual mesh has the sizes and this rank's
+coordinates (rank 0's by default) and no group: the collectives over it
+count and return shapes only (`launch/collectives.py`), which is how the
+dry-run counts a 256- or 512-device step on `meta` tensors in one
+process.  `make_production_mesh` returns the virtual form when the world
+is smaller than the mesh (the reference raises there: JAX forces 512 host
+devices, torch has nothing like it).  The model reads the ambient mesh
+that `compat.set_mesh` installs.
+
+Run meshes of the federated engines (the run half of the reference's):
 
 The program is SPMD: a user launches W processes (`torchrun
 --nproc-per-node W ...`) and each calls the same entry point
@@ -30,11 +52,14 @@ gather (gloo refuses int16, NCCL has no bitwise OR), counted in
 """
 from __future__ import annotations
 
+import itertools
+import math
 import os
 from typing import Optional, Sequence
 
 import torch
 
+MODEL_AXIS = "model"
 REPLICA_AXIS = "replicas"
 CLIENT_AXIS = "clients"
 
@@ -112,6 +137,129 @@ def _mesh(shape: tuple, names: tuple):
         _meshes[key] = init_device_mesh(_device_type(), shape,
                                         mesh_dim_names=names)
     return _meshes[key]
+
+
+# ------------------------------------------------------------ LM meshes --
+
+class LMMesh:
+    """Named axes of ranks (`shape`: name -> size, `axis_names` in major to
+    minor order) and this rank's coordinate on each (`coords`).  Live with
+    process groups (`group(axes)`), virtual without."""
+
+    def __init__(self, sizes: Sequence[int], names: Sequence[str],
+                 coords: Optional[Sequence[int]] = None, groups=None,
+                 device_mesh=None):
+        self.axis_names = tuple(names)
+        self.sizes = tuple(int(n) for n in sizes)
+        self.shape = dict(zip(self.axis_names, self.sizes))
+        coords = coords if coords is not None else (0,) * len(self.sizes)
+        self.coords = dict(zip(self.axis_names, (int(c) for c in coords)))
+        self._groups = groups
+        self.device_mesh = device_mesh
+
+    @property
+    def live(self) -> bool:
+        return self._groups is not None
+
+    @property
+    def devices(self) -> int:
+        return math.prod(self.sizes)
+
+    def __repr__(self) -> str:
+        kind = "live" if self.live else "virtual"
+        return f"LMMesh({kind}, {self.shape}, at {self.coords})"
+
+    @staticmethod
+    def axes(axes) -> tuple:
+        """`axes` (a name, a tuple of names, or None) as a tuple."""
+        if axes is None:
+            return ()
+        return (axes,) if isinstance(axes, str) else tuple(axes)
+
+    def index(self, axes) -> tuple[int, int]:
+        """(this rank's index, the count) along `axes` flattened, the first
+        axis the major one: the block of a dim sharded over them."""
+        i, n = 0, 1
+        for a in self.axes(axes):
+            i, n = i * self.shape[a] + self.coords[a], n * self.shape[a]
+        return i, n
+
+    def size(self, axes) -> int:
+        return self.index(axes)[1]
+
+    def group(self, axes):
+        """The process group of the ranks that share every coordinate but
+        `axes` with this one (live meshes only)."""
+        if not self.live:
+            raise RuntimeError(f"{self!r} has no process groups")
+        key = tuple(a for a in self.axis_names if a in self.axes(axes))
+        return self._groups[key]
+
+
+def _rank_of(coords: Sequence[int], sizes: Sequence[int]) -> int:
+    r = 0
+    for c, n in zip(coords, sizes):
+        r = r * n + c
+    return r
+
+
+def lm_mesh(shape: Sequence[int], axes: Sequence[str]) -> LMMesh:
+    """An LM mesh of `shape` over `axes`: live when the world has exactly
+    prod(shape) ranks (made once a world; every rank calls this in one
+    order), virtual at rank 0's coordinates when it has fewer (one
+    process: the dry-run's production meshes).  Raises ValueError when
+    the world has more ranks than the mesh."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    n = math.prod(shape)
+    init_world()
+    rank, size = world()
+    if size < n or size == 1:
+        return LMMesh(shape, axes)
+    if size > n:
+        raise ValueError(f"a {shape} mesh over a world of {size} ranks: the "
+                         f"mesh must span the world")
+    import torch.distributed as dist
+    device_mesh = _mesh(shape, axes)     # one group an axis
+    key = ("lm", shape, axes)
+    if key not in _meshes:               # and one a set of several axes
+        groups = {(a,): device_mesh.get_group(a) for a in axes}
+        for k in range(2, len(axes) + 1):
+            for sub in itertools.combinations(range(len(axes)), k):
+                others = [i for i in range(len(axes)) if i not in sub]
+                for rest in itertools.product(*(range(shape[i])
+                                                 for i in others)):
+                    ranks = []
+                    for inner in itertools.product(*(range(shape[i])
+                                                     for i in sub)):
+                        c = [0] * len(axes)
+                        for i, v in zip(others, rest):
+                            c[i] = v
+                        for i, v in zip(sub, inner):
+                            c[i] = v
+                        ranks.append(_rank_of(c, shape))
+                    g = dist.new_group(ranks)
+                    if rank in ranks:
+                        groups[tuple(axes[i] for i in sub)] = g
+        _meshes[key] = groups
+    coords = device_mesh.get_coordinate()
+    return LMMesh(shape, axes, coords, _meshes[key], device_mesh)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> LMMesh:
+    """(16, 16) over ("data", "model"), or (2, 16, 16) over ("pod",
+    "data", "model"): live on a world of that many ranks, else virtual."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return lm_mesh(shape, axes)
+
+
+def make_debug_mesh(shape=(2, 2), axes=("data", "model")) -> LMMesh:
+    """A small mesh for the CPU's gloo tests and one card's ranks."""
+    return lm_mesh(shape, axes)
+
+
+def batch_axes(mesh) -> tuple[str, ...]:
+    return tuple(a for a in mesh.axis_names if a != MODEL_AXIS)
 
 
 def _largest_divisor(n: int, limit: int) -> int:

@@ -1,5 +1,5 @@
-"""Roofline of a step on one NVIDIA H100, and the card's rates (counterpart
-of `repro/launch/roofline.py`).
+"""Roofline of a step on NVIDIA H100s, one or a mesh of them, and the
+card's rates (counterpart of `repro/launch/roofline.py`).
 
 The rates of the card, defined here and nowhere else in the port
 (NVIDIA H100 80GB HBM3 SXM, at its 700.00 W power limit; dense tensor-core
@@ -10,10 +10,21 @@ rates, no sparsity):
     bf16 tensor cores          989 TFLOP/s
     HBM3                      3.35 TB/s, 80 GB
 
-Two terms per (arch x shape) on one device:
+and of the links between cards (spec figures, not measurements; the
+reference's ICI_BW is a TPU's and is not used):
 
-    compute = sum over ops of FLOPs / the peak of the op's dtype
-    memory  = bytes accessed / 3.35e12
+    NVLink 4 within an 8-card node   450 GB/s each way a card (NVIDIA H100
+                                     SXM datasheet: 900 GB/s bidirectional)
+    the network beyond the node       50 GB/s a card (NVIDIA DGX H100
+                                     datasheet: one 400 Gb/s ConnectX-7
+                                     NDR InfiniBand port a card)
+
+Three terms per (arch x shape x mesh), per device:
+
+    compute    = sum over ops of FLOPs / the peak of the op's dtype
+    memory     = bytes accessed / 3.35e12
+    collective = sum over the axes crossed of the collectives' weighted
+                 result bytes / that link's rate
 
 The counts come from `launch.compat.Count`, which runs the step eagerly on
 `meta` tensors (nothing is computed or allocated): each aten op's FLOPs by
@@ -21,10 +32,14 @@ The counts come from `launch.compat.Count`, which runs the step eagerly on
 inputs and outputs, and each hand-written kernel by its own formula,
 `kernel_cost`, whichever of its routes ran.  A single peak would be wrong
 on a card whose float32 and bf16 rates are 15x apart, so `compute_s` sums
-each op's FLOPs over its own dtype's peak.  One device moves no collective
-bytes: `collective_s` is 0.  XLA's HLO-text parse of the collectives
-(`collective_bytes_from_text`) has no torch counterpart yet; it comes with
-the multi-device half of `launch/` (ROADMAP).
+each op's FLOPs over its own dtype's peak.  On a mesh the step runs as one
+rank's part of it (rank 0's, on the virtual production mesh), and every
+collective it issues is counted (`launch/collectives.py`: the
+counterpart of XLA's HLO-text parse, `collective_bytes_from_text`, in its
+layout, all-reduce weighted twice) with the axes it crosses: a group of
+ranks inside one 8-card node goes at the NVLink rate, one that spans
+nodes at the network's (ranks are laid out row-major, the last axis
+fastest).  One device moves no collective bytes: `collective_s` is 0.
 
 Eager torch counts every layer, but the 1- and 2-layer differencing of the
 reference (`assembled_roofline`) is kept, so that `per_layer` and `stem`
@@ -42,6 +57,31 @@ TF32_PEAK_FLOPS = 495e12     # TF32 tensor cores, dense
 BF16_PEAK_FLOPS = 989e12     # bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12    # HBM3
 HBM_BYTES = 80e9             # the card's 80 GB
+NVLINK_BYTES_PER_S = 450e9   # NVLink 4, each way a card, within a node
+NETWORK_BYTES_PER_S = 50e9   # one 400 Gb/s NDR port a card, across nodes
+CARDS_PER_NODE = 8
+
+
+def link_bytes_per_s(mesh, axes: str) -> float:
+    """The rate of a collective over `axes` ("data+model": the names joined
+    by "+") of `mesh`: NVLink when rank 0's group of those axes lies in
+    one node of CARDS_PER_NODE cards, the network otherwise."""
+    names = axes.split("+") if axes else []
+    span, stride = 0, 1
+    for a in reversed(mesh.axis_names):
+        if a in names:
+            span += (mesh.shape[a] - 1) * stride
+        stride *= mesh.shape[a]
+    return NVLINK_BYTES_PER_S if span < CARDS_PER_NODE else \
+        NETWORK_BYTES_PER_S
+
+
+def collective_s(mesh, by_axes: dict) -> float:
+    """Seconds of a count's collectives: weighted bytes over each link."""
+    if mesh is None:
+        return 0.0
+    return sum(n / link_bytes_per_s(mesh, axes)
+               for axes, n in by_axes.items())
 
 
 def bound_s(flops: float, n_bytes: float,
@@ -108,7 +148,12 @@ def kernel_cost(name: str, **shapes) -> tuple[float, float, float]:
         float32.
     flash_attention_bwd(same): q, o, dO, dq and k, v, dk, dv, the lse read;
         2.5 x the forward's FLOPs at the forward's peak.
+    flash_attention_wide, flash_attention_wide_bwd (same): the route for
+        head dims above 128; the same work and so the same bound as the
+        tensor-core routes' (it runs on the CUDA cores, slower than that).
     """
+    if name.startswith("flash_attention_wide"):
+        name = name.replace("_wide", "")
     if name == "prefix_avg":
         r, m, d = shapes["r"], shapes["m"], shapes["d"]
         size = shapes.get("itemsize", 4)
@@ -150,17 +195,20 @@ def kernel_cost(name: str, **shapes) -> tuple[float, float, float]:
 
 # --------------------------------------------------------- the step roofline --
 
-def assembled_roofline(cfg, shape) -> dict:
-    """FLOPs, bytes and compute seconds of the step on one device, by
-    1- and 2-layer differencing of its meta counts (remat off, as the
-    reference assembles)."""
+def assembled_roofline(cfg, shape, mesh=None) -> dict:
+    """FLOPs, bytes, compute seconds and (on a mesh) collective bytes and
+    seconds of the step per device, by 1- and 2-layer differencing of its
+    meta counts (remat off, as the reference assembles)."""
     from repro_torch.launch.dryrun import count_step  # circular-safe
 
     def cost_with_layers(n: int) -> dict:
         enc = min(cfg.encoder_layers, n) if cfg.encoder_layers else 0
         c = dataclasses.replace(cfg, n_layers=n, encoder_layers=enc,
                                 scan_layers=False, remat=False)
-        return count_step(c, shape)
+        rec = count_step(c, shape, mesh=mesh)
+        coll = rec["collectives"]
+        return dict(rec, collective_bytes=float(coll["weighted_total"]),
+                    collective_s=collective_s(mesh, coll["by_axes"]))
 
     c1 = cost_with_layers(1)
     c2 = cost_with_layers(2)
@@ -174,15 +222,21 @@ def assembled_roofline(cfg, shape) -> dict:
     flops, flops_layer, flops_stem = assemble("flops")
     bytes_, bytes_layer, bytes_stem = assemble("bytes_accessed")
     comp, comp_layer, comp_stem = assemble("compute_s")
+    coll, coll_layer, coll_stem = assemble("collective_bytes")
+    coll_t, coll_t_layer, coll_t_stem = assemble("collective_s")
     return {
         "per_device_flops": flops,
         "per_device_bytes": bytes_,
-        "per_device_collective_bytes": 0.0,
+        "per_device_collective_bytes": coll,
         "per_device_compute_s": comp,
+        "per_device_collective_s": coll_t,
         "per_layer": {"flops": flops_layer, "bytes": bytes_layer,
-                      "collective_bytes": 0.0, "compute_s": comp_layer},
+                      "collective_bytes": coll_layer,
+                      "compute_s": comp_layer,
+                      "collective_s": coll_t_layer},
         "stem": {"flops": flops_stem, "bytes": bytes_stem,
-                 "collective_bytes": 0.0, "compute_s": comp_stem},
+                 "collective_bytes": coll_stem, "compute_s": comp_stem,
+                 "collective_s": coll_t_stem},
         "note": "remat disabled in assembly; training remat adds ~1 fwd of "
                 "recompute per layer (the full-depth count, hlo_cost, has "
                 "it)",
@@ -218,12 +272,13 @@ def model_flops(cfg, shape) -> float:
 
 def roofline_report(cfg, shape, rec: dict, *, n_devices: int = 1) -> dict:
     """The reference's report keys from an assembled record: compute,
-    memory and collective seconds, the dominant term, model against counted
-    FLOPs, and the step's lower bound.  One device: no collectives."""
+    memory and collective seconds per device, the dominant term, model
+    against counted FLOPs (over the `n_devices`), and the step's lower
+    bound."""
     asm = rec["assembled"]
     terms = {"compute_s": asm["per_device_compute_s"],
              "memory_s": asm["per_device_bytes"] / HBM_BYTES_PER_S,
-             "collective_s": 0.0}
+             "collective_s": asm.get("per_device_collective_s", 0.0)}
     dominant = max(terms, key=terms.get)
     mf = model_flops(cfg, shape)
     hlo_global = asm["per_device_flops"] * n_devices
@@ -236,5 +291,10 @@ def roofline_report(cfg, shape, rec: dict, *, n_devices: int = 1) -> dict:
         "useful_flops_ratio": mf / hlo_global if hlo_global else 0.0,
         "step_time_lower_bound_s": bound,
         "flops_util_at_bound": terms["compute_s"] / max(bound, 1e-12),
-        "collectives": "none: one device",
+        "collectives": ("none: one device" if n_devices == 1 else
+                        f"weighted bytes over NVLink "
+                        f"({NVLINK_BYTES_PER_S:.3g} B/s) inside a node of "
+                        f"{CARDS_PER_NODE} cards, the network "
+                        f"({NETWORK_BYTES_PER_S:.3g} B/s) across nodes; "
+                        f"spec figures"),
     }

@@ -4,10 +4,13 @@ A copy of `repro/models/lm/config.py` (pure Python, no JAX), so that the
 port needs nothing of the reference.  One frozen dataclass describes dense
 / MoE / SSM / hybrid / VLM / audio backbones; family-specific fields are
 zero/empty when unused.  Configs for the ten assigned architectures live
-in `repro_torch.configs.<id>` and cite their source papers.  The mesh and
-`scan_layers` fields are kept so configs compare equal field by field with
-the reference's; the port's model does not read them (`remat` and
-`attn_remat` it does, in training).
+in `repro_torch.configs.<id>` and cite their source papers.  The
+`scan_layers` field is kept so configs compare equal field by field with
+the reference's; the port's model does not read it (`remat` and
+`attn_remat` it does, in training).  The mesh fields are armed by
+`launch.sharding.launch_cfg` as the reference's are; the model takes its
+layout from the ambient mesh and checks it against them
+(`models/lm/tp.py::constrain`).
 """
 from __future__ import annotations
 

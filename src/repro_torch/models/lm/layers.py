@@ -6,6 +6,12 @@ dicts with the reference's keys and shapes; initialisers take an explicit
 weights are cast to the activation dtype before each product, norms and
 RoPE compute in float32 and round once to the activation dtype, and the
 LM head's logits are upcast to float32 after its product.
+
+Under a mesh (`models/lm/tp.py`) the FFN is column-parallel in `w_gate` /
+`w_up` and row-parallel in `w_down`, followed by an all-reduce over
+"model"; the embedding table is sharded on D (the local columns gathered,
+then all-gathered on D); the head is vocab-parallel; FSDP's "data" dims
+are all-gathered at use.
 """
 from __future__ import annotations
 
@@ -13,6 +19,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.lm import tp
 
 
 def _init(gen: torch.Generator, shape, scale: float,
@@ -100,13 +108,22 @@ def ffn_init(gen, d_model, d_ff, kind, device=None, lead=()):
 
 
 def ffn_apply(p, x, kind):
+    """The FFN; column-parallel in w_gate / w_up and row-parallel in w_down
+    where the mesh's rules split d_ff."""
     dt = x.dtype
+    w_up = tp.full(p["w_up"], "ffn/w_up")
+    w_down = tp.full(p["w_down"], "ffn/w_down")
+    split = tp.split("ffn/w_up", 1)
+    if split:
+        x = tp.enter(x)
     if kind == "swiglu":
-        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        w_gate = tp.full(p["w_gate"], "ffn/w_gate")
+        h = F.silu(x @ w_gate.to(dt)) * (x @ w_up.to(dt))
     else:
         # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(x @ p["w_up"].to(dt), approximate="tanh")
-    return h @ p["w_down"].to(dt)
+        h = F.gelu(x @ w_up.to(dt), approximate="tanh")
+    y = h @ w_down.to(dt)
+    return tp.leave(y) if split else y
 
 
 # ----------------------------------------------------------- embeddings ----
@@ -116,8 +133,12 @@ def embed_init(gen, vocab, d_model, device=None):
 
 def embed_apply(p, tokens, dtype):
     """Rows of the table in `dtype` (gathered, then cast: the same values as
-    the reference's cast-then-gather, without casting the whole table)."""
-    return p["table"][tokens].to(dtype)
+    the reference's cast-then-gather, without casting the whole table); a
+    table sharded on D gathers its columns, then all-gathers them on D."""
+    x = p["table"][tokens].to(dtype)
+    if tp.split("embed/table", 1):
+        x = tp.gather_model(x, -1)
+    return x
 
 
 def head_init(gen, d_model, vocab, device=None):
@@ -126,8 +147,12 @@ def head_init(gen, d_model, vocab, device=None):
 
 def head_apply(p, x):
     """LM head: (B, S, D) @ (D, V) in the activation dtype -> logits
-    upcast to float32."""
-    return (x @ p["w"].to(x.dtype)).to(torch.float32)
+    upcast to float32; vocab-parallel (this rank's block of V) where the
+    mesh's rules split V."""
+    w = tp.full(p["w"], "head/w")
+    if tp.split("head/w", 1):
+        x = tp.enter(x)
+    return (x @ w.to(x.dtype)).to(torch.float32)
 
 
 def cross_entropy_tokens(logits: torch.Tensor, labels: torch.Tensor,

@@ -41,22 +41,42 @@ position, a Python int (so decode needs no host sync).  `decode_step`
 writes the new token's k/v, SSM state and conv windows into the cache's
 tensors in place, where the reference returns new arrays: the cache passed
 in is consumed.
+
+Under a mesh (`launch.compat.set_mesh(mesh)`, `models/lm/tp.py`) the same
+entry points run one rank's part of the step: they take the global batch
+and place it by the reference's `batch_specs`, and this rank's blocks of
+the params, optimizer state and caches (`launch.sharding.shard_tree` by
+`param_specs` / `opt_specs` / `cache_specs`).  Attention runs on the
+rank's query heads and the KV heads they read (`tp.kv_index`: the local
+group G' = local Hq / local Kh, also where the KV heads are replicated),
+`wo` row-parallel with an all-reduce over "model"; `loss_fn` is
+vocab-parallel and returns the rank's mean (`loss_and_grads` averages the
+loss and the gradients over the batch axes); prefill returns its cache
+placed by `cache_specs` and its logits by `logits_spec` (this rank's rows
+and vocab block).  A cache whose KV heads do not divide "model" is split
+on its sequence dim: decode then combines each rank's (max, sum, acc) by
+all-reduce, a distributed softmax.  A rank's cache block does not show
+the ring's global length, so under a mesh `decode_step` takes it
+(`cache_len=`).
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models.lm.attention import attention, dense_attention
+from repro_torch.models.lm.attention import (
+    NEG_INF, _mask, attention, dense_attention,
+)
 from repro_torch.models.lm.config import ArchConfig
 from repro_torch.models.lm.layers import (
     _init, apply_norm, apply_rope, cross_entropy_tokens, dense_init,
     embed_apply,
     embed_init, ffn_apply, ffn_init, head_apply, head_init, norm_init,
 )
+from repro_torch.models.lm import tp
 from repro_torch.models.lm.moe import moe_apply, moe_init
 from repro_torch.models.lm.ssm import (
     ssm_cache_init, ssm_decode_step, ssm_forward, ssm_init,
@@ -105,29 +125,73 @@ def _out(o, w):
     return o.flatten(-2) @ w.to(o.dtype).reshape(h * e, d)
 
 
-def _qkv(p, cfg, x, kv_x=None, *, rope: bool, q_pos, kv_pos):
+class _Weights(NamedTuple):
+    wq: torch.Tensor
+    wk: torch.Tensor
+    wv: torch.Tensor
+    wo: torch.Tensor
+    q_split: bool       # this rank holds a block of the query heads (and
+    kv_split: bool      # of wo's rows); of the KV heads
+
+
+def _weights(p, part: str = "attn") -> _Weights:
+    """The weights of `part` ("attn" or "cross_attn") with FSDP's "data"
+    dims gathered, and which heads the mesh's rules split."""
+    return _Weights(*(tp.full(p[n], f"{part}/{n}")
+                      for n in ("wq", "wk", "wv", "wo")),
+                    tp.split(f"{part}/wq", 1), tp.split(f"{part}/wk", 1))
+
+
+def _qkv(w: _Weights, x, kv_x=None, *, cfg, rope: bool, q_pos, kv_pos):
+    wk, wv = w.wk, w.wv
     kv_x = x if kv_x is None else kv_x
-    q = _proj(x, p["wq"])
-    k = _proj(kv_x, p["wk"])
-    v = _proj(kv_x, p["wv"])
+    if w.q_split:
+        x, kv_x = tp.enter(x), tp.enter(kv_x)
+        if not w.kv_split:
+            # replicated KV heads of which this rank reads a part
+            wk, wv = tp.enter(wk), tp.enter(wv)
+    q = _proj(x, w.wq)
+    k = _proj(kv_x, wk)
+    v = _proj(kv_x, wv)
     if rope:
         q = apply_rope(q, q_pos, frac=cfg.rope_frac, theta=cfg.rope_theta)
         k = apply_rope(k, kv_pos, frac=cfg.rope_frac, theta=cfg.rope_theta)
     return q, k, v
 
 
+def _local_kv(cfg: ArchConfig, w: _Weights, q, k, v):
+    """k / v at the KV heads that this rank's query heads read, when the
+    query heads are a block and the KV heads whole here (G' = local Hq /
+    local Kh; `tp.kv_index`)."""
+    if not w.q_split or w.kv_split:
+        return k, v
+    heads, _ = tp.kv_index(tp.model_index() * q.shape[2], q.shape[2],
+                           cfg.n_heads // cfg.n_kv_heads)
+    return tp.take_heads(k, heads), tp.take_heads(v, heads)
+
+
+def _out_proj(o, w):
+    """o @ wo, all-reduced over "model" when wo is row-parallel."""
+    y = _out(o, w.wo)
+    return tp.leave(y) if w.q_split else y
+
+
 def attn_apply_seq(p, cfg: ArchConfig, x, *, causal=True, rope=True,
-                   kv_x=None, return_kv=False):
+                   kv_x=None, return_kv=False, part="attn"):
     """Full-sequence path (train / prefill / encoder / cross-attention
-    against `kv_x`)."""
+    against `kv_x`, `part` "cross_attn").  With `return_kv`, the k / v of
+    the KV heads this rank holds (all of them where wk is replicated)."""
     q_pos = torch.arange(x.shape[1], device=x.device)
     kv_pos = (q_pos if kv_x is None else
               torch.arange(kv_x.shape[1], device=x.device))
-    q, k, v = _qkv(p, cfg, x, kv_x, rope=rope, q_pos=q_pos, kv_pos=kv_pos)
-    o = attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
+    w = _weights(p, part)
+    q, k, v = _qkv(w, x, kv_x, cfg=cfg, rope=rope, q_pos=q_pos,
+                   kv_pos=kv_pos)
+    ka, va = _local_kv(cfg, w, q, k, v)
+    o = attention(q, ka, va, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
                   window=cfg.window, impl=cfg.attn_impl,
                   kv_chunk=cfg.attn_chunk, remat=cfg.attn_remat)
-    y = _out(o, p["wo"])
+    y = _out_proj(o, w)
     return (y, (k, v)) if return_kv else y
 
 
@@ -137,35 +201,128 @@ def _ring_positions(pos: int, cache_len: int, device=None) -> torch.Tensor:
     return pos - torch.remainder(pos - s, cache_len)
 
 
-def attn_apply_decode(p, cfg: ArchConfig, x, kv_cache, pos: int):
-    """One-token decode. x (B, 1, D); kv_cache {k,v}: (B, C, Kh, hd), written
-    in place at slot pos % C."""
-    cache_len = kv_cache["k"].shape[1]
+def _kv_layout(cfg: ArchConfig, name: str, length: int) -> str:
+    """How `cache_specs` places cache leaf `name` ("k", "cross_k") of
+    global `length` positions: "heads" (a block of the KV heads), "seq" (a
+    block of the positions) or "full"."""
+    if tp.layout() is None:
+        return "full"
+    spec = tp.cache_spec(cfg, name, length)          # (B, C, Kh, hd)
+    if spec[2] == tp.MODEL:
+        return "heads"
+    return "seq" if spec[1] == tp.MODEL else "full"
+
+
+def _to_cache(t, c_len: int, layout: str, kv_split: bool) -> torch.Tensor:
+    """k or v (B, S, Kh, hd), with this rank's KV heads when `kv_split`,
+    as the ring's block: the last `c_len` positions at slots 0 .. c_len - 1
+    (zeros past S), then this rank's block of the KV heads or positions
+    where the cache's `layout` holds one."""
+    s_len = t.shape[1]
+    if s_len >= c_len:
+        ring = t[:, s_len - c_len:]
+    else:
+        ring = t.new_zeros((t.shape[0], c_len, *t.shape[2:]))
+        ring[:, :s_len] = t
+    if layout == "heads" and not kv_split:
+        ring = tp.block(ring, 2)
+    if layout == "seq":
+        ring = tp.block(ring, 1)
+    return ring
+
+
+def _seq_attention(q, k, v, *, q_pos, kv_pos, causal, window, kv_valid):
+    """Attention over a cache split on its positions across "model": each
+    rank's (max, sum, acc) over its own positions, combined by an
+    all-reduce of the max and one of (acc, sum): a distributed softmax.
+    q (B, S, Hq, hd) with every query head; k / v (B, C_l, Kh, hd)."""
+    from repro_torch.launch import collectives as C
+    mesh = tp.layout().mesh
+    b, s_len, hq, hd = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, s_len, kh, hq // kh, hd).to(torch.float32)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.to(torch.float32)) \
+        * hd ** -0.5
+    mask = _mask(q_pos, kv_pos, causal=causal, window=window,
+                 kv_valid=kv_valid)
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    m = C.all_reduce(s.amax(-1), tp.MODEL, "max", mesh=mesh)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bkgst,btkd->bkgsd", p, v.to(torch.float32))
+    tot = C.all_reduce(torch.cat([acc, p.sum(-1)[..., None]], -1),
+                       tp.MODEL, mesh=mesh)
+    o = tot[..., :hd] / tot[..., hd:]
+    return torch.movedim(o, 3, 1).reshape(b, s_len, hq, hd).to(q.dtype)
+
+
+def _decode_attend(cfg: ArchConfig, w: _Weights, q, kc, vc, *, q_pos,
+                   kv_pos, layout: str, causal: bool, window: int,
+                   kv_valid=None):
+    """One decode token's attention against a cache block in `layout`,
+    through wo: (B, 1, D)."""
+    from repro_torch.launch import collectives as C
+    q_split = w.q_split
+    if layout == "seq":
+        if q_split:          # every query head, against this rank's slots
+            q = C.all_gather(q, tp.MODEL, 2, mesh=tp.layout().mesh)
+        o = _seq_attention(q, kc, vc, q_pos=q_pos, kv_pos=kv_pos,
+                           causal=causal, window=window, kv_valid=kv_valid)
+        if q_split:
+            o = tp.block(o, 2)
+        return _out_proj(o, w)
+    if layout == "heads" and not q_split:
+        # a block of KV heads under replicated weights: its query heads,
+        # then every head's output gathered
+        o = dense_attention(tp.block(q, 2), kc, vc, q_pos=q_pos,
+                            kv_pos=kv_pos, causal=causal, window=window,
+                            kv_valid=kv_valid)
+        o = C.all_gather(o, tp.MODEL, 2, mesh=tp.layout().mesh)
+        return _out_proj(o, w)
+    kc, vc = _local_kv(cfg, w, q, kc, vc)
+    o = dense_attention(q, kc, vc, q_pos=q_pos, kv_pos=kv_pos, causal=causal,
+                        window=window, kv_valid=kv_valid)
+    return _out_proj(o, w)
+
+
+def attn_apply_decode(p, cfg: ArchConfig, x, kv_cache, pos: int,
+                      c_len: int):
+    """One-token decode. x (B, 1, D); kv_cache {k,v}: (B, C, Kh, hd) (this
+    rank's block under a mesh) of a ring of `c_len` positions, written in
+    place at slot pos % c_len by the rank that holds it."""
+    w = _weights(p)
     # a fill on the device: torch.tensor([pos]) would copy from pageable
     # host memory, which waits for the card's queue at every layer
     q_pos = torch.full((1,), pos, dtype=torch.int64, device=x.device)
-    q, k_new, v_new = _qkv(p, cfg, x, rope=True, q_pos=q_pos, kv_pos=q_pos)
-    slot = pos % cache_len
-    kv_cache["k"][:, slot] = k_new[:, 0].to(kv_cache["k"].dtype)
-    kv_cache["v"][:, slot] = v_new[:, 0].to(kv_cache["v"].dtype)
-    kv_pos = _ring_positions(pos, cache_len, x.device)
-    o = dense_attention(q, kv_cache["k"], kv_cache["v"], q_pos=q_pos,
-                        kv_pos=kv_pos, causal=True, window=cfg.window,
-                        kv_valid=kv_pos >= 0)
-    return _out(o, p["wo"])
+    q, k_new, v_new = _qkv(w, x, cfg=cfg, rope=True, q_pos=q_pos,
+                           kv_pos=q_pos)
+    kc, vc = kv_cache["k"], kv_cache["v"]
+    layout = _kv_layout(cfg, "k", c_len)
+    slot = pos % c_len
+    if layout == "heads" and not w.kv_split:
+        k_new, v_new = tp.block(k_new, 2), tp.block(v_new, 2)
+    lo = tp.model_index() * kc.shape[1] if layout == "seq" else 0
+    if lo <= slot < lo + kc.shape[1]:
+        kc[:, slot - lo] = k_new[:, 0].to(kc.dtype)
+        vc[:, slot - lo] = v_new[:, 0].to(vc.dtype)
+    kv_pos = _ring_positions(pos, c_len, x.device)[lo:lo + kc.shape[1]]
+    return _decode_attend(cfg, w, q, kc, vc, q_pos=q_pos, kv_pos=kv_pos,
+                          layout=layout, causal=True, window=cfg.window,
+                          kv_valid=kv_pos >= 0)
 
 
 def attn_apply_cross_decode(p, cfg: ArchConfig, x, cross_kv):
     """Decoder cross-attention against a fixed encoder cache (no
     causality, no rope)."""
     k, v = cross_kv["k"], cross_kv["v"]
-    q = _proj(x, p["wq"])
-    o = dense_attention(q, k, v,
-                        q_pos=torch.zeros((1,), dtype=torch.int64,
-                                          device=x.device),
-                        kv_pos=torch.arange(k.shape[1], device=x.device),
-                        causal=False, window=0)
-    return _out(o, p["wo"])
+    w = _weights(p, "cross_attn")
+    q = _proj(x, w.wq)
+    layout = _kv_layout(cfg, "cross_k", cfg.n_frontend_tokens)
+    lo = tp.model_index() * k.shape[1] if layout == "seq" else 0
+    return _decode_attend(
+        cfg, w, q, k, v,
+        q_pos=torch.zeros((1,), dtype=torch.int64, device=x.device),
+        kv_pos=torch.arange(lo, lo + k.shape[1], device=x.device),
+        layout=layout, causal=False, window=0)
 
 
 # ====================================================== layer blocks ========
@@ -226,7 +383,7 @@ def _ffn_sublayer(p, cfg: ArchConfig, x):
 def _cross_sublayer(p, cfg: ArchConfig, x, cross_x):
     h = apply_norm(cfg.norm_kind, p["cross_norm"], x)
     return attn_apply_seq(p["cross_attn"], cfg, h, kv_x=cross_x,
-                          causal=False, rope=False)
+                          causal=False, rope=False, part="cross_attn")
 
 
 def decoder_layer(p, cfg: ArchConfig, x, cross_x=None):
@@ -259,6 +416,7 @@ def _run_layers(cfg: ArchConfig, stacked: Params, x, layer_fn, *args):
     """
     remat = cfg.remat and torch.is_grad_enabled()
     auxs = []
+    x = tp.constrain(cfg, x, ("batch", None, None))
     for lp in _layers(stacked):
         if remat:
             # the layer draws nothing, so no RNG state needs keeping
@@ -266,6 +424,7 @@ def _run_layers(cfg: ArchConfig, stacked: Params, x, layer_fn, *args):
                                 use_reentrant=False, preserve_rng_state=False)
         else:
             x, aux = layer_fn(lp, cfg, x, *args)
+        x = tp.constrain(cfg, x, ("batch", None, None))
         auxs.append(aux)
     return x, torch.sum(torch.stack(auxs))
 
@@ -350,38 +509,52 @@ def forward(cfg: ArchConfig, params: Params,
             batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (logits (B,S,V) f32, MoE aux loss
     summed over layers).  Under grad, `cfg.remat` recomputes each layer in
-    the backward pass."""
-    x, cross = _embed(cfg, params, batch)
-    x, aux = _run_layers(cfg, params["layers"], x, decoder_layer, cross)
-    x = apply_norm(cfg.norm_kind, params["final_norm"], x)
-    return head_apply(params["head"], x), aux
+    the backward pass.  Under a mesh: this rank's rows and vocab block."""
+    with tp.placed(cfg, batch, "tokens") as batch:
+        x, cross = _embed(cfg, params, batch)
+        x, aux = _run_layers(cfg, params["layers"], x, decoder_layer, cross)
+        x = apply_norm(cfg.norm_kind, params["final_norm"], x)
+        return head_apply(params["head"], x), aux
 
 
 def loss_fn(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
     """Mean next-token cross entropy (over the text positions only for the
-    vision stub) plus MOE_AUX_WEIGHT times the MoE aux loss."""
-    logits, aux = forward(cfg, params, batch)
-    labels = batch["tokens"][:, 1:]
-    if cfg.frontend == "vision":
-        # only text positions contribute to the LM loss
-        mask = (torch.arange(labels.shape[1], device=labels.device)[None, :]
-                >= cfg.n_frontend_tokens).expand(labels.shape)
-    else:
-        mask = torch.ones(labels.shape, dtype=torch.bool,
-                          device=labels.device)
-    loss = cross_entropy_tokens(logits[:, :-1], labels, mask)
-    return loss + MOE_AUX_WEIGHT * aux
+    vision stub) plus MOE_AUX_WEIGHT times the MoE aux loss.  Under a mesh
+    the mean over this rank's rows, vocab-parallel where the head is."""
+    with tp.placed(cfg, batch, "tokens") as batch:
+        logits, aux = forward(cfg, params, batch)
+        labels = batch["tokens"][:, 1:]
+        if cfg.frontend == "vision":
+            # only text positions contribute to the LM loss
+            mask = (torch.arange(labels.shape[1],
+                                 device=labels.device)[None, :]
+                    >= cfg.n_frontend_tokens).expand(labels.shape)
+        else:
+            mask = torch.ones(labels.shape, dtype=torch.bool,
+                              device=labels.device)
+        loss = tp.vocab_parallel_ce(logits[:, :-1], labels, mask)
+        if loss is None:
+            loss = cross_entropy_tokens(logits[:, :-1], labels, mask)
+        return loss + MOE_AUX_WEIGHT * aux
 
 
 def loss_and_grads(cfg: ArchConfig, params: Params,
                    batch: dict) -> tuple[torch.Tensor, Params]:
     """`loss_fn` and its gradient tree (the reference's
     `jax.value_and_grad`), by `torch.autograd.grad` over the param leaves;
-    `params` themselves are not touched."""
+    `params` themselves are not touched.  Under a mesh: the global batch's
+    mean loss, and this rank's blocks of its gradient (each summed over
+    the batch axes its leaf is not split over, `tp.sync_grads`)."""
     leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
-    with torch.enable_grad():
-        loss = loss_fn(cfg, tree_unflatten(params, leaves), batch)
-        grads = torch.autograd.grad(loss, leaves)
+    with tp.placed(cfg, batch, "tokens") as batch:
+        with torch.enable_grad():
+            loss = loss_fn(cfg, tree_unflatten(params, leaves), batch)
+            grads = torch.autograd.grad(loss, leaves)
+        lay = tp.layout()
+        if lay is not None:
+            specs = tree_leaves(tp.param_specs_of(cfg, lay.mesh))
+            grads = tp.sync_grads(list(grads), specs)
+            loss = tp.mean_over_batch(loss.detach())
     return loss.detach(), tree_unflatten(params, list(grads))
 
 
@@ -419,6 +592,23 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None,
     windows with an SSM, and `cross_k` / `cross_v` of `cross_len` encoder
     positions (default n_frontend_tokens) for an encoder-decoder."""
     device = resolve_device(device)
+    lay = tp.layout()
+    if lay is None:
+        return _whole_cache(cfg, batch, seq_len, device, cross_len)
+    # under a mesh: this rank's blocks of the global cache, by cache_specs
+    from repro_torch.launch.sharding import cache_specs, shard_tree
+    with tp.uncounted():
+        whole = _whole_cache(cfg, batch, seq_len, torch.device("meta"),
+                             cross_len)
+        local = shard_tree(whole, cache_specs(cfg, lay.mesh, whole),
+                           lay.mesh)
+    return {k: (torch.zeros(v.shape, dtype=v.dtype, device=device)
+                if isinstance(v, torch.Tensor) else v)
+            for k, v in local.items()}
+
+
+def _whole_cache(cfg: ArchConfig, batch: int, seq_len: int, device,
+                 cross_len: Optional[int]) -> dict:
     dt, n_layers = _dtype(cfg), cfg.n_layers
     cache: dict = {"pos": 0}
     if cfg.has_attn:
@@ -439,13 +629,26 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device=None,
 
 
 def decode_step(cfg: ArchConfig, params: Params, cache: dict,
-                batch: dict) -> tuple[dict, torch.Tensor]:
+                batch: dict, *, cache_len: Optional[int] = None
+                ) -> tuple[dict, torch.Tensor]:
     """One decode step: batch {"token": (B,)} -> (cache', logits (B, V)).
     The cache's tensors are updated in place; cache' shares them.  Like the
     reference, the decoder adds no sinusoid here (Whisper's decode logits
-    therefore differ from its forward's)."""
+    therefore differ from its forward's).  Under a mesh: the global tokens,
+    this rank's cache blocks, its rows and vocab block of the logits.
+    `cache_len` is the length the cache was built for (`init_cache`'s or
+    `prefill_step`'s; the ring holds `cache_len_for` of it): under a mesh
+    a rank's block does not show it, and `cache_specs` places the ring by
+    it, so there a model with attention needs it."""
     pos = cache["pos"]
-    with torch.no_grad():
+    with torch.no_grad(), tp.placed(cfg, batch, "token") as batch:
+        c_len = None
+        if cfg.has_attn:
+            if cache_len is None and tp.layout() is not None:
+                raise ValueError("decode_step under a mesh needs the "
+                                 "cache's global length (cache_len=)")
+            c_len = cache["k"].shape[2] if cache_len is None \
+                else cache_len_for(cfg, cache_len)
         h = embed_apply(params["embed"], batch["token"][:, None],
                         _dtype(cfg))                                # (B,1,D)
         for i, lp in enumerate(_layers(params["layers"])):
@@ -454,7 +657,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: dict,
             if cfg.has_attn:
                 a = attn_apply_decode(lp["attn"], cfg, y,
                                       {"k": cache["k"][i],
-                                       "v": cache["v"][i]}, pos)
+                                       "v": cache["v"][i]}, pos, c_len)
             if cfg.has_ssm:
                 s, st = ssm_decode_step(lp["ssm"], cfg, y[:, 0], {
                     k: cache[f"ssm_{k}"][i] for k in _SSM_KEYS})
@@ -483,28 +686,30 @@ def prefill_step(cfg: ArchConfig, params: Params, batch: dict,
     S % C == 0 (the reference's assumption too); with S < C the slots past S
     stay zero until decode writes them.  SSM layers store the state after
     the last chunk and the last conv windows; an encoder-decoder stores each
-    layer's cross-attention k/v of the encoder's output.
+    layer's cross-attention k/v of the encoder's output.  Under a mesh the
+    cache comes back placed by `cache_specs` and the logits by
+    `logits_spec`.
     """
-    tokens = batch["tokens"]
-    b, s_len = tokens.shape
-    with torch.no_grad():
+    b, s_len = batch["tokens"].shape
+    c_len = cache_len_for(cfg, cache_len or s_len)
+    with torch.no_grad(), tp.placed(cfg, batch, "tokens") as batch:
+        tokens = batch["tokens"]
         h, cross = _embed(cfg, params, batch)
         cache = init_cache(cfg, b, cache_len or s_len, tokens.device,
                            cross_len=None if cross is None
                            else cross.shape[1])
+        kv_layout = _kv_layout(cfg, "k", c_len)
+        cross_layout = None if cross is None else \
+            _kv_layout(cfg, "cross_k", cross.shape[1])
         for i, lp in enumerate(_layers(params["layers"])):
             y = apply_norm(cfg.norm_kind, lp["norm1"], h)
             a = s = None
             if cfg.has_attn:
                 a, (k, v) = attn_apply_seq(lp["attn"], cfg, y,
                                            return_kv=True)
-                c = cache["k"].shape[2]
-                if s_len >= c:
-                    cache["k"][i] = k[:, -c:]
-                    cache["v"][i] = v[:, -c:]
-                else:
-                    cache["k"][i, :, :s_len] = k
-                    cache["v"][i, :, :s_len] = v
+                split = tp.split("attn/wk", 1)
+                cache["k"][i] = _to_cache(k, c_len, kv_layout, split)
+                cache["v"][i] = _to_cache(v, c_len, kv_layout, split)
             if cfg.has_ssm:
                 s, state = ssm_forward(lp["ssm"], cfg, y, with_state=True)
                 for k, t in zip(_SSM_KEYS, state):
@@ -512,8 +717,11 @@ def prefill_step(cfg: ArchConfig, params: Params, batch: dict,
             h = h + _mix(lp, cfg, a, s)
             if cross is not None:
                 h = h + _cross_sublayer(lp, cfg, h, cross)
-                cache["cross_k"][i] = _proj(cross, lp["cross_attn"]["wk"])
-                cache["cross_v"][i] = _proj(cross, lp["cross_attn"]["wv"])
+                w = _weights(lp["cross_attn"], "cross_attn")
+                for name, wt in (("cross_k", w.wk), ("cross_v", w.wv)):
+                    cache[name][i] = _to_cache(_proj(cross, wt),
+                                               cross.shape[1], cross_layout,
+                                               w.kv_split)
             h = h + _ffn_sublayer(lp, cfg, h)[0]
         h = apply_norm(cfg.norm_kind, params["final_norm"], h[:, -1:])
         logits = head_apply(params["head"], h)[:, 0]

@@ -15,17 +15,29 @@ Where the port departs from a literal translation, and why:
   and sums them in that order, where the reference scatter-adds the
   (E, C) contributions into the tokens: CUDA's float `index_add_` uses
   atomics, so its sums would change from run to run;
-- the reference's `constrain` sharding hook is a no-op on one card and is
-  left out.
+- the reference's `constrain` hook is left out: the port places every
+  tensor explicitly (below).
 
 Tokens are processed in `n_groups` independent groups (the reference's
 data-shard groups), each with its own tables and capacity.
+
+Under a mesh (`models/lm/tp.py`): the experts are split over "model" when
+E % model == 0 (each rank runs its block of them, the (token, k) combine
+summed on each rank over its own experts, then all-reduced over
+"model"); FSDP's data dims of w_gate / w_up / w_down are all-gathered at
+use; the router stays replicated, so every rank builds the same tables.
+A rank's rows are whole groups when the groups divide over the batch
+shards (`launch_cfg` sets n_groups to the data shards); otherwise the
+tokens are gathered over the batch axes, routed as one, and the rank
+keeps its rows.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import collectives as C
+from repro_torch.models.lm import tp
 from repro_torch.models.lm.layers import _init, dense_init
 
 
@@ -109,8 +121,23 @@ def moe_route(p, cfg, xg):
             slot, aux)
 
 
+def _grouping(x, n_groups: int):
+    """(x, the groups it holds, whether it was gathered): this rank's rows
+    hold n_groups / shards whole groups when the groups divide over the
+    rows' batch shards; else every rank's rows, all-gathered."""
+    lay = tp.layout()
+    shards = lay.mesh.size(lay.batch) if lay is not None else 1
+    if shards == 1:
+        return x, n_groups, False
+    if n_groups % shards == 0:
+        return x, n_groups // shards, False
+    return C.gather(x, lay.batch, 0, "reduce_scatter", lay.mesh), n_groups, \
+        True
+
+
 def moe_apply(p, cfg, x, *, n_groups: int = 1):
     """x (B, S, D) -> ((B, S, D), aux load-balance loss)."""
+    x, n_groups, gathered = _grouping(x, n_groups)
     b, s_len, d = x.shape
     t = b * s_len
     assert t % n_groups == 0, (t, n_groups)
@@ -119,27 +146,52 @@ def moe_apply(p, cfg, x, *, n_groups: int = 1):
     table, valid, wtab, flat_e, slot, aux = moe_route(p, cfg, xg)
     g, e, cap = table.shape
 
+    dt = x.dtype
+    w_up = tp.full(p["w_up"], "moe/w_up")
+    w_down = tp.full(p["w_down"], "moe/w_down")
+    e_l = w_up.shape[0]
+    e0 = 0
+    split = tp.split("moe/w_up", 0)
+    if split:
+        # this rank's experts: their inputs and weights are its own, the
+        # replicated tables' weights too (summed back by the backward)
+        e0 = tp.model_index() * e_l
+        xg, wtab = tp.enter(xg), tp.enter(wtab)
+        table, valid, wtab = (t_[:, e0:e0 + e_l] for t_ in (table, valid,
+                                                            wtab))
+
     # gather each expert's inputs, (G, E, C, D), then run the experts on
     # the (E, G*C, D) rows
     gi = torch.arange(g, device=x.device)[:, None]
     rows = xg[gi[..., None], table.to(torch.int64)]             # (G,E,C,D)
     expert_in = (rows * valid[..., None].to(x.dtype)).transpose(0, 1)
-    expert_in = expert_in.reshape(e, g * cap, d)
-    dt = x.dtype
+    expert_in = expert_in.reshape(e_l, g * cap, d)
     if cfg.ffn_kind == "swiglu":
-        h = F.silu(torch.bmm(expert_in, p["w_gate"].to(dt)))
-        h = h * torch.bmm(expert_in, p["w_up"].to(dt))
+        w_gate = tp.full(p["w_gate"], "moe/w_gate")
+        h = F.silu(torch.bmm(expert_in, w_gate.to(dt)))
+        h = h * torch.bmm(expert_in, w_up.to(dt))
     else:
-        h = F.gelu(torch.bmm(expert_in, p["w_up"].to(dt)),
-                   approximate="tanh")
-    out = torch.bmm(h, p["w_down"].to(dt)).reshape(e, g, cap, d)
+        h = F.gelu(torch.bmm(expert_in, w_up.to(dt)), approximate="tanh")
+    out = torch.bmm(h, w_down.to(dt)).reshape(e_l, g, cap, d)
     contrib = out.transpose(0, 1) * (wtab * valid)[..., None].to(dt)
 
     # combine: each token's top_k assignments, gathered by (token, k) and
-    # summed in k order; a dropped one (slot C) reads a zero row
+    # summed in k order; a dropped one (slot C), or one to another rank's
+    # expert, reads a zero row
     contrib = F.pad(contrib, (0, 0, 0, 1))                   # (G,E,C+1,D)
+    if split:
+        local = flat_e - e0
+        mine = (local >= 0) & (local < e_l)
+        flat_e = torch.where(mine, local, 0)
+        slot = torch.where(mine, slot, cap)
     y = contrib[gi, flat_e, slot].reshape(g, tg, cfg.top_k, d).sum(2)
-    return y.reshape(b, s_len, d), aux.mean()
+    if split:
+        y = tp.leave(y)
+    y = y.reshape(b, s_len, d)
+    if gathered:
+        lay = tp.layout()
+        y = C.block(y, lay.batch, 0, lay.mesh)
+    return y, aux.mean()
 
 
 def moe_apply_ref(p, cfg, x):

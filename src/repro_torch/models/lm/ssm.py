@@ -17,6 +17,16 @@ the reference's and keeps the gradient finite where the masked exponent
 overflows (the reference's is NaN there).
 
 Decode: h' = exp(dt*A) h + dt * (B ⊗ x);  y = C·h' + D_skip * x.
+
+Under a mesh (`models/lm/tp.py`), when ssm_heads % model == 0 (the
+reference's `Rules.ssm_ok`), a rank runs its block of the heads: its
+columns of `proj_z` / `proj_x` / `proj_dt` / `conv_x` (the z | x | dt
+split boundaries fall inside each shard, since every one of them is a
+block of its own leaf), its block of the replicated per-head vectors and
+of the gated norm's scale, whose mean square is all-reduced over
+"model"; B and C (one group) are computed whole on every rank; `out_proj`
+is row-parallel, followed by an all-reduce.  Its decode state and conv
+window are its heads' (`cache_specs`).  Otherwise it runs whole.
 """
 from __future__ import annotations
 
@@ -25,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.lm import tp
 from repro_torch.models.lm.layers import _init, dense_init, rmsnorm
 
 
@@ -58,11 +69,45 @@ def ssm_init(gen, cfg, device=None, lead=()):
     }
 
 
-def _project(p, x):
-    """x (..., D) -> (z, x_raw, bc_raw, dt_raw) pre-conv projections."""
+def _local(p, cfg) -> tuple[dict, bool]:
+    """(the weights this rank uses, split): FSDP's data dims gathered; with
+    the heads split, the replicated per-head vectors and the norm's scale
+    cut to this rank's heads (their gradients summed back over "model")."""
+    q = dict(p)
+    for name in ("proj_z", "proj_x", "proj_bc", "proj_dt"):
+        q[name] = tp.full(p[name], f"ssm/{name}")
+    q["out_proj"] = tp.full(p["out_proj"], "ssm/out_proj")
+    split = tp.split("ssm/proj_x", 1)
+    if split:
+        for name in ("A_log", "D_skip", "dt_bias"):
+            q[name] = tp.block(tp.enter(p[name]), 0)
+        q["norm"] = {"scale": tp.block(tp.enter(p["norm"]["scale"]), 0)}
+    return q, split
+
+
+def _project(p, x, split: bool = False):
+    """x (..., D) -> (z, x_raw, bc_raw, dt_raw) pre-conv projections (with
+    the heads split, z / x / dt of this rank's heads, from x entered into
+    the parallel region; B|C whole)."""
     dt = x.dtype
-    return (x @ p["proj_z"].to(dt), x @ p["proj_x"].to(dt),
-            x @ p["proj_bc"].to(dt), x @ p["proj_dt"].to(dt))
+    xh = tp.enter(x) if split else x
+    return (xh @ p["proj_z"].to(dt), xh @ p["proj_x"].to(dt),
+            x @ p["proj_bc"].to(dt), xh @ p["proj_dt"].to(dt))
+
+
+def _gated_out(p, cfg, y, z, split: bool):
+    """Gated RMSNorm over d_inner, then the output projection (with the
+    heads split: the mean square all-reduced, out_proj row-parallel)."""
+    dt = z.dtype
+    if split:
+        yf = y.to(dt).to(torch.float32)
+        var = tp.psum(torch.sum(torch.square(yf), -1, keepdim=True)) \
+            / cfg.d_inner
+        y = (yf * torch.rsqrt(var + 1e-6) * p["norm"]["scale"]).to(dt)
+    else:
+        y = rmsnorm(p["norm"], y.to(dt))
+    y = (y * F.silu(z)) @ p["out_proj"].to(dt)
+    return tp.leave(y) if split else y
 
 
 def _causal_conv(u, conv_w):
@@ -88,14 +133,19 @@ def ssm_forward(p, cfg, x, with_state=False):
     chunk and the last ssm_conv raw inputs of each conv, the decode cache
     that prefill leaves."""
     b, s_len, _ = x.shape
-    di, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    p, split = _local(p, cfg)
+    n, pd = cfg.ssm_state, cfg.ssm_head_dim
+    di = p["proj_x"].shape[1]
+    h = di // pd
     q = min(cfg.ssm_chunk, s_len)
     assert s_len % q == 0, f"seq {s_len} not divisible by ssm chunk {q}"
     nc = s_len // q
 
-    z, x_raw, bc_raw, dt_raw = _project(p, x)
+    z, x_raw, bc_raw, dt_raw = _project(p, x, split)
     xc_in = _causal_conv(x_raw, p["conv_x"])
     bc = _causal_conv(bc_raw, p["conv_bc"])
+    if split:
+        bc = tp.enter(bc)      # whole here, used by this rank's heads only
     x_in = xc_in.reshape(b, s_len, h, pd).to(torch.float32)
     b_mat = bc[..., :n].to(torch.float32).reshape(b, nc, q, n)
     c_mat = bc[..., n:].to(torch.float32).reshape(b, nc, q, n)
@@ -139,8 +189,7 @@ def ssm_forward(p, cfg, x, with_state=False):
     y = y.reshape(b, s_len, di)
 
     # gated RMSNorm then output projection
-    y = rmsnorm(p["norm"], y.to(x.dtype)) * F.silu(z)
-    y = y @ p["out_proj"].to(x.dtype)
+    y = _gated_out(p, cfg, y, z, split)
     if not with_state:
         return y
     k = cfg.ssm_conv
@@ -165,8 +214,11 @@ def ssm_decode_step(p, cfg, x, cache):
     """x (B, D) one token -> (y (B, D), new cache).  The cache passed in is
     not written; the model's `decode_step` copies the new one into its
     stacked cache."""
-    di, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, x_new, bc_new, dt_raw = _project(p, x)
+    p, split = _local(p, cfg)
+    n, pd = cfg.ssm_state, cfg.ssm_head_dim
+    di = p["proj_x"].shape[1]
+    h = di // pd
+    z, x_new, bc_new, dt_raw = _project(p, x, split)
 
     conv_x = torch.cat([cache["conv_x"][:, 1:], x_new[:, None]], dim=1)
     conv_bc = torch.cat([cache["conv_bc"][:, 1:], bc_new[:, None]], dim=1)
@@ -183,8 +235,7 @@ def ssm_decode_step(p, cfg, x, cache):
     y = y + p["D_skip"][None, :, None] * x_in
     y = y.reshape(-1, di)
 
-    y = rmsnorm(p["norm"], y.to(x.dtype)) * F.silu(z)
-    y = y @ p["out_proj"].to(x.dtype)
+    y = _gated_out(p, cfg, y, z, split)
     return y, {"state": state, "conv_x": conv_x, "conv_bc": conv_bc}
 
 

@@ -843,13 +843,17 @@ def test_batched_path_runs_through_all_five_kernels(cuda):
     assert streaming == {"prefix_avg": valued[0], "ce_loss": valued[0],
                          "cohort_gather": 3, "cohort_gather_shard": 0,
                          "delta_codec": 3, "weighted_avg": 0,
-                         "flash_attention": 0, "flash_attention_bwd": 0}
+                         "flash_attention": 0, "flash_attention_bwd": 0,
+                         "flash_attention_wide": 0,
+                         "flash_attention_wide_bwd": 0}
     assert kernels.LAUNCHES == {"prefix_avg": 0, "ce_loss": valued[1],
                                 "cohort_gather": 3, "cohort_gather_shard": 0,
                                 "delta_codec": 0,
                                 "weighted_avg": valued[1],
                                 "flash_attention": 0,
-                                "flash_attention_bwd": 0}
+                                "flash_attention_bwd": 0,
+                                "flash_attention_wide": 0,
+                                "flash_attention_wide_bwd": 0}
 
 
 # ------------------------------------------------------ flash_attention ---
@@ -1078,9 +1082,6 @@ def test_flash_attention_cuda_route_raises_instead_of_falling_back(cuda):
     bad = [((q.half(), k.half(), v.half()), TypeError),
            ((q, k.double(), v), TypeError),
            ((q, k.cpu(), v), ValueError),
-           ((q[..., :1].expand(1, 64, 4, 160).contiguous(),
-             k[..., :1].expand(1, 64, 2, 160).contiguous(),
-             v[..., :1].expand(1, 64, 2, 160).contiguous()), ValueError),
            ((q[:, :, :3], k, v), ValueError),
            ((q, k.transpose(-1, -2).contiguous().transpose(-1, -2), v),
             ValueError)]
@@ -1233,6 +1234,99 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, s, t, hq,
     q, k, v, o, do, lse = _bwd_case(s + t + hd, b, s, t, hq, kh, hd, dtype,
                                     cuda, pos, causal, win)
     _check_bwd(cuda, dtype, q, k, v, o, do, lse, pos, causal, win)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,kh,hd,win", [
+    (1, 2048, 4, 4, 256, 0),          # the federated LM example's layer
+    (2, 300, 4, 2, 256, 100), (1, 130, 6, 3, 160, 0), (1, 77, 2, 1, 384, 0)])
+def test_flash_attention_wide_route_matches_plain(cuda, dtype, b, s, hq, kh,
+                                                  hd, win):
+    """Head dims above 128 run the wide route (CUDA cores, float32
+    throughout, the head dim in chunks of 128), counted under its own name:
+    the forward against the plain version (f32 at 2e-5, bf16 at the bf16
+    bounds), its lse against the plain log-sum-exp, and the backward
+    against the exact plain backward, element by element (f32 at 2e-5 of
+    max |grad|; bf16 at 2^-7 |grad| + 2e-5 max |grad|: the route rounds
+    only its outputs), two launches bitwise equal."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda,
+    )
+    q, k, v = _attn_inputs(s + hd + win, b, s, s, hq, kh, hd, dtype, cuda)
+    before = dict(kernels.LAUNCHES)
+    got = flash_attention_gqa(q, k, v, window=win)
+    o, lse = flash_attention_cuda(q, k, v, window=win, with_lse=True)
+    assert kernels.LAUNCHES["flash_attention_wide"] == \
+        before["flash_attention_wide"] + 2
+    assert kernels.LAUNCHES["flash_attention"] == before["flash_attention"]
+    assert torch.equal(got, o)
+    want = flash_attention_gqa(q.cpu(), k.cpu(), v.cpu(), window=win)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
+    else:
+        _assert_bf16_attention_close(got, want)
+    from repro_torch.kernels.flash_attention.ops import _forward_ref
+    _, lse_want = _forward_ref(*(x.cpu().float() for x in (q, k, v)), None,
+                               True, win, with_lse=True)
+    torch.testing.assert_close(lse.cpu(), lse_want, atol=1e-4, rtol=0)
+
+    from repro_torch.kernels.flash_attention import attention_bwd_gqa_ref
+    gen = torch.Generator().manual_seed(hd)
+    do = torch.randn(q.shape, generator=gen).to(cuda, dtype)
+    pos = torch.arange(s, device=cuda)
+    grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, window=win)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, window=win)
+    assert kernels.LAUNCHES["flash_attention_wide_bwd"] == \
+        before["flash_attention_wide_bwd"] + 2
+    assert kernels.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"]
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+    assert [x.dtype for x in grads] == [dtype] * 3
+    exact = attention_bwd_gqa_ref(*(x.cpu().float() for x in (q, k, v, o,
+                                                               do)),
+                                  lse.cpu(), q_pos=pos.cpu(), window=win)
+    assert_bwd_close(grads, exact, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_on_local_heads_matches_whole_heads(cuda, dtype):
+    """Hq 32 over Kh 8 split over a model axis of 16 (Danube and
+    Mistral-NeMo at m = 16, where wq is head-sharded and wk / wv are
+    replicated): each rank's 2 query heads with the one KV head
+    `tp.kv_index` gives them (G' = 2, not the global G = 4) through the
+    kernel equal the whole-head call's heads bitwise, forward and dq (each
+    head is its own); the two ranks' dk / dv of a shared KV head sum to the
+    whole call's (f32: 2e-5 of max |grad|; bf16: 2^-7 |grad| + 2^-8 max
+    |grad|, each partial rounded once)."""
+    from repro_torch.kernels.flash_attention import flash_attention_gqa
+    from repro_torch.models.lm.tp import kv_index, take_heads
+    q, k, v = (x.requires_grad_() for x in
+               _attn_inputs(32, 2, 300, 300, 32, 8, 64, dtype, cuda))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(1)
+                     ).to(cuda, dtype)
+    whole = flash_attention_gqa(q, k, v)
+    dq, dk, dv = torch.autograd.grad(whole, (q, k, v), do)
+    sum_k, sum_v = torch.zeros_like(dk), torch.zeros_like(dv)
+    for r in range(16):
+        heads, g = kv_index(2 * r, 2, 4)
+        assert heads == (r // 2,) and g == 2
+        ql = q[:, :, 2 * r:2 * r + 2].detach().requires_grad_()
+        kl = take_heads(k, heads).detach().requires_grad_()
+        vl = take_heads(v, heads).detach().requires_grad_()
+        got = flash_attention_gqa(ql, kl, vl)
+        assert torch.equal(got, whole[:, :, 2 * r:2 * r + 2])
+        gq, gk, gv = torch.autograd.grad(got, (ql, kl, vl),
+                                         do[:, :, 2 * r:2 * r + 2])
+        assert torch.equal(gq, dq[:, :, 2 * r:2 * r + 2])
+        sum_k[:, :, r // 2] += gk[:, :, 0].float().to(dtype)
+        sum_v[:, :, r // 2] += gv[:, :, 0].float().to(dtype)
+    rtol = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    top = 2e-5 if dtype == torch.float32 else 2.0 ** -8
+    for got, want in ((sum_k, dk), (sum_v, dv)):
+        got, want = got.float(), want.float()
+        limit = rtol * want.abs() + top * want.abs().max()
+        assert bool(((got - want).abs() <= limit).all())
 
 
 def _padded_view(x):
@@ -1573,7 +1667,8 @@ def test_scan_graph_holds_the_kernels_and_no_sync(cuda, impl):
         "prefix_avg": int(impl == "streaming"), "ce_loss": int(not serial),
         "cohort_gather": 1, "cohort_gather_shard": 0, "delta_codec": 1,
         "weighted_avg": int(dense), "flash_attention": 0,
-        "flash_attention_bwd": 0}
+        "flash_attention_bwd": 0, "flash_attention_wide": 0,
+        "flash_attention_wide_bwd": 0}
     assert not any(res.graph_launches["eval"].values())
     assert np.isfinite(res.final_acc) and res.params["layer0"]["w"].is_cuda
     torch.cuda.set_sync_debug_mode("error")
@@ -1837,7 +1932,8 @@ def test_grid_on_the_card_is_bitwise_the_solo_runs(cuda):
             "cohort_gather": s, "cohort_gather_shard": 0,
             "delta_codec": s * (p.upload_codec != "identity"),
             "weighted_avg": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_bwd": 0, "flash_attention_wide": 0,
+            "flash_attention_wide_bwd": 0}
         assert not any(p.graph_launches["eval"].values())
 
 

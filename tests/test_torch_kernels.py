@@ -313,7 +313,9 @@ def test_routing_and_counters():
                                 "cohort_gather": 0, "cohort_gather_shard": 0,
                                 "delta_codec": 0, "weighted_avg": 0,
                                 "flash_attention": 0,
-                                "flash_attention_bwd": 0}
+                                "flash_attention_bwd": 0,
+                                "flash_attention_wide": 0,
+                                "flash_attention_wide_bwd": 0}
 
 
 def test_pad_to_matches_reference():
@@ -328,7 +330,8 @@ def test_build_names_the_sources_and_hashes_them():
     srcs = [p.name for p in kernels._sources()]
     assert srcs == ["ce_loss.cu", "cohort_gather.cu", "delta_codec.cu",
                     "flash_attention.cu", "flash_attention_bwd.cu",
-                    "graph_cond.cu", "prefix_avg.cu", "weighted_avg.cu"]
+                    "flash_attention_wide.cu", "graph_cond.cu",
+                    "prefix_avg.cu", "weighted_avg.cu"]
     assert "--use_fast_math" not in kernels.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
     assert len(kernels._digest()) == 16

@@ -201,7 +201,9 @@ def test_default_draws_reproduce_and_cpu_never_counts_launches():
                                 "cohort_gather": 0, "cohort_gather_shard": 0,
                                 "delta_codec": 0, "weighted_avg": 0,
                                 "flash_attention": 0,
-                                "flash_attention_bwd": 0}
+                                "flash_attention_bwd": 0,
+                                "flash_attention_wide": 0,
+                                "flash_attention_wide_bwd": 0}
     for x, y in zip(a.selections, b.selections):
         np.testing.assert_array_equal(x, y)
     np.testing.assert_array_equal(a.sv_final, b.sv_final)
