@@ -1210,26 +1210,38 @@ WIDE_EDGES = ((1, 700, 6, 3, 160, 256), (1, 333, 4, 2, 384, 0))
 
 
 def check_flash_attention_wide(torch, device):
-    """The wide route (`csrc/flash_attention_wide.cu`: head dims above 128
-    on the CUDA cores, float32 throughout, the head dim in chunks of 128)
-    against the plain versions on the card: the forward at atol 2e-5 (f32)
-    or `Bf16AttentionError` (bf16; this route keeps P in f32), its lse at
-    1e-4; the backward element by element against the exact
-    `attention_bwd_ref`, |err| <= rtol |grad| + 2e-5 max |grad| (rtol 0
-    f32, 2^-7 bf16: one rounding of each output), two launches bitwise
-    equal.  Times kernel, plain version and SDPA (forward, and backward) in
-    f32 at `WIDE_LAYER`, beside the bound (the tensor-core routes' work:
-    `kernel_cost` names both the same); returns the two JSON entries."""
+    """The wide route (head dims above 128, counted under its own name):
+    float32 up to 256 on the tensor cores (`flash_f32_wide_kernel`,
+    `bwd_dkdv_f32_wide_kernel`, `bwd_dq_f32_wide_kernel`: split-TF32 wgmma
+    at hd padded to 256), bf16 and wider float32 on the CUDA cores
+    (`csrc/flash_attention_wide.cu`), against the plain versions on the
+    card: the forward at atol 2e-5 (f32) or `Bf16AttentionError` (bf16; the
+    CUDA-core route keeps P in f32), its lse at 1e-4; the backward element
+    by element against the exact `attention_bwd_ref`, |err| <= rtol |grad|
+    + 2e-5 max |grad| (rtol 0 f32, 2^-7 bf16: one rounding of each
+    output), two launches bitwise equal.  Times kernel, plain version and
+    SDPA, forward and backward, at every shape in f32 and at `WIDE_LAYER`
+    in bf16 too, beside the bound (the tensor-core routes' work:
+    `kernel_cost` names both the same) and kernel / bound; returns the two
+    JSON entries (f32 at `WIDE_LAYER`, the bf16 times beside)."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import attention_bwd_gqa_ref
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda, flash_attention_cuda,
+        flash_attention_bwd_cuda, flash_attention_cuda, route,
     )
     from repro_torch.kernels.flash_attention.ops import _forward_ref
+    counts = hgmma_counts(kernels.build().path)
+    for name in ("flash_f32_wide_kernel", "bwd_dkdv_f32_wide_kernel",
+                 "bwd_dq_f32_wide_kernel"):
+        found = [n for f, n in counts.items() if name in f]
+        require(len(found) == 1 and found[0] > 0,
+                f"flash_attention_wide: {name} has no wgmma: {found}")
+        log(f"[flash_attention_wide] {name}: {found[0]} HGMMA instructions "
+            f"in SASS")
     saved = {n: kernels.LAUNCHES[n] for n in ("flash_attention_wide",
                                               "flash_attention_wide_bwd")}
     gen = torch.Generator(device=device).manual_seed(26)
-    entries = {}
+    entries, bf16_times = {}, {}
     for shape in (WIDE_LAYER, *WIDE_EDGES):
         b, s_len, hq, kh, hd, win = shape
         for dtype in (torch.float32, torch.bfloat16):
@@ -1238,6 +1250,7 @@ def check_flash_attention_wide(torch, device):
                            for sh in ((b, s_len, hq, hd), (b, s_len, kh, hd),
                                       (b, s_len, kh, hd),
                                       (b, s_len, hq, hd)))
+            way = route(dtype, hd)
             o, lse = flash_attention_cuda(q, k, v, window=win,
                                           with_lse=True)
             f32 = [x.float() for x in (q, k, v)]
@@ -1247,7 +1260,7 @@ def check_flash_attention_wide(torch, device):
                 nan=math.inf).max())
             lse_err = float((lse - want_lse).abs().max())
             what = (f"B={b} S=T={s_len} Hq={hq} Kh={kh} hd={hd} window={win}"
-                    f" {str(dtype)[6:]}")
+                    f" {str(dtype)[6:]} ({way})")
             if dtype == torch.float32:
                 require(err <= 2e-5, f"flash_attention_wide {what}: {err}")
                 verdict = f"max abs err {err:.2e} (atol 2e-5)"
@@ -1276,25 +1289,15 @@ def check_flash_attention_wide(torch, device):
                     f"{lse_err:.2e}; backward max abs err {bwd_err:.2e}, "
                     f"worst {share:.3f} of |err| <= {rtol:g} |grad| + 2e-5 "
                     f"max |grad|, two launches bitwise equal")
-            if shape == WIDE_LAYER and dtype == torch.float32:
+            if dtype == torch.float32 or shape == WIDE_LAYER:
                 cost = dict(b=b, s=s_len, t=s_len, hq=hq, kh=kh, hd=hd,
-                            itemsize=4, window=win)
+                            itemsize=q.element_size(), window=win)
                 ms = time_ms(lambda _: flash_attention_cuda(
                     q, k, v, window=win), iters=5, warmup=1)
                 plain_ms = time_ms(lambda _: _forward_ref(
                     q, k, v, None, True, win), iters=3, warmup=1)
                 lib_ms, backend, lib_out = _sdpa_ms(torch, q, k, v, win)
                 b_ms, b_by = kernel_bound_ms("flash_attention_wide", **cost)
-                entries["fwd"] = {
-                    "name": "flash_attention_wide", "route": "cuda",
-                    "source": "src/repro_torch/kernels/csrc/"
-                              "flash_attention_wide.cu",
-                    "replaces": "src/repro/kernels/flash_attention/"
-                                "kernel.py:74 (head dims above 128)",
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": lib_ms,
-                    "library": f"scaled_dot_product_attention ({backend})",
-                    "max_abs_err": err}
                 bms = time_ms(lambda _: flash_attention_bwd_cuda(
                     q, k, v, o, do, lse, window=win), iters=5, warmup=1)
                 bplain = time_ms(lambda _: attention_bwd_gqa_ref(
@@ -1302,10 +1305,36 @@ def check_flash_attention_wide(torch, device):
                 blib, bbackend = _sdpa_bwd_ms(torch, q, k, v, do, win)
                 bb_ms, bb_by = kernel_bound_ms("flash_attention_wide_bwd",
                                                **cost)
+                line += (f"; forward kernel {ms:.4f} ms, plain {plain_ms:.4f}"
+                         f", SDPA ({backend}) {lib_ms}, bound {b_ms:.4f} "
+                         f"({b_by}), kernel / bound {ms / b_ms:.2f}; "
+                         f"backward kernel {bms:.4f} ms, plain {bplain:.4f}, "
+                         f"SDPA ({bbackend}) {blib}, bound {bb_ms:.4f} "
+                         f"({bb_by}), kernel / bound {bms / bb_ms:.2f}")
+                del lib_out
+            if shape == WIDE_LAYER and dtype == torch.bfloat16:
+                bf16_times = {"fwd": {"bf16_ms": ms, "bf16_plain_ms": plain_ms,
+                                      "bf16_bound_ms": b_ms,
+                                      "bf16_library_ms": lib_ms},
+                              "bwd": {"bf16_ms": bms, "bf16_plain_ms": bplain,
+                                      "bf16_bound_ms": bb_ms,
+                                      "bf16_library_ms": blib}}
+            if shape == WIDE_LAYER and dtype == torch.float32:
+                require(way == "tc_wide", f"flash_attention_wide: {way}")
+                entries["fwd"] = {
+                    "name": "flash_attention_wide", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/"
+                              "flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention/"
+                                "kernel.py:74 (head dims above 128)",
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib_ms,
+                    "library": f"scaled_dot_product_attention ({backend})",
+                    "max_abs_err": err}
                 entries["bwd"] = {
                     "name": "flash_attention_wide_bwd", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/"
-                              "flash_attention_wide.cu",
+                              "flash_attention_bwd.cu",
                     "replaces": "src/repro/models/lm/attention.py:56 "
                                 "(autodiff of the flash scan, head dims "
                                 "above 128; no Pallas kernel)",
@@ -1314,17 +1343,12 @@ def check_flash_attention_wide(torch, device):
                     "library": "scaled_dot_product_attention backward "
                                f"({bbackend})",
                     "max_abs_err": bwd_err}
-                line += (f"; forward kernel {ms:.4f} ms, plain {plain_ms:.4f}"
-                         f", SDPA ({backend}) {lib_ms}, bound {b_ms:.4f} "
-                         f"({b_by}), kernel / bound {ms / b_ms:.2f}; "
-                         f"backward kernel {bms:.4f} ms, plain {bplain:.4f}, "
-                         f"SDPA ({bbackend}) {blib}, bound {bb_ms:.4f} "
-                         f"({bb_by}), kernel / bound {bms / bb_ms:.2f}")
-                del lib_out
             log(line)
             del q, k, v, do, o, lse, got, again, exact, want
             torch.cuda.empty_cache()
     kernels.LAUNCHES.update(saved)      # checks do not count
+    entries["fwd"].update(bf16_times["fwd"])
+    entries["bwd"].update(bf16_times["bwd"])
     return [entries["fwd"], entries["bwd"]]
 
 
@@ -2704,6 +2728,8 @@ def check_flash_attention_bwd(torch, device):
 
 
 BWD_REPRO = dict(b=1, s=1300, t=1300, hq=25, kh=5, hd=64, window=1024)
+# the same shape at hd 256: the f32 tensor-core backward of the wide route
+BWD_REPRO_WIDE = dict(BWD_REPRO, hd=256)
 
 
 def check_bwd_repro(torch, device, launches: int = 100):
@@ -2711,63 +2737,72 @@ def check_bwd_repro(torch, device, launches: int = 100):
     the f32 backward at the shape of `tests/test_torch_gpu.py`'s
     `test_flash_attention_bwd_kernel_matches_plain[1-1300-1300-25-5-64-
     True-1024-0-dtype0]` (B 1, S = T = 1300, 25 / 5 heads, hd 64, causal,
-    window 1024; the test's inputs, seed 2664), relaunched `launches`
-    times in this process, each output held against one plain result
-    (`attention_bwd_gqa_ref` on the CPU, as the test computes it) at the
-    test's limit, |err| <= 2e-5 max |grad| a tensor.  Prints how many
-    launches passed; the assertion names the first bad (b, s, h, d) of the
-    first failing launch."""
+    window 1024; the test's inputs, seed 2664), and the same shape at hd
+    256 (the wide route's split-TF32 backward, `BWD_REPRO_WIDE`), each
+    relaunched `launches` times in this process, each output held against
+    one plain result (`attention_bwd_gqa_ref` on the CPU, as the test
+    computes it) at the test's limit, |err| <= 2e-5 max |grad| a tensor.
+    Prints how many launches passed and the worst share of the limit; the
+    assertion names the first bad (b, s, h, d) of the first failing
+    launch."""
     from repro_torch import kernels
     from repro_torch.kernels.flash_attention import attention_bwd_gqa_ref
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda,
     )
-    c = BWD_REPRO
-    gen = torch.Generator().manual_seed(c["s"] + c["t"] + c["hd"])
-    q, k, v = [torch.randn(shape, generator=gen).to(device, torch.float32)
-               for shape in ((c["b"], c["s"], c["hq"], c["hd"]),
-                             (c["b"], c["t"], c["kh"], c["hd"]),
-                             (c["b"], c["t"], c["kh"], c["hd"]))]
     saved = dict(kernels.LAUNCHES)
-    pos = torch.arange(c["s"], device=device)
-    o, lse = flash_attention_cuda(q, k, v, pos, causal=True,
-                                  window=c["window"], with_lse=True)
-    do = torch.randn(o.shape, generator=torch.Generator().manual_seed(
-        c["s"] + c["t"] + c["hd"] + 1)).to(device, torch.float32)
-    t0 = time.perf_counter()
-    want = attention_bwd_gqa_ref(*(x.cpu() for x in (q, k, v, o, do, lse)),
-                                 q_pos=pos.cpu(), causal=True,
-                                 window=c["window"])
-    plain_s = time.perf_counter() - t0
-    want = [w.to(device) for w in want]
-    limits = [2e-5 * float(w.abs().max()) for w in want]
-    passed, first_bad, worst = 0, None, 0.0
-    for i in range(launches):
-        got = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, causal=True,
-                                       window=c["window"])
-        ok = True
-        for name, g, w, lim in zip(("dq", "dk", "dv"), got, want, limits):
-            err = (g - w).abs()
-            worst = max(worst, float(err.nan_to_num(nan=math.inf).max())
-                        / lim)
-            bad = ~(err <= lim)                 # a NaN is over its limit
-            if bool(bad.any()):
-                ok = False
-                if first_bad is None:
-                    first_bad = (i, name, int(bad.sum()),
-                                 float(err.nan_to_num(nan=math.inf).max()),
-                                 lim, bad.nonzero()[:8].tolist())
-        passed += ok
+    for c in (BWD_REPRO, BWD_REPRO_WIDE):
+        gen = torch.Generator().manual_seed(c["s"] + c["t"] + c["hd"])
+        q, k, v = [torch.randn(shape, generator=gen).to(device,
+                                                        torch.float32)
+                   for shape in ((c["b"], c["s"], c["hq"], c["hd"]),
+                                 (c["b"], c["t"], c["kh"], c["hd"]),
+                                 (c["b"], c["t"], c["kh"], c["hd"]))]
+        pos = torch.arange(c["s"], device=device)
+        o, lse = flash_attention_cuda(q, k, v, pos, causal=True,
+                                      window=c["window"], with_lse=True)
+        do = torch.randn(o.shape, generator=torch.Generator().manual_seed(
+            c["s"] + c["t"] + c["hd"] + 1)).to(device, torch.float32)
+        t0 = time.perf_counter()
+        want = attention_bwd_gqa_ref(*(x.cpu() for x in (q, k, v, o, do,
+                                                         lse)),
+                                     q_pos=pos.cpu(), causal=True,
+                                     window=c["window"])
+        plain_s = time.perf_counter() - t0
+        want = [w.to(device) for w in want]
+        limits = [2e-5 * float(w.abs().max()) for w in want]
+        passed, first_bad, worst = 0, None, 0.0
+        for i in range(launches):
+            got = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos,
+                                           causal=True, window=c["window"])
+            ok = True
+            for name, g, w, lim in zip(("dq", "dk", "dv"), got, want,
+                                       limits):
+                err = (g - w).abs()
+                worst = max(worst,
+                            float(err.nan_to_num(nan=math.inf).max()) / lim)
+                bad = ~(err <= lim)                 # a NaN is over its limit
+                if bool(bad.any()):
+                    ok = False
+                    if first_bad is None:
+                        first_bad = (i, name, int(bad.sum()),
+                                     float(err.nan_to_num(nan=math.inf)
+                                           .max()),
+                                     lim, bad.nonzero()[:8].tolist())
+            passed += ok
+        log(f"[flash_attention_bwd] Queue 3 reproduction (f32, B 1, S = T "
+            f"= 1300, 25 / 5 heads, hd {c['hd']}, causal, window 1024): "
+            f"{passed} of {launches} launches within 2e-5 max |grad| of one "
+            f"plain result (CPU, {plain_s:.1f} s); worst error over its "
+            f"limit {worst:.3f}")
+        require(passed == launches,
+                f"flash_attention_bwd Queue 3 fault reproduced at hd "
+                f"{c['hd']}: {passed} of {launches} launches passed; first "
+                f"bad (launch, tensor, count, max err, limit, first (b, s, "
+                f"h, d)) {first_bad}")
+        del q, k, v, o, lse, do, want, got
     kernels.LAUNCHES.update(saved)          # checks do not count
-    log(f"[flash_attention_bwd] Queue 3 reproduction (f32, B 1, S = T = "
-        f"1300, 25 / 5 heads, hd 64, causal, window 1024): {passed} of "
-        f"{launches} launches within 2e-5 max |grad| of one plain result "
-        f"(CPU, {plain_s:.1f} s); worst error over its limit {worst:.3f}")
-    require(passed == launches,
-            f"flash_attention_bwd Queue 3 fault reproduced: {passed} of "
-            f"{launches} launches passed; first bad (launch, tensor, count, "
-            f"max err, limit, first (b, s, h, d)) {first_bad}")
-    return passed
+    return launches
 
 
 def phase_serve(torch, device):
@@ -4312,9 +4347,12 @@ def phase_lm_mesh(torch, device, smi):
 def phase_wide_heads(torch, device):
     """The federated LM example's model at --d-model 1024 (4 query heads of
     256 over 2 KV heads), 2 layers, f32: one loss_and_grads at B = 2 x 2048
-    on the card (the wide route of flash_attention, forward and backward)
-    against the CPU's plain blocked loop: the loss at 1e-5 relative, each
-    gradient leaf at TRAIN_GRAD_RTOL of its max.  Returns its launches."""
+    on the card (the wide route of flash_attention, forward and backward:
+    f32 at hd 256 runs the split-TF32 tensor-core kernels) against the
+    CPU's plain blocked loop: the loss at 1e-5 relative, each gradient leaf
+    at TRAIN_GRAD_RTOL of its max; then the step's time on the card (the
+    mean of 3 more calls, inputs already there).  Returns the first call's
+    launches."""
     import dataclasses
     from repro_torch import kernels
     from repro_torch.configs import get_config
@@ -4327,20 +4365,27 @@ def phase_wide_heads(torch, device):
     gen = torch.Generator().manual_seed(25)
     params = M.init_params(cfg, gen, device="cpu")
     batch = synth_batch(cfg, gen, 2, 2048)
+    params_dev = tree_map(lambda t: t.to(device), params)
+    batch_dev = {k: v.to(device) for k, v in batch.items()}
     kernels.reset_launches()
     t0 = time.perf_counter()
-    loss, grads = M.loss_and_grads(cfg, tree_map(lambda t: t.to(device),
-                                                 params),
-                                   {k: v.to(device) for k, v in batch.items()})
+    loss, grads = M.loss_and_grads(cfg, params_dev, batch_dev)
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        M.loss_and_grads(cfg, params_dev, batch_dev)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    kernels.LAUNCHES.update(launches)       # one step counts
     want_loss, want = M.loss_and_grads(cfg, params, batch)
     rel = abs(float(loss) - float(want_loss)) / abs(float(want_loss))
     worst = max(float((g.cpu() - w).abs().max() / w.abs().max())
                 for g, w in zip(tree_leaves(grads), tree_leaves(want)))
     log(f"[wide-heads] hd {cfg.hd}, {cfg.n_heads} / {cfg.n_kv_heads} heads, "
-        f"B 2 x 2048, f32: card {card_s * 1e3:.1f} ms; loss {float(loss)} "
+        f"B 2 x 2048, f32: first call {card_s * 1e3:.1f} ms, step "
+        f"{step_ms:.2f} ms (mean of 3); loss {float(loss)} "
         f"vs CPU {float(want_loss)} (rel {rel:.2e}, limit 1e-5); worst "
         f"gradient leaf {worst:.2e} of its max (limit {TRAIN_GRAD_RTOL}); "
         f"launches {launches}")

@@ -38,7 +38,14 @@ Every version gets the same inputs, made from fixed seeds:
   `flash_attention_bwd_cuda` (on the forward's o and lse) at one
   TinyLlama-1.1B training layer (B = 4, S = T = 2048, Hq = 32, Kh = 4, hd
   = 64, causal) and one H2O-Danube-3-4B layer (B = 1, S = T = 8192, Hq =
-  32, Kh = 8, hd = 120, window 4096), in bf16 and in float32.
+  32, Kh = 8, hd = 120, window 4096), in bf16 and in float32;
+- the wide route (head dims above 128): forward and backward through
+  `flash_attention_cuda` / `flash_attention_bwd_cuda` at `chip_smoke.py`'s
+  `WIDE_LAYER` (the federated LM example at --d-model 1024: B = 2, S = T =
+  2048, Hq = 4, Kh = 2, hd = 256, causal), in bf16 (a control) and in
+  float32, and the whole train step of `chip_smoke.py` phase 24's
+  wide-heads model (`loss_and_grads`, 2 layers at d_model 1024, f32, B = 2
+  x 2048), which launches each way once a layer.
 
 Each time is a CUDA-event mean over back-to-back calls (`chip_smoke.
 time_ms`), taken `--repeats` times; the launches per call are counted.
@@ -87,7 +94,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(Path(args.src).resolve()))
-    from chip_smoke import _stacked_mlp, time_ms
+    from chip_smoke import WIDE_LAYER, _stacked_mlp, time_ms
     from repro_torch import kernels
     from repro_torch.core.shapley_batched import prefix_weight_matrix
     from repro_torch.federated.server import FLConfig, setup_run
@@ -156,6 +163,23 @@ def main() -> int:
                     lambda _, a=(q, k, v, o, do, lse), w=window: bwd(
                         *a, window=w), 10 if dtype == torch.bfloat16 else 2)
 
+        b, s_len, hq, kh, hd, window = WIDE_LAYER
+        base = [torch.randn(shape, generator=agen, device=device)
+                for shape in ((b, s_len, hq, hd), (b, s_len, kh, hd),
+                              (b, s_len, kh, hd), (b, s_len, hq, hd))]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (x.to(dtype) for x in base)
+            o, lse = flash_kernel.flash_attention_cuda(
+                q, k, v, window=window, with_lse=True)
+            dname = str(dtype)[6:]
+            calls[f"flash_attention_wide {dname}"] = (
+                lambda _, a=(q, k, v): flash_kernel.flash_attention_cuda(
+                    *a, window=window), 10)
+            calls[f"flash_attention_wide_bwd {dname}"] = (
+                lambda _, a=(q, k, v, o, do, lse): bwd(*a, window=window), 3)
+        calls["wide-heads train step f32"] = (wide_heads_step(torch, device),
+                                              3)
+
     out = {"label": args.label, "device": torch.cuda.get_device_name(0),
            "forward_sha256": digests}
     for name, d in digests.items():
@@ -187,6 +211,27 @@ def main() -> int:
               f"{out['federated_lm']}", flush=True)
     print(json.dumps(out))
     return 0
+
+
+def wide_heads_step(torch, device):
+    """`chip_smoke.py` phase 24's wide-heads train step (the federated LM
+    example's model at --d-model 1024: 4 query heads of 256 over 2 KV
+    heads, 2 layers, f32, B = 2 x 2048) as a call on inputs already on the
+    card."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models.lm import model as M
+    from repro_torch.tree import tree_map
+    cfg = dataclasses.replace(
+        get_config("tinyllama_1_1b").reduced(n_layers=2, d_model=1024),
+        vocab=1024, dtype="float32")
+    gen = torch.Generator().manual_seed(25)
+    params = tree_map(lambda t: t.to(device),
+                      M.init_params(cfg, gen, device="cpu"))
+    batch = {k: v.to(device)
+             for k, v in synth_batch(cfg, gen, 2, 2048).items()}
+    return lambda _: M.loss_and_grads(cfg, params, batch)
 
 
 def _bwd_cases():

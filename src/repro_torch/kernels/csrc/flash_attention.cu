@@ -925,6 +925,428 @@ flash_f32_tc_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// ------------------------------------------- f32 route, 128 < hd <= 256 --
+//
+// The same split-TF32 arithmetic as flash_f32_tc_kernel (three TF32
+// products a product, f32 P, the finite sentinel, o = acc / max(l, 1e-30),
+// lse in natural units), at hd padded to 256, where that kernel's tiles
+// and registers do not fit: Q alone would be 128 KB for its 128 rows, and
+// a warpgroup's O (64 x 256 f32) plus Q_lo would take 256 registers a
+// thread.  So a block owns 64 query rows, and its two warpgroups split the
+// head dim: warpgroup w holds columns 128 w .. 128 w + 127 of Q (as
+// loaded, in registers, split a group of k8 steps at a time) and of O.
+// Per 32-key tile each warpgroup takes its half of the scores' sum
+//   S_w = Q_hi K_lo^T + Q_lo K_hi^T + Q_hi K_hi^T   over its 128 columns,
+// the two halves meet through shared memory (S = S_0 + S_1, in that order
+// in both), both run the same online softmax on the whole S, and each
+// takes P V into its own 128 columns of O (fresh accumulators of 64
+// columns, O = O * corr + T, as the narrow route).  The score sums are the
+// narrow route's at hd 128 (16 k8 steps an accumulator), met by one f32
+// add.  Q's fragments are split 2 k8 steps at a time, the next 2 while the
+// tensor core takes these (two sets of 16 registers), by a volatile
+// conversion: a pure one is hoisted out of the tile loop, and the 128
+// registers of all of Q's splits spill (296 bytes; 0.61 ms against 0.48
+// on the H100 at the federated LM's layer, `scripts/
+// torch_flash_wide_ablate.py`).  Registers a thread: O 64, Q
+// 64, the scores 32, the split fragments 32 or the tile's T 32: the
+// narrow route's 192.  Every hd in 129..256 is padded to 256 (pad columns
+// arrive as zeros): hd 160 does 1.6 times the products it needs; no
+// config has it.  What bounds it: operations, as the narrow route; at the
+// federated LM's layer (B 2, S = T = 2048, 4 / 2 heads of 256, causal)
+// 3 x 1.72e10 TF32 flops, 0.104 ms at 495 TFLOP/s.
+// Shared memory: a landing zone for the next tile's K and V as TMA brings
+// them (32 + 32 KB), the current tile's K split (64 KB, lo rows then hi
+// rows a chunk) and V^T hi and lo (32 + 32 KB), and the exchange of the
+// scores' halves (16 KB): 208 KB, one block an SM.  Tile it + 1 lands
+// while tile it is computed; all 256 threads split it once both
+// warpgroups are done with tile it.
+constexpr int kWideRows = 64;           // query rows a block
+
+struct F32WideLayout {
+  static constexpr int kHdPad = 256;
+  static constexpr int kChunks = kHdPad / kF32Cols;      // 8
+  static constexpr int kLandChunk = kF32Keys * kSwizzleRow;   // 4 KB
+  static constexpr int kLandBytes = kChunks * kLandChunk;     // K or V
+  static constexpr int kKChunk = 2 * kLandChunk;         // lo rows, hi rows
+  static constexpr int kKHi = kLandChunk;
+  static constexpr int kVtBytes = kHdPad * kSwizzleRow;  // V^T hi, or lo
+  static constexpr int kOffLandV = kLandBytes;
+  static constexpr int kOffK = 2 * kLandBytes;
+  static constexpr int kOffVtHi = kOffK + kChunks * kKChunk;
+  static constexpr int kOffVtLo = kOffVtHi + kVtBytes;
+  static constexpr int kOffX = kOffVtLo + kVtBytes;
+  static constexpr int kXBytes = kF32Threads * (kF32Keys / 2) * 4;
+  static constexpr int kOffBar = kOffX + kXBytes;
+  static constexpr uint32_t kTx = 2 * kLandBytes;
+  static constexpr size_t kBytes = kOffBar + 8 + 1024;
+};
+
+__global__ void __launch_bounds__(kF32Threads, 1)
+flash_f32_wide_kernel(const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const float* __restrict__ q, Strides qs,
+                      float* __restrict__ o, float* __restrict__ lse,
+                      const int32_t* __restrict__ q_pos, int64_t s_len,
+                      int64_t t_len, int64_t group, int64_t hd, Strides os,
+                      int causal, int64_t window, float scale) {
+  using L = F32WideLayout;
+  constexpr int kHalf = L::kHdPad / 2;       // columns a warpgroup
+  constexpr int kKS = kHalf / 8;             // its k8 steps of Q K^T
+  constexpr int kGroup = 2;                  // k8 steps a group of S
+  constexpr int kNS = kF32Keys / 2;          // score registers per thread
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int32_t pos_s[kWideRows];
+  __shared__ int32_t pmin_s[kWideRows / 32], pmax_s[kWideRows / 32];
+
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t land_k = base, land_v = base + L::kOffLandV;
+  const uint32_t k_s = base + L::kOffK;
+  const uint32_t vt_hi = base + L::kOffVtHi, vt_lo = base + L::kOffVtLo;
+  const uint32_t bar_full = base + L::kOffBar;
+  float* xchg = reinterpret_cast<float*>(smem_raw + (base + L::kOffX - raw));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t n_qt = (s_len + kWideRows - 1) / kWideRows;
+  // the last query tiles have the longest bands: launch them first
+  const int64_t q0 = (n_qt - 1 - (int64_t)blockIdx.x) * kWideRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (int)group;
+
+  if (tid < kWideRows) {
+    const bool valid = q0 + tid < s_len;
+    const int32_t p = valid ? q_pos[q0 + tid] : 0;
+    pos_s[tid] = p;
+    int32_t mn = valid ? p : INT_MAX, mx = valid ? p : INT_MIN;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    if (lane == 0) {
+      pmin_s[warp] = mn;
+      pmax_s[warp] = mx;
+    }
+  }
+  if (tid == 0) {
+    mbar_init(bar_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int64_t lo, hi;
+  key_band(min(pmin_s[0], pmin_s[1]), max(pmax_s[0], pmax_s[1]), t_len,
+           causal, window, lo, hi);
+  const int kt0 = __shfl_sync(
+      0xffffffffu, (int)(lo <= hi ? lo / kF32Keys * kF32Keys : 0), 0);
+  const int n_tiles = __shfl_sync(
+      0xffffffffu, (int)(lo <= hi ? (hi - kt0) / kF32Keys + 1 : 0), 0);
+
+  // thread 0 brings tile it's K and V into the landing zone, which the
+  // split of tile it - 1 has read for the last time
+  const auto load_tile = [&](int it) {
+    const int kt = kt0 + it * kF32Keys;
+    mbar_expect_tx(bar_full, L::kTx);
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c) {
+      tma_load_4d(land_k + c * L::kLandChunk, &k_map, bar_full, kF32Cols * c,
+                  kt, kvh, b);
+      tma_load_4d(land_v + c * L::kLandChunk, &v_map, bar_full, kF32Cols * c,
+                  kt, kvh, b);
+    }
+  };
+  if (tid == 0 && n_tiles > 0) load_tile(0);
+
+  // ---- warpgroup wg owns head-dim columns 128 wg .. 128 wg + 127 ----
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wt = tid & 127;
+  const int r_a = 16 * (warp & 3) + (lane >> 2);          // and r_a + 8
+  const int quad = lane & 3;
+  const int64_t pos_a = pos_s[r_a], pos_b = pos_s[r_a + 8];
+  const float sl2 = scale * kLog2e;
+  const float sentinel = kNegInf * kLog2e;
+
+  // Q's A fragments of this warpgroup's columns, as loaded (rows r_a, r_a
+  // + 8; columns 128 wg + 8 ks + quad, + 4), zeros past S and hd
+  float qraw[kHalf / 2];
+#pragma unroll
+  for (int ks = 0; ks < kKS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int64_t row = q0 + r_a + 8 * (e & 1);
+      const int64_t d = kHalf * wg + 8 * ks + quad + 4 * (e >> 1);
+      qraw[4 * ks + e] = row < s_len && d < hd
+          ? __ldg(q + b * qs.b + row * qs.s + h * qs.h + d) : 0.0f;
+    }
+
+  float m_a = sentinel, m_b = sentinel, l_a = 0.0f, l_b = 0.0f;
+  // sp[0..15]: Q_hi K_lo^T + Q_lo K_hi^T, then P_hi; sp[16..31]: Q_hi
+  // K_hi^T, then P_lo
+  float acc[kHalf / 2], sp[2 * kNS];
+#pragma unroll
+  for (int i = 0; i < kHalf / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 2 * kNS; ++i) sp[i] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    mbar_wait(bar_full, (uint32_t)(it & 1));
+    __syncthreads();                  // tile it - 1's products are done
+    // K: hi in the chunk's rows 32..63, lo in its rows 0..31, under the
+    // same swizzle as landed (both 1 KB aligned, rows a multiple of 8 on)
+#pragma unroll
+    for (int m = 0; m < L::kLandBytes / 16 / kF32Threads; ++m) {
+      const int u = tid + m * kF32Threads;
+      const int c = u / (L::kLandChunk / 16);
+      const int off = 16 * (u % (L::kLandChunk / 16));
+      const float4 x = lds_f32x4(land_k + c * L::kLandChunk + off);
+      const float4 x_hi = tf32_hi4(x);
+      sts_f32x4(k_s + c * L::kKChunk + L::kKHi + off, x_hi);
+      sts_f32x4(k_s + c * L::kKChunk + off, sub4(x, x_hi));
+    }
+    // V to V^T hi and lo, as flash_f32_tc_kernel: 16-byte unit u of row d
+    // holds keys 8 (u / 2) + (u & 1) + 2 w, w = 0..3
+#pragma unroll
+    for (int m = 0; m < L::kHdPad * 8 / kF32Threads; ++m) {
+      const int i = tid + m * kF32Threads;
+      const int d = i % L::kHdPad, u = i / L::kHdPad;
+      const int key0 = 8 * (u >> 1) + (u & 1);
+      const uint32_t src = land_v + (d / kF32Cols) * L::kLandChunk;
+      float4 x;
+      x.x = lds_f32(src + swz_f32(key0, d % kF32Cols));
+      x.y = lds_f32(src + swz_f32(key0 + 2, d % kF32Cols));
+      x.z = lds_f32(src + swz_f32(key0 + 4, d % kF32Cols));
+      x.w = lds_f32(src + swz_f32(key0 + 6, d % kF32Cols));
+      const float4 x_hi = tf32_hi4(x);
+      const uint32_t dst = swz_f32(d, 4 * u);
+      sts_f32x4(vt_hi + dst, x_hi);
+      sts_f32x4(vt_lo + dst, sub4(x, x_hi));
+    }
+    fence_proxy_async();
+    __syncthreads();
+    if (tid == 0 && it + 1 < n_tiles) load_tile(it + 1);
+    const int64_t kt = kt0 + (int64_t)it * kF32Keys;
+
+    // this warpgroup's half of S: one n64 product against the chunk's 64
+    // rows (lo, hi) gives Q_hi K_lo^T in sp[0..15] and Q_hi K_hi^T in
+    // sp[16..31]; Q_lo K_hi^T adds to the former
+    uint32_t k_t = k_s, vh_t = vt_hi, vl_t = vt_lo;
+    opaque(k_t);
+    opaque(vh_t);
+    opaque(vl_t);
+    // Q's fragments are split two k8 steps at a time into one of two
+    // register sets, the next pair's while the tensor core takes this pair
+    uint32_t fh[2][kGroup][4], fl[2][kGroup][4];
+    const auto prep = [&](int set, int g0) {
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = qraw[4 * (g0 + j) + e];
+          const float x_hi = tf32_hi_here(x);
+          fh[set][j][e] = __float_as_uint(x_hi);
+          fl[set][j][e] = __float_as_uint(x - x_hi);
+        }
+    };
+    const auto issue = [&](int set, int g0) {
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j) {
+        const int ks = g0 + j;
+        const uint32_t kc = k_t + (4 * wg + ks / 4) * L::kKChunk +
+                            (ks % 4) * 32;
+        wgmma_tf32_rs_n64(sp, fh[set][j][0], fh[set][j][1], fh[set][j][2],
+                          fh[set][j][3], desc128(kc, 16, 1024), ks > 0);
+        wgmma_tf32_rs_n32(sp, fl[set][j][0], fl[set][j][1], fl[set][j][2],
+                          fl[set][j][3], desc128(kc + L::kKHi, 16, 1024), 1);
+      }
+      wgmma_commit();
+    };
+    // a set's registers stay live (not reused) until its products are done
+    const auto hold = [&](int set) {
+#pragma unroll
+      for (int j = 0; j < kGroup; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          asm volatile("" : "+r"(fh[set][j][e]), "+r"(fl[set][j][e]));
+        }
+    };
+    fence_regs(sp);
+    prep(0, 0);
+    issue(0, 0);
+#pragma unroll
+    for (int g = 1; g < kKS / kGroup; ++g) {
+      prep(g & 1, kGroup * g);
+      issue(g & 1, kGroup * g);
+      wgmma_wait<1>();                             // group g - 1 is done
+      hold((g - 1) & 1);
+    }
+    wgmma_wait<0>();
+    hold((kKS / kGroup - 1) & 1);
+    fence_regs(sp);
+
+    // the halves meet: S = S_0 + S_1 in both warpgroups, in log2 units;
+    // sp[i] is row r_a (i & 2 == 0) or r_a + 8, key kt + 2 quad + 8 (i /
+    // 4) + (i & 1)
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      sp[i] += sp[i + kNS];
+      xchg[(wg * kNS + i) * 128 + wt] = sp[i];
+    }
+    bar_sync<1, kF32Threads>();
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      const float other = xchg[((1 - wg) * kNS + i) * 128 + wt];
+      sp[i] = (wg ? other + sp[i] : sp[i] + other) * sl2;
+    }
+    const bool open =
+        tile_open<kF32Keys>(kt, pos_a, t_len, causal, window) &&
+        tile_open<kF32Keys>(kt, pos_b, t_len, causal, window);
+    if (__any_sync(0xffffffffu, !open)) {
+      const int64_t k0 = kt + 2 * quad;
+      const int t_rel = clamp_rel(t_len - k0);
+      const int far = 1 << 30;
+      const int hi_a = causal ? clamp_rel(pos_a - k0) : far;
+      const int hi_b = causal ? clamp_rel(pos_b - k0) : far;
+      const int lo_a = window > 0 ? clamp_rel(pos_a - window + 1 - k0) : -far;
+      const int lo_b = window > 0 ? clamp_rel(pos_b - window + 1 - k0) : -far;
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        const int c = 8 * (i >> 2) + (i & 1);
+        const int hi_r = (i & 2) ? hi_b : hi_a, lo_r = (i & 2) ? lo_b : lo_a;
+        const float x = (c <= hi_r && c >= lo_r) ? sp[i] : sentinel;
+        sp[i] = c < t_rel ? x : -CUDART_INF_F;
+      }
+    }
+
+    // online softmax over f32 p, the same in both warpgroups
+    float mx_a = -CUDART_INF_F, mx_b = -CUDART_INF_F;
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      if (i & 2) {
+        mx_b = fmaxf(mx_b, sp[i]);
+      } else {
+        mx_a = fmaxf(mx_a, sp[i]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float corr_a = exp2f(m_a - mn_a), corr_b = exp2f(m_b - mn_b);
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kNS; ++i) {
+      const float p = exp2f(sp[i] - ((i & 2) ? mn_b : mn_a));
+      if (i & 2) {
+        sum_b += p;
+      } else {
+        sum_a += p;
+      }
+      const float p_hi = tf32_hi(p);
+      sp[i] = p_hi;
+      sp[i + kNS] = p - p_hi;
+    }
+    l_a = l_a * corr_a + sum_a;
+    l_b = l_b * corr_b + sum_b;
+
+    // T = P_hi V_hi + P_hi V_lo + P_lo V_hi into this warpgroup's columns,
+    // 64 at a time, a fresh accumulator each; O = O * corr + T in f32
+#pragma unroll
+    for (int half = 0; half < kHalf / 64; ++half) {
+      const uint32_t row0 = (kHalf * wg + 64 * half) * kSwizzleRow;
+      const uint32_t vh = vh_t + row0, vl = vl_t + row0;
+      float t[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) t[i] = 0.0f;
+      fence_regs(t);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kF32Keys / 8; ++j) {
+        wgmma_tf32_pv_step(t, sp, 0, j, desc128(vh + 32 * j, 16, 1024),
+                           j > 0);
+      }
+#pragma unroll
+      for (int j = 0; j < kF32Keys / 8; ++j) {
+        wgmma_tf32_pv_step(t, sp, 0, j, desc128(vl + 32 * j, 16, 1024), 1);
+      }
+#pragma unroll
+      for (int j = 0; j < kF32Keys / 8; ++j) {
+        wgmma_tf32_pv_step(t, sp, kNS, j, desc128(vh + 32 * j, 16, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(t);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float& o_i = acc[32 * half + i];
+        o_i = fmaf(o_i, (i & 2) ? corr_b : corr_a, t[i]);
+      }
+    }
+  }
+
+  // o = acc / max(l, 1e-30) by IEEE division; warpgroup 0 writes the lse
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  if (lse != nullptr && wg == 0) {
+    store_lse(lse, b, h, s_len, q0 + r_a, quad, m_a, m_b, den_a, den_b);
+  }
+  const bool pairs = ((os.s | os.h | os.b) & 1) == 0;
+  float* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int j = 0; j < kHalf / 8; ++j) {
+    const int64_t d = kHalf * wg + 8 * j + 2 * quad;
+    if (d >= hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t row = q0 + r_a + 8 * half;
+      if (row >= s_len) continue;
+      const float den = half ? den_b : den_a;
+      const float x0 = acc[4 * j + 2 * half] / den;
+      const float x1 = acc[4 * j + 2 * half + 1] / den;
+      float* dst = ob + row * os.s + d;
+      if (pairs && d + 1 < hd) {
+        *reinterpret_cast<float2*>(dst) = make_float2(x0, x1);
+      } else {
+        dst[0] = x0;
+        if (d + 1 < hd) dst[1] = x1;
+      }
+    }
+  }
+}
+
+int launch_f32_wide(cudaStream_t stream, const void* q, const void* k,
+                    const void* v, void* o, void* lse, const void* q_pos,
+                    int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
+                    int64_t kh, int64_t hd, Strides qs, Strides ks,
+                    Strides vs, Strides os, int causal, int64_t window,
+                    float scale) {
+  CUtensorMap k_map, v_map;
+  int rc = make_map(&k_map, k, kF32, 4, hd, t_len, kh, b, ks, kF32Keys);
+  if (rc == 0) rc = make_map(&v_map, v, kF32, 4, hd, t_len, kh, b, vs,
+                             kF32Keys);
+  if (rc != 0) return rc;
+  const size_t bytes = F32WideLayout::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_f32_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((s_len + kWideRows - 1) / kWideRows),
+                  (unsigned)hq, (unsigned)b);
+  flash_f32_wide_kernel<<<grid, kF32Threads, bytes, stream>>>(
+      k_map, v_map, (const float*)q, qs, (float*)o, (float*)lse,
+      (const int32_t*)q_pos, s_len, t_len, hq / kh, hd, os, causal, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 template <int HD_PAD>
 int launch_tc_hd(cudaStream_t stream, const void* q, const void* k,
                  const void* v, void* o, void* lse, const void* q_pos,
@@ -980,9 +1402,9 @@ int launch_f32_hd(cudaStream_t stream, const void* q, const void* k,
 }
 
 int check_shape(int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
-                int64_t kh, int64_t hd) {
+                int64_t kh, int64_t hd, int64_t max_hd) {
   if (b < 1 || s_len < 1 || t_len < 1 || kh < 1 || hq < kh || hq % kh ||
-      hd < 1 || hd > 128 || (s_len + 63) / 64 > 2147483647 || hq > 65535 ||
+      hd < 1 || hd > max_hd || (s_len + 63) / 64 > 2147483647 || hq > 65535 ||
       b > 65535 || t_len > 2147483647) {
     return (int)cudaErrorInvalidConfiguration;
   }
@@ -1000,11 +1422,16 @@ extern "C" int flash_attention_f32(
     int64_t window, float scale, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  const int bad = check_shape(b, s_len, t_len, hq, kh, hd);
+  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, 256);
   if (bad) return bad;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh};
   const int c = causal ? 1 : 0;
+  if (hd > 128) {
+    return launch_f32_wide((cudaStream_t)stream, q, k, v, o, lse, q_pos, b,
+                           s_len, t_len, hq, kh, hd, qs, ks, vs, os, c,
+                           window, scale);
+  }
   if (hd <= 64) {
     return launch_f32_hd<64>((cudaStream_t)stream, q, k, v, o, lse, q_pos, b,
                              s_len, t_len, hq, kh, hd, qs, ks, vs, os, c,
@@ -1024,7 +1451,7 @@ extern "C" int flash_attention_bf16(
     int64_t window, float scale, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  const int bad = check_shape(b, s_len, t_len, hq, kh, hd);
+  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, 128);
   if (bad) return bad;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh};

@@ -887,23 +887,6 @@ struct F32QLayout {
   static constexpr size_t kBytes = kOffBar + 8 * kF32Stages + 1024;
 };
 
-__device__ __forceinline__ void sts_f32x2(uint32_t a, float x, float y) {
-  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n"
-               :: "r"(a), "f"(x), "f"(y) : "memory");
-}
-
-// named barrier ID (0 is __syncthreads') of N threads, some of which only
-// arrive
-template <int ID, int N>
-__device__ __forceinline__ void bar_sync() {
-  asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
-}
-
-template <int ID, int N>
-__device__ __forceinline__ void bar_arrive() {
-  asm volatile("bar.arrive %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
-}
-
 // D (64 x 32, f32) += A (64 x 8, tf32 in registers) * B (32 x 8, tf32,
 // K-major in shared memory through its descriptor); scale_d = 0 ignores D
 __device__ __forceinline__ void wgmma_tf32_rs_n32x(float (&d)[16],
@@ -1486,6 +1469,629 @@ bwd_dq_f32_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
+// ------------------------------------------- f32 route, 128 < hd <= 256 --
+//
+// The same three kernels and split-TF32 arithmetic at hd padded to 256
+// (pass 1 is `bwd_rows_kernel<float>` itself).  At this width a 64-key
+// block's dK and dV are 128 registers a thread over 256 threads, and the
+// A operand of its scores (K or V as loaded, hd / 2 a thread) would be
+// another 128: the narrow kernels' layouts do not fit.  So the operand a
+// block holds for its whole walk (K and V in pass 2, Q and dO in pass 3)
+// stays in shared memory as loaded (64 rows x 256 f32, 64 KB each), and
+// each warpgroup reads its A fragments from there 4 k8 steps at a time and
+// splits them in registers (the next 4 while the tensor core takes these:
+// two sets of 32 registers); the streamed operand comes in tiles
+// of 16 rows (pass 2: query rows of Q and dO; pass 3: keys of K and V),
+// split in place (its lo in the chunk's rows 0..15, its hi, where TMA put
+// it, in rows 16..31), one tile in flight.  Per tile a warpgroup runs
+//   the scores (S^T = K Q^T or dP^T = V dO^T in pass 2, S = Q K^T or dP =
+//   dO V^T in pass 3): per k8 step an n32 product A_hi [B_lo | B_hi]^T
+//   (its columns 0..15 A_hi B_lo^T, 16..31 A_hi B_hi^T) and an n16
+//   product A_lo B_hi^T into the former; the two halves meet in one f32
+//   add (the narrow route's short sums: 32 k8 steps an accumulator);
+// then, as the narrow kernels, warpgroup 0 makes P, warpgroup 1 dS from
+// it, and the outputs' products follow:
+//   pass 2: dV^T += dO^T P (warpgroup 0), dK^T += Q^T dS (1): M = hd in
+//   blocks of 64, N = the 64 keys, K = the tile's 16 rows; A gathered from
+//   the split tile, B = P^T or dS^T split into one 128-byte row a key (hi
+//   in bytes 0..63, lo in 64..127); each warpgroup owns all 256 rows of
+//   its output, 128 registers a thread;
+//   pass 3: dQ^T += K^T dS^T, each warpgroup 128 rows of hd (M), N = the
+//   block's 64 query rows, K = the tile's 16 keys: A gathered from the
+//   split K tile, B = dS split as above (a row a query row), so no
+//   transposed copy of K is made.
+// Products: pass 2 4 and pass 3 3 of the five (S and dP twice, as the
+// narrow route), each as three TF32 products; none is computed twice more
+// for the width.  Each tile's output product goes into a fresh
+// accumulator added in f32.  Shared memory: pass 2 K and V 128 KB, the Q
+// and dO tile split 64 KB, P^T and dS^T 16 KB, the P hand-over 4 KB: 213
+// KB; pass 3 Q and dO 128 KB, the K and V tile split 64 KB, dS 8 KB, the
+// hand-over 4 KB: 205 KB.  So the streamed tiles are 16 wide, and the
+// scores' products are n32 and n16: the tensor core takes them at a
+// fraction of its n64 rate (on the H100 the scores are a third of pass
+// 2's time and two fifths of pass 3's, `scripts/
+// torch_flash_wide_ablate.py`), which is most of what holds these kernels
+// above their bound.  Pass 2 runs one block a query head, not a KV head
+// (grid (Hq, B, key blocks)): with G > 1 each block writes its head's
+// share of dK and dV to a (2, B, T, Hq, hd) scratch, and
+// `bwd_group_sum_kernel` adds the G shares in head order (one writer an
+// element: still bitwise repeatable).  A block by KV head would walk
+// every query row of its group: at the federated LM's layer (G = 2) the
+// first key blocks' walk, the pass's longest, is halved so, and the grid
+// doubled to 256 blocks.  What bounds the backward: operations (3 x 10 hd
+// flops a pair, 0.260 ms at that layer).
+constexpr int kWideUnit = 16;           // rows (pass 2) or keys (pass 3)
+constexpr int kWideHd = 256;
+constexpr int kWideChunks = kWideHd / kF32Cols;          // 8
+constexpr int kWideRaw = kF32Block * kSwizzleRow;        // 8 KB a chunk
+constexpr int kWideSplit = 2 * kWideUnit * kSwizzleRow;  // 4 KB a chunk
+constexpr int kWideHi = kWideUnit * kSwizzleRow;         // 2 KB: hi rows
+constexpr int kWideGroup = 4;           // k8 steps a group of the scores
+
+// D (64 x 16, f32) += A (64 x 8, tf32 in registers) * B (16 x 8, tf32,
+// K-major in shared memory); D is d[0..7], the columns 0..15 of an n32
+// accumulator; scale_d = 0 ignores D
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[16], uint32_t a0,
+                                                  uint32_t a1, uint32_t a2,
+                                                  uint32_t a3, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;"
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
+// The scores of a 64-row operand A (as loaded in shared memory at `a_raw`:
+// 8 KB chunks of 32 columns; this thread's rows m0, m0 + 8) against a
+// split 16-row tile B (4 KB chunks at `b_split`) over hd 256: sc[i] for i
+// < 8 is the score of row m0 (i & 2 == 0) or m0 + 8 and the tile's row 8 (i
+// / 4) + 2 quad + (i & 1).  Each k8 step: A_hi [B_lo | B_hi]^T (n32),
+// A_lo B_hi^T (n16) into the first half; one accumulator over the 32
+// steps, whose halves meet in an f32 add.  A's fragments are read and split
+// kG k8 steps at a time into one of two register sets, the next group's
+// while the tensor core takes this one (at most one group left pending).
+template <int kG>
+__device__ __forceinline__ void wide_scores(float (&sc)[16], uint32_t a_raw,
+                                            uint32_t b_split, int m0,
+                                            int quad) {
+  constexpr int kGroups = kWideHd / 8 / kG;
+  opaque(a_raw);
+  opaque(b_split);
+  uint32_t fh[2][kG][4], fl[2][kG][4];
+  const auto prep = [&](int set, int g0) {
+#pragma unroll
+    for (int j = 0; j < kG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * (g0 + j) + quad + 4 * (e >> 1);
+        const float x = lds_f32(a_raw + (col / kF32Cols) * kWideRaw +
+                                swz_f32(m0 + 8 * (e & 1), col % kF32Cols));
+        const float x_hi = tf32_hi(x);
+        fh[set][j][e] = __float_as_uint(x_hi);
+        fl[set][j][e] = __float_as_uint(x - x_hi);
+      }
+  };
+  const auto issue = [&](int set, int g0) {
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kG; ++j) {
+      const int ks = g0 + j;
+      const uint32_t bc = b_split + (ks / 4) * kWideSplit + (ks % 4) * 32;
+      wgmma_tf32_rs_n32x(sc, fh[set][j][0], fh[set][j][1], fh[set][j][2],
+                         fh[set][j][3], desc128(bc, 16, 1024), ks > 0);
+      wgmma_tf32_rs_n16(sc, fl[set][j][0], fl[set][j][1], fl[set][j][2],
+                        fl[set][j][3], desc128(bc + kWideHi, 16, 1024), 1);
+    }
+    wgmma_commit();
+  };
+  // a set's registers stay live (not reused) until its products are done
+  const auto hold = [&](int set) {
+#pragma unroll
+    for (int j = 0; j < kG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        asm volatile("" : "+r"(fh[set][j][e]), "+r"(fl[set][j][e]));
+      }
+  };
+  fence_regs(sc);
+  prep(0, 0);
+  issue(0, 0);
+#pragma unroll
+  for (int g = 1; g < kGroups; ++g) {
+    prep(g & 1, kG * g);
+    issue(g & 1, kG * g);
+    wgmma_wait<1>();                               // group g - 1 is done
+    hold((g - 1) & 1);
+  }
+  wgmma_wait<0>();
+  hold((kGroups - 1) & 1);
+  fence_regs(sc);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) sc[i] += sc[i + 8];
+}
+
+// Split a 16-row tile in place, both warpgroups: of each of the two
+// tensors' 8 chunks (the second `stride` bytes on), the hi rows 16..31 (as
+// TMA put them) rounded to TF32 and their lo written to rows 0..15 (the
+// same swizzle: 2 KB on)
+__device__ __forceinline__ void wide_split(uint32_t t0, int stride, int tid) {
+#pragma unroll
+  for (int u = tid; u < 2 * kWideChunks * (kWideHi / 16); u += kF32Threads) {
+    const int x = u / (kWideChunks * (kWideHi / 16));
+    const int r = u % (kWideChunks * (kWideHi / 16));
+    const uint32_t a = t0 + x * stride + (r / (kWideHi / 16)) * kWideSplit +
+                       kWideHi + 16 * (r % (kWideHi / 16));
+    const float4 y = lds_f32x4(a);
+    const float4 y_hi = tf32_hi4(y);
+    sts_f32x4(a, y_hi);
+    sts_f32x4(a - kWideHi, sub4(y, y_hi));
+  }
+}
+
+// One 64-row block of an output's transposed product, X^T Y over a
+// 16-row tile: A = X^T's fragments (M = head-dim rows d0 + m0, + 8; K =
+// the tile's rows) gathered from the split tile at `x_split`, B = Y split
+// in one 128-byte row an N row (hi bytes 0..63, lo 64..127) at `y_rows`;
+// three TF32 products a step into a fresh accumulator, added to acc[a0
+// ..].
+template <int N>
+__device__ __forceinline__ void wide_out_block(float (&acc)[N], int a0,
+                                               uint32_t x_split,
+                                               uint32_t y_rows, int d0,
+                                               int m0, int quad) {
+  opaque(x_split);
+  opaque(y_rows);
+  uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = d0 + m0 + 8 * (e & 1);
+      const int r = 8 * kk + quad + 4 * (e >> 1);
+      const uint32_t a = x_split + (d / kF32Cols) * kWideSplit +
+                         swz_f32(r, d % kF32Cols);
+      alo[kk][e] = __float_as_uint(lds_f32(a));
+      ahi[kk][e] = __float_as_uint(lds_f32(a + kWideHi));
+    }
+  float t[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) t[i] = 0.0f;
+  fence_regs(t);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    wgmma_tf32<64>(t, ahi[kk], desc128(y_rows + 32 * kk, 16, 1024), kk > 0);
+    wgmma_tf32<64>(t, ahi[kk], desc128(y_rows + 64 + 32 * kk, 16, 1024), 1);
+    wgmma_tf32<64>(t, alo[kk], desc128(y_rows + 32 * kk, 16, 1024), 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+  fence_regs(t);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[a0 + i] += t[i];
+}
+
+// Write an (N row, 16) operand from score registers sc[0..7] (N row m0 (i
+// & 2 == 0) or m0 + 8, column 8 (i / 4) + 2 quad + (i & 1)) split into its
+// 128-byte rows at `rows` (hi at columns 0..15, lo at 16..31)
+__device__ __forceinline__ void wide_put_rows(uint32_t rows,
+                                              const float (&sc)[16], int m0,
+                                              int quad) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; e += 2) {
+      const int i = 4 * j + e, c = 8 * j + 2 * quad, r = m0 + 4 * e;
+      const float h0 = tf32_hi(sc[i]), h1 = tf32_hi(sc[i + 1]);
+      sts_f32x2(rows + swz_f32(r, c), h0, h1);
+      sts_f32x2(rows + swz_f32(r, 16 + c), sc[i] - h0, sc[i + 1] - h1);
+    }
+}
+
+struct F32WideKvLayout {
+  static constexpr int kOffV = kWideChunks * kWideRaw;       // 64 KB
+  static constexpr int kOffQ = 2 * kOffV;                    // the tile
+  static constexpr int kOffDo = kOffQ + kWideChunks * kWideSplit;
+  static constexpr int kOffRows = kOffDo + kWideChunks * kWideSplit;
+  static constexpr int kOffP = kOffRows + 1024;             // P^T, dS^T
+  static constexpr int kOffDs = kOffP + kF32Block * kSwizzleRow;
+  static constexpr int kOffX = kOffDs + kF32Block * kSwizzleRow;
+  static constexpr int kOffBar = kOffX + kWgThreads * (kWideUnit / 2) * 4;
+  static constexpr uint32_t kKvTx = 2 * kWideChunks * kWideRaw;
+  static constexpr uint32_t kTx = 2 * kWideChunks * kWideHi + kWideUnit * 8;
+  static constexpr size_t kBytes = kOffBar + 16 + 1024;
+};
+
+// pass 2 at hd 256: one query head's share of dK and dV of 64 keys of its
+// KV head, into (B, T, Hq, hd) (dK and dV themselves when G = 1; else
+// `bwd_group_sum_kernel` sums the G heads' shares in order).  Warpgroup 0
+// computes S^T = K Q^T, P^T and dV^T += dO^T P; warpgroup 1 dP^T = V
+// dO^T, dS^T = P^T (dP^T - D) and dK^T += Q^T dS.
+__global__ void __launch_bounds__(kF32Threads, 1)
+bwd_dkdv_f32_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap do_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const float* __restrict__ rows,
+                         const int32_t* __restrict__ q_pos,
+                         const int32_t* __restrict__ bounds,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int64_t s_len, int64_t t_len, int64_t group,
+                         int64_t hd, int causal, int64_t window,
+                         float scale) {
+  using L = F32WideKvLayout;
+  constexpr int kNS = kWideUnit / 2;         // score registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_kv = base + L::kOffBar, bar_full = bar_kv + 8;
+  float* xchg = reinterpret_cast<float*>(smem_raw + (base + L::kOffX - raw));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // grid (Hq, B, key blocks): the first key blocks, whose causal bands are
+  // the longest, are all launched first
+  const int64_t k0 = (int64_t)blockIdx.z * kF32Block;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (int)group;
+  const int64_t hq = gridDim.x;
+  const int64_t n_qt = (s_len + kTile - 1) / kTile;
+  const int64_t s_pad = n_qt * kTile;
+  const int64_t k_last = (k0 + kF32Block < t_len ? k0 + kF32Block : t_len) - 1;
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    mbar_init(bar_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every copy: K and V once, then the (Q, dO, rows) of
+  // the it-th unit once every thread is done with unit it - 1
+  const auto load_unit = [&](int64_t q0) {
+    mbar_expect_tx(bar_full, L::kTx);
+#pragma unroll
+    for (int c = 0; c < kWideChunks; ++c) {
+      tma_load_4d(base + L::kOffQ + c * kWideSplit + kWideHi, &q_map,
+                  bar_full, kF32Cols * c, (int)q0, h, b);
+      tma_load_4d(base + L::kOffDo + c * kWideSplit + kWideHi, &do_map,
+                  bar_full, kF32Cols * c, (int)q0, h, b);
+    }
+    bulk_load(base + L::kOffRows,
+              rows + (((int64_t)b * hq + h) * s_pad + q0) * 2,
+              kWideUnit * 8, bar_full);
+  };
+  // one walk, stepped by every thread: with one unit in flight, the next
+  // unit to load is the next to compute
+  UnitWalk<kWideUnit> walk{{bounds, n_qt, k0, k_last, t_len, window, 1,
+                            causal, 0, -32, 0u}, 0, kTile / kWideUnit - 1, 0};
+  int g;
+  int64_t qt, q0;
+  bool more = walk.next(g, qt, q0);
+  if (tid == 0) {
+    mbar_expect_tx(bar_kv, L::kKvTx);
+#pragma unroll
+    for (int c = 0; c < kWideChunks; ++c) {
+      tma_load_4d(base + c * kWideRaw, &k_map, bar_kv, kF32Cols * c,
+                  (int)k0, kvh, b);
+      tma_load_4d(base + L::kOffV + c * kWideRaw, &v_map, bar_kv,
+                  kF32Cols * c, (int)k0, kvh, b);
+    }
+  }
+  if (tid == 0 && more) load_unit(q0);
+
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wt = tid & (kWgThreads - 1);
+  const int quad = lane & 3;
+  const int m0 = 16 * (warp & 3) + (lane >> 2);   // keys k0 + m0, + 8
+  const int64_t key_a = k0 + m0;
+  const int64_t kwarp = k0 + 16 * (warp & 3);     // this warp's 16 keys
+  const float sl2 = scale * kLog2e;
+  // A of the scores (K or V as loaded), B (Q or dO split), this
+  // warpgroup's output's A (dO or Q split) and B (P^T or dS^T)
+  const uint32_t a_raw = base + (wg ? L::kOffV : 0);
+  const uint32_t b_split = base + (wg ? L::kOffDo : L::kOffQ);
+  const uint32_t x_split = base + (wg ? L::kOffQ : L::kOffDo);
+  const uint32_t y_rows = base + (wg ? L::kOffDs : L::kOffP);
+
+  float acc[kWideHd / 2], sc[16];
+#pragma unroll
+  for (int i = 0; i < kWideHd / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sc[i] = 0.0f;
+
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; more; ++it) {
+    mbar_wait(bar_full, (uint32_t)(it & 1));
+    wide_split(base + L::kOffQ, L::kOffDo - L::kOffQ, tid);
+    fence_proxy_async();
+    __syncthreads();
+
+    // S^T (warpgroup 0), dP^T (1): sc[i] is key key_a (i & 2 == 0) or
+    // key_a + 8, query row q0 + c, c = 8 (i / 4) + 2 quad + (i & 1)
+    wide_scores<kWideGroup>(sc, a_raw, b_split, m0, quad);
+    // the rows' (L log2 e, D): rows c, c + 1 of column pair i / 4
+    const float4* rw = reinterpret_cast<const float4*>(
+        smem_raw + (base + L::kOffRows - raw));
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < kNS / 4; ++j) {
+        const float4 x = rw[4 * j + quad];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          sc[i] = exp2f(fmaf(sc[i], sl2, (e & 1) ? -x.z : -x.x));
+        }
+      }
+      const int32_t pmin = bounds[2 * qt], pmax = bounds[2 * qt + 1];
+      const bool open = (!causal || kwarp + 15 <= pmin) &&
+                        (window <= 0 || kwarp > pmax - window);
+      if (!open) {                                     // warp-uniform
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const int64_t row = q0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+          const int64_t pos = row < s_len ? q_pos[row] : 0;
+          const int64_t key = key_a + ((i & 2) ? 8 : 0);
+          const bool ok = (!causal || key <= pos) &&
+                          (window <= 0 || key > pos - window);
+          sc[i] = ok ? sc[i] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) xchg[i * kWgThreads + wt] = sc[i];
+      bar_arrive<1, kF32Threads>();                      // P is there
+    } else {
+      bar_sync<1, kF32Threads>();
+#pragma unroll
+      for (int j = 0; j < kNS / 4; ++j) {
+        const float4 x = rw[4 * j + quad];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          sc[i] = xchg[i * kWgThreads + wt] *
+                  (sc[i] - ((e & 1) ? x.w : x.y));
+        }
+      }
+    }
+    wide_put_rows(y_rows, sc, m0, quad);
+    fence_proxy_async();
+    if (wg == 0) {
+      bar_sync<2, kWgThreads>();
+    } else {
+      bar_sync<3, kWgThreads>();
+    }
+
+    // dV^T += dO^T P (warpgroup 0), dK^T += Q^T dS (1), 64 rows of hd at
+    // a time
+#pragma unroll
+    for (int mb = 0; mb < kWideHd / 64; ++mb) {
+      wide_out_block(acc, 32 * mb, x_split, y_rows, 64 * mb, m0, quad);
+    }
+    __syncthreads();                  // the tile and P^T / dS^T are free
+    more = walk.next(g, qt, q0);
+    if (tid == 0 && more) load_unit(q0);
+  }
+
+  // acc[32 mb + i]: head dim 64 mb + m0 (i & 2 == 0) or + 8, key k0 + 8 (i
+  // / 4) + 2 quad + (i & 1); dK times the scale
+  float* out = wg ? dk : dv;
+  const float mul = wg ? scale : 1.0f;
+#pragma unroll
+  for (int mb = 0; mb < kWideHd / 64; ++mb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int64_t d = 64 * mb + m0 + ((i & 2) ? 8 : 0);
+      const int64_t key = k0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+      if (d < hd && key < t_len) {
+        out[((b * t_len + key) * hq + h) * hd + d] = acc[32 * mb + i] * mul;
+      }
+    }
+}
+
+// dK and dV of each KV head: the sum of its G query heads' shares (B, T,
+// Hq, hd), head 0 first; one writer an element
+__global__ void __launch_bounds__(kThreads)
+bwd_group_sum_kernel(const float* __restrict__ part_k,
+                     const float* __restrict__ part_v, float* __restrict__ dk,
+                     float* __restrict__ dv, int64_t n, int64_t group,
+                     int64_t hd) {
+  for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * kThreads) {
+    const int64_t d = i % hd, row = i / hd;           // row: (b, t, kvh)
+    const int64_t src = row * group * hd + d;
+    float sk = part_k[src], sv = part_v[src];
+    for (int64_t g = 1; g < group; ++g) {
+      sk += part_k[src + g * hd];
+      sv += part_v[src + g * hd];
+    }
+    dk[i] = sk;
+    dv[i] = sv;
+  }
+}
+
+struct F32WideQLayout {
+  static constexpr int kOffDo = kWideChunks * kWideRaw;      // 64 KB
+  static constexpr int kOffK = 2 * kOffDo;                   // the tile
+  static constexpr int kOffV = kOffK + kWideChunks * kWideSplit;
+  static constexpr int kOffDs = kOffV + kWideChunks * kWideSplit;
+  static constexpr int kOffX = kOffDs + kF32Block * kSwizzleRow;
+  static constexpr int kOffBar = kOffX + kWgThreads * (kWideUnit / 2) * 4;
+  static constexpr uint32_t kQTx = 2 * kWideChunks * kWideRaw;
+  static constexpr uint32_t kTx = 2 * kWideChunks * kWideHi;
+  static constexpr size_t kBytes = kOffBar + 16 + 1024;
+};
+
+// pass 3 at hd 256: dQ of 64 query rows of one head.  Warpgroup 0 computes
+// S = Q K^T and P, warpgroup 1 dP = dO V^T and dS = P (dP - D); each then
+// takes 128 rows of hd of dQ^T += K^T dS^T.
+__global__ void __launch_bounds__(kF32Threads, 1)
+bwd_dq_f32_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap do_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       const float* __restrict__ rows,
+                       const int32_t* __restrict__ q_pos,
+                       const int32_t* __restrict__ bounds,
+                       float* __restrict__ dq, int64_t s_len, int64_t t_len,
+                       int64_t group, int64_t hd, int causal, int64_t window,
+                       float scale) {
+  using L = F32WideQLayout;
+  constexpr int kNS = kWideUnit / 2;         // score registers a thread
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar_q = base + L::kOffBar, bar_full = bar_q + 8;
+  float* xchg = reinterpret_cast<float*>(smem_raw + (base + L::kOffX - raw));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t n_qt = (s_len + kTile - 1) / kTile;
+  const int64_t s_pad = n_qt * kTile;
+  const int64_t qt = n_qt - 1 - (int64_t)blockIdx.z;
+  const int64_t q0 = qt * kTile;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (int)group;
+  const int64_t hq = gridDim.x;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int64_t lo, hi;
+  key_band(bounds[2 * qt], bounds[2 * qt + 1], t_len, causal, window, lo,
+           hi);
+  const int kt0 = __shfl_sync(
+      0xffffffffu, (int)(lo <= hi ? lo / kWideUnit * kWideUnit : 0), 0);
+  const int n_tiles = __shfl_sync(
+      0xffffffffu, (int)(lo <= hi ? (hi - kt0) / kWideUnit + 1 : 0), 0);
+
+  // thread 0 issues every copy: Q and dO once, then the K and V of key
+  // tile it once every thread is done with tile it - 1
+  const auto load_kv = [&](int it) {
+    const int kt = kt0 + it * kWideUnit;
+    mbar_expect_tx(bar_full, L::kTx);
+#pragma unroll
+    for (int c = 0; c < kWideChunks; ++c) {
+      tma_load_4d(base + L::kOffK + c * kWideSplit + kWideHi, &k_map,
+                  bar_full, kF32Cols * c, kt, kvh, b);
+      tma_load_4d(base + L::kOffV + c * kWideSplit + kWideHi, &v_map,
+                  bar_full, kF32Cols * c, kt, kvh, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, L::kQTx);
+#pragma unroll
+    for (int c = 0; c < kWideChunks; ++c) {
+      tma_load_4d(base + c * kWideRaw, &q_map, bar_q, kF32Cols * c, (int)q0,
+                  h, b);
+      tma_load_4d(base + L::kOffDo + c * kWideRaw, &do_map, bar_q,
+                  kF32Cols * c, (int)q0, h, b);
+    }
+    if (n_tiles > 0) load_kv(0);
+  }
+
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wt = tid & (kWgThreads - 1);
+  const int quad = lane & 3;
+  const int m0 = 16 * (warp & 3) + (lane >> 2);   // rows q0 + m0, + 8
+  const int64_t row_a = q0 + m0, row_b = row_a + 8;
+  const int64_t pos_a = row_a < s_len ? q_pos[row_a] : 0;
+  const int64_t pos_b = row_b < s_len ? q_pos[row_b] : 0;
+  // (L log2 e, D) of the two rows; rows past S read (+inf, 0): P = 0
+  const float2* rb =
+      reinterpret_cast<const float2*>(rows) + ((int64_t)b * hq + h) * s_pad;
+  const float2 ra = rb[row_a], rr = rb[row_b];
+  const float sl2 = scale * kLog2e;
+  const uint32_t a_raw = base + (wg ? L::kOffDo : 0);
+  const uint32_t b_split = base + (wg ? L::kOffV : L::kOffK);
+  const uint32_t ds_rows = base + L::kOffDs;
+
+  float acc[kWideHd / 4], sc[16];
+#pragma unroll
+  for (int i = 0; i < kWideHd / 4; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sc[i] = 0.0f;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    mbar_wait(bar_full, (uint32_t)(it & 1));
+    wide_split(base + L::kOffK, L::kOffV - L::kOffK, tid);
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T (warpgroup 0), dP = dO V^T (1): sc[i] is row row_a (i & 2
+    // == 0) or row_b, key kt + 8 (i / 4) + 2 quad + (i & 1)
+    wide_scores<kWideGroup>(sc, a_raw, b_split, m0, quad);
+    if (wg == 0) {
+      const int64_t kt = kt0 + (int64_t)it * kWideUnit;
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        sc[i] = exp2f(fmaf(sc[i], sl2, (i & 2) ? -rr.x : -ra.x));
+      }
+      const bool open =
+          tile_open<kWideUnit>(kt, pos_a, t_len, causal, window) &&
+          tile_open<kWideUnit>(kt, pos_b, t_len, causal, window);
+      if (__any_sync(0xffffffffu, !open)) {
+        const int64_t k0 = kt + 2 * quad;          // the key of sc[0]
+        const int t_rel = clamp_rel(t_len - k0);
+        const int far = 1 << 30;
+        const int hi_a = causal ? clamp_rel(pos_a - k0) : far;
+        const int hi_b = causal ? clamp_rel(pos_b - k0) : far;
+        const int lo_a = window > 0 ? clamp_rel(pos_a - window + 1 - k0) : -far;
+        const int lo_b = window > 0 ? clamp_rel(pos_b - window + 1 - k0) : -far;
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const int c = 8 * (i >> 2) + (i & 1);
+          const int hi_r = (i & 2) ? hi_b : hi_a, lo_r = (i & 2) ? lo_b : lo_a;
+          const bool ok = c <= hi_r && c >= lo_r && c < t_rel;
+          sc[i] = ok ? sc[i] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) xchg[i * kWgThreads + wt] = sc[i];
+      bar_arrive<1, kF32Threads>();                      // P is there
+    } else {
+      bar_sync<1, kF32Threads>();
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        sc[i] = xchg[i * kWgThreads + wt] *
+                (sc[i] - ((i & 2) ? rr.y : ra.y));
+      }
+      wide_put_rows(ds_rows, sc, m0, quad);
+      fence_proxy_async();
+    }
+    bar_sync<2, kF32Threads>();                          // dS is there
+
+    // dQ^T += K^T dS^T over this warpgroup's 128 rows of hd
+#pragma unroll
+    for (int mb = 0; mb < 2; ++mb) {
+      wide_out_block(acc, 32 * mb, base + L::kOffK, ds_rows,
+                     kWideHd / 2 * wg + 64 * mb, m0, quad);
+    }
+    __syncthreads();                  // the tile and dS are free
+    if (tid == 0 && it + 1 < n_tiles) load_kv(it + 1);
+  }
+
+  // acc[32 mb + i]: head dim 128 wg + 64 mb + m0 (i & 2 == 0) or + 8, row
+  // q0 + 8 (i / 4) + 2 quad + (i & 1); times the scale
+#pragma unroll
+  for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int64_t d = kWideHd / 2 * wg + 64 * mb + m0 + ((i & 2) ? 8 : 0);
+      const int64_t row = q0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+      if (row < s_len && d < hd) {
+        dq[((b * s_len + row) * hq + h) * hd + d] = acc[32 * mb + i] * scale;
+      }
+    }
+}
+
 // pass 1 of both routes, `bwd_rows_kernel`, which reads o (and dO) by
 // 16-byte words, as TMA reads the others
 template <typename T>
@@ -1619,10 +2225,85 @@ int launch_f32_bwd(cudaStream_t stream, const void* q, const void* k,
   return (int)cudaGetLastError();
 }
 
+int launch_f32_bwd_wide(cudaStream_t stream, const void* q, const void* k,
+                        const void* v, const void* o, const void* dout,
+                        const void* lse, const void* q_pos, void* dq,
+                        void* dk, void* dv, void* rows, void* bounds,
+                        void* part,
+                        int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
+                        int64_t kh, int64_t hd, Strides qs, Strides ks,
+                        Strides vs, Strides os, Strides ds, int causal,
+                        int64_t window, float scale) {
+  // pass 2 streams Q and dO by 16 rows and holds K and V by 64; pass 3
+  // the other way round
+  CUtensorMap q16, do16, k64, v64, q64, do64, k16, v16;
+  int rc = make_map(&q16, q, kF32, 4, hd, s_len, hq, b, qs, kWideUnit);
+  if (rc == 0) rc = make_map(&do16, dout, kF32, 4, hd, s_len, hq, b, ds,
+                             kWideUnit);
+  if (rc == 0) rc = make_map(&k64, k, kF32, 4, hd, t_len, kh, b, ks,
+                             kF32Block);
+  if (rc == 0) rc = make_map(&v64, v, kF32, 4, hd, t_len, kh, b, vs,
+                             kF32Block);
+  if (rc == 0) rc = make_map(&q64, q, kF32, 4, hd, s_len, hq, b, qs,
+                             kF32Block);
+  if (rc == 0) rc = make_map(&do64, dout, kF32, 4, hd, s_len, hq, b, ds,
+                             kF32Block);
+  if (rc == 0) rc = make_map(&k16, k, kF32, 4, hd, t_len, kh, b, ks,
+                             kWideUnit);
+  if (rc == 0) rc = make_map(&v16, v, kF32, 4, hd, t_len, kh, b, vs,
+                             kWideUnit);
+  if (rc == 0) rc = launch_rows<float>(stream, o, dout, lse, q_pos, rows,
+                                       bounds, b, s_len, hq, hd, os, ds);
+  if (rc != 0) return rc;
+  const size_t kv_bytes = F32WideKvLayout::kBytes;
+  const size_t q_bytes = F32WideQLayout::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkdv_f32_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kv_bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_dq_f32_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)q_bytes);
+  if (err != cudaSuccess) return (int)err;
+  // one block a query head: its share goes to dK and dV when G = 1, else
+  // to `part` ((B, T, Hq, hd) for dK, then for dV), summed by head after
+  const int64_t group = hq / kh;
+  if (group > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  float* share_k = group > 1 ? (float*)part : (float*)dk;
+  float* share_v = group > 1 ? (float*)part + b * t_len * hq * hd
+                             : (float*)dv;
+  bwd_dkdv_f32_wide_kernel
+      <<<dim3((unsigned)hq, (unsigned)b,
+              (unsigned)((t_len + kF32Block - 1) / kF32Block)),
+         kF32Threads, kv_bytes, stream>>>(
+          q16, do16, k64, v64, (const float*)rows, (const int32_t*)q_pos,
+          (const int32_t*)bounds, share_k, share_v, s_len, t_len, group, hd,
+          causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (group > 1) {
+    const int64_t n = b * t_len * kh * hd;
+    const int64_t blocks = (n + kThreads - 1) / kThreads;
+    bwd_group_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096),
+                           kThreads, 0, stream>>>(
+        share_k, share_v, (float*)dk, (float*)dv, n, group, hd);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  bwd_dq_f32_wide_kernel
+      <<<dim3((unsigned)hq, (unsigned)b,
+              (unsigned)((s_len + kF32Block - 1) / kF32Block)),
+         kF32Threads, q_bytes, stream>>>(
+          q64, do64, k16, v16, (const float*)rows, (const int32_t*)q_pos,
+          (const int32_t*)bounds, (float*)dq, s_len, t_len, hq / kh, hd,
+          causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
 int check_shape(int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
-                int64_t kh, int64_t hd, int64_t block) {
+                int64_t kh, int64_t hd, int64_t block, int64_t max_hd) {
   if (b < 1 || s_len < 1 || t_len < 1 || kh < 1 || hq < kh || hq % kh ||
-      hd < 1 || hd > 128 || hq > 65535 || b > 65535 ||
+      hd < 1 || hd > max_hd || hq > 65535 || b > 65535 ||
       (s_len + block - 1) / block > 65535 ||
       (t_len + block - 1) / block > 65535) {
     return (int)cudaErrorInvalidConfiguration;
@@ -1637,12 +2318,15 @@ int check_shape(int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
 // contiguous, 16-byte aligned bases and strides (TMA reads q and dO or k
 // and v, pass 1 o and dO by 16-byte words); dq, dk, dv contiguous; lse (B,
 // Hq, S) f32; rows a (B, Hq, S padded to 64, 2) f32 scratch; q_pos (S,)
-// int32; bounds a (2 * ceil(S / 64),) int32 scratch.  Three kernels on
-// `stream`; returns cudaGetLastError() after them, or the error of a check.
+// int32; bounds a (2 * ceil(S / 64),) int32 scratch; part (f32 only) a
+// (2, B, T, Hq, hd) f32 scratch for 128 < hd <= 256 with G > 1, else
+// null.  Three kernels on `stream` (four for that case: the G heads'
+// shares of dK and dV summed last); returns cudaGetLastError() after them,
+// or the error of a check.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* q_pos, void* dq, void* dk,
-    void* dv, void* rows, void* bounds, int64_t b, int64_t s_len,
+    void* dv, void* rows, void* bounds, void* part, int64_t b, int64_t s_len,
     int64_t t_len, int64_t hq, int64_t kh, int64_t hd, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb, int64_t o_ss,
@@ -1650,11 +2334,17 @@ extern "C" int flash_attention_bwd_f32(
     int64_t window, float scale, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, kF32Block);
+  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, kF32Block, 256);
   if (bad) return bad;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh}, ds{d_sb, d_ss, d_sh};
   const int c = causal ? 1 : 0;
+  if (hd > 128) {
+    return launch_f32_bwd_wide((cudaStream_t)stream, q, k, v, o, dout, lse,
+                               q_pos, dq, dk, dv, rows, bounds, part, b, s_len,
+                               t_len, hq, kh, hd, qs, ks, vs, os, ds, c,
+                               window, scale);
+  }
   if (hd <= 64) {
     return launch_f32_bwd<64>((cudaStream_t)stream, q, k, v, o, dout, lse,
                               q_pos, dq, dk, dv, rows, bounds, b, s_len,
@@ -1678,7 +2368,7 @@ extern "C" int flash_attention_bwd_bf16(
     int64_t window, float scale, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, kTcBlock);
+  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, kTcBlock, 128);
   if (bad) return bad;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh}, ds{d_sb, d_ss, d_sh};

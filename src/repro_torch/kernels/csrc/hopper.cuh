@@ -3,8 +3,9 @@
 // addresses, mbarriers, TMA loads and their tensor maps, wgmma descriptors
 // and products with bf16 operands and f32 sums, the split-TF32 pieces of
 // the f32 routes (TF32 rounding, f32 shared-memory access under the
-// 128-byte swizzle, the tf32 product with A in registers), and the
-// attention mask's tile tests.  One copy, included by both files.
+// 128-byte swizzle, the tf32 product with A in registers, named
+// barriers), and the attention mask's tile tests.  One copy, included by
+// both files.
 #pragma once
 
 #include <cuda.h>
@@ -91,6 +92,12 @@ __device__ __forceinline__ void wgmma_commit() {
 
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
 }
 
 // keep the compiler from moving register reads or writes across the
@@ -307,6 +314,24 @@ __device__ __forceinline__ float tf32_hi(float x) {
   return __uint_as_float(r & 0xffffe000u);
 }
 
+// tf32_hi as a volatile instruction, computed where it stands: of a
+// value that does not change across a loop (Q's fragments in the wide
+// forward), the pure form is hoisted out of it, and all of its splits
+// stay live at once (the wide forward spilled 320 bytes so)
+__device__ __forceinline__ float tf32_hi_here(float x) {
+  uint32_t r;
+  asm volatile("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
+// hide x's value from the compiler: addresses and wgmma descriptors
+// derived from it after this point are computed where they are used, not
+// hoisted out of the loop around it (the wide kernels' dozens of
+// loop-invariant descriptors, held in registers, spill)
+__device__ __forceinline__ void opaque(uint32_t& x) {
+  asm volatile("" : "+r"(x));
+}
+
 __device__ __forceinline__ float4 tf32_hi4(float4 x) {
   return make_float4(tf32_hi(x.x), tf32_hi(x.y), tf32_hi(x.z), tf32_hi(x.w));
 }
@@ -318,6 +343,23 @@ __device__ __forceinline__ float4 sub4(float4 a, float4 b) {
 // generic-proxy writes to shared memory made visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void sts_f32x2(uint32_t a, float x, float y) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n"
+               :: "r"(a), "f"(x), "f"(y) : "memory");
+}
+
+// named barrier ID (0 is __syncthreads') of N threads, some of which only
+// arrive
+template <int ID, int N>
+__device__ __forceinline__ void bar_sync() {
+  asm volatile("bar.sync %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
+}
+
+template <int ID, int N>
+__device__ __forceinline__ void bar_arrive() {
+  asm volatile("bar.arrive %0, %1;\n" :: "n"(ID), "n"(N) : "memory");
 }
 
 // Byte offset of (row, col) in a 128-byte-swizzled block of 128-byte rows

@@ -5,12 +5,16 @@
 q (B, S, Hq, hd), k/v (B, T, Kh, hd) of one dtype (float32 or bfloat16),
 read through their strides (the last axis must be contiguous), and query
 positions q_pos (S,) -> o (B, S, Hq, hd) in q's dtype.  Query head h reads
-KV head h // (Hq // Kh).  Any head dim: up to `MAX_HEAD_DIM` (128) on
-the tensor cores as below, wider on the wide route (`csrc/
-flash_attention_wide.cu`, CUDA cores, float32 throughout, the head dim
-walked in chunks of 128; counted in `LAUNCHES["flash_attention_wide"]` and
-`["flash_attention_wide_bwd"]`).  S and T need not be multiples of the
-tiles.
+KV head h // (Hq // Kh).  Any head dim, by `route(dtype, hd)`: up to
+`MAX_HEAD_DIM` (128) on the tensor cores as below; float32 up to
+`F32_TC_MAX_HEAD_DIM` (256) on the tensor cores too, at the head dim
+padded to 256 (`flash_f32_wide_kernel`, `bwd_dkdv_f32_wide_kernel`,
+`bwd_dq_f32_wide_kernel`: the same split-TF32 arithmetic); bf16 above 128
+and float32 above 256 on the CUDA cores (`csrc/flash_attention_wide.cu`,
+float32 throughout, the head dim walked in chunks of 128).  Every launch
+above 128 is counted in `LAUNCHES["flash_attention_wide"]` and
+`["flash_attention_wide_bwd"]`, whichever kernel runs it.  S and T need
+not be multiples of the tiles.
 
 Both dtypes run on the tensor cores, with Q, K and V brought in by TMA,
 which needs each tensor's base 16-byte aligned and its batch, sequence and
@@ -61,14 +65,29 @@ _WIDE_ENTRY = {torch.float32: "flash_attention_wide_f32",
                torch.bfloat16: "flash_attention_wide_bf16"}
 _WIDE_BWD_ENTRY = {torch.float32: "flash_attention_wide_bwd_f32",
                    torch.bfloat16: "flash_attention_wide_bwd_bf16"}
-MAX_HEAD_DIM = 128     # the tensor-core routes'; wider runs the wide route
-WIDE_CHUNK = 128       # the wide route's head-dim chunk (a grid z slice)
+MAX_HEAD_DIM = 128     # the tensor-core routes' in both dtypes
+F32_TC_MAX_HEAD_DIM = 256   # float32's tensor-core routes'
+WIDE_CHUNK = 128       # the CUDA-core route's head-dim chunk (a grid z slice)
+TMA_ALIGN = 16         # bytes: base address and every stepped stride
 
 
 def wide(hd: int) -> bool:
-    """True when head dim `hd` runs the wide route (CUDA cores)."""
+    """True when head dim `hd` counts as the wide route (above 128)."""
     return hd > MAX_HEAD_DIM
-TMA_ALIGN = 16         # bytes: base address and every stepped stride
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernels a call of this dtype and head dim runs, both ways:
+    "tc" (hd <= 128, either dtype: `flash_tc_kernel` / `flash_f32_tc_kernel`
+    and the backward's tensor-core kernels), "tc_wide" (float32, 128 < hd
+    <= 256: `flash_f32_wide_kernel`, `bwd_dkdv_f32_wide_kernel`,
+    `bwd_dq_f32_wide_kernel`) or "cuda_cores" (bf16 above 128, float32
+    above 256: `csrc/flash_attention_wide.cu`)."""
+    if hd <= MAX_HEAD_DIM:
+        return "tc"
+    if dtype == torch.float32 and hd <= F32_TC_MAX_HEAD_DIM:
+        return "tc_wide"
+    return "cuda_cores"
 
 
 def tma_ready(t: torch.Tensor) -> bool:
@@ -126,10 +145,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"{name}'s head dim must be contiguous")
 
 
-def _check_grid(b: int, hq: int, hd: int) -> None:
-    """The launch grid's limits: heads and batch rows (times the wide
+def _check_grid(b: int, hq: int, hd: int, dtype: torch.dtype) -> None:
+    """The launch grid's limits: heads and batch rows (times the CUDA-core
     route's head-dim chunks) on grid axes of at most 65535."""
-    chunks = -(-hd // WIDE_CHUNK) if wide(hd) else 1
+    chunks = (-(-hd // WIDE_CHUNK) if route(dtype, hd) == "cuda_cores"
+              else 1)
     if hq > 65535 or b * chunks > 65535:
         raise ValueError(f"flash_attention takes at most 65535 heads and "
                          f"65535 batch rows x head-dim chunks, got Hq={hq}, "
@@ -167,12 +187,13 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            if with_lse else None)
     if out.numel() == 0 or q.is_meta:
         return (out, lse) if with_lse else out
-    _check_grid(b, hq, hd)
-    if wide(hd):
-        entry, counter = _WIDE_ENTRY[q.dtype], "flash_attention_wide"
+    _check_grid(b, hq, hd, q.dtype)
+    counter = "flash_attention_wide" if wide(hd) else "flash_attention"
+    if route(q.dtype, hd) == "cuda_cores":
+        entry = _WIDE_ENTRY[q.dtype]
     else:
         q, k, v = (t if tma_ready(t) else tma_copy(t) for t in (q, k, v))
-        entry, counter = _ENTRY[q.dtype], "flash_attention"
+        entry = _ENTRY[q.dtype]
     rc = getattr(library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
@@ -217,8 +238,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                   for t in (q, k, v))
     if q.numel() == 0 or q.is_meta:
         return dq, dk, dv
-    _check_grid(b, hq, hd)
-    if wide(hd):
+    _check_grid(b, hq, hd, q.dtype)
+    if route(q.dtype, hd) == "cuda_cores":
         return _wide_bwd(q, k, v, o, do, lse, q_pos, dq, dk, dv, causal,
                          window)
     q, k, v, o, do = (t if t.stride(-1) == 1 and tma_ready(t) else tma_copy(t)
@@ -229,21 +250,30 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     rows = torch.empty((b, hq, n_qt * 64, 2), dtype=torch.float32,
                        device=q.device)
     bounds = torch.empty((2 * n_qt,), dtype=torch.int32, device=q.device)
+    # f32 above 128 with G > 1: each query head's share of dK and dV, summed
+    # by head in a last kernel
+    part = (torch.empty((2, b, t_len, hq, hd), dtype=torch.float32,
+                        device=q.device)
+            if wide(hd) and hq > kh else None)
+    extra = ((None if part is None else part.data_ptr(),)
+             if q.dtype == torch.float32 else ())
     rc = getattr(library(), _BWD_ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), q_pos.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), rows.data_ptr(), bounds.data_ptr(),
-        b, s_len, t_len, hq, kh, hd, *q.stride()[:3], *k.stride()[:3],
+        *extra, b, s_len, t_len, hq, kh, hd, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], int(causal),
         int(window), _scale(hd), q.device.index, stream_ptr(q))
-    check_launch(rc, "flash_attention_bwd")
-    LAUNCHES["flash_attention_bwd"] += 1
+    counter = "flash_attention_wide_bwd" if wide(hd) else "flash_attention_bwd"
+    check_launch(rc, counter)
+    LAUNCHES[counter] += 1
     return dq, dk, dv
 
 
 def _wide_bwd(q, k, v, o, do, lse, q_pos, dq, dk, dv, causal, window):
-    """The wide route's backward (`csrc/flash_attention_wide.cu`: D a row,
-    then dQ, then dK / dV, no atomics) into the contiguous dq, dk, dv."""
+    """The CUDA-core route's backward (`csrc/flash_attention_wide.cu`: D a
+    row, then dQ, then dK / dV, no atomics) into the contiguous dq, dk,
+    dv."""
     b, s_len, hq, hd = q.shape
     t_len, kh = k.shape[1], k.shape[2]
     o, do = (t if t.stride(-1) == 1 else t.contiguous() for t in (o, do))

@@ -1237,46 +1237,64 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, s, t, hq,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,hq,kh,hd,win", [
-    (1, 2048, 4, 4, 256, 0),          # the federated LM example's layer
-    (2, 300, 4, 2, 256, 100), (1, 130, 6, 3, 160, 0), (1, 77, 2, 1, 384, 0)])
-def test_flash_attention_wide_route_matches_plain(cuda, dtype, b, s, hq, kh,
-                                                  hd, win):
-    """Head dims above 128 run the wide route (CUDA cores, float32
-    throughout, the head dim in chunks of 128), counted under its own name:
-    the forward against the plain version (f32 at 2e-5, bf16 at the bf16
-    bounds), its lse against the plain log-sum-exp, and the backward
-    against the exact plain backward, element by element (f32 at 2e-5 of
-    max |grad|; bf16 at 2^-7 |grad| + 2e-5 max |grad|: the route rounds
-    only its outputs), two launches bitwise equal."""
+@pytest.mark.parametrize("b,s,t,hq,kh,hd,win,causal,off", [
+    (1, 2048, 2048, 4, 4, 256, 0, True, 0),   # the federated LM's layer
+    (2, 300, 300, 4, 2, 256, 100, True, 0),
+    (1, 130, 130, 6, 3, 160, 0, True, 0), (1, 77, 77, 2, 1, 384, 0, True, 0),
+    # the f32 tensor-core kernels' edges: hd padded to 256 from 136 and
+    # 200, G = 5, S != T with a q_pos offset, non-causal, windows that cut
+    # their 32- and 16-key tiles
+    (1, 200, 200, 4, 2, 136, 0, True, 0),
+    (1, 150, 150, 4, 2, 200, 0, True, 0),
+    (1, 520, 520, 10, 2, 256, 128, True, 0),
+    (2, 100, 356, 4, 2, 192, 0, True, 256),
+    (1, 200, 333, 4, 4, 256, 0, False, 0),
+    (1, 300, 300, 4, 2, 160, 40, True, 0)])
+def test_flash_attention_wide_route_matches_plain(cuda, dtype, b, s, t, hq,
+                                                  kh, hd, win, causal, off):
+    """Head dims above 128 run the wide route, counted under its own name
+    whichever kernel runs it (`kernel.py::route`): float32 up to 256 on the
+    tensor cores (split-TF32 wgmma at hd padded to 256), bf16 and wider
+    float32 on the CUDA cores (float32 throughout, the head dim in chunks
+    of 128).  The forward against the plain version (f32 at 2e-5, bf16 at
+    the bf16 bounds), its lse against the plain log-sum-exp, and the
+    backward against the exact plain backward, element by element (f32 at
+    2e-5 of max |grad|; bf16 at 2^-7 |grad| + 2e-5 max |grad|: the route
+    rounds only its outputs); two launches bitwise equal both ways."""
     from repro_torch.kernels.flash_attention import flash_attention_gqa
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda, flash_attention_cuda,
+        flash_attention_bwd_cuda, flash_attention_cuda, route,
     )
-    q, k, v = _attn_inputs(s + hd + win, b, s, s, hq, kh, hd, dtype, cuda)
+    assert route(dtype, hd) == ("tc_wide" if dtype == torch.float32
+                                and hd <= 256 else "cuda_cores")
+    q, k, v = _attn_inputs(s + hd + win, b, s, t, hq, kh, hd, dtype, cuda)
+    pos = torch.arange(off, off + s, device=cuda)
     before = dict(kernels.LAUNCHES)
-    got = flash_attention_gqa(q, k, v, window=win)
-    o, lse = flash_attention_cuda(q, k, v, window=win, with_lse=True)
+    got = flash_attention_gqa(q, k, v, q_pos=pos, causal=causal, window=win)
+    o, lse = flash_attention_cuda(q, k, v, pos, causal=causal, window=win,
+                                  with_lse=True)
     assert kernels.LAUNCHES["flash_attention_wide"] == \
         before["flash_attention_wide"] + 2
     assert kernels.LAUNCHES["flash_attention"] == before["flash_attention"]
     assert torch.equal(got, o)
-    want = flash_attention_gqa(q.cpu(), k.cpu(), v.cpu(), window=win)
+    want = flash_attention_gqa(q.cpu(), k.cpu(), v.cpu(), q_pos=pos.cpu(),
+                               causal=causal, window=win)
     if dtype == torch.float32:
         torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
     else:
         _assert_bf16_attention_close(got, want)
     from repro_torch.kernels.flash_attention.ops import _forward_ref
-    _, lse_want = _forward_ref(*(x.cpu().float() for x in (q, k, v)), None,
-                               True, win, with_lse=True)
+    _, lse_want = _forward_ref(*(x.cpu().float() for x in (q, k, v)),
+                               pos.cpu(), causal, win, with_lse=True)
     torch.testing.assert_close(lse.cpu(), lse_want, atol=1e-4, rtol=0)
 
     from repro_torch.kernels.flash_attention import attention_bwd_gqa_ref
     gen = torch.Generator().manual_seed(hd)
     do = torch.randn(q.shape, generator=gen).to(cuda, dtype)
-    pos = torch.arange(s, device=cuda)
-    grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, window=win)
-    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, window=win)
+    grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, causal=causal,
+                                     window=win)
+    again = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, causal=causal,
+                                     window=win)
     assert kernels.LAUNCHES["flash_attention_wide_bwd"] == \
         before["flash_attention_wide_bwd"] + 2
     assert kernels.LAUNCHES["flash_attention_bwd"] == \
@@ -1285,7 +1303,8 @@ def test_flash_attention_wide_route_matches_plain(cuda, dtype, b, s, hq, kh,
     assert [x.dtype for x in grads] == [dtype] * 3
     exact = attention_bwd_gqa_ref(*(x.cpu().float() for x in (q, k, v, o,
                                                                do)),
-                                  lse.cpu(), q_pos=pos.cpu(), window=win)
+                                  lse.cpu(), q_pos=pos.cpu(), causal=causal,
+                                  window=win)
     assert_bwd_close(grads, exact, dtype)
 
 

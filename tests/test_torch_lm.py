@@ -192,17 +192,10 @@ def test_flash_plain_matches_reference_kernel_and_ref(b, s, hq, kh, hd, win,
     np.testing.assert_allclose(_f32(got_ref), _f32(want_ref), atol=atol)
 
 
-@pytest.mark.parametrize("s,hd,win,s_max", [
-    (256, 64, 0, None), (256, 64, 128, None), (256, 120, 0, None),
-    (256, 120, 128, None), (256, 128, 0, None), (256, 128, 128, None),
-    (200, 120, 128, None), (333, 64, 0, None), (256, 120, 0, 30.0),
-    (200, 128, 128, 30.0)])
-def test_split_tf32_arithmetic_holds_the_f32_tolerance(s, hd, win, s_max):
-    """The f32 CUDA route's split-TF32 arithmetic (`attention_split_tf32`,
-    three TF32 products a product) against the reference's Pallas kernel
-    (interpret mode; its plain ref where S is not a multiple of the block)
-    and its attention_ref, at the f32 route's 2e-5: hd 64/120/128, windows
-    0 and 128, ragged S, and inputs scaled so that max |s| is `s_max`."""
+def _split_case(s, hd, win, s_max):
+    """(the split-TF32 forward's output, the folded q, k, v) on seeded
+    inputs, B 1, 4 / 2 heads; q and k scaled alike so that max |s| is
+    `s_max` where it is given."""
     from repro_torch.kernels.flash_attention.ref import attention_split_tf32
     b, hq, kh = 1, 4, 2
     q, k, v = _qkv(s + hd + win, b, s, hq, kh, hd)
@@ -212,7 +205,6 @@ def test_split_tf32_arithmetic_holds_the_f32_tolerance(s, hd, win, s_max):
         s0 = np.abs(np.einsum("bqhd,bkhd->bhqk", q, kr)).max() * hd ** -0.5
         c = np.float32(np.sqrt(s_max / s0))
         q, k = q * c, k * c
-    qj, kj, vj = (jnp.asarray(a) for a in (q, k, v))
     g = hq // kh
     fold = lambda x: x.reshape(b, s, kh, g, hd).transpose(0, 2, 3, 1, 4
                                                           ).reshape(-1, s, hd)
@@ -220,13 +212,56 @@ def test_split_tf32_arithmetic_holds_the_f32_tolerance(s, hd, win, s_max):
     kf = np.repeat(k.transpose(0, 2, 1, 3), g, axis=1).reshape(-1, s, hd)
     vf = np.repeat(v.transpose(0, 2, 1, 3), g, axis=1).reshape(-1, s, hd)
     got = _f32(attention_split_tf32(_t(qf), _t(kf), _t(vf), window=win))
+    return got, (q, k, v), (qf, kf, vf), fold
+
+
+@pytest.mark.parametrize("s,hd,win,s_max", [
+    (256, 64, 0, None), (256, 64, 128, None), (256, 120, 0, None),
+    (256, 120, 128, None), (256, 128, 0, None), (256, 128, 128, None),
+    (200, 120, 128, None), (333, 64, 0, None), (256, 120, 0, 30.0),
+    (200, 128, 128, 30.0), (256, 160, 0, None), (200, 160, 128, 30.0),
+    (256, 256, 0, None), (256, 256, 128, None), (200, 256, 128, 30.0)])
+def test_split_tf32_arithmetic_holds_the_f32_tolerance(s, hd, win, s_max):
+    """The f32 CUDA route's split-TF32 arithmetic (`attention_split_tf32`,
+    three TF32 products a product) against the reference's Pallas kernel
+    (interpret mode; its plain ref where S is not a multiple of the block)
+    and its attention_ref, at the f32 route's 2e-5: hd 64/120/128 and the
+    wide kernels' 160/256 (sums twice as long), windows 0 and 128, ragged
+    S, and inputs scaled so that max |s| is `s_max` (hd 256 with no window
+    at 30: `test_split_tf32_at_hd_256_is_as_close_as_float32`)."""
+    got, (q, k, v), (qf, kf, vf), fold = _split_case(s, hd, win, s_max)
     want_kernel = fold(_f32(flash_attention_tpu(
-        qj, kj, vj, causal=True, window=win, block_q=128, block_k=128,
-        interpret=True)))
+        *(jnp.asarray(a) for a in (q, k, v)), causal=True, window=win,
+        block_q=128, block_k=128, interpret=True)))
     want_ref = _f32(jax_attn_ref(jnp.asarray(qf), jnp.asarray(kf),
                                  jnp.asarray(vf), causal=True, window=win))
     np.testing.assert_allclose(got, want_kernel, atol=2e-5, rtol=0)
     np.testing.assert_allclose(got, want_ref, atol=2e-5, rtol=0)
+
+
+def test_split_tf32_at_hd_256_is_as_close_as_float32():
+    """hd 256, S 256, causal, no window, max |s| = 30: there two float32
+    computations of the same attention lie over 2e-5 apart (the split-TF32
+    arithmetic and float32 attention: 2.26e-5, `scripts/
+    flash_split_tf32_error.py`; against the reference's Pallas kernel the
+    case fails the test above), since each is ~1.5e-5 from the exact
+    result: an ulp of a score near 30 is 1.9e-6, and exp carries it to the
+    output.  A fourth product (lo lo), lo exact or lo rounded stays
+    1.36-1.47e-5 from it: the split is not what costs it.  So this case
+    holds the split arithmetic at the f32 route's 2e-5 against the exact
+    result (float64, numpy), and to within the reference's own float32
+    error (its attention_ref) there."""
+    got, _, (qf, kf, vf), _ = _split_case(256, 256, 0, 30.0)
+    q64, k64, v64 = (a.astype(np.float64) for a in (qf, kf, vf))
+    sc = np.einsum("bqd,bkd->bqk", q64, k64) * 256 ** -0.5
+    sc = np.where(np.tril(np.ones((256, 256), bool))[None], sc, -np.inf)
+    p = np.exp(sc - sc.max(-1, keepdims=True))
+    exact = np.einsum("bqk,bkd->bqd", p / p.sum(-1, keepdims=True), v64)
+    f32 = _f32(jax_attn_ref(jnp.asarray(qf), jnp.asarray(kf),
+                            jnp.asarray(vf), causal=True, window=0))
+    err = float(np.abs(got - exact).max())
+    assert err <= 2e-5
+    assert err <= float(np.abs(f32 - exact).max())
 
 
 def test_flash_plain_with_query_positions_and_non_causal():

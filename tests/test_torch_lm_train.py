@@ -284,7 +284,12 @@ SPLIT_CASES = [  # b, s, t, hq, kh, hd, causal, window, q_pos offset, max |s|
     (1, 100, 300, 4, 2, 64, True, 128, 200, None),
     (2, 130, 130, 2, 2, 120, False, 0, 0, None),
     (1, 256, 256, 4, 2, 120, True, 0, 0, 30.0),
-    (1, 200, 200, 4, 2, 128, True, 128, 0, 30.0)]
+    (1, 200, 200, 4, 2, 128, True, 128, 0, 30.0),
+    (1, 200, 200, 4, 2, 160, True, 128, 0, None),
+    (1, 100, 256, 4, 2, 160, True, 0, 156, 30.0),
+    (1, 256, 256, 4, 2, 256, True, 0, 0, None),
+    (1, 130, 130, 2, 1, 256, False, 0, 0, None),
+    (1, 256, 256, 4, 2, 256, True, 128, 0, 30.0)]
 
 
 @pytest.mark.parametrize("b,s,t,hq,kh,hd,causal,win,off,s_max", SPLIT_CASES)
@@ -294,7 +299,8 @@ def test_split_tf32_backward_arithmetic_holds_the_f32_tolerance(
     each of the five products as three TF32 products of split operands)
     against `attention_bwd_ref` on the same o and lse and against
     `jax.grad` of the reference's `dense_attention`, at the f32 route's
-    2e-5 of max |grad| per element: hd 64 / 120 / 128, windows 0 and 128,
+    2e-5 of max |grad| per element: hd 64 / 120 / 128 and the wide
+    kernels' 160 / 256 (sums twice as long), windows 0 and 128,
     ragged S, a q_pos offset, non-causal, and q and k scaled alike so that
     max |s| is `s_max`."""
     from repro_torch.kernels.flash_attention.ref import (
