@@ -42,10 +42,10 @@ Every version gets the same inputs, made from fixed seeds:
 - the wide route (head dims above 128): forward and backward through
   `flash_attention_cuda` / `flash_attention_bwd_cuda` at `chip_smoke.py`'s
   `WIDE_LAYER` (the federated LM example at --d-model 1024: B = 2, S = T =
-  2048, Hq = 4, Kh = 2, hd = 256, causal), in bf16 (a control) and in
-  float32, and the whole train step of `chip_smoke.py` phase 24's
-  wide-heads model (`loss_and_grads`, 2 layers at d_model 1024, f32, B = 2
-  x 2048), which launches each way once a layer.
+  2048, Hq = 4, Kh = 2, hd = 256, causal), in bf16 and in float32, and
+  the whole train step of `chip_smoke.py` phase 24's wide-heads model
+  (`loss_and_grads`, 2 layers at d_model 1024, B = 2 x 2048) in f32 and
+  with bf16 activations, which launches each way once a layer.
 
 Each time is a CUDA-event mean over back-to-back calls (`chip_smoke.
 time_ms`), taken `--repeats` times; the launches per call are counted.
@@ -55,13 +55,19 @@ Besides, the forward's outputs (o, and lse where the version has it) at
 the backward's (dq, dk, dv) at phase 3's backward shapes (the TinyLlama
 and Danube layers and four edges, both dtypes) are reduced to one sha256
 digest each, so that two versions' outputs can be compared bit for bit;
-one backward call of each dtype at the TinyLlama layer is profiled
-(`torch.profiler`), its device time split by kernel name.
+one backward call of each dtype at the TinyLlama layer and at
+`WIDE_LAYER` is profiled (`torch.profiler`), its device time split by
+kernel name.
 
 With `--federated-lm`, also `chip_smoke.py` phase 17's two GreedyFed
 rounds over LM clients (d_model 512, 8 layers, hd 128, f32: the f32
 flash routes both ways) are run and timed, with the peak device memory
 and the flash launches.
+
+With `--only REGEX`, only the calls whose name matches are set up and
+timed, and the digests are left out (e.g. `--only 'wide|^flash_attention
+bf16$'` for the wide route, its steps and the narrow bf16 forward as a
+control; `--only '^$'` for the profile alone).
 
 Prints one line per measurement and, last, one JSON object.  Exits
 non-zero without a card.
@@ -84,7 +90,11 @@ def main() -> int:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--federated-lm", action="store_true")
+    ap.add_argument("--only", default=None,
+                    help="time only the calls whose name matches")
     args = ap.parse_args()
+    wanted = (lambda name: True) if args.only is None else (
+        lambda name: re.search(args.only, name) is not None)
 
     import numpy as np
     import torch
@@ -147,7 +157,8 @@ def main() -> int:
         *qkv_bf16, window=4096), 20)
     calls["flash_attention f32"] = (lambda _: flash_attention_gqa(
         *qkv, window=4096), 3)
-    digests = forward_digests(torch, flash_kernel, device)
+    digests = ({} if args.only is not None
+               else forward_digests(torch, flash_kernel, device))
     bwd = getattr(flash_kernel, "flash_attention_bwd_cuda", None)
     if bwd is not None:            # versions that have the backward
         for label, shape_q, shape_kv, window in (
@@ -177,24 +188,28 @@ def main() -> int:
                     *a, window=window), 10)
             calls[f"flash_attention_wide_bwd {dname}"] = (
                 lambda _, a=(q, k, v, o, do, lse): bwd(*a, window=window), 3)
-        calls["wide-heads train step f32"] = (wide_heads_step(torch, device),
-                                              3)
+        for dname in ("f32", "bf16"):
+            name = f"wide-heads train step {dname}"
+            if wanted(name):
+                calls[name] = (wide_heads_step(torch, device, dname), 3)
 
+    calls = {n: c for n, c in calls.items() if wanted(n)}
     out = {"label": args.label, "device": torch.cuda.get_device_name(0),
            "forward_sha256": digests}
     for name, d in digests.items():
         print(f"[compare] {args.label}: forward output {name}: sha256 {d}",
               flush=True)
-    if bwd is not None:
+    if bwd is not None and args.only is None:
         out["backward_sha256"] = backward_digests(torch, flash_kernel, device)
         for name, d in out["backward_sha256"].items():
             print(f"[compare] {args.label}: backward output {name}: sha256 "
                   f"{d}", flush=True)
+    if bwd is not None:
         out["backward_profile"] = backward_profile(torch, flash_kernel,
                                                    device)
-        for dname, by_kernel in out["backward_profile"].items():
-            print(f"[compare] {args.label}: backward {dname}, TinyLlama "
-                  f"layer, device ms by kernel: {by_kernel}", flush=True)
+        for name, by_kernel in out["backward_profile"].items():
+            print(f"[compare] {args.label}: backward {name}, device ms by "
+                  f"kernel: {by_kernel}", flush=True)
     for name, (fn, iters) in calls.items():
         kernels.reset_launches()
         fn(0)
@@ -213,11 +228,11 @@ def main() -> int:
     return 0
 
 
-def wide_heads_step(torch, device):
+def wide_heads_step(torch, device, dtype="f32"):
     """`chip_smoke.py` phase 24's wide-heads train step (the federated LM
     example's model at --d-model 1024: 4 query heads of 256 over 2 KV
-    heads, 2 layers, f32, B = 2 x 2048) as a call on inputs already on the
-    card."""
+    heads, 2 layers, f32 params, B = 2 x 2048) with activations in `dtype`
+    ("f32" or "bf16") as a call on inputs already on the card."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.train import synth_batch
@@ -231,6 +246,8 @@ def wide_heads_step(torch, device):
                       M.init_params(cfg, gen, device="cpu"))
     batch = {k: v.to(device)
              for k, v in synth_batch(cfg, gen, 2, 2048).items()}
+    cfg = dataclasses.replace(
+        cfg, dtype={"f32": "float32", "bf16": "bfloat16"}[dtype])
     return lambda _: M.loss_and_grads(cfg, params, batch)
 
 
@@ -280,31 +297,35 @@ def backward_digests(torch, flash_kernel, device) -> dict:
 
 def backward_profile(torch, flash_kernel, device) -> dict:
     """Device milliseconds by kernel name of one backward call at the
-    TinyLlama layer, bf16 and f32, under `torch.profiler` (after a
-    warm-up call)."""
+    TinyLlama layer and at `WIDE_LAYER`, bf16 and f32, under
+    `torch.profiler` (after a warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import WIDE_LAYER
+    b, s_len, hq, kh, hd, window = WIDE_LAYER
+    wide = ("WIDE_LAYER", b, s_len, s_len, hq, kh, hd, True, window, 0)
     gen = torch.Generator(device=device).manual_seed(26)
     out = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        args, kw = _bwd_inputs(torch, flash_kernel, device, gen,
-                               _bwd_cases()[0], dtype)
-        flash_kernel.flash_attention_bwd_cuda(*args, **kw)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    for case in (_bwd_cases()[0], wide):
+        for dtype in (torch.bfloat16, torch.float32):
+            args, kw = _bwd_inputs(torch, flash_kernel, device, gen, case,
+                                   dtype)
             flash_kernel.flash_attention_bwd_cuda(*args, **kw)
             torch.cuda.synchronize()
-        by_kernel = {}
-        for e in prof.key_averages():
-            dev_us = getattr(e, "device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "cuda_time_total", 0)
-            name = re.search(r"bwd_\w+(<\w+>)?", e.key)
-            if name and dev_us > 0:
-                by_kernel[name[0]] = round(dev_us / 1e3, 4)
-        out[str(dtype)[6:]] = by_kernel
-        del args
-        torch.cuda.empty_cache()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                flash_kernel.flash_attention_bwd_cuda(*args, **kw)
+                torch.cuda.synchronize()
+            by_kernel = {}
+            for e in prof.key_averages():
+                dev_us = getattr(e, "device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(e, "cuda_time_total", 0)
+                name = re.search(r"bwd_\w+(<\w+>)?", e.key)
+                if name and dev_us > 0:
+                    by_kernel[name[0]] = round(dev_us / 1e3, 4)
+            out[f"{case[0]} layer {str(dtype)[6:]}"] = by_kernel
+            del args
+            torch.cuda.empty_cache()
     return out
 
 

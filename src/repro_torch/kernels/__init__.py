@@ -194,12 +194,12 @@ _SIGNATURES = {
     # scale, device, stream)
     "flash_attention_f32": [_PTR] * 6 + [_I64] * 20 + [_F32, _I64, _PTR],
     "flash_attention_bf16": [_PTR] * 6 + [_I64] * 20 + [_F32, _I64, _PTR],
-    # (q, k, v, o, dO, lse, q_pos, dq, dk, dv, rows, bounds, B, S, T, Hq,
-    # Kh, hd, the (b, s, h) strides of q, k, v, o and dO, causal, window,
-    # scale, device, stream)
+    # (q, k, v, o, dO, lse, q_pos, dq, dk, dv, rows, bounds, part or null,
+    # B, S, T, Hq, Kh, hd, the (b, s, h) strides of q, k, v, o and dO,
+    # causal, window, scale, device, stream)
     "flash_attention_bwd_f32": [_PTR] * 13 + [_I64] * 23 + [_F32, _I64,
                                                             _PTR],
-    "flash_attention_bwd_bf16": [_PTR] * 12 + [_I64] * 23 + [_F32, _I64,
+    "flash_attention_bwd_bf16": [_PTR] * 13 + [_I64] * 23 + [_F32, _I64,
                                                              _PTR],
     # head dims above 128: the forward's arguments; the backward's without
     # the bounds scratch (rows: the (B, Hq, S) f32 D)

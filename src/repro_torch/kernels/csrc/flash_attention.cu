@@ -40,7 +40,10 @@
 // products: 1.55 TFLOP, 1.57 ms at the 989 TFLOP/s bf16 tensor-core peak,
 // against 0.63 GB of q/k/v/o traffic, 0.19 ms at 3.35 TB/s.
 //
-// Two routes, by the inputs' type:
+// Two routes, by the inputs' type, each at hd padded to 64 or 128 as
+// below and, for 128 < hd <= 256, in a wide form at hd padded to 256 (the
+// sections "f32 route, 128 < hd <= 256" and "bf16 route, 128 < hd <=
+// 256" at their kernels):
 //
 // bf16 (the serving path): both products on the tensor cores.  A block of
 // 288 threads owns 128 query rows of one (batch, head): two consumer
@@ -1322,6 +1325,364 @@ flash_f32_wide_kernel(const __grid_constant__ CUtensorMap k_map,
   }
 }
 
+// ------------------------------------------ bf16 route, 128 < hd <= 256 --
+//
+// The bf16 route's arithmetic (flash_tc_kernel: S and the softmax in f32,
+// P rounded to bf16 before P V, l over the unrounded p, o = acc / max(l,
+// 1e-30) rounded once to bf16, the finite sentinel, lse in natural units)
+// at hd padded to 256, where that kernel's layout does not fit: its
+// 128-key tiles at hd 256 need Q 64 KB plus 128 KB a stage, and its
+// producer warp holds a thread to 168 registers while a warpgroup's O (64
+// x 256 f32) alone is 128.  So the tiles are 64 keys and there is no
+// producer warp: thread 0 issues every copy, as in the f32 routes, and a
+// thread may hold 255 registers (O 128, S 32, P's bf16 fragments 16).  A
+// block of 256 threads owns 128 query rows of one (batch, head), 64 a
+// warpgroup.  Per tile a warpgroup runs
+//   S = Q K^T       wgmma m64n64k16 over 16 k16 steps, Q and K from shared
+//                   memory (K-major, as loaded);
+//   p = exp2(S * scale * log2 e - m), masked by selects as flash_tc_kernel;
+//   O += P V        wgmma m64n256k16 over the tile's 4 k16 steps, P from
+//                   registers, V read MN-major from shared memory.
+// Thread 0 loads Q once and the K/V tiles of the block's band into a ring
+// of 2 stages ("full" mbarriers count the copies' bytes, "empty" ones the
+// 8 warps' releases): tile it + 1 is asked for at the start of tile it,
+// once both warpgroups have released tile it - 1, so one tile's products
+// cover the next tile's copy, and the two warpgroups stay within a tile
+// of each other (one's softmax runs beside the other's products).
+// Shared memory: Q 64 KB and two stages of K and V (32 + 32 KB), 192 KB,
+// in 128-byte-swizzled 64-column chunks; one block an SM.  Every hd in
+// 129..256 is padded to 256 (the pad columns arrive as zeros).  What
+// bounds it: operations, 4 x 256 flops a (query, key) pair; at the
+// federated LM's layer (B 2, S = T = 2048, 4 / 2 heads of 256, causal)
+// 1.72e10 flops, 0.0174 ms at 989 TFLOP/s.  The grid there is 16 x 4 x 2
+// = 128 blocks, the last row blocks (all 32 tiles under causal masking)
+// launched first.
+struct Bf16WideLayout {
+  static constexpr int kKeys = 64;                       // keys a tile
+  static constexpr int kHdPad = 256;
+  static constexpr int kChunks = kHdPad / 64;            // 64-column chunks
+  static constexpr int kQChunk = kTcRows * kSwizzleRow;  // 16 KB
+  static constexpr int kKVChunk = kKeys * kSwizzleRow;   // 8 KB
+  static constexpr int kQBytes = kChunks * kQChunk;      // 64 KB
+  static constexpr int kKVBytes = kChunks * kKVChunk;    // 32 KB: K or V
+  static constexpr int kOffK = kQBytes;
+  static constexpr int kOffV = kOffK + kTcStages * kKVBytes;
+  static constexpr int kOffBar = kOffV + kTcStages * kKVBytes;
+  // Q, the K and V rings, 1 + 2 * stages mbarriers, slack to align to 1 KB
+  static constexpr size_t kBytes = kOffBar + 8 * (1 + 2 * kTcStages) + 1024;
+};
+constexpr int kBf16WideThreads = 256;   // two warpgroups, no producer warp
+
+__global__ void __launch_bounds__(kBf16WideThreads, 1)
+flash_bf16_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       const int32_t* __restrict__ q_pos, int64_t s_len,
+                       int64_t t_len, int64_t group, int64_t hd, Strides os,
+                       int causal, int64_t window, float scale) {
+  using L = Bf16WideLayout;
+  constexpr int kKeys = L::kKeys;
+  constexpr int kNS = kKeys / 2;            // score registers per thread
+  constexpr int kWarps = kBf16WideThreads / 32;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ int32_t pos_s[kTcRows];
+  __shared__ int32_t pmin_s[kTcRows / 32], pmax_s[kTcRows / 32];
+
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_base = base;
+  const uint32_t k_base = base + L::kOffK;
+  const uint32_t v_base = base + L::kOffV;
+  const uint32_t bar_q = base + L::kOffBar;                 // Q arrived
+  const uint32_t bar_full = bar_q + 8;                      // [stage]
+  const uint32_t bar_empty = bar_full + 8 * kTcStages;      // [stage]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t n_qt = (s_len + kTcRows - 1) / kTcRows;
+  // the last query tiles have the longest bands: launch them first
+  const int64_t q0 = (n_qt - 1 - (int64_t)blockIdx.x) * kTcRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (int)group;
+
+  if (tid < kTcRows) {
+    const bool valid = q0 + tid < s_len;
+    const int32_t p = valid ? q_pos[q0 + tid] : 0;
+    pos_s[tid] = p;
+    int32_t mn = valid ? p : INT_MAX, mx = valid ? p : INT_MIN;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    if (lane == 0) {
+      pmin_s[warp] = mn;
+      pmax_s[warp] = mx;
+    }
+  }
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // each warpgroup's band, and the block's: the union of the two
+  int64_t lo[2], hi[2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    key_band(min(pmin_s[2 * w], pmin_s[2 * w + 1]),
+             max(pmax_s[2 * w], pmax_s[2 * w + 1]), t_len, causal, window,
+             lo[w], hi[w]);
+  }
+  int64_t b_lo = INT64_MAX, b_hi = -1;
+#pragma unroll
+  for (int w = 0; w < 2; ++w) {
+    if (lo[w] <= hi[w]) {
+      b_lo = lo[w] < b_lo ? lo[w] : b_lo;
+      b_hi = hi[w] > b_hi ? hi[w] : b_hi;
+    }
+  }
+  const int kt0 = __shfl_sync(
+      0xffffffffu, (int)(b_hi >= 0 ? b_lo / kKeys * kKeys : 0), 0);
+  const int n_tiles = __shfl_sync(
+      0xffffffffu, (int)(b_hi >= 0 ? (b_hi - kt0) / kKeys + 1 : 0), 0);
+
+  // thread 0 issues every copy: Q and the first two tiles now, tile it + 1
+  // at the start of tile it (below)
+  const auto load_tile = [&](int it) {
+    const int s = it % kTcStages;
+    const uint32_t full = bar_full + 8 * s;
+    const int kt = kt0 + it * kKeys;
+    mbar_expect_tx(full, 2 * L::kKVBytes);
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c) {
+      tma_load_4d(k_base + s * L::kKVBytes + c * L::kKVChunk, &k_map, full,
+                  64 * c, kt, kvh, b);
+      tma_load_4d(v_base + s * L::kKVBytes + c * L::kKVChunk, &v_map, full,
+                  64 * c, kt, kvh, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, L::kQBytes);
+#pragma unroll
+    for (int c = 0; c < L::kChunks; ++c) {
+      tma_load_4d(q_base + c * L::kQChunk, &q_map, bar_q, 64 * c, (int)q0, h,
+                  b);
+    }
+    for (int i = 0; i < kTcStages && i < n_tiles; ++i) load_tile(i);
+  }
+  __syncwarp();
+
+  // ---- warpgroup wg owns rows 64 wg .. 64 wg + 63 ----
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int r_a = 64 * wg + 16 * (warp & 3) + (lane >> 2);  // and r_a + 8
+  const int quad = lane & 3;
+  const int64_t pos_a = pos_s[r_a], pos_b = pos_s[r_a + 8];
+  const float sl2 = scale * kLog2e;
+  const float sentinel = kNegInf * kLog2e;
+  const uint32_t q_wg = q_base + wg * 64 * kSwizzleRow;
+
+  // the tiles this warpgroup visits, it_first .. it_last, are a run of
+  // the block's; it still waits for and releases the others
+  const int64_t w_lo = wg ? lo[1] : lo[0], w_hi = wg ? hi[1] : hi[0];
+  int it_first = n_tiles, it_last = -1;
+  if (w_lo <= w_hi && n_tiles > 0) {
+    it_first = (int)((w_lo - kt0) / kKeys);
+    it_last = (int)((w_hi - kt0) / kKeys);
+    if (it_last > n_tiles - 1) it_last = n_tiles - 1;
+  }
+  it_first = __shfl_sync(0xffffffffu, it_first, 0);
+  it_last = __shfl_sync(0xffffffffu, it_last, 0);
+
+  float m_a = sentinel, m_b = sentinel, l_a = 0.0f, l_b = 0.0f;
+  float acc[L::kHdPad / 2], sc[kNS];
+#pragma unroll
+  for (int i = 0; i < L::kHdPad / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kNS; ++i) sc[i] = 0.0f;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kTcStages;
+    if (tid == 0 && it >= 1 && it + 1 < n_tiles) {
+      // tile it + 1 into the stage tile it - 1 has released
+      mbar_wait(bar_empty + 8 * ((it - 1) % kTcStages),
+                (uint32_t)(((it - 1) / kTcStages) & 1));
+      load_tile(it + 1);
+    }
+    __syncwarp();
+    mbar_wait(bar_full + 8 * s, (uint32_t)((it / kTcStages) & 1));
+    if (it >= it_first && it <= it_last) {
+      const int64_t kt = kt0 + (int64_t)it * kKeys;
+      const uint32_t k_s = k_base + s * L::kKVBytes;
+      const uint32_t v_s = v_base + s * L::kKVBytes;
+
+      // S = Q K^T: 16 columns of hd per step, 32 bytes into a 128-byte row
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < L::kHdPad / 16; ++ks) {
+        const uint32_t col = (ks % 4) * 32;
+        wgmma_ss_n64(sc,
+                     desc128(q_wg + (ks / 4) * L::kQChunk + col, 16, 1024),
+                     desc128(k_s + (ks / 4) * L::kKVChunk + col, 16, 1024),
+                     ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // scale to log2 units; sc[i] is row r_a (i & 2 == 0) or r_a + 8,
+      // key kt + 2 quad + 8 (i / 4) + (i & 1); masked as flash_tc_kernel
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) sc[i] *= sl2;
+      const bool open =
+          tile_open<kKeys>(kt, pos_a, t_len, causal, window) &&
+          tile_open<kKeys>(kt, pos_b, t_len, causal, window);
+      if (__any_sync(0xffffffffu, !open)) {
+        const int64_t k0 = kt + 2 * quad;          // the key of sc[0]
+        const int t_rel = clamp_rel(t_len - k0);
+        const int far = 1 << 30;
+        const int hi_a = causal ? clamp_rel(pos_a - k0) : far;
+        const int hi_b = causal ? clamp_rel(pos_b - k0) : far;
+        const int lo_a = window > 0 ? clamp_rel(pos_a - window + 1 - k0) : -far;
+        const int lo_b = window > 0 ? clamp_rel(pos_b - window + 1 - k0) : -far;
+#pragma unroll
+        for (int i = 0; i < kNS; ++i) {
+          const int c = 8 * (i >> 2) + (i & 1);
+          const int hi_r = (i & 2) ? hi_b : hi_a, lo_r = (i & 2) ? lo_b : lo_a;
+          const float x = (c <= hi_r && c >= lo_r) ? sc[i] : sentinel;
+          sc[i] = c < t_rel ? x : -CUDART_INF_F;   // past T: not a key
+        }
+      }
+
+      // online softmax; l sums this thread's share of the unrounded p
+      float mx_a = -CUDART_INF_F, mx_b = -CUDART_INF_F;
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        if (i & 2) {
+          mx_b = fmaxf(mx_b, sc[i]);
+        } else {
+          mx_a = fmaxf(mx_a, sc[i]);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+      const float corr_a = exp2f(m_a - mn_a), corr_b = exp2f(m_b - mn_b);
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kNS; ++i) {
+        if (i & 2) {
+          sc[i] = exp2f(sc[i] - mn_b);
+          sum_b += sc[i];
+        } else {
+          sc[i] = exp2f(sc[i] - mn_a);
+          sum_a += sc[i];
+        }
+      }
+      l_a = l_a * corr_a + sum_a;
+      l_b = l_b * corr_b + sum_b;
+#pragma unroll
+      for (int i = 0; i < L::kHdPad / 2; ++i) {
+        acc[i] *= (i & 2) ? corr_b : corr_a;
+      }
+
+      // P rounded to bf16 as A fragments (the accumulator layout of keys
+      // 16 kk .. 16 kk + 15 is the A layout of a k16 step), then O += P V
+      // over the whole head dim, 16 keys (2 KB of 128-byte rows) a step
+      uint32_t pa[kKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk) {
+        wgmma_rs_n256(acc, pa[kk],
+                      desc128(v_s + kk * 16 * kSwizzleRow, L::kKVChunk, 1024),
+                      1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);   // this warp is done
+  }
+
+  // o = acc / max(l, 1e-30) by the fast division (the result is rounded
+  // to bf16), stored as bf16; rows past S and columns past hd are not
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  const float den_a = fmaxf(l_a, 1e-30f), den_b = fmaxf(l_b, 1e-30f);
+  if (lse != nullptr) store_lse(lse, b, h, s_len, q0 + r_a, quad, m_a, m_b,
+                                den_a, den_b);
+  const bool pairs = ((hd | os.s | os.h | os.b) & 1) == 0;
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int j = 0; j < L::kHdPad / 8; ++j) {
+    const int64_t d = 8 * j + 2 * quad;
+    if (d >= hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t row = q0 + r_a + 8 * half;
+      if (row >= s_len) continue;
+      const float den = half ? den_b : den_a;
+      const float x0 = __fdividef(acc[4 * j + 2 * half], den);
+      const float x1 = __fdividef(acc[4 * j + 2 * half + 1], den);
+      __nv_bfloat16* dst = ob + row * os.s + d;
+      if (pairs && d + 1 < hd) {
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        dst[0] = __float2bfloat16_rn(x0);
+        if (d + 1 < hd) dst[1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+int launch_bf16_wide(cudaStream_t stream, const void* q, const void* k,
+                     const void* v, void* o, void* lse, const void* q_pos,
+                     int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
+                     int64_t kh, int64_t hd, Strides qs, Strides ks,
+                     Strides vs, Strides os, int causal, int64_t window,
+                     float scale) {
+  CUtensorMap q_map, k_map, v_map;
+  int rc = make_map(&q_map, q, kBf16, 2, hd, s_len, hq, b, qs, kTcRows);
+  if (rc == 0) rc = make_map(&k_map, k, kBf16, 2, hd, t_len, kh, b, ks,
+                             Bf16WideLayout::kKeys);
+  if (rc == 0) rc = make_map(&v_map, v, kBf16, 2, hd, t_len, kh, b, vs,
+                             Bf16WideLayout::kKeys);
+  if (rc != 0) return rc;
+  const size_t bytes = Bf16WideLayout::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)((s_len + kTcRows - 1) / kTcRows), (unsigned)hq,
+                  (unsigned)b);
+  flash_bf16_wide_kernel<<<grid, kBf16WideThreads, bytes, stream>>>(
+      q_map, k_map, v_map, (__nv_bfloat16*)o, (float*)lse,
+      (const int32_t*)q_pos, s_len, t_len, hq / kh, hd, os, causal, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 int launch_f32_wide(cudaStream_t stream, const void* q, const void* k,
                     const void* v, void* o, void* lse, const void* q_pos,
                     int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
@@ -1451,11 +1812,16 @@ extern "C" int flash_attention_bf16(
     int64_t window, float scale, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, 128);
+  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, 256);
   if (bad) return bad;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh};
   const int c = causal ? 1 : 0;
+  if (hd > 128) {
+    return launch_bf16_wide((cudaStream_t)stream, q, k, v, o, lse, q_pos, b,
+                            s_len, t_len, hq, kh, hd, qs, ks, vs, os, c,
+                            window, scale);
+  }
   if (hd <= 64) {
     return launch_tc_hd<64>((cudaStream_t)stream, q, k, v, o, lse, q_pos, b,
                             s_len, t_len, hq, kh, hd, qs, ks, vs, os, c,

@@ -45,6 +45,9 @@
 // arrive as zeros.  The producer of each ring is thread 0, not a warp of
 // its own: with a ninth warp a thread may hold 168 registers (an SM's four
 // register partitions, three warps on one); at 8 warps it may hold 255.
+// For 128 < hd <= 256 each route has a wide form at hd padded to 256 (the
+// sections "f32 route, 128 < hd <= 256" and "bf16 route, 128 < hd <= 256"
+// at their kernels).
 //
 // bf16 (the training path), in the shape of the forward's bf16 route
 // (flash_attention.cu, flash_tc_kernel).  Pass 2 (`bwd_dkdv_tc_kernel`):
@@ -1892,12 +1895,18 @@ bwd_dkdv_f32_wide_kernel(const __grid_constant__ CUtensorMap q_map,
     }
 }
 
-// dK and dV of each KV head: the sum of its G query heads' shares (B, T,
-// Hq, hd), head 0 first; one writer an element
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// dK and dV of each KV head: the sum of its G query heads' f32 shares (B,
+// T, Hq, hd), head 0 first, rounded once to T; one writer an element
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bwd_group_sum_kernel(const float* __restrict__ part_k,
-                     const float* __restrict__ part_v, float* __restrict__ dk,
-                     float* __restrict__ dv, int64_t n, int64_t group,
+                     const float* __restrict__ part_v, T* __restrict__ dk,
+                     T* __restrict__ dv, int64_t n, int64_t group,
                      int64_t hd) {
   for (int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x; i < n;
        i += (int64_t)gridDim.x * kThreads) {
@@ -1908,8 +1917,8 @@ bwd_group_sum_kernel(const float* __restrict__ part_k,
       sk += part_k[src + g * hd];
       sv += part_v[src + g * hd];
     }
-    dk[i] = sk;
-    dv[i] = sv;
+    put(dk + i, sk);
+    put(dv + i, sv);
   }
 }
 
@@ -2090,6 +2099,534 @@ bwd_dq_f32_wide_kernel(const __grid_constant__ CUtensorMap q_map,
         dq[((b * s_len + row) * hq + h) * hd + d] = acc[32 * mb + i] * scale;
       }
     }
+}
+
+// ------------------------------------------ bf16 route, 128 < hd <= 256 --
+//
+// The bf16 route's arithmetic (`bwd_dkdv_tc_kernel`, `bwd_dq_tc_kernel`:
+// P and dS rounded to bf16 before the three products that read them, dS
+// from the unrounded P, S, dP, L, D and the sums in f32, each output
+// rounded once to bf16; `ref.py::attention_bwd_bf16_ref`) at hd padded to
+// 256 (pass 1 is `bwd_rows_kernel<__nv_bfloat16>` itself).  At this width
+// a warpgroup that held both dK and dV of its keys, as the narrow pass 2
+// does, would need 256 accumulator registers a thread.  So, as the f32
+// routes, the two warpgroups of a block split the products between them
+// and each holds one output (128 registers a thread):
+//   pass 2 (`bwd_dkdv_bf16_wide_kernel`): a block owns 64 keys, K and V
+//   loaded once by TMA (32 KB each), and streams the (Q, dO) tiles of 64
+//   rows with their (L log2 e, D) pairs through a ring of 2 stages (64 KB
+//   each).  Warpgroup 0: S^T = K Q^T (wgmma m64n64k16, both from shared
+//   memory, K-major), P^T = exp2(S^T scale log2 e - L log2 e), masked,
+//   handed over in f32 through shared memory (16 KB: dS needs the
+//   unrounded P), then dV += P^T dO (m64n256k16, P^T rounded to bf16 from
+//   registers, dO read MN-major).  Warpgroup 1: dP^T = V dO^T, then dS^T =
+//   P^T (dP^T - D) and dK += dS^T Q the same way.
+//   pass 3 (`bwd_dq_bf16_wide_kernel`): a block owns 64 query rows of one
+//   head, Q and dO loaded once (32 KB each), and streams 64-key (K, V)
+//   tiles through the same ring.  Warpgroup 0: S = Q K^T and P, handed over
+//   in f32; warpgroup 1: dP = dO V^T and dS = P (dP - D), written as bf16
+//   into a 128-byte-swizzled tile (8 KB: 64 rows of 64 keys, the K-major A
+//   operand); then each warpgroup takes 128 columns of dQ += dS K
+//   (m64n128k16, A and B from shared memory, K read MN-major; 64 registers
+//   a thread).
+// Thread 0 issues every copy: tile it + 1 once both warpgroups have
+// released tile it - 1 (the stage's "empty" mbarrier, 8 warps).  In pass 2
+// that wait is made by all of warpgroup 0 before it writes P, since
+// warpgroup 1 reads the previous P before it releases its stage; in pass 3
+// the two warpgroups meet at a named barrier every tile (dS is there).
+// Pass 2 runs one block a query head, as the f32 wide route (grid (Hq, B,
+// key blocks), the first key blocks, the longest walks under causal
+// masking, launched first): with G > 1 each block writes its head's f32
+// share of dK and dV to a (2, B, T, Hq, hd) scratch and
+// `bwd_group_sum_kernel<__nv_bfloat16>` adds the G shares in head order
+// and rounds once (one writer an element: bitwise repeatable).  Shared
+// memory: the resident operand 64 KB, two stages 128 KB (and their 1 KB
+// of row pairs), the dS tile 8 KB, the P hand-over 16 KB: 217 KB, one
+// block an SM.  What bounds it: operations, 10 hd flops a pair; at the
+// federated LM's layer 4.29e10 flops, 0.0434 ms at 989 TFLOP/s.
+struct Bf16WideBwdLayout {
+  static constexpr int kStages = 2;
+  static constexpr int kChunk = kTile * kSwizzleRow;    // 64 rows x 64 columns
+  static constexpr int kOperand = 4 * kChunk;           // 64 rows of hd 256
+  // pass 2: K, then V; pass 3: Q, then dO
+  static constexpr int kOffB = kOperand;
+  // a stage: Q then dO (pass 2), K then V (pass 3)
+  static constexpr int kOffStage = 2 * kOperand;
+  static constexpr int kStage = 2 * kOperand;
+  static constexpr int kOffRows = kOffStage + kStages * kStage;  // pass 2
+  static constexpr int kOffDs = kOffRows + kStages * kRowBytes;  // pass 3
+  static constexpr int kOffX = kOffDs + kChunk;                  // P
+  static constexpr int kOffBar = kOffX + kTcThreads / 2 * 32 * 4;
+  static constexpr size_t kBytes = kOffBar + 8 * (1 + 2 * kStages) + 1024;
+};
+
+__device__ __forceinline__ void sts_b32(uint32_t a, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(a), "r"(x) : "memory");
+}
+
+// pass 2 at hd 256: one query head's share of dK and dV of 64 keys of its
+// KV head: dK and dV themselves (bf16) when G = 1, else the f32 shares
+// `part_k`, `part_v` ((B, T, Hq, hd)), summed by `bwd_group_sum_kernel`
+__global__ void __launch_bounds__(kTcThreads, 1)
+bwd_dkdv_bf16_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const float* __restrict__ rows,
+                          const int32_t* __restrict__ q_pos,
+                          const int32_t* __restrict__ bounds,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv,
+                          float* __restrict__ part_k,
+                          float* __restrict__ part_v, int64_t s_len,
+                          int64_t t_len, int64_t group, int64_t hd,
+                          int causal, int64_t window, float scale) {
+  using L = Bf16WideBwdLayout;
+  constexpr int kS = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t k_base = base, v_base = base + L::kOffB;
+  const uint32_t stage0 = base + L::kOffStage;
+  const uint32_t rows0 = base + L::kOffRows;
+  const uint32_t bar_kv = base + L::kOffBar;                // K, V arrived
+  const uint32_t bar_full = bar_kv + 8;                     // [stage]
+  const uint32_t bar_empty = bar_full + 8 * kS;             // [stage]
+  const float4* rows_s =
+      reinterpret_cast<const float4*>(smem_raw + (rows0 - raw));
+  float* xchg = reinterpret_cast<float*>(smem_raw + (base + L::kOffX - raw));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // grid (Hq, B, key blocks): the first key blocks, whose causal bands are
+  // the longest, are all launched first
+  const int64_t k0 = (int64_t)blockIdx.z * kTile;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (int)group;
+  const int64_t hq = gridDim.x;
+  const int64_t n_qt = (s_len + kTile - 1) / kTile;
+  const int64_t s_pad = n_qt * kTile;
+  const int64_t k_last = (k0 + kTile < t_len ? k0 + kTile : t_len) - 1;
+
+  if (tid == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kTcWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every copy: K and V now, and the (Q, dO, rows) of the
+  // it-th visited query tile into stage it % stages
+  const auto load_stage = [&](int it, int64_t qt) {
+    const int s = it % kS;
+    const uint32_t full = bar_full + 8 * s;
+    const uint32_t st = stage0 + s * L::kStage;
+    const int q0 = (int)(qt * kTile);
+    mbar_expect_tx(full, 2 * L::kOperand + kRowBytes);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(st + c * L::kChunk, &q_map, full, 64 * c, q0, h, b);
+      tma_load_4d(st + L::kOperand + c * L::kChunk, &do_map, full, 64 * c,
+                  q0, h, b);
+    }
+    bulk_load(rows0 + s * kRowBytes,
+              rows + (((int64_t)b * hq + h) * s_pad + qt * kTile) * 2,
+              kRowBytes, full);
+  };
+  // the query tiles of this head whose band meets the block's keys; warp
+  // 0 steps `ahead` a tile ahead of the others to load it
+  TileWalk walk{bounds, n_qt, k0, k_last, t_len, window, 1, causal, 0, -32,
+                0u};
+  TileWalk ahead = walk;
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::kOperand);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        tma_load_4d(k_base + c * L::kChunk, &k_map, bar_kv, 64 * c, (int)k0,
+                    kvh, b);
+        tma_load_4d(v_base + c * L::kChunk, &v_map, bar_kv, 64 * c, (int)k0,
+                    kvh, b);
+      }
+    }
+    for (int i = 0; i < kS; ++i) {
+      int g;
+      int64_t qt;
+      if (!ahead.next(g, qt)) break;
+      if (lane == 0) load_stage(i, qt);
+    }
+    __syncwarp();
+  }
+
+  // ---- both warpgroups own keys k0 .. k0 + 63: warpgroup 0 makes P and
+  // dV, warpgroup 1 dS and dK ----
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wt = tid & 127;
+  const int quad = lane & 3;
+  const int64_t kwarp = k0 + 16 * (warp & 3);      // this warp's 16 keys
+  const int64_t key_a = kwarp + (lane >> 2);       // and key_a + 8
+  const float sl2 = scale * kLog2e;
+  const uint32_t a_s = wg ? v_base : k_base;       // the scores' A
+
+  float acc[128], sc[32];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+
+  mbar_wait(bar_kv, 0);
+  for (int it = 0;; ++it) {
+    int g;
+    int64_t qt;
+    if (!walk.next(g, qt)) break;
+    const int s = it % kS;
+    mbar_wait(bar_full + 8 * s, (uint32_t)((it / kS) & 1));
+    const uint32_t st = stage0 + s * L::kStage;
+
+    // S^T = K Q^T (warpgroup 0), dP^T = V dO^T (1): 16 columns of hd a
+    // step, 32 bytes into a 128-byte row
+    const uint32_t b_s = st + (wg ? L::kOperand : 0);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks) {
+      const uint32_t col = (ks % 4) * 32;
+      wgmma_ss_n64(sc, desc128(a_s + (ks / 4) * L::kChunk + col, 16, 1024),
+                   desc128(b_s + (ks / 4) * L::kChunk + col, 16, 1024),
+                   ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // sc[i]: key key_a (i & 2 == 0) or key_a + 8, query row q0 + c, c = 8
+    // (i / 4) + 2 quad + (i & 1); rows_s holds rows c, c + 1 of column
+    // pair i / 4 as one float4 (L log2 e, D, L log2 e, D)
+    const float4* rw = rows_s + s * (kRowBytes / 16);
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = rw[4 * j + quad];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          sc[i] = exp2f(fmaf(sc[i], sl2, (e & 1) ? -x.z : -x.x));
+        }
+      }
+      // where a key of this warp lies past the tile's band edge, mask by
+      // selects (a masked p may be inf: it is replaced, not multiplied);
+      // rows past S have P = 0 already, keys past T are never stored
+      const int32_t pmin = bounds[2 * qt], pmax = bounds[2 * qt + 1];
+      const bool open = (!causal || kwarp + 15 <= pmin) &&
+                        (window <= 0 || kwarp > pmax - window);
+      if (!open) {                                     // warp-uniform
+        const int64_t q0 = qt * kTile;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int64_t row = q0 + 8 * (i >> 2) + 2 * quad + (i & 1);
+          const int64_t pos = row < s_len ? q_pos[row] : 0;
+          const int64_t key = key_a + ((i & 2) ? 8 : 0);
+          const bool ok = (!causal || key <= pos) &&
+                          (window <= 0 || key > pos - window);
+          sc[i] = ok ? sc[i] : 0.0f;
+        }
+      }
+      // warpgroup 1 read the previous tile's P before it released that
+      // tile's stage; then tile it + 1 goes into that stage
+      if (it >= 1) {
+        mbar_wait(bar_empty + 8 * ((it - 1) % kS),
+                  (uint32_t)(((it - 1) / kS) & 1));
+        if (warp == 0) {
+          int g2;
+          int64_t qt2;
+          if (ahead.next(g2, qt2) && lane == 0) load_stage(it + 1, qt2);
+          __syncwarp();
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) xchg[i * 128 + wt] = sc[i];
+      bar_arrive<1, kTcThreads>();                       // P is there
+    } else {
+      bar_sync<1, kTcThreads>();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 x = rw[4 * j + quad];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          sc[i] = xchg[i * 128 + wt] * (sc[i] - ((e & 1) ? x.w : x.y));
+        }
+      }
+    }
+
+    // dV += P^T dO (warpgroup 0), dK += dS^T Q (1), P and dS rounded to
+    // bf16: 16 query rows (2 KB of 128-byte rows) a step, B read MN-major
+    uint32_t fa[4][4];
+    pack_a(fa, sc);
+    const uint32_t x_s = st + (wg ? 0 : L::kOperand);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_n256(acc, fa[kk],
+                    desc128(x_s + kk * 16 * kSwizzleRow, L::kChunk, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);   // this warp is done
+  }
+
+  // acc[4 j + 2 half + e]: key key_a + 8 half, head dim 8 j + 2 quad + e;
+  // dK times the scale
+  const float mul = wg ? scale : 1.0f;
+  if (group == 1) {
+    store_rows<256>(wg ? dk : dv, acc, mul, b, key_a, t_len, h, hq, hd,
+                    quad);
+    return;
+  }
+  float* out = wg ? part_k : part_v;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int64_t d = 8 * j + 2 * quad;
+    if (d >= hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t key = key_a + 8 * half;
+      if (key >= t_len) continue;
+      float* p = out + ((b * t_len + key) * hq + h) * hd + d;
+      p[0] = acc[4 * j + 2 * half] * mul;
+      if (d + 1 < hd) p[1] = acc[4 * j + 2 * half + 1] * mul;
+    }
+  }
+}
+
+// pass 3 at hd 256: dQ of 64 query rows of one head.  Warpgroup 0 computes
+// S = Q K^T and P, warpgroup 1 dP = dO V^T and dS = P (dP - D); each then
+// takes 128 columns of dQ += dS K.
+__global__ void __launch_bounds__(kTcThreads, 1)
+bwd_dq_bf16_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap do_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        const float* __restrict__ rows,
+                        const int32_t* __restrict__ q_pos,
+                        const int32_t* __restrict__ bounds,
+                        __nv_bfloat16* __restrict__ dq, int64_t s_len,
+                        int64_t t_len, int64_t group, int64_t hd, int causal,
+                        int64_t window, float scale) {
+  using L = Bf16WideBwdLayout;
+  constexpr int kS = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_base = base, do_base = base + L::kOffB;
+  const uint32_t stage0 = base + L::kOffStage;
+  const uint32_t ds_tile = base + L::kOffDs;
+  const uint32_t bar_q = base + L::kOffBar;                 // Q, dO arrived
+  const uint32_t bar_full = bar_q + 8;                      // [stage]
+  const uint32_t bar_empty = bar_full + 8 * kS;             // [stage]
+  float* xchg = reinterpret_cast<float*>(smem_raw + (base + L::kOffX - raw));
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t n_qt = (s_len + kTile - 1) / kTile;
+  const int64_t s_pad = n_qt * kTile;
+  // grid (Hq, B, query tiles): the last query tiles, whose causal bands
+  // are the longest, are all launched first
+  const int64_t qt = n_qt - 1 - (int64_t)blockIdx.z;
+  const int64_t q0 = qt * kTile;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kvh = h / (int)group;
+  const int64_t hq = gridDim.x;
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kTcWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  int64_t lo, hi;
+  key_band(bounds[2 * qt], bounds[2 * qt + 1], t_len, causal, window, lo,
+           hi);
+  const int kt0 = __shfl_sync(
+      0xffffffffu, (int)(lo <= hi ? lo / kTile * kTile : 0), 0);
+  const int n_tiles = __shfl_sync(
+      0xffffffffu, (int)(lo <= hi ? (hi - kt0) / kTile + 1 : 0), 0);
+
+  // thread 0 issues every copy: Q and dO once, the K and V of key tile it
+  // into stage it % stages
+  const auto load_kv = [&](int it) {
+    const int s = it % kS;
+    const uint32_t full = bar_full + 8 * s;
+    const uint32_t st = stage0 + s * L::kStage;
+    const int kt = kt0 + it * kTile;
+    mbar_expect_tx(full, 2 * L::kOperand);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(st + c * L::kChunk, &k_map, full, 64 * c, kt, kvh, b);
+      tma_load_4d(st + L::kOperand + c * L::kChunk, &v_map, full, 64 * c, kt,
+                  kvh, b);
+    }
+  };
+  if (tid == 0) {
+    mbar_expect_tx(bar_q, 2 * L::kOperand);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      tma_load_4d(q_base + c * L::kChunk, &q_map, bar_q, 64 * c, (int)q0, h,
+                  b);
+      tma_load_4d(do_base + c * L::kChunk, &do_map, bar_q, 64 * c, (int)q0,
+                  h, b);
+    }
+    for (int i = 0; i < kS && i < n_tiles; ++i) load_kv(i);
+  }
+  __syncwarp();
+
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wt = tid & 127;
+  const int quad = lane & 3;
+  const int m0 = 16 * (warp & 3) + (lane >> 2);   // rows q0 + m0, + 8
+  const int64_t row_a = q0 + m0, row_b = row_a + 8;
+  const int64_t pos_a = row_a < s_len ? q_pos[row_a] : 0;
+  const int64_t pos_b = row_b < s_len ? q_pos[row_b] : 0;
+  // (L log2 e, D) of the two rows; rows past S read (+inf, 0): P = 0
+  const float2* rb =
+      reinterpret_cast<const float2*>(rows) + ((int64_t)b * hq + h) * s_pad;
+  const float2 ra = rb[row_a], rr = rb[row_b];
+  const float sl2 = scale * kLog2e;
+  const uint32_t a_s = wg ? do_base : q_base;      // the scores' A
+
+  float acc[64], sc[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.0f;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kS;
+    if (tid == 0 && it >= 1 && it + 1 < n_tiles) {
+      // tile it + 1 into the stage tile it - 1 has released
+      mbar_wait(bar_empty + 8 * ((it - 1) % kS),
+                (uint32_t)(((it - 1) / kS) & 1));
+      load_kv(it + 1);
+    }
+    __syncwarp();
+    mbar_wait(bar_full + 8 * s, (uint32_t)((it / kS) & 1));
+    const int64_t kt = kt0 + (int64_t)it * kTile;
+    const uint32_t k_s = stage0 + s * L::kStage;
+
+    // S = Q K^T (warpgroup 0), dP = dO V^T (1)
+    const uint32_t b_s = k_s + (wg ? L::kOperand : 0);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 16; ++ks) {
+      const uint32_t col = (ks % 4) * 32;
+      wgmma_ss_n64(sc, desc128(a_s + (ks / 4) * L::kChunk + col, 16, 1024),
+                   desc128(b_s + (ks / 4) * L::kChunk + col, 16, 1024),
+                   ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    // sc[i]: row row_a (i & 2 == 0) or row_b, key kt + 8 (i / 4) + 2 quad
+    // + (i & 1)
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = exp2f(fmaf(sc[i], sl2, (i & 2) ? -rr.x : -ra.x));
+      }
+      // where any lane of the warp meets a masked key, mask by selects
+      const bool open = tile_open<kTile>(kt, pos_a, t_len, causal, window) &&
+                        tile_open<kTile>(kt, pos_b, t_len, causal, window);
+      if (__any_sync(0xffffffffu, !open)) {
+        const int64_t kq = kt + 2 * quad;          // the key of sc[0]
+        const int t_rel = clamp_rel(t_len - kq);
+        const int far = 1 << 30;
+        const int hi_a = causal ? clamp_rel(pos_a - kq) : far;
+        const int hi_b = causal ? clamp_rel(pos_b - kq) : far;
+        const int lo_a = window > 0 ? clamp_rel(pos_a - window + 1 - kq) : -far;
+        const int lo_b = window > 0 ? clamp_rel(pos_b - window + 1 - kq) : -far;
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int c = 8 * (i >> 2) + (i & 1);
+          const int hi_r = (i & 2) ? hi_b : hi_a, lo_r = (i & 2) ? lo_b : lo_a;
+          const bool ok = c <= hi_r && c >= lo_r && c < t_rel;
+          sc[i] = ok ? sc[i] : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) xchg[i * 128 + wt] = sc[i];
+      bar_arrive<1, kTcThreads>();                       // P is there
+    } else {
+      bar_sync<1, kTcThreads>();
+      // dS in f32, rounded to bf16 into the tile: row r, keys 8 j + 2 quad
+      // and + 1 as one word of 16-byte unit j (swizzled by r mod 8)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int i = 4 * j + e;
+          const float2 r = e ? rr : ra;
+          const float d0 = xchg[i * 128 + wt] * (sc[i] - r.y);
+          const float d1 = xchg[(i + 1) * 128 + wt] * (sc[i + 1] - r.y);
+          const int row = m0 + 4 * e;
+          sts_b32(ds_tile + row * kSwizzleRow + (((j ^ row) & 7) << 4) +
+                      4 * quad,
+                  pack_bf16(d0, d1));
+        }
+      fence_proxy_async();
+    }
+    bar_sync<2, kTcThreads>();                           // dS is there
+
+    // dQ += dS K over this warpgroup's 128 columns of hd: 16 keys a step,
+    // dS (K-major) and K (read MN-major) from shared memory
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss_n128_tb(
+          acc, desc128(ds_tile + kk * 32, 16, 1024),
+          desc128(k_s + 2 * wg * L::kChunk + kk * 16 * kSwizzleRow,
+                  L::kChunk, 1024),
+          1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);   // this warp is done
+  }
+
+  // acc[4 j + 2 half + e]: row row_a + 8 half, head dim 128 wg + 8 j + 2
+  // quad + e; times the scale, as bf16
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int64_t d = 128 * wg + 8 * j + 2 * quad;
+    if (d >= hd) continue;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int64_t row = row_a + 8 * half;
+      if (row >= s_len) continue;
+      const float x0 = acc[4 * j + 2 * half] * scale;
+      const float x1 = acc[4 * j + 2 * half + 1] * scale;
+      __nv_bfloat16* p = dq + ((b * s_len + row) * hq + h) * hd + d;
+      if ((hd & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        p[0] = __float2bfloat16_rn(x0);
+        if (d + 1 < hd) p[1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
 }
 
 // pass 1 of both routes, `bwd_rows_kernel`, which reads o (and dO) by
@@ -2284,8 +2821,8 @@ int launch_f32_bwd_wide(cudaStream_t stream, const void* q, const void* k,
   if (group > 1) {
     const int64_t n = b * t_len * kh * hd;
     const int64_t blocks = (n + kThreads - 1) / kThreads;
-    bwd_group_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096),
-                           kThreads, 0, stream>>>(
+    bwd_group_sum_kernel<float>
+        <<<(unsigned)(blocks < 4096 ? blocks : 4096), kThreads, 0, stream>>>(
         share_k, share_v, (float*)dk, (float*)dv, n, group, hd);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -2297,6 +2834,70 @@ int launch_f32_bwd_wide(cudaStream_t stream, const void* q, const void* k,
           q64, do64, k16, v16, (const float*)rows, (const int32_t*)q_pos,
           (const int32_t*)bounds, (float*)dq, s_len, t_len, hq / kh, hd,
           causal, window, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16_bwd_wide(cudaStream_t stream, const void* q, const void* k,
+                         const void* v, const void* o, const void* dout,
+                         const void* lse, const void* q_pos, void* dq,
+                         void* dk, void* dv, void* rows, void* bounds,
+                         void* part, int64_t b, int64_t s_len, int64_t t_len,
+                         int64_t hq, int64_t kh, int64_t hd, Strides qs,
+                         Strides ks, Strides vs, Strides os, Strides ds,
+                         int causal, int64_t window, float scale) {
+  // both passes read every operand in boxes of 64 rows
+  CUtensorMap q64, do64, k64, v64;
+  int rc = make_map(&q64, q, kBf16, 2, hd, s_len, hq, b, qs, kTile);
+  if (rc == 0) rc = make_map(&do64, dout, kBf16, 2, hd, s_len, hq, b, ds,
+                             kTile);
+  if (rc == 0) rc = make_map(&k64, k, kBf16, 2, hd, t_len, kh, b, ks, kTile);
+  if (rc == 0) rc = make_map(&v64, v, kBf16, 2, hd, t_len, kh, b, vs, kTile);
+  if (rc == 0) rc = launch_rows<__nv_bfloat16>(stream, o, dout, lse, q_pos,
+                                               rows, bounds, b, s_len, hq, hd,
+                                               os, ds);
+  if (rc != 0) return rc;
+  const size_t bytes = Bf16WideBwdLayout::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_dkdv_bf16_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bwd_dq_bf16_wide_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  // one block a query head: its share goes to dK and dV when G = 1, else
+  // to `part` ((B, T, Hq, hd) f32 for dK, then for dV), summed by head
+  // and rounded to bf16 after
+  const int64_t group = hq / kh;
+  if (group > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  float* part_k = group > 1 ? (float*)part : nullptr;
+  float* part_v = group > 1 ? (float*)part + b * t_len * hq * hd : nullptr;
+  bwd_dkdv_bf16_wide_kernel
+      <<<dim3((unsigned)hq, (unsigned)b,
+              (unsigned)((t_len + kTile - 1) / kTile)),
+         kTcThreads, bytes, stream>>>(
+          q64, do64, k64, v64, (const float*)rows, (const int32_t*)q_pos,
+          (const int32_t*)bounds, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv,
+          part_k, part_v, s_len, t_len, group, hd, causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if (group > 1) {
+    const int64_t n = b * t_len * kh * hd;
+    const int64_t blocks = (n + kThreads - 1) / kThreads;
+    bwd_group_sum_kernel<__nv_bfloat16>
+        <<<(unsigned)(blocks < 4096 ? blocks : 4096), kThreads, 0, stream>>>(
+            part_k, part_v, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, n, group,
+            hd);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  bwd_dq_bf16_wide_kernel
+      <<<dim3((unsigned)hq, (unsigned)b,
+              (unsigned)((s_len + kTile - 1) / kTile)),
+         kTcThreads, bytes, stream>>>(
+          q64, do64, k64, v64, (const float*)rows, (const int32_t*)q_pos,
+          (const int32_t*)bounds, (__nv_bfloat16*)dq, s_len, t_len, group,
+          hd, causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -2318,9 +2919,8 @@ int check_shape(int64_t b, int64_t s_len, int64_t t_len, int64_t hq,
 // contiguous, 16-byte aligned bases and strides (TMA reads q and dO or k
 // and v, pass 1 o and dO by 16-byte words); dq, dk, dv contiguous; lse (B,
 // Hq, S) f32; rows a (B, Hq, S padded to 64, 2) f32 scratch; q_pos (S,)
-// int32; bounds a (2 * ceil(S / 64),) int32 scratch; part (f32 only) a
-// (2, B, T, Hq, hd) f32 scratch for 128 < hd <= 256 with G > 1, else
-// null.  Three kernels on `stream` (four for that case: the G heads'
+// int32; bounds a (2 * ceil(S / 64),) int32 scratch; part a (2, B, T, Hq,
+// hd) f32 scratch for 128 < hd <= 256 with G > 1, else null.  Three kernels on `stream` (four for that case: the G heads'
 // shares of dK and dV summed last); returns cudaGetLastError() after them,
 // or the error of a check.
 extern "C" int flash_attention_bwd_f32(
@@ -2360,7 +2960,7 @@ extern "C" int flash_attention_bwd_f32(
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, const void* q_pos, void* dq, void* dk,
-    void* dv, void* rows, void* bounds, int64_t b, int64_t s_len,
+    void* dv, void* rows, void* bounds, void* part, int64_t b, int64_t s_len,
     int64_t t_len, int64_t hq, int64_t kh, int64_t hd, int64_t q_sb,
     int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_st, int64_t k_sh,
     int64_t v_sb, int64_t v_st, int64_t v_sh, int64_t o_sb, int64_t o_ss,
@@ -2368,11 +2968,18 @@ extern "C" int flash_attention_bwd_bf16(
     int64_t window, float scale, int64_t device, void* stream) {
   cudaError_t err = cudaSetDevice((int)device);
   if (err != cudaSuccess) return (int)err;
-  const int bad = check_shape(b, s_len, t_len, hq, kh, hd, kTcBlock, 128);
+  const int bad = check_shape(b, s_len, t_len, hq, kh, hd,
+                              hd > 128 ? kTile : kTcBlock, 256);
   if (bad) return bad;
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh}, os{o_sb, o_ss, o_sh}, ds{d_sb, d_ss, d_sh};
   const int c = causal ? 1 : 0;
+  if (hd > 128) {
+    return launch_bf16_bwd_wide((cudaStream_t)stream, q, k, v, o, dout, lse,
+                                q_pos, dq, dk, dv, rows, bounds, part, b,
+                                s_len, t_len, hq, kh, hd, qs, ks, vs, os, ds,
+                                c, window, scale);
+  }
   if (hd <= 64) {
     return launch_tc_bwd<64>((cudaStream_t)stream, q, k, v, o, dout, lse,
                              q_pos, dq, dk, dv, rows, bounds, b, s_len, t_len,

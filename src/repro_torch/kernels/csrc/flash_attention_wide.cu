@@ -4,12 +4,12 @@
 // Replaces: the Pallas TPU kernel `flash_attention_kernel` (body
 // `_flash_kernel`) in src/repro/kernels/flash_attention/kernel.py, which
 // takes any head dim, where the tensor-core routes of flash_attention.cu
-// and flash_attention_bwd.cu stop at 128 in bf16 and at 256 in float32
-// (their tiles and registers are sized for it).  The wrapper sends bf16
-// above 128 and float32 above 256 here, on a CUDA tensor
-// (`flash_attention/kernel.py::route`); the LM's published configs have
-// 64..128, the federated LM example at d_model 1024 has 4 heads of 256
-// (float32: the tensor-core kernels).
+// and flash_attention_bwd.cu stop at 256 in both dtypes (their tiles and
+// registers are sized for it, hd padded to 256).  The wrapper sends head
+// dims above 256 here, on a CUDA tensor (`flash_attention/kernel.py::
+// route`); no config has them: the LM's published configs have 64..128,
+// the federated LM example at d_model 1024 has 4 heads of 256 (the
+// tensor-core kernels, both dtypes).
 //
 // The same function as the tensor-core routes, in float32 throughout
 // (bf16 inputs widened on load, P never rounded; o, dq, dk, dv rounded

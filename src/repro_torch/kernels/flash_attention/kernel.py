@@ -6,15 +6,16 @@ q (B, S, Hq, hd), k/v (B, T, Kh, hd) of one dtype (float32 or bfloat16),
 read through their strides (the last axis must be contiguous), and query
 positions q_pos (S,) -> o (B, S, Hq, hd) in q's dtype.  Query head h reads
 KV head h // (Hq // Kh).  Any head dim, by `route(dtype, hd)`: up to
-`MAX_HEAD_DIM` (128) on the tensor cores as below; float32 up to
-`F32_TC_MAX_HEAD_DIM` (256) on the tensor cores too, at the head dim
-padded to 256 (`flash_f32_wide_kernel`, `bwd_dkdv_f32_wide_kernel`,
-`bwd_dq_f32_wide_kernel`: the same split-TF32 arithmetic); bf16 above 128
-and float32 above 256 on the CUDA cores (`csrc/flash_attention_wide.cu`,
-float32 throughout, the head dim walked in chunks of 128).  Every launch
-above 128 is counted in `LAUNCHES["flash_attention_wide"]` and
-`["flash_attention_wide_bwd"]`, whichever kernel runs it.  S and T need
-not be multiples of the tiles.
+`MAX_HEAD_DIM` (128) on the tensor cores as below; up to
+`TC_WIDE_MAX_HEAD_DIM` (256) on the tensor cores too, both dtypes, at the
+head dim padded to 256 with each dtype's arithmetic (bf16:
+`flash_bf16_wide_kernel`, `bwd_dkdv_bf16_wide_kernel`,
+`bwd_dq_bf16_wide_kernel`; float32: `flash_f32_wide_kernel`,
+`bwd_dkdv_f32_wide_kernel`, `bwd_dq_f32_wide_kernel`); above 256 on the
+CUDA cores (`csrc/flash_attention_wide.cu`, float32 throughout, the head
+dim walked in chunks of 128).  Every launch above 128 is counted in
+`LAUNCHES["flash_attention_wide"]` and `["flash_attention_wide_bwd"]`,
+whichever kernel runs it.  S and T need not be multiples of the tiles.
 
 Both dtypes run on the tensor cores, with Q, K and V brought in by TMA,
 which needs each tensor's base 16-byte aligned and its batch, sequence and
@@ -65,8 +66,8 @@ _WIDE_ENTRY = {torch.float32: "flash_attention_wide_f32",
                torch.bfloat16: "flash_attention_wide_bf16"}
 _WIDE_BWD_ENTRY = {torch.float32: "flash_attention_wide_bwd_f32",
                    torch.bfloat16: "flash_attention_wide_bwd_bf16"}
-MAX_HEAD_DIM = 128     # the tensor-core routes' in both dtypes
-F32_TC_MAX_HEAD_DIM = 256   # float32's tensor-core routes'
+MAX_HEAD_DIM = 128     # the narrow tensor-core routes' in both dtypes
+TC_WIDE_MAX_HEAD_DIM = 256   # the wide tensor-core routes', both dtypes
 WIDE_CHUNK = 128       # the CUDA-core route's head-dim chunk (a grid z slice)
 TMA_ALIGN = 16         # bytes: base address and every stepped stride
 
@@ -78,14 +79,16 @@ def wide(hd: int) -> bool:
 
 def route(dtype: torch.dtype, hd: int) -> str:
     """The kernels a call of this dtype and head dim runs, both ways:
-    "tc" (hd <= 128, either dtype: `flash_tc_kernel` / `flash_f32_tc_kernel`
-    and the backward's tensor-core kernels), "tc_wide" (float32, 128 < hd
-    <= 256: `flash_f32_wide_kernel`, `bwd_dkdv_f32_wide_kernel`,
-    `bwd_dq_f32_wide_kernel`) or "cuda_cores" (bf16 above 128, float32
-    above 256: `csrc/flash_attention_wide.cu`)."""
+    "tc" (hd <= 128: `flash_tc_kernel` / `flash_f32_tc_kernel` and the
+    backward's tensor-core kernels), "tc_wide" (128 < hd <= 256, hd padded
+    to 256: `flash_bf16_wide_kernel`, `bwd_dkdv_bf16_wide_kernel`,
+    `bwd_dq_bf16_wide_kernel` in bf16; `flash_f32_wide_kernel`,
+    `bwd_dkdv_f32_wide_kernel`, `bwd_dq_f32_wide_kernel` in float32) or
+    "cuda_cores" (above 256: `csrc/flash_attention_wide.cu`).  `dtype` is
+    float32 or bfloat16; both take the same route at every head dim."""
     if hd <= MAX_HEAD_DIM:
         return "tc"
-    if dtype == torch.float32 and hd <= F32_TC_MAX_HEAD_DIM:
+    if hd <= TC_WIDE_MAX_HEAD_DIM:
         return "tc_wide"
     return "cuda_cores"
 
@@ -250,18 +253,17 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     rows = torch.empty((b, hq, n_qt * 64, 2), dtype=torch.float32,
                        device=q.device)
     bounds = torch.empty((2 * n_qt,), dtype=torch.int32, device=q.device)
-    # f32 above 128 with G > 1: each query head's share of dK and dV, summed
-    # by head in a last kernel
+    # above 128 with G > 1: each query head's f32 share of dK and dV,
+    # summed by head in a last kernel
     part = (torch.empty((2, b, t_len, hq, hd), dtype=torch.float32,
                         device=q.device)
             if wide(hd) and hq > kh else None)
-    extra = ((None if part is None else part.data_ptr(),)
-             if q.dtype == torch.float32 else ())
     rc = getattr(library(), _BWD_ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), q_pos.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), rows.data_ptr(), bounds.data_ptr(),
-        *extra, b, s_len, t_len, hq, kh, hd, *q.stride()[:3], *k.stride()[:3],
+        None if part is None else part.data_ptr(), b, s_len, t_len, hq, kh,
+        hd, *q.stride()[:3], *k.stride()[:3],
         *v.stride()[:3], *o.stride()[:3], *do.stride()[:3], int(causal),
         int(window), _scale(hd), q.device.index, stream_ptr(q))
     counter = "flash_attention_wide_bwd" if wide(hd) else "flash_attention_bwd"

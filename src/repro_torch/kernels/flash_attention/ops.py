@@ -157,8 +157,8 @@ def flash_attention_gqa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     positions `q_pos` (S,) default to 0 .. S-1; key positions are
     0 .. T-1.  Differentiable (through `FlashAttentionFn`) when grad is
     enabled and an input requires it.  Any head dim: past 128 the wide
-    route runs (`kernel.py::route`: float32 up to 256 on the tensor cores,
-    bf16 and wider on the CUDA cores)."""
+    route runs (`kernel.py::route`: up to 256 on the tensor cores, wider
+    on the CUDA cores)."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, q_pos, causal, window)

@@ -1236,39 +1236,27 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, dtype, b, s, t, hq,
     _check_bwd(cuda, dtype, q, k, v, o, do, lse, pos, causal, win)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,t,hq,kh,hd,win,causal,off", [
-    (1, 2048, 2048, 4, 4, 256, 0, True, 0),   # the federated LM's layer
-    (2, 300, 300, 4, 2, 256, 100, True, 0),
-    (1, 130, 130, 6, 3, 160, 0, True, 0), (1, 77, 77, 2, 1, 384, 0, True, 0),
-    # the f32 tensor-core kernels' edges: hd padded to 256 from 136 and
-    # 200, G = 5, S != T with a q_pos offset, non-causal, windows that cut
-    # their 32- and 16-key tiles
-    (1, 200, 200, 4, 2, 136, 0, True, 0),
-    (1, 150, 150, 4, 2, 200, 0, True, 0),
-    (1, 520, 520, 10, 2, 256, 128, True, 0),
-    (2, 100, 356, 4, 2, 192, 0, True, 256),
-    (1, 200, 333, 4, 4, 256, 0, False, 0),
-    (1, 300, 300, 4, 2, 160, 40, True, 0)])
-def test_flash_attention_wide_route_matches_plain(cuda, dtype, b, s, t, hq,
-                                                  kh, hd, win, causal, off):
-    """Head dims above 128 run the wide route, counted under its own name
-    whichever kernel runs it (`kernel.py::route`): float32 up to 256 on the
-    tensor cores (split-TF32 wgmma at hd padded to 256), bf16 and wider
-    float32 on the CUDA cores (float32 throughout, the head dim in chunks
-    of 128).  The forward against the plain version (f32 at 2e-5, bf16 at
-    the bf16 bounds), its lse against the plain log-sum-exp, and the
-    backward against the exact plain backward, element by element (f32 at
-    2e-5 of max |grad|; bf16 at 2^-7 |grad| + 2e-5 max |grad|: the route
-    rounds only its outputs); two launches bitwise equal both ways."""
-    from repro_torch.kernels.flash_attention import flash_attention_gqa
+def _check_wide(cuda, dtype, q, k, v, pos, causal, win):
+    """The wide route on (q, k, v): counted under its own name, forward
+    against the plain version (f32 at 2e-5, bf16 at the bf16 bounds), its
+    lse at 1e-4; the backward's two launches bitwise equal, f32 against
+    the exact plain backward at `assert_bwd_close`; bf16 up to hd 256 (the
+    tensor-core kernels: P and dS rounded to bf16, as the narrow route)
+    held as `_check_bwd` holds the narrow bf16 backward, against
+    `attention_bwd_bf16_ref` with its flip slack and against the exact
+    backward at `assert_bwd_departure`; bf16 above 256 (the CUDA cores,
+    which round only their outputs) against the exact backward at
+    `assert_bwd_close`."""
+    from repro_torch.kernels.flash_attention import (
+        attention_bwd_bf16_ref, attention_bwd_bf16_slack,
+        attention_bwd_gqa_ref, flash_attention_gqa,
+    )
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_bwd_cuda, flash_attention_cuda, route,
     )
-    assert route(dtype, hd) == ("tc_wide" if dtype == torch.float32
-                                and hd <= 256 else "cuda_cores")
-    q, k, v = _attn_inputs(s + hd + win, b, s, t, hq, kh, hd, dtype, cuda)
-    pos = torch.arange(off, off + s, device=cuda)
+    from repro_torch.kernels.flash_attention.ops import _forward_ref
+    hd = q.shape[3]
+    assert route(dtype, hd) == ("tc_wide" if hd <= 256 else "cuda_cores")
     before = dict(kernels.LAUNCHES)
     got = flash_attention_gqa(q, k, v, q_pos=pos, causal=causal, window=win)
     o, lse = flash_attention_cuda(q, k, v, pos, causal=causal, window=win,
@@ -1283,12 +1271,10 @@ def test_flash_attention_wide_route_matches_plain(cuda, dtype, b, s, t, hq,
         torch.testing.assert_close(got.cpu(), want, atol=2e-5, rtol=0)
     else:
         _assert_bf16_attention_close(got, want)
-    from repro_torch.kernels.flash_attention.ops import _forward_ref
     _, lse_want = _forward_ref(*(x.cpu().float() for x in (q, k, v)),
                                pos.cpu(), causal, win, with_lse=True)
     torch.testing.assert_close(lse.cpu(), lse_want, atol=1e-4, rtol=0)
 
-    from repro_torch.kernels.flash_attention import attention_bwd_gqa_ref
     gen = torch.Generator().manual_seed(hd)
     do = torch.randn(q.shape, generator=gen).to(cuda, dtype)
     grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, pos, causal=causal,
@@ -1301,11 +1287,61 @@ def test_flash_attention_wide_route_matches_plain(cuda, dtype, b, s, t, hq,
         before["flash_attention_bwd"]
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
     assert [x.dtype for x in grads] == [dtype] * 3
-    exact = attention_bwd_gqa_ref(*(x.cpu().float() for x in (q, k, v, o,
-                                                               do)),
-                                  lse.cpu(), q_pos=pos.cpu(), causal=causal,
-                                  window=win)
-    assert_bwd_close(grads, exact, dtype)
+    args = (*(x.cpu().float() for x in (q, k, v, o, do)), lse.cpu())
+    kw = {"q_pos": pos.cpu(), "causal": causal, "window": win}
+    exact = attention_bwd_gqa_ref(*args, **kw)
+    if dtype == torch.float32 or hd > 256:
+        assert_bwd_close(grads, exact, dtype)
+        return
+    assert_bwd_close(
+        grads, attention_bwd_gqa_ref(*args, **kw,
+                                     plain=attention_bwd_bf16_ref),
+        dtype, (), attention_bwd_gqa_ref(*args, **kw,
+                                         plain=attention_bwd_bf16_slack))
+    assert_bwd_departure(grads, exact)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,t,hq,kh,hd,win,causal,off", [
+    (1, 2048, 2048, 4, 4, 256, 0, True, 0),   # the federated LM's layer
+    (2, 300, 300, 4, 2, 256, 100, True, 0),
+    (1, 130, 130, 6, 3, 160, 0, True, 0), (1, 77, 77, 2, 1, 384, 0, True, 0),
+    # the tensor-core kernels' edges: hd padded to 256 from 136 and 200,
+    # G = 5, S != T with a q_pos offset, non-causal, windows that cut their
+    # 64-key (bf16) and 32- and 16-key (f32) tiles
+    (1, 200, 200, 4, 2, 136, 0, True, 0),
+    (1, 150, 150, 4, 2, 200, 0, True, 0),
+    (1, 520, 520, 10, 2, 256, 128, True, 0),
+    (2, 100, 356, 4, 2, 192, 0, True, 256),
+    (1, 200, 333, 4, 4, 256, 0, False, 0),
+    (1, 300, 300, 4, 2, 160, 40, True, 0),
+    (1, 70, 300, 10, 2, 136, 90, True, 230),
+    (1, 190, 190, 4, 2, 200, 70, False, 0)])
+def test_flash_attention_wide_route_matches_plain(cuda, dtype, b, s, t, hq,
+                                                  kh, hd, win, causal, off):
+    """Head dims above 128 run the wide route, counted under its own name
+    whichever kernel runs it (`kernel.py::route`): up to 256 on the tensor
+    cores at hd padded to 256 (bf16 wgmma with P and dS rounded to bf16,
+    f32 split-TF32 wgmma), wider on the CUDA cores (float32 throughout, the
+    head dim in chunks of 128).  Each dtype's rules (`_check_wide`), two
+    launches bitwise equal both ways."""
+    q, k, v = _attn_inputs(s + hd + win, b, s, t, hq, kh, hd, dtype, cuda)
+    pos = torch.arange(off, off + s, device=cuda)
+    _check_wide(cuda, dtype, q, k, v, pos, causal, win)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_wide_route_copies_views_tma_cannot_read(cuda,
+                                                                 dtype):
+    """At hd 256, q, k and v as views whose strides are not multiples of 16
+    bytes: the wrapper copies them for TMA (both directions), and the
+    results hold each dtype's rules (`_check_wide`)."""
+    from repro_torch.kernels.flash_attention.kernel import tma_ready
+    q, k, v = (_padded_view(x) for x in
+               _attn_inputs(41, 1, 190, 190, 6, 3, 256, dtype, cuda))
+    assert not any(tma_ready(x) for x in (q, k, v))
+    pos = torch.arange(190, device=cuda)
+    _check_wide(cuda, dtype, q, k, v, pos, True, 70)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

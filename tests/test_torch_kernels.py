@@ -341,12 +341,13 @@ def test_build_names_the_sources_and_hashes_them():
     (torch.float32, 64, "tc"), (torch.float32, 128, "tc"),
     (torch.float32, 129, "tc_wide"), (torch.float32, 256, "tc_wide"),
     (torch.float32, 257, "cuda_cores"), (torch.bfloat16, 128, "tc"),
-    (torch.bfloat16, 129, "cuda_cores"), (torch.bfloat16, 256, "cuda_cores")])
+    (torch.bfloat16, 129, "tc_wide"), (torch.bfloat16, 256, "tc_wide"),
+    (torch.bfloat16, 257, "cuda_cores")])
 def test_flash_attention_route_by_dtype_and_head_dim(dtype, hd, want):
     """The kernels a flash call runs (`kernel.py::route`): the tensor-core
-    routes up to hd 128, float32's split-TF32 kernels at hd padded to 256
-    above it, the CUDA cores for bf16 above 128 and float32 above 256;
-    every head dim above 128 counts as the wide route, whichever runs it."""
+    routes up to hd 128, each dtype's wide tensor-core kernels at hd padded
+    to 256 above it, the CUDA cores above 256; every head dim above 128
+    counts as the wide route, whichever runs it."""
     from repro_torch.kernels.flash_attention.kernel import route, wide
     assert route(dtype, hd) == want
     assert wide(hd) == (hd > 128)

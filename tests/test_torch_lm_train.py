@@ -208,7 +208,11 @@ def _plain_o_lse(q, k, v, pos, causal, win):
 
 BF16_CASES = BWD_CASES + [  # and at widths where sums are long
     (1, 256, 256, 8, 1, 64, True, 0, 0), (1, 200, 260, 4, 2, 120, True, 64,
-                                          60)]
+                                          60),
+    # the wide tensor-core kernels' widths (hd padded to 256), G = 2,
+    # windows that cut their 64-key tiles
+    (1, 200, 200, 4, 2, 160, True, 100, 0),
+    (1, 180, 260, 4, 2, 256, True, 90, 80)]
 
 
 @pytest.mark.parametrize("b,s,t,hq,kh,hd,causal,win,off", BF16_CASES)
@@ -249,7 +253,8 @@ def test_bf16_backward_arithmetic_departs_within_its_bound(b, s, t, hq, kh,
 @pytest.mark.parametrize("b,s,t,hq,kh,hd,causal,win,off", [
     (1, 512, 512, 8, 2, 64, True, 0, 0), (1, 300, 400, 4, 1, 120, True, 96,
                                           100),
-    (2, 129, 129, 4, 2, 32, False, 0, 0)])
+    (2, 129, 129, 4, 2, 32, False, 0, 0),
+    (1, 300, 300, 4, 2, 256, True, 0, 0)])     # sums twice as long
 def test_bf16_slack_covers_sums_in_another_order(b, s, t, hq, kh, hd,
                                                  causal, win, off):
     """The bf16 arithmetic taken in float64 (other sums, so P and dS meet
