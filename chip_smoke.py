@@ -9,7 +9,8 @@ Phases, each printed on its own lines; any failure raises and the script
 exits non-zero without a result line:
 
 1. environment: torch / CUDA versions, the card's name and power limit
-   (nvidia-smi), the TF32 switches the port turns off;
+   (nvidia-smi), the TF32 switches the port turns off, and cuDNN's
+   deterministic algorithms on and autotuning off (both required);
 2. build: nvcc builds the port's CUDA kernels from `src/repro_torch/
    kernels/csrc` (sm_90a) and prints the build time and, for each
    entry function, ptxas's registers, shared memory and spills;
@@ -50,6 +51,7 @@ exits non-zero without a result line:
    versions bit for bit (prefix_avg on the card and on the CPU);
 4. full-width Shapley: streaming GTG-Shapley of five full-width MNIST MLPs
    on the card against the port's CPU path on the same walks (atol 1e-5);
+   phase 25 does the same for five full-width CNNs;
 5. reference run: a small GreedyFed run on the card against the same run
    on the CPU (selections equal, params at atol 1e-4);
 6. main path, loop engine: `run_federated(FLConfig(rounds=12))` on the
@@ -196,7 +198,38 @@ exits non-zero without a result line:
    (NCCL) and the sharded cohort_gather entry, and must equal the dense
    scan bit for bit; the collectives counted; the replay ms a round,
    sharded and dense in turns, the graph's launches and the NCCL kernels
-   of a profiled run printed, held to no bound.
+   of a profiled run printed, held to no bound;
+24. the LM mesh (a (2, 2) mesh as four gloo ranks on the card) and the
+   wide-heads step (`phase_lm_mesh`, `phase_wide_heads`);
+25. cifar10: the paper's CIFAR-10 task, `FLConfig(dataset="cifar10",
+   rounds=12)` at the reference's other defaults (N = 50, M = 5, E = B =
+   5, batch 32, R = 250 walks, n_val = 500) on the full-width CNN (conv
+   3->32, conv 32->64, dense 4096->128->10, 545,098 parameters): the
+   20-walk GTG-Shapley of five full-width CNNs on the card against the CPU
+   (atol 1e-5); the loop engine; the loop and batched engines with
+   quant8_topk; the scan (quant8_topk) whole and in segments of 4; the
+   dense oracle for 4 rounds against the streaming estimator (atol 1e-4);
+   two more scans with the identity codec (the second captured one graph
+   a stage).  Selections, bytes, eval history, params and SVs bit for bit
+   across loop, batched, scan and segments (quant8_topk) and across the
+   loop and the two further scans (identity).  Printed per engine: round
+   time, the Shapley share, the kernels' launches a round, capture and
+   staging, peak memory; and the scan round and its Shapley stage over
+   the utility's bound (the forward's FLOPs counted on meta tensors at
+   the f32 peak);
+26. examples: `examples/quickstart_torch.py` and
+   `examples/heterogeneity_sweep_torch.py` as subprocesses on the card,
+   each to exit 0 with its accuracy table; their seconds printed.
+
+Phase 3 also holds the five kernels of phase 25's path at the CNN's
+shapes, each as that path calls it: prefix_avg over the CNN's 8 leaves
+(all 1,250 prefix models in one launch), ce_loss on those models' logits
+over 500 validation images, cohort_gather of the cifar10 client stacks
+(host and device ids), delta_codec's quant8_topk round at the 8 leaves
+(dense0/w 524,288 wide) and weighted_avg's dense-oracle call, bitwise
+against their plain versions (ce_loss at its rtol 1e-5), each timed
+beside its plain version, its library call and its bound (the JSON
+entries' `cifar10` records).
 
 Phase 3 also holds cohort_gather's sharded entry (one rank's client
 block, the rows it holds packed with zeros for the rest) against its plain
@@ -251,10 +284,10 @@ kernel's cost formula, `launch/roofline.py::kernel_cost`, through
 `bound_s`: the larger of its bytes over 3.35 TB/s and its operations over
 the peak of their type (67 TFLOP/s f32, 495 TF32, 989 bf16).
 
-Each path of phases 6-11, 13-15, 17, 18, 20, 21, 22 and 23 runs with the
-launch counters zeroed just before it and read just after (18 and 20
+Each path of phases 6-11, 13-15, 17, 18, 20, 21, 22, 23 and 25 runs with
+the launch counters zeroed just before it and read just after (18 and 20
 together are the "families" path, 21 is "scan_serial", 22 "dryrun", 23
-"client_sharded");
+"client_sharded", 25 "cifar10", the sum of its runs);
 every kernel must launch
 on its path.  A captured graph's launches are counted when it is captured
 and not when it is replayed, so the scan path counts its warm-up round's
@@ -341,6 +374,12 @@ def phase_environment(torch):
         f"cudnn={torch.backends.cudnn.allow_tf32}")
     require(not torch.backends.cuda.matmul.allow_tf32
             and not torch.backends.cudnn.allow_tf32, "TF32 must be off")
+    log(f"[env] cudnn {torch.backends.cudnn.version()} deterministic="
+        f"{torch.backends.cudnn.deterministic} "
+        f"benchmark={torch.backends.cudnn.benchmark}")
+    require(torch.backends.cudnn.deterministic
+            and not torch.backends.cudnn.benchmark,
+            "cuDNN must pick deterministic algorithms, without autotuning")
     return device, smi
 
 
@@ -426,7 +465,7 @@ def check_prefix_avg(torch, device):
 
     gen = torch.Generator().manual_seed(0)
     m, r = 5, 250                                 # main path: R = 50 * M
-    stacked, _ = _stacked_mlp(torch, device, gen, m, 0.1)
+    stacked, _ = _stacked_model(torch, device, gen, m, 0.1)
     perms = torch.stack([torch.randperm(m, generator=gen)
                          for _ in range(r)]).to(device)
     n_k = torch.randint(20, 300, (m,), generator=gen).float().to(device)
@@ -631,10 +670,11 @@ def check_ce_loss(torch, device):
     return entry
 
 
-def _stacked_mlp(torch, device, gen, m, scale):
-    """M perturbed copies of a full-width MLP, stacked, and the base."""
-    from repro_torch.models.mlp_cnn import make_mlp
-    params = make_mlp().init(gen, torch.device("cpu"))
+def _stacked_model(torch, device, gen, m, scale, dataset="mnist"):
+    """M perturbed copies of the dataset's full-width model (the MLP, or
+    the CNN for cifar10), stacked, and the base."""
+    from repro_torch.models.mlp_cnn import make_classifier
+    params = make_classifier(dataset).init(gen, torch.device("cpu"))
     stacked = {k: {n: torch.stack([t + scale * torch.randn(t.shape,
                                                            generator=gen)
                                    for _ in range(m)]).to(device)
@@ -654,7 +694,7 @@ def _quarantined_cohort(torch, device, gen, m=5, r=250):
     from repro_torch.faults import TINY_WEIGHT
     from repro_torch.tree import tree_leaves
 
-    stacked, base = _stacked_mlp(torch, device, gen, m, 0.1)
+    stacked, base = _stacked_model(torch, device, gen, m, 0.1)
     for s_leaf, b_leaf in zip(tree_leaves(stacked), tree_leaves(base)):
         b_leaf.view(-1)[::5] *= 2.0 ** -40
         s_leaf[1] = b_leaf
@@ -949,7 +989,7 @@ def check_delta_codec(torch, device):
 
     gen = torch.Generator().manual_seed(4)
     m = 5
-    stacked, base = _stacked_mlp(torch, device, gen, m, 0.01)
+    stacked, base = _stacked_model(torch, device, gen, m, 0.01)
     paths, stacks, refs = (tree_paths(stacked), tree_leaves(stacked),
                            tree_leaves(base))
     cases = [(path, (s - b[None]).reshape(m, -1).contiguous(),
@@ -1096,7 +1136,7 @@ def check_weighted_avg(torch, device):
 
     gen = torch.Generator().manual_seed(5)
     m, r = 5, 250
-    stacked, _ = _stacked_mlp(torch, device, gen, m, 0.1)
+    stacked, _ = _stacked_model(torch, device, gen, m, 0.1)
     perms = torch.stack([torch.randperm(m, generator=gen) for _ in range(r)])
     n_k = torch.randint(20, 300, (m,), generator=gen).float()
     weights = prefix_weight_matrix(perms, n_k).reshape(r * m, m).to(device)
@@ -1200,6 +1240,187 @@ def check_weighted_avg(torch, device):
             "max_abs_err": worst, "ms": ms, "plain_ms": total["plain_ms"],
             "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": total["library_ms"], "c_entry_ms": c_entry_ms}
+
+
+def check_cnn_kernels(torch, device, entries):
+    """Phase 3 at the CNN's shapes: the five kernels of the cifar10 path
+    (phase 25) called as that path calls them on the full-width CNN
+    (conv 3->32, conv 32->64, dense 4096->128->10: 545,098 parameters in
+    8 leaves, dense0/w 524,288 wide), M = 5, R = 250 walks:
+    prefix_avg's one launch for all 1,250 prefix models, ce_loss on those
+    models' logits over 500 validation images (V = 10), cohort_gather of
+    the cohort's rows of the cifar10 client stacks (3,072 f32 a sample,
+    host ids and device ids), delta_codec's quant8_topk round at the 8
+    leaves and weighted_avg's dense-oracle call (1,250 x 5 weights).  Each
+    against its plain version (bitwise; ce_loss at its own tolerance, the
+    card's expf / logf against PyTorch's logsumexp), timed through its
+    wrapper beside the plain version, the library call and the bound.
+    Each kernel's entry gains a `cifar10` record."""
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch import kernels
+    from repro_torch.core.shapley_batched import prefix_weight_matrix
+    from repro_torch.data.synth import make_dataset
+    from repro_torch.federated.compression import leaf_topk_k
+    from repro_torch.federated.server import FLConfig, setup_run
+    from repro_torch.kernels.ce_loss.ops import ce_loss
+    from repro_torch.kernels.ce_loss.ref import ce_loss_ref
+    from repro_torch.kernels.cohort_gather import (
+        cohort_gather, cohort_gather_ref,
+    )
+    from repro_torch.kernels.cohort_gather.kernel import error_word
+    from repro_torch.kernels.delta_codec import (
+        delta_codec_ref, delta_codec_roundtrip,
+    )
+    from repro_torch.kernels.prefix_avg import prefix_avg, prefix_avg_ref
+    from repro_torch.kernels.weighted_avg import weighted_avg, weighted_avg_ref
+    from repro_torch.models.mlp_cnn import make_classifier
+    from repro_torch.tree import tree_leaves
+
+    gen = torch.Generator().manual_seed(25)
+    m, r = 5, 250
+    model = make_classifier("cifar10")
+    stacked, base = _stacked_model(torch, device, gen, m, 0.01, "cifar10")
+    leaves, refs = tree_leaves(stacked), tree_leaves(base)
+    d = sum(b.numel() for b in refs)
+    perms = torch.stack([torch.randperm(m, generator=gen)
+                         for _ in range(r)]).to(device)
+    n_k = torch.randint(20, 300, (m,), generator=gen).float().to(device)
+    flats = [x.reshape(m, -1) for x in leaves]
+    weights = prefix_weight_matrix(perms.cpu(), n_k.cpu()).reshape(
+        r * m, m).to(device)
+    saved = dict(kernels.LAUNCHES)
+
+    def record(name, shape, err, ms, plain_ms, library_ms, bound):
+        b_ms, b_by = bound
+        entries[name]["cifar10"] = {
+            "shape": shape, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+        lib = (f"library {library_ms:.4f} ms" if library_ms is not None
+               else "no library call")
+        log(f"[cnn-kernels] {name} ({shape}): max abs err {err:.2e}; "
+            f"through the wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{lib}, bound {b_ms:.4f} ms ({b_by}; wrapper / bound "
+            f"{ms / b_ms:.2f})")
+
+    # prefix_avg: the streaming walk's one chunk of all R walks
+    models = prefix_avg(stacked, perms, n_k)
+    require(kernels.LAUNCHES["prefix_avg"] == saved["prefix_avg"] + 1,
+            "prefix_avg: the CNN's 8 leaves took more than one launch")
+    for x, y in zip(leaves, tree_leaves(models)):
+        want = prefix_avg_ref(x.reshape(m, -1), perms, n_k).reshape(y.shape)
+        require(torch.equal(y, want),
+                "prefix_avg at the CNN's leaves: not bitwise the plain walk")
+        del want
+    ms, plain_ms, b_ms, b_by = time_prefix_avg(torch, stacked, perms, n_k)
+    library_ms = time_ms(lambda i: [torch.matmul(weights, f) for f in flats])
+    record("prefix_avg", f"R={r} M={m} D={d} in 8 leaves", 0.0, ms,
+           plain_ms, library_ms, (b_ms, b_by))
+
+    # ce_loss: the 1,250 prefix models' logits on 500 validation images
+    data = make_dataset("cifar10", n_train=10, n_val=500, n_test=10, seed=0)
+    x_val = torch.as_tensor(data.x_val, device=device)
+    y_val = torch.as_tensor(data.y_val, dtype=torch.int64, device=device)
+    with torch.no_grad():
+        logits = model.apply_batched(models, x_val)
+    del models
+    b, rows, v = logits.shape
+    got = ce_loss(logits, y_val)
+    want = torch.mean(ce_loss_ref(logits, y_val), dim=-1)
+    err = float((got - want).abs().max())
+    require(bool(torch.allclose(got, want, rtol=1e-5, atol=0)),
+            f"ce_loss at the CNN's logits: model means differ by {err}")
+    ms = time_ms(lambda i: ce_loss(logits, y_val), iters=40)
+    plain_ms = time_ms(lambda i: torch.mean(ce_loss_ref(logits, y_val),
+                                            dim=-1), iters=40)
+    tiled = y_val.repeat(b)
+    library_ms = time_ms(lambda i: F.cross_entropy(
+        logits.reshape(-1, v), tiled, reduction="none"), iters=40)
+    record("ce_loss", f"{b} models x {rows} rows, V={v}", err, ms, plain_ms,
+           library_ms, kernel_bound_ms("ce_loss", models=b, rows=rows, v=v,
+                                       itemsize=4))
+    del logits
+
+    # cohort_gather: the cohort's rows of the cifar10 client stacks, with
+    # the batched engine's host ids and the scan's device ids
+    s = setup_run(FLConfig(dataset="cifar10"), device=device)
+    stacks = {"xs": s.xs, "ys": s.ys, "n_valid": s.n_valid,
+              "sigma": torch.as_tensor(s.sigma_k_all, dtype=torch.float32,
+                                       device=device)}
+    sel = np.array([7, 31, 2, 49, 18])
+    sel_dev = torch.as_tensor(sel, device=device)
+    word = error_word(device)
+    for ids, kw in ((sel, {}), (sel_dev, {"error": word})):
+        got = cohort_gather(stacks, ids, **kw)
+        for name, table in stacks.items():
+            want = cohort_gather_ref(table.reshape(table.shape[0], -1),
+                                     sel_dev).reshape(got[name].shape)
+            if table.is_floating_point():     # compare the words
+                got[name], want = (got[name].view(torch.int32),
+                                   want.view(torch.int32))
+            require(torch.equal(got[name], want),
+                    f"cohort_gather {name} at the cifar10 stacks: not "
+                    f"bitwise")
+    require(int(word.item()) == 0, "cohort_gather: a good id set the word")
+    ms = time_ms(lambda _: cohort_gather(stacks, sel), iters=200)
+    device_ms = time_ms(lambda _: cohort_gather(stacks, sel_dev, error=word),
+                        iters=200)
+    flat = {k: t.reshape(t.shape[0], -1) for k, t in stacks.items()}
+    plain_ms = sum(time_ms(lambda _: cohort_gather_ref(f, sel_dev),
+                           iters=200) for f in flat.values())
+    library_ms = sum(time_ms(lambda _: torch.index_select(f, 0, sel_dev),
+                             iters=200) for f in flat.values())
+    row_bytes = sum(f.shape[1] * f.element_size() for f in flat.values())
+    record("cohort_gather", f"M=5 of N={s.xs.shape[0]}, cap "
+           f"{s.xs.shape[1]}, {row_bytes} B a client row; device ids "
+           f"{device_ms:.4f} ms", 0.0, ms, plain_ms, library_ms,
+           kernel_bound_ms("cohort_gather", m=5, row_bytes=row_bytes))
+    entries["cohort_gather"]["cifar10"]["device_ids_ms"] = device_ms
+    del s, stacks, flat
+
+    # delta_codec: one quant8_topk round at the 8 leaves
+    codec = "quant8_topk"
+
+    def plain_round():
+        out = []
+        for x, ref in zip(leaves, refs):
+            n = ref.numel()
+            delta = x.reshape(m, n) - ref.reshape(1, n)
+            out.append((ref.reshape(1, n) + delta_codec_ref(
+                delta, codec, leaf_topk_k(n))).reshape(x.shape))
+        return out
+
+    got = tree_leaves(delta_codec_roundtrip(stacked, base, codec))
+    require(kernels.LAUNCHES["delta_codec"] == saved["delta_codec"] + 1,
+            "delta_codec: the CNN's 8 leaves took more than one launch")
+    for g, want in zip(got, plain_round()):
+        require(torch.equal(g.view(torch.int32), want.view(torch.int32)),
+                "delta_codec at the CNN's leaves: not bitwise")
+    ms = time_ms(lambda _: delta_codec_roundtrip(stacked, base, codec),
+                 iters=100)
+    plain_ms = time_ms(lambda _: plain_round(), iters=5, warmup=1)
+    record("delta_codec", f"quant8_topk, M={m}, D={d} in 8 leaves", 0.0,
+           ms, plain_ms, None, kernel_bound_ms("delta_codec", m=m, d=d))
+
+    # weighted_avg: the dense oracle's 1,250 prefix models
+    got = weighted_avg(stacked, weights)
+    for x, y in zip(flats, tree_leaves(got)):
+        want = weighted_avg_ref(x, weights).reshape(y.shape)
+        require(torch.equal(y, want),
+                "weighted_avg at the CNN's leaves: not bitwise")
+        del want
+    del got
+    ms = time_ms(lambda _: weighted_avg(stacked, weights), iters=10)
+    plain_ms = time_ms(lambda _: [weighted_avg_ref(x, weights)
+                                  for x in flats], iters=2, warmup=1)
+    library_ms = time_ms(lambda _: [torch.matmul(weights, x)
+                                    for x in flats], iters=10)
+    record("weighted_avg", f"R={r * m} M={m} D={d} in 8 leaves", 0.0, ms,
+           plain_ms, library_ms,
+           kernel_bound_ms("weighted_avg", r=r * m, m=m, d=d))
+    kernels.LAUNCHES.update(saved)        # check launches do not count
+    torch.cuda.empty_cache()
 
 
 # the wide route's main-path layer: the federated LM example at --d-model
@@ -1376,18 +1597,21 @@ def check_flash_attention_wide(torch, device):
     return [entries["fwd"], entries["bwd"]]
 
 
-def phase_full_width_shapley(torch, device):
+def phase_full_width_shapley(torch, device, dataset="mnist"):
+    """Streaming GTG-Shapley of five full-width models of `dataset` (the
+    MLP; the CNN for cifar10), 20 walks on 500 validation rows, on the
+    card against the port's CPU path on the same walks (atol 1e-5)."""
     from repro_torch.core.aggregation import tree_stack
     from repro_torch.core.shapley_batched import (
         _draw_perms, gtg_shapley_streaming, make_batched_mlp_utility,
     )
     from repro_torch.data.synth import make_dataset
-    from repro_torch.models.mlp_cnn import make_mlp
+    from repro_torch.models.mlp_cnn import make_classifier
     from repro_torch.tree import tree_map
 
     gen = torch.Generator().manual_seed(2)
-    model, m = make_mlp(), 5
-    data = make_dataset("mnist", n_train=10, n_val=500, n_test=10, seed=0)
+    model, m = make_classifier(dataset), 5
+    data = make_dataset(dataset, n_train=10, n_val=500, n_test=10, seed=0)
     w_prev = model.init(gen, torch.device("cpu"))
     clients = [tree_map(lambda t: t + 0.05 * torch.randn(t.shape,
                                                          generator=gen),
@@ -1407,9 +1631,12 @@ def phase_full_width_shapley(torch, device):
         require(stats.utility_evals == 20 * m + 2, f"evals {stats}")
         out.append(sv.cpu())
     err = float((out[0] - out[1]).abs().max())
-    log(f"[shapley] full-width MLP, 20 walks: SV on the card {out[0].tolist()}")
-    log(f"[shapley] max |SV cuda - SV cpu| = {err:.2e} (atol 1e-5)")
-    require(err <= 1e-5, "full-width SV disagrees between card and CPU")
+    name = model.name.upper()
+    log(f"[shapley] full-width {name}, 20 walks: SV on the card "
+        f"{out[0].tolist()}")
+    log(f"[shapley] {name}: max |SV cuda - SV cpu| = {err:.2e} (atol 1e-5)")
+    require(err <= 1e-5, f"full-width {name} SV disagrees between card and "
+            f"CPU")
 
 
 def phase_reference_run(torch, device):
@@ -1431,6 +1658,11 @@ def phase_reference_run(torch, device):
     log(f"[reference] small run card vs CPU: selections equal, max param "
         f"err {err:.2e}, max SV err {sv_err:.2e} (atol 1e-4)")
     require(err <= 1e-4 and sv_err <= 1e-4, "card run disagrees with CPU")
+
+
+# a leaf of each task's full-width model and its shape, held after a run
+FULL_WIDTH = {"mnist": ("layer0", (784, 200)),
+              "cifar10": ("dense0", (4096, 128))}
 
 
 def drive(torch, device, cfg, label, **kw):
@@ -1468,7 +1700,8 @@ def drive(torch, device, cfg, label, **kw):
     require(all(np.isfinite(float(x.abs().sum())) and x.is_cuda
                 for x in tree_leaves(res.params)),
             f"{label}: params not finite")
-    require(tuple(res.params["layer0"]["w"].shape) == (784, 200),
+    leaf, shape = FULL_WIDTH[cfg.dataset]
+    require(tuple(res.params[leaf]["w"].shape) == shape,
             f"{label}: wrong model width")
     require(np.isfinite(res.sv_final).all(), f"{label}: SV not finite")
     require([len(s) for s in res.selections] == [cfg.m] * cfg.rounds,
@@ -4462,6 +4695,255 @@ def phase_wide_heads(torch, device):
     return both
 
 
+# ------------------------------------------ phase 25: the CIFAR-10 task --
+
+KERNELS_FL = ("prefix_avg", "ce_loss", "cohort_gather", "delta_codec",
+              "weighted_avg")
+
+
+def utility_bound_ms(torch, model, n_val, n_models, shape=(32, 32, 3)):
+    """(ms, bound_by, eager ms, FLOPs of one forward): the least time the
+    card takes to score `n_models` models of `model` on `n_val` validation
+    images of `shape`, counted as
+    `roofline.kernel_cost` counts a kernel: one forward's FLOPs counted on
+    meta tensors (`launch.compat.Count`: the convolutions and products by
+    `torch.utils.flop_counter`'s formulas) at the f32 peak, beside each
+    model's parameters and the images read once and one utility written.
+    The eager ms is the traffic the forward as written moves (every op's
+    inputs and outputs) at the card's memory rate."""
+    from repro_torch.launch.compat import count_call, to_meta
+    from repro_torch.launch.roofline import HBM_BYTES_PER_S, bound_s
+    from repro_torch.tree import tree_leaves
+
+    params = model.init(torch.Generator().manual_seed(0),
+                        torch.device("cpu"))
+    x = torch.empty((n_val,) + tuple(shape))
+    one = count_call(model.apply, to_meta(params), to_meta(x))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = 4 * (n_models * n_params + x.numel() + n_models)
+    seconds, by = bound_s(one.flops * n_models, n_bytes)
+    return (seconds * 1e3, by, one.bytes * n_models / HBM_BYTES_PER_S * 1e3,
+            one.flops)
+
+
+def _scan_drive(torch, device, cfg, label, **kw):
+    """`_scan_run` with the replay time, capture, staging and memory above
+    the set-up printed: (FLResult, path launches)."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    res, launches = _scan_run(torch, device, cfg, **kw)
+    peak = (torch.cuda.max_memory_allocated(device) - base) / 1e9
+    g = res.graph_launches["round"]
+    log(f"[{label}] {cfg.rounds} rounds: replay "
+        f"{1e3 * sum(res.round_time_s) / cfg.rounds:.3f} ms a round; "
+        f"capture {res.compile_time_s:.2f} s, staging "
+        f"{1e3 * res.stage_time_s:.1f} ms; peak {peak:.3f} GB above the "
+        f"set-up; the round graph's launches {g}; final acc "
+        f"{res.final_acc:.4f}")
+    return res, launches
+
+
+def _same_run(torch, a, b, what):
+    """Whether runs `a` and `b` have equal selections, bytes and eval
+    history and bitwise params and SVs; printed with the largest
+    differences."""
+    import numpy as np
+    same_sel = all((x == y).all() for x, y in zip(a.selections,
+                                                  b.selections))
+    p_err = _max_err(a.params, b.params)
+    sv_err = float(np.abs(a.sv_final - b.sv_final).max())
+    ok = _bitwise(torch, a, b)
+    log(f"[cifar10] {what}: selections equal {same_sel}, upload bytes "
+        f"{a.upload_bytes} vs {b.upload_bytes}, accuracies {a.test_acc} vs "
+        f"{b.test_acc}; max param err {p_err:.2e}, max SV err {sv_err:.2e}; "
+        f"bitwise {ok}")
+    return ok
+
+
+def phase_cifar10(torch, device):
+    """Phase 25: the paper's CIFAR-10 task, `FLConfig(dataset="cifar10",
+    rounds=12)` at the reference's other defaults (N = 50, M = 5, E = B =
+    5, batch 32, R = 250 walks, n_val = 500) on the full-width CNN (conv
+    3->32, conv 32->64, dense 4096->128->10, 545,098 parameters; its
+    utility scores the R * M prefix models by the per-model loop, cuDNN
+    convolutions, deterministic algorithms, TF32 off).  First the 20-walk
+    GTG-Shapley of five full-width CNNs on the card against the CPU (atol
+    1e-5).  Then the loop engine; the loop and batched engines with
+    quant8_topk; the scan (quant8_topk) whole and in segments of 4; the
+    dense oracle (`shapley_impl="batched"`) for 4 rounds against the
+    streaming estimator; and two more scans (identity codec), the second
+    captured one graph a stage for the Shapley share of its round.
+    Selections, bytes, eval history, params and SVs bit for bit: loop,
+    batched and scan (and its segments) with quant8_topk; the loop and
+    both further scans with the identity codec.  Per engine: round time,
+    the Shapley share, the kernels' launches a round, capture and staging,
+    peak memory; and the scan round over its utility's bound.  Returns
+    the path's launches (every run's, each scan's graphs times their
+    replays)."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.federated.server import FLConfig
+    from repro_torch.models.mlp_cnn import make_classifier
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    phase_full_width_shapley(torch, device, "cifar10")
+    path = {}
+
+    def add(launches):
+        for k, n in launches.items():
+            path[k] = path.get(k, 0) + n
+
+    cfg = FLConfig(dataset="cifar10", rounds=12)
+    rounds = cfg.rounds
+    loop, launches, valued = drive(torch, device, cfg, "cifar10-loop")
+    loop_launches = launches
+    expect_launches("cifar10 loop", launches, {
+        "prefix_avg": valued, "ce_loss": valued, "cohort_gather": 0,
+        "delta_codec": 0, "weighted_avg": 0})
+    add(launches)
+    qcfg = dataclasses.replace(cfg, upload_codec="quant8_topk")
+    loop_q, launches, _ = drive(torch, device, qcfg, "cifar10-loop-codec")
+    add(launches)
+    batched, launches, valued = drive(
+        torch, device, dataclasses.replace(qcfg, engine="batched"),
+        "cifar10-batched")
+    batched_launches = launches
+    expect_launches("cifar10 batched", launches, {
+        "prefix_avg": valued, "ce_loss": valued, "cohort_gather": rounds,
+        "delta_codec": rounds, "weighted_avg": 0})
+    add(launches)
+    scan_cfg = dataclasses.replace(qcfg, engine="scan")
+    scan, launches = _scan_drive(torch, device, scan_cfg, "cifar10-scan")
+    expect_launches("cifar10 scan", launches, {
+        "prefix_avg": rounds + 1, "ce_loss": rounds + 1,
+        "cohort_gather": rounds + 1, "delta_codec": rounds + 1,
+        "weighted_avg": 0})
+    add(launches)
+    seg, launches = _scan_drive(torch, device, scan_cfg, "cifar10-segments",
+                                rounds_per_segment=4)
+    add(launches)
+    ok = [_same_run(torch, loop_q, batched, "loop vs batched, quant8_topk"),
+          _same_run(torch, batched, scan, "batched vs scan, quant8_topk"),
+          _same_run(torch, scan, seg, "scan whole vs segments of 4")]
+
+    dense_cfg = dataclasses.replace(cfg, rounds=4, engine="batched",
+                                    shapley_impl="batched")
+    dense, launches, valued = drive(torch, device, dense_cfg, "cifar10-dense")
+    expect_launches("cifar10 dense oracle", launches, {
+        "prefix_avg": 0, "ce_loss": valued, "weighted_avg": valued,
+        "cohort_gather": dense_cfg.rounds, "delta_codec": 0})
+    add(launches)
+    stream, launches, _ = drive(
+        torch, device, dataclasses.replace(dense_cfg,
+                                           shapley_impl="streaming"),
+        "cifar10-streaming")
+    add(launches)
+    d_same = all((a == b).all() for a, b in zip(dense.selections,
+                                                stream.selections))
+    d_sv = float(np.abs(dense.sv_final - stream.sv_final).max())
+    d_p = _max_err(dense.params, stream.params)
+    log(f"[cifar10] dense oracle vs streaming, 4 rounds, same walks: "
+        f"selections equal {d_same}; max SV err {d_sv:.2e}, max param err "
+        f"{d_p:.2e} (atol 1e-4)")
+
+    again_cfg = dataclasses.replace(cfg, engine="scan")
+    again, launches = _scan_drive(torch, device, again_cfg, "cifar10-scan-2")
+    add(launches)
+    stages, out = _stage_timed_scan(torch, device, again_cfg)
+    staged_same = (
+        all(torch.equal(x, y) for x, y in zip(
+            tree_leaves(out.carry.params), tree_leaves(again.params)))
+        and np.array_equal(out.selections.cpu().numpy(),
+                           np.stack(again.selections))
+        and [float(a) for a in out.test_acc.cpu() if not np.isnan(a)]
+        == [a for _, a in again.test_acc])
+    log(f"[cifar10] scan-3 (captured one graph a stage) vs scan-2: "
+        f"selections, accuracies and params bitwise {staged_same}")
+    ok += [_same_run(torch, loop, again, "loop vs scan-2, identity"),
+           staged_same]
+
+    # per engine: round time, the Shapley share, launches a round
+    shapley_ms = 1e3 * stages["shapley"] / rounds
+    scan_ms = 1e3 * sum(again.round_time_s) / rounds
+    b_ms, b_by, eager_ms, flops = utility_bound_ms(
+        torch, make_classifier("cifar10"), cfg.n_val, 250 * cfg.m)
+    # the host engines' launches over their rounds; the scan's graph
+    kernels_a_round = {
+        name: {k: n / div for k, n in launches.items()
+               if k in KERNELS_FL and n}
+        for name, launches, div in (
+            ("loop", loop_launches, rounds),
+            ("batched", batched_launches, rounds),
+            ("scan", scan.graph_launches["round"], 1))}
+    for name, res in (("loop", loop), ("batched", batched), ("scan", scan)):
+        steady = res.round_time_s if name == "scan" else res.round_time_s[1:]
+        ms = 1e3 * sum(steady) / len(steady)
+        # the scan's Shapley stage from the stage-timed identity run (the
+        # codec does not change the stage's work)
+        share = (shapley_ms / ms if name == "scan"
+                 else sum(res.shapley_time_s[1:]) / sum(steady))
+        extra = (f"; capture {res.compile_time_s:.2f} s, staging "
+                 f"{1e3 * res.stage_time_s:.1f} ms" if name == "scan" else
+                 f"; host dispatches {res.dispatches}")
+        log(f"[cifar10] {name:8s} {ms:9.2f} ms a round, Shapley "
+            f"{100 * share:.1f}% of it; hand-written kernels a round "
+            f"{kernels_a_round[name]}{extra}")
+    log(f"[cifar10] scan round (identity codec, stages timed one graph a "
+        f"stage): " + ", ".join(f"{k} {1e3 * v / rounds:.3f}"
+                                for k, v in stages.items())
+        + f" ms a round; Shapley {shapley_ms:.2f} of {scan_ms:.2f} ms")
+    log(f"[cifar10] utility bound a round ({250 * cfg.m} models x "
+        f"{cfg.n_val} images, {flops / cfg.n_val / 1e6:.3f} MFLOP an image "
+        f"counted on meta): {b_ms:.2f} ms ({b_by}); the forward as written "
+        f"moves {eager_ms:.2f} ms of bytes; measured Shapley stage / bound "
+        f"{shapley_ms / b_ms:.2f}, scan round / bound {scan_ms / b_ms:.2f}")
+    require(all(np.isfinite(float(x.abs().sum())) for x in
+                tree_leaves(scan.params)), "cifar10: params not finite")
+    require(scan.final_acc > 0.1, f"cifar10 final accuracy "
+            f"{scan.final_acc} <= 0.1")
+    require(all(ok), "cifar10: the engines' runs are not bitwise equal")
+    require(d_same and d_sv <= 1e-4 and d_p <= 1e-4,
+            "cifar10: the dense oracle disagrees with the streaming walk")
+    log(f"[cifar10] phase 25: {time.perf_counter() - t_phase:.1f} s")
+    return path
+
+
+# --------------------------------- phase 26: the examples' counterparts --
+
+def phase_examples():
+    """Phase 26: `examples/quickstart_torch.py` and
+    `examples/heterogeneity_sweep_torch.py` as subprocesses on the card:
+    exit 0 and an accuracy table parsed from each; their seconds
+    printed."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    tables = {"examples/quickstart_torch.py":
+              (r"^\s*(\d+) \|\s+([0-9.]+) \|\s+([0-9.]+)$", 5),
+              "examples/heterogeneity_sweep_torch.py":
+              (r"^(clean|stragglers x=0\.5|noise sigma=0\.1|both)\s+\|"
+               r"\s+([0-9.]+) \| ([0-9.]+)\s+\| ([0-9.]+)$", 4)}
+    for script, (pattern, n_rows) in tables.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, script], cwd=ROOT, env=env,
+                              capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        rows = [m.groups() for m in
+                (re.match(pattern, line) for line in proc.stdout.splitlines())
+                if m]
+        for line in proc.stdout.splitlines()[-8:]:
+            log(f"[examples] {script}: {line}")
+        require(proc.returncode == 0, f"{script} exited "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        accs = [float(a) for row in rows for a in row[1:]]
+        require(len(rows) == n_rows and all(0.0 <= a <= 1.0 for a in accs),
+                f"{script}: no accuracy table of {n_rows} rows")
+        log(f"[examples] {script}: exit 0, {len(rows)} table rows, "
+            f"{seconds:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4480,6 +4962,10 @@ def main() -> int:
                check_flash_attention(torch, device),
                check_flash_attention_bwd(torch, device),
                *check_flash_attention_wide(torch, device)]
+    t_new = time.perf_counter()
+    check_cnn_kernels(torch, device, {e["name"]: e for e in entries})
+    log(f"[cnn-kernels] phase 3 at the CNN's shapes: "
+        f"{time.perf_counter() - t_new:.1f} s")
     check_bwd_repro(torch, device)
     phase_full_width_shapley(torch, device)
     phase_reference_run(torch, device)
@@ -4516,6 +5002,10 @@ def main() -> int:
     paths["lm_mesh"] = phase_lm_mesh(torch, device, smi)
     paths["wide_heads"] = phase_wide_heads(torch, device)
     log(f"[lm-mesh] phase 24: {time.perf_counter() - t_new:.1f} s")
+    paths["cifar10"] = phase_cifar10(torch, device)
+    t_new = time.perf_counter()
+    phase_examples()
+    log(f"[examples] phase 26: {time.perf_counter() - t_new:.1f} s")
     for e in entries:
         by_path = {p: n[e["name"]] for p, n in paths.items()}
         e["launches"] = sum(by_path.values())

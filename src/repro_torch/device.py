@@ -15,7 +15,10 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     shape and a dtype and no data, on which a dry run counts a step
     (`launch/dryrun.py`) without computing or allocating it.  Also turns TF32 off for matmuls and cuDNN
     convolutions, since the reference computes in full float32 and cuDNN
-    convolutions default to TF32.
+    convolutions default to TF32; and makes cuDNN pick deterministic
+    convolution algorithms by its heuristics (no autotuning), so that two
+    runs of one config, and the loop, batched and scan engines, compute
+    the CNN's gradients bit for bit alike.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -26,6 +29,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                          f"'cpu', 'meta'")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     return dev
 
 

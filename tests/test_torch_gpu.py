@@ -2400,3 +2400,110 @@ def test_reduced_train_step_meta_count_equals_its_card_count(cuda):
     for key in ("flops", "bytes_accessed", "compute_s", "argument_bytes",
                 "peak_bytes", "kernels"):
         assert meta[key] == card[key], key
+
+
+# ------------------------------------------- the CIFAR-10 task (the CNN) --
+
+def test_resolve_device_turns_cudnn_deterministic_on(cuda):
+    """The card's entry points pick cuDNN's deterministic algorithms by its
+    heuristics (no autotuning), TF32 off."""
+    from repro_torch.device import resolve_device
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = True
+    assert resolve_device() == cuda
+    assert torch.backends.cudnn.deterministic
+    assert not torch.backends.cudnn.benchmark
+    assert not torch.backends.cudnn.allow_tf32
+
+
+def test_cnn_batched_rounds_repeat_bitwise_and_equal_the_loop(cuda):
+    """Two rounds of the full-width CNN (dataset="cifar10", the reference's
+    defaults otherwise), the batched engine twice and the loop engine
+    once: cuDNN's convolution backward in training, the per-model utility
+    forward over the 1,250 prefix models; all three runs bit for bit."""
+    import dataclasses
+    from repro_torch.federated.server import FLConfig, run_federated
+    from repro_torch.tree import tree_leaves
+    cfg = FLConfig(dataset="cifar10", rounds=2, eval_every=2,
+                   upload_codec="quant8_topk")
+    runs = [run_federated(dataclasses.replace(cfg, engine=e))
+            for e in ("batched", "batched", "loop")]
+    first = runs[0]
+    assert first.params["dense0"]["w"].shape == (4096, 128)
+    assert np.abs(first.sv_final).max() > 0
+    for other in runs[1:]:
+        for a, b in zip(other.selections, first.selections):
+            np.testing.assert_array_equal(a, b)
+        assert other.upload_bytes == first.upload_bytes
+        assert other.test_acc == first.test_acc
+        np.testing.assert_array_equal(other.sv_final, first.sv_final)
+        for a, b in zip(tree_leaves(other.params), tree_leaves(first.params)):
+            assert torch.equal(a, b)
+
+
+def _stacked_cnn(gen, m, scale, device):
+    from repro_torch.models.mlp_cnn import make_cnn
+    from repro_torch.tree import tree_map
+    base = make_cnn().init(gen, torch.device("cpu"))
+    stacked = tree_map(lambda p: (p[None] + scale * torch.randn(
+        (m,) + p.shape, generator=gen)).to(device), base)
+    return stacked, tree_map(lambda p: p.to(device), base)
+
+
+@pytest.mark.parametrize("kernel", ["prefix_avg", "weighted_avg",
+                                    "cohort_gather", "ce_loss"])
+def test_kernels_at_the_cnn_shapes(cuda, kernel):
+    """Each kernel of the cifar10 path as that path calls it on the
+    full-width CNN (8 leaves, 545,098 parameters, M = 5, R = 250 walks):
+    prefix_avg's 1,250 prefix models in one launch, weighted_avg's
+    dense-oracle call and cohort_gather of the cifar10 client stacks
+    bitwise their plain versions; ce_loss on the prefix models' logits
+    over 500 validation images at rtol 1e-5 a model (the card's expf and
+    logf against PyTorch's logsumexp)."""
+    from repro_torch.core.shapley_batched import prefix_weight_matrix
+    from repro_torch.data.synth import make_dataset
+    from repro_torch.federated.server import FLConfig, setup_run
+    from repro_torch.models.mlp_cnn import make_cnn
+    from repro_torch.tree import tree_leaves
+    gen = torch.Generator().manual_seed(35)
+    m, r = 5, 250
+    before = kernels.LAUNCHES[kernel]
+    if kernel == "cohort_gather":
+        s = setup_run(FLConfig(dataset="cifar10"), device=cuda)
+        stacks = {"xs": s.xs, "ys": s.ys, "nv": s.n_valid}
+        ids = torch.tensor([7, 31, 2, 49, 18], device=cuda)
+        got = cohort_gather(stacks, ids.cpu().numpy())
+        assert kernels.LAUNCHES[kernel] == before + 1
+        for name, table in stacks.items():
+            want = cohort_gather_ref(table.reshape(table.shape[0], -1), ids)
+            assert got[name].shape == (m,) + table.shape[1:]
+            assert torch.equal(got[name].reshape(m, -1), want)
+        return
+    stacked, _ = _stacked_cnn(gen, m, 0.1, cuda)
+    perms = _walks(gen, r, m, cuda)
+    n_k = torch.randint(20, 300, (m,), generator=gen).float().to(cuda)
+    if kernel == "weighted_avg":
+        w = prefix_weight_matrix(perms, n_k).reshape(r * m, m)
+        got = weighted_avg(stacked, w)
+        assert kernels.LAUNCHES[kernel] == before + 1
+        for x, y in zip(tree_leaves(stacked), tree_leaves(got)):
+            assert torch.equal(y.reshape(r * m, -1),
+                               weighted_avg_ref(x.reshape(m, -1), w))
+        return
+    models = prefix_avg(stacked, perms, n_k)
+    if kernel == "prefix_avg":
+        assert kernels.LAUNCHES[kernel] == before + 1
+        for x, y in zip(tree_leaves(stacked), tree_leaves(models)):
+            assert torch.equal(y.reshape(r * m, -1),
+                               prefix_avg_ref(x.reshape(m, -1), perms, n_k))
+        return
+    data = make_dataset("cifar10", n_train=10, n_val=500, n_test=10, seed=0)
+    x = torch.as_tensor(data.x_val, device=cuda)
+    y = torch.as_tensor(data.y_val, dtype=torch.int64, device=cuda)
+    with torch.no_grad():
+        logits = make_cnn().apply_batched(models, x)
+    got = ce_loss(logits, y)
+    assert kernels.LAUNCHES[kernel] == before + 1
+    want = torch.mean(ce_loss_ref(logits, y), dim=-1)
+    assert got.shape == (r * m,)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
